@@ -7,7 +7,8 @@ Run from the root of a checkout.  It fails (non-zero exit, no result
 line) without CUDA or without the package beside it.  In order it:
 
 1. reports the card (torch and nvidia-smi);
-2. builds the CUDA kernels from ``rkmh_tpu_torch/csrc`` and times the build;
+2. builds the CUDA kernels from ``rkmh_tpu_torch/csrc`` (one nvcc per
+   source, in parallel) and times the build;
 3. checks the window-hash kernel (K1) bit for bit against its plain
    PyTorch version on the card: random codes with invalid bases,
    k in {4, 12, 16, 17, 31, 32, 33} and multi-k;
@@ -15,15 +16,31 @@ line) without CUDA or without the package beside it.  In order it:
    synthetic zika-shaped panel (60 refs, k=12, s=1000) at B=16384, in
    both row modes and with thresholds; best, shared and flags must be
    equal;
-5. times both kernels and their plain versions at the slice's shapes
-   (B=16384, L=160, k=12, zika table) with CUDA events;
-6. drives the slice: synthetic 60 x 10,807 bp panel and 2**20 reads of
-   150 bp through ``commands.stream.run`` (k=12, s=1000, device cuda),
-   with the launch counters zeroed just before and read just after; it
-   checks one line per read, that both kernels ran, and that the first
-   16,384 lines equal the port's CPU plain-path output on the same reads;
-   it reports e2e reads/s, device-step reads/s over resident batches and
-   the share of reads assigned to the genome they were drawn from.
+5. times both kernels and their plain versions at the stream slice's
+   shapes (B=16384, L=160, k=12, zika table) with CUDA events;
+6. drives the stream slice: synthetic 60 x 10,807 bp panel and 2**20
+   reads of 150 bp through ``commands.stream.run`` (k=12, s=1000, device
+   cuda), with the launch counters zeroed just before and read just
+   after; it checks one line per read, that K1 and K2 ran, and that the
+   first 16,384 lines equal the port's CPU plain-path output on the same
+   reads; it reports e2e reads/s, device-step reads/s over resident
+   batches and the share of reads assigned to their source genome;
+7. checks the LUT-gather kernels (K4, K5) bit for bit against their plain
+   versions at every N of the gather sweep and times both;
+8. drives the gather path, ``rkmh_tpu_torch.bench.bench_gather.main()``,
+   with the counters zeroed just before and read just after;
+9. builds the hpv16 tables on the card from a synthetic full-width
+   refpath (182 types of ~7.9 kb, 10 sublineages, k=18) and checks the
+   set-probe kernel (K3) against its plain version on 512 nanopore-like
+   reads and on one 40 kb read, outputs exactly equal; times both;
+10. drives the hpv16 slice: 12,800 reads (~57 Mbp) through
+    ``commands.hpv16_cmd.run`` (k=18, batch 512, device cuda) in a
+    temporary working directory, counters zeroed just before and read
+    just after; it checks one line per read, that K1 and K3 ran, and
+    that the first 64 lines and the .tst file equal the CPU plain path's;
+    it reports the table, the set-up seconds, e2e and device-step Mbp/s
+    and reads/s, the share of reads typed as their source type, and one
+    step at the auto batch size.
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record and ``{"ok": true, "device": {...}}``.  Any failure raises.
@@ -33,7 +50,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -43,25 +59,15 @@ N_SLICE_READS = 1 << 20
 N_CPU_LINES = 16384
 B = 16384
 KS_K1 = (4, 12, 16, 17, 31, 32, 33)
+GATHER_NS = (8, 64, 512, 4096, 16384)
+N_HPV16_READS = 12800
+N_HPV16_CPU_LINES = 64
+HPV16_K = 18
+HPV16_BATCH = 512
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def reads_to_codes(ascii_reads, L: int):
@@ -78,6 +84,12 @@ def reads_to_codes(ascii_reads, L: int):
 def max_abs_err(got, want) -> int:
     """Largest |got - want| over integer tensors; 0 means bit-identical."""
     return int((got.to(want.dtype) - want).abs().max()) if want.numel() else 0
+
+
+def require_launches(launches: dict, names, path: str) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the {path} path")
 
 
 def check_k1(dev) -> int:
@@ -153,6 +165,7 @@ def check_k2(dev, panel, genomes) -> tuple[int, object]:
 
 
 def time_kernels(panel, codes, hashes) -> dict:
+    from rkmh_tpu_torch.bench.timing import cuda_time_ms
     from rkmh_tpu_torch.ops.hashing import _window_hashes_cuda, kmer_window_hashes_plain
     from rkmh_tpu_torch.ops.probe import _panel_probe_cuda, panel_probe_plain
 
@@ -176,6 +189,7 @@ def run_slice(dev, card: str, panel) -> dict:
     import torch
 
     from rkmh_tpu_torch import synth
+    from rkmh_tpu_torch.bench.timing import cuda_time_ms
     from rkmh_tpu_torch.classify import engine
     from rkmh_tpu_torch.commands import stream
     from rkmh_tpu_torch.ops import kernels
@@ -198,9 +212,7 @@ def run_slice(dev, card: str, panel) -> dict:
         e2e_s = time.perf_counter() - t0
         launches = kernels.launch_counts()
         say(f"slice launches: {launches}")
-        for name, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"kernel {name} was not launched by the slice")
+        require_launches(launches, ("window_hash", "panel_probe"), "stream")
 
         with open(out_gpu) as fh:
             gpu_lines = fh.readlines()
@@ -255,6 +267,223 @@ def run_slice(dev, card: str, panel) -> dict:
     return res
 
 
+def check_gathers(dev) -> dict:
+    """K4 at every N of the sweep and K5 against their plain versions;
+    returns {name: (max_abs_err, ms, plain_ms)} at the sweep's largest N
+    for K4 and at N = 512 for K5."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(13)
+    res = {}
+    cases = [("lut_gather_rows", gather._lut_gather_rows_cuda, gather.lut_gather_rows_plain,
+              N, N) for N in GATHER_NS]
+    cases.append(("lut_gather_lanes", gather._lut_gather_lanes_cuda,
+                  gather.lut_gather_lanes_plain, 512, 128))
+    for name, kern, plain, N, hi in cases:
+        lut = torch.from_numpy(rng.integers(-2**31, 2**31, (N, 128)).astype(np.int32)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, hi, (N, 128)).astype(np.int32)).to(dev)
+        got, want = kern(lut, idx), plain(lut, idx)
+        err = max_abs_err(got.long(), want.long())
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"{name} kernel disagrees with the plain version at N={N}")
+        ms = cuda_time_ms(lambda: kern(lut, idx), 50)
+        plain_ms = cuda_time_ms(lambda: plain(lut, idx), 50)
+        variant = gather.rows_variant(lut) if name == "lut_gather_rows" else "smem row"
+        say(f"{name} N={N} ({variant}): bit-exact=True, {ms:.4f} ms vs {plain_ms:.4f} ms plain")
+        res[name] = (err, ms, plain_ms)
+    return res
+
+
+def run_gather_path() -> dict:
+    import torch
+
+    from rkmh_tpu_torch.bench import bench_gather
+    from rkmh_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    bench_gather.main()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    say(f"gather path launches: {launches}")
+    require_launches(launches, ("lut_gather_rows", "lut_gather_lanes"), "gather")
+    return launches
+
+
+def check_k3(dev, tb, packed, panel) -> tuple[int, dict]:
+    """K3 against its plain version on the first HPV16_BATCH reads (one
+    padded batch) and on one 40 kb read; returns (max_abs_err, times)."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch import synth
+    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.classify import engine
+    from rkmh_tpu_torch.io.packing import encode_seqs
+    from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
+    from rkmh_tpu_torch.ops.set_probe import _set_probe_cuda, set_probe_plain
+    from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+
+    T, U = len(tb.type_names), tb.n_lin + tb.n_sub
+    lens = packed.lens[:HPV16_BATCH]
+    batch = packed.codes[:HPV16_BATCH, : -(-int(lens.max()) // 128) * 128]
+    long_read, _ = synth.make_nanopore_reads(1, 99, panel, mean_len=40000, min_len=40000,
+                                             max_len=40000)
+    long_codes, long_lens = encode_seqs([long_read[0].tobytes()])
+    worst, times = 0, {}
+    for label, codes, ln in (("B=512 batch", batch, lens), ("one 40 kb read", long_codes,
+                                                            long_lens)):
+        x = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
+        full, sk_lens = bottom_s_sketch(multi_k_window_hashes(x, [HPV16_K]),
+                                        x.shape[1] - HPV16_K + 1)
+        Wc = engine.hpv16_compact_width(ln, x.shape[1], (HPV16_K,))
+        rows = full[:, :Wc]
+        got = _set_probe_cuda(rows, sk_lens, tb.comb_table, T, U)
+        want = set_probe_plain(rows, sk_lens, tb.comb_table, T, U)
+        err = max_abs_err(got, want)
+        say(f"K3 {label}: rows {tuple(rows.shape)}, exact={err == 0}, "
+            f"mean shared={want[:, 1].float().mean().item():.1f}, "
+            f"mean group hits={want[:, 2:].sum(1).float().mean().item():.2f}")
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"set-probe kernel disagrees with the plain version on {label}")
+        worst = max(worst, err)
+        if not times:
+            times = {"set_probe": cuda_time_ms(
+                         lambda: _set_probe_cuda(rows, sk_lens, tb.comb_table, T, U), 20),
+                     "set_probe_plain": cuda_time_ms(
+                         lambda: set_probe_plain(rows, sk_lens, tb.comb_table, T, U), 3,
+                         warmup=1)}
+            say(f"time set_probe: {times['set_probe']:.4f} ms vs {times['set_probe_plain']:.4f}"
+                f" ms plain per {HPV16_BATCH}-read batch, rows {tuple(rows.shape)}, "
+                f"table {tuple(tb.comb_table.shape)}")
+    return worst, times
+
+
+def run_hpv16(dev, card: str) -> dict:
+    """Table build + K3 check + the hpv16 slice (see the module doc)."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch import synth
+    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.classify import engine
+    from rkmh_tpu_torch.commands import hpv16_cmd
+    from rkmh_tpu_torch.commands.common import bucketed_batches, load_packed
+    from rkmh_tpu_torch.ops import kernels
+    from rkmh_tpu_torch.ops.lookup import table_slots
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        reads, truth = synth.write_hpv16_workload(tmp, N_HPV16_READS)
+        panel = synth.make_hpv16_panel(0)
+        packed = load_packed([reads])
+        mbp = int(packed.lens.sum()) / 1e6
+        say(f"hpv16 input: {N_HPV16_READS} reads, {mbp:.3f} Mbp (mean "
+            f"{packed.lens.mean():.0f} bp, max {packed.lens.max()}), "
+            f"{len(panel.types)} types + {len(panel.subs)} sublineages, made and parsed in "
+            f"{time.perf_counter() - t0:.2f} s")
+        cfg = dict(read_files=[reads], refpath=tmp, ks=(HPV16_K,), batch_size=HPV16_BATCH)
+
+        tb = hpv16_cmd.build_tables(hpv16_cmd.Hpv16Config(**cfg, tst_file=False),
+                                    (HPV16_K,), dev)
+        T, U = len(tb.type_names), tb.n_lin + tb.n_sub
+        table = tb.comb_table
+        S = table_slots(table.shape[1], T + U)
+        say(f"hpv16 table: {tuple(table.shape)} int32 = {table.numel() * 4 / 2**20:.1f} MiB, "
+            f"S={S}, Wm={table.shape[1] // S - 3}, {T} types + {U} groups; set-up s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in tb.setup_s.items()))
+        err_k3, times = check_k3(dev, tb, packed, panel)
+
+        gpu_dir, cpu_dir = os.path.join(tmp, "gpu"), os.path.join(tmp, "cpu")
+        os.makedirs(gpu_dir)
+        os.makedirs(cpu_dir)
+        out_gpu = os.path.join(gpu_dir, "out.tsv")
+        try:
+            os.chdir(gpu_dir)  # the .tst side file lands in the working directory
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hpv16_cmd.run(hpv16_cmd.Hpv16Config(**cfg, out_file=out_gpu, device="cuda"))
+            torch.cuda.synchronize()
+            e2e_s = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            say(f"hpv16 slice launches: {launches}")
+            require_launches(launches, ("window_hash", "set_probe"), "hpv16")
+
+            head = os.path.join(tmp, "head.fq")
+            with open(reads) as src_fh, open(head, "w") as dst:
+                for _ in range(4 * N_HPV16_CPU_LINES):
+                    dst.write(src_fh.readline())
+            os.chdir(cpu_dir)
+            t0 = time.perf_counter()
+            out_cpu = os.path.join(cpu_dir, "out.tsv")
+            hpv16_cmd.run(hpv16_cmd.Hpv16Config(**{**cfg, "read_files": [head]},
+                                                out_file=out_cpu, device="cpu"))
+            cpu_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+
+        with open(out_gpu) as fh:
+            gpu_lines = fh.readlines()
+        with open(out_cpu) as fh:
+            cpu_lines = fh.readlines()
+        if len(gpu_lines) != N_HPV16_READS:
+            raise AssertionError(f"{len(gpu_lines)} hpv16 lines for {N_HPV16_READS} reads")
+        for i in (0, len(gpu_lines) - 1):
+            if gpu_lines[i].split("\t")[0] != f"read{i}":
+                raise AssertionError(f"hpv16 line {i} is out of order: {gpu_lines[i]!r}")
+        if cpu_lines != gpu_lines[:N_HPV16_CPU_LINES]:
+            bad = next(i for i, (a, b) in enumerate(zip(cpu_lines, gpu_lines)) if a != b)
+            raise AssertionError(f"hpv16 GPU and CPU outputs differ at line {bad}: "
+                                 f"{gpu_lines[bad]!r} vs {cpu_lines[bad]!r}")
+        tst = f"lineage_specific_hashes.{HPV16_K}.tst"
+        with open(os.path.join(gpu_dir, tst)) as a, open(os.path.join(cpu_dir, tst)) as b:
+            if a.read() != b.read():
+                raise AssertionError("hpv16 GPU and CPU .tst files differ")
+        say(f"hpv16 slice: first {N_HPV16_CPU_LINES} GPU lines and the .tst file "
+            f"byte-identical to the CPU plain path ({cpu_s:.2f} s on the CPU)")
+        typed = float(np.mean([ln.split("\t")[1] == t for ln, t in zip(gpu_lines, truth)]))
+
+    # device step over resident batches (parse, table build and format excluded)
+    batches = [(torch.from_numpy(codes).to(dev),
+                engine.hpv16_compact_width(lens, codes.shape[1], (HPV16_K,)))
+               for _, codes, lens in bucketed_batches(packed, HPV16_BATCH)]
+    step = lambda: [engine.hpv16_batch_comb(c, table, (HPV16_K,), T, U, Wc)  # noqa: E731
+                    for c, Wc in batches]
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_time_ms(step, 2, warmup=1)
+    peak_512 = torch.cuda.max_memory_allocated() / 2**30
+
+    # one step at the auto batch size (16384) on the longest length bucket
+    longest, wc_long = batches[-1]
+    big = longest.repeat(-(-16384 // longest.shape[0]), 1)[:16384]
+    del batches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    big_ms = cuda_time_ms(
+        lambda: engine.hpv16_batch_comb(big, table, (HPV16_K,), T, U, wc_long), 1, warmup=1)
+    peak_big = torch.cuda.max_memory_allocated() / 2**30
+
+    res = {"e2e_s": e2e_s, "e2e_mbp_per_s": mbp / e2e_s,
+           "e2e_reads_per_s": N_HPV16_READS / e2e_s,
+           "device_step_mbp_per_s": mbp / (step_ms / 1e3),
+           "device_step_reads_per_s": N_HPV16_READS / (step_ms / 1e3),
+           "typed_share": typed, "launches": launches, "err_k3": err_k3, **times}
+    say(f"hpv16 slice on {card}: e2e {res['e2e_mbp_per_s']:.3f} Mbp/s, "
+        f"{res['e2e_reads_per_s']:.1f} reads/s ({e2e_s:.2f} s for {N_HPV16_READS} reads, "
+        f"table build and parse included); device step {res['device_step_mbp_per_s']:.1f} "
+        f"Mbp/s, {res['device_step_reads_per_s']:.1f} reads/s ({step_ms:.2f} ms for all "
+        f"{N_HPV16_READS} reads in {HPV16_BATCH}-read batches, peak "
+        f"{peak_512:.2f} GiB allocated); typed as source type {typed:.4f}")
+    say(f"hpv16 auto batch: one step of {tuple(big.shape)} codes: {big_ms:.2f} ms, "
+        f"peak {peak_big:.2f} GiB allocated, on {card}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -267,11 +496,11 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from rkmh_tpu_torch.ops import kernels
 
+    from rkmh_tpu_torch.bench.timing import card_name_and_power_limit
+
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_name_and_power_limit()
     say(f"device: {card} (torch {torch.__version__}, CUDA {torch.version.cuda}); "
         f"nvidia-smi: {smi}")
 
@@ -285,18 +514,36 @@ def main() -> int:
     err_k2, (codes, hashes) = check_k2(dev, panel, genomes)
     times = time_kernels(panel, codes, hashes)
     sl = run_slice(dev, f"{card} ({smi})", panel)
+    gathers = check_gathers(dev)
+    gather_launches = run_gather_path()
+    hp = run_hpv16(dev, f"{card} ({smi})")
+
+    def gather_entry(name, line):
+        err, ms, plain_ms = gathers[name]
+        return {"name": name, "route": "cuda", "source": "rkmh_tpu_torch/csrc/lut_gather.cu",
+                "replaces": f"scripts/bench_gather.py:{line}",
+                "launches": gather_launches[name], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms}
 
     record = {"kernels": [
         {"name": "window_hash", "route": "cuda",
          "source": "rkmh_tpu_torch/csrc/window_hash.cu",
          "replaces": "rkmh_tpu/ops/pallas_hash.py:39",
-         "launches": sl["launches"]["window_hash"], "max_abs_err": err_k1,
+         "launches": sl["launches"]["window_hash"] + hp["launches"]["window_hash"],
+         "max_abs_err": err_k1,
          "ms": times["window_hash"], "plain_ms": times["window_hash_plain"]},
         {"name": "panel_probe", "route": "cuda",
          "source": "rkmh_tpu_torch/csrc/panel_probe.cu",
          "replaces": "rkmh_tpu/ops/lookup.py:321",
          "launches": sl["launches"]["panel_probe"], "max_abs_err": err_k2,
          "ms": times["panel_probe"], "plain_ms": times["panel_probe_plain"]},
+        {"name": "set_probe", "route": "cuda",
+         "source": "rkmh_tpu_torch/csrc/set_probe.cu",
+         "replaces": "rkmh_tpu/classify/engine.py:794",
+         "launches": hp["launches"]["set_probe"], "max_abs_err": hp["err_k3"],
+         "ms": hp["set_probe"], "plain_ms": hp["set_probe_plain"]},
+        gather_entry("lut_gather_rows", 109),
+        gather_entry("lut_gather_lanes", 140),
     ]}
     say(smi)
     say(json.dumps(record))

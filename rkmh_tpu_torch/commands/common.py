@@ -91,6 +91,18 @@ class PyPacked:
         return len(self.names)
 
 
+def load_packed(paths) -> PyPacked:
+    """Parse files, concatenated in order, into one PyPacked
+    (``rkmh_tpu/commands/common.py:237``; the padded width may differ from
+    the JAX package's per-file packing, which only moves padding)."""
+    return PyPacked(read_fastx(paths))
+
+
+def resolve_chunk_reads(requested: int) -> int:
+    """Reads per parsed chunk; 0 = the default (65536)."""
+    return requested if requested and requested > 0 else DEFAULT_CHUNK_READS
+
+
 def iter_packed_chunks(paths, chunk_reads: int):
     """Yield PyPacked chunks of <= chunk_reads records, files in order
     (chunks never span files), so only one parsed chunk is resident."""

@@ -19,7 +19,6 @@ import torch
 
 from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.commands.common import (
-    DEFAULT_CHUNK_READS,
     DEFAULT_KMER,
     DEFAULT_SKETCH,
     ChunkState,
@@ -28,6 +27,7 @@ from rkmh_tpu_torch.commands.common import (
     iter_packed_chunks,
     log,
     resolve_batch_size,
+    resolve_chunk_reads,
 )
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
@@ -96,7 +96,7 @@ def run(cfg: StreamConfig, out=None) -> int:
 def _run(cfg: StreamConfig, out) -> int:
     device = resolve_device(cfg.device)
     batch_size = resolve_batch_size(cfg.batch_size, device)
-    chunk_reads = cfg.chunk_reads if cfg.chunk_reads > 0 else DEFAULT_CHUNK_READS
+    chunk_reads = resolve_chunk_reads(cfg.chunk_reads)
     ks = tuple(cfg.ks) if cfg.ks else (DEFAULT_KMER,)
     if not cfg.ks:
         log("No kmer size(s) provided. Will use a default kmer size of 16.")

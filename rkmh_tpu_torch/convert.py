@@ -1,8 +1,9 @@
-"""Carry a panel built by the JAX package over to the port without a rebuild.
+"""Carry tables built by the JAX package over to the port without a rebuild.
 
 ``rkmh_tpu``'s ``RefPanel`` holds uint64 sketches and a uint32 bucket
-table; as numpy arrays they become the port's ``RefPanel`` by
-reinterpreting the bits as int64 and int32.
+table, and its ``Hpv16Tables.comb_table`` is a uint32 set table; as numpy
+arrays they become the port's tensors by reinterpreting the bits as int64
+and int32.
 """
 
 from __future__ import annotations
@@ -26,3 +27,13 @@ def panel_from_numpy(keys, sketches_u64, lens, table_u32, device) -> RefPanel:
         torch.from_numpy(np.array(lens, dtype=np.int32)).to(device),
         torch.from_numpy(table).to(device),
     )
+
+
+def set_table_from_numpy(table_u32, device) -> torch.Tensor:
+    """[NB, width] uint32 set table (e.g. the JAX package's device-built
+    ``Hpv16Tables.comb_table``, fetched as numpy) -> int32 tensor on
+    ``device``, bit for bit."""
+    table = np.array(table_u32, dtype=np.uint32)
+    if table.ndim != 2:
+        raise ValueError(f"a set table is 2-D, got shape {table.shape}")
+    return torch.from_numpy(table.view(np.int32)).to(device)

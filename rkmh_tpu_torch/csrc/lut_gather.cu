@@ -1,0 +1,101 @@
+// K4 / K5: the lookup-table gathers of the gather microbenchmark.
+//
+// They replace the two Pallas kernels of scripts/bench_gather.py:
+//   K4 <- dg0_kernel (:109, called by g at :118): out[i, j] = lut[idx[i, j], j],
+//         a tpu.dynamic_gather along sublanes from an [N, 128] int32 LUT
+//         held in VMEM (the take_along_axis(axis=0) pattern), N in 8..16384;
+//   K5 <- dg1_kernel (:140, called by g1 at :149): out[i, j] = lut[i, idx[i, j]],
+//         a dynamic_gather along lanes, [512, 128] int32, idx in 0..127.
+// On the TPU the whole LUT sat in VMEM and one vector instruction gathered
+// 8 x 128 values (bench_gather.py:2-12 measured whether that beats XLA's
+// row gather for the panel probe).
+//
+// K4: one thread per output element; neighbouring threads take
+// neighbouring (i, j), so the idx loads and out stores coalesce.  Where the
+// LUT fits a block's shared memory (N * C * 4 bytes within the limit the
+// wrapper applies, so N in {8, 64} at C = 128) every block stages it there
+// first, the Hopper analog of the VMEM LUT; column j then sits in bank
+// j mod 32 (C a multiple of 32), so a warp's gather is free of bank
+// conflicts whatever the indices.  Past that, the LUT is read through the
+// read-only cache (__ldg); at N = 16384 it is 8 MB and stays in L2.
+// What bounds it on the card: 8 bytes of idx + out traffic per element
+// (plus the LUT once per block when staged); at N <= 512 the call moves
+// under 1 MB and is launch latency, at N = 16384 it moves 24 MB.
+//
+// K5: one block per LUT row; the block stages row i (C ints, 512 B at
+// C = 128) in shared memory and gathers from it.  Random indices can
+// conflict on banks; a warp-shuffle variant (4 registers per lane) is left
+// for later.  What bounds it: 12 bytes per element (idx, out, LUT row).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int SMEM_ITEMS = 8;  // elements per thread when the LUT is staged
+
+__global__ void gather_rows_smem(const int32_t* __restrict__ lut,
+                                 const int32_t* __restrict__ idx, int32_t* __restrict__ out,
+                                 int N, int C, int64_t total) {
+  extern __shared__ int32_t s_lut[];  // [N, C]
+  for (int t = threadIdx.x; t < N * C; t += blockDim.x) s_lut[t] = lut[t];
+  __syncthreads();
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
+    out[e] = s_lut[idx[e] * C + (int)(e % C)];
+  }
+}
+
+__global__ void gather_rows_ldg(const int32_t* __restrict__ lut,
+                                const int32_t* __restrict__ idx, int32_t* __restrict__ out,
+                                int C, int64_t total) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < total) out[e] = __ldg(lut + (int64_t)idx[e] * C + e % C);
+}
+
+__global__ void gather_lanes(const int32_t* __restrict__ lut, const int32_t* __restrict__ idx,
+                             int32_t* __restrict__ out, int C, int M) {
+  extern __shared__ int32_t s_row[];  // [C]
+  const int64_t i = blockIdx.x;
+  for (int t = threadIdx.x; t < C; t += blockDim.x) s_row[t] = lut[i * C + t];
+  __syncthreads();
+  for (int t = threadIdx.x; t < M; t += blockDim.x) out[i * M + t] = s_row[idx[i * M + t]];
+}
+
+}  // namespace
+
+// lut [N, C] int32, idx [M, C] int32 with values in [0, N) -> out [M, C]
+// int32.  smem != 0 stages the LUT in shared memory (N * C * 4 bytes, at
+// most the per-block limit).  Requires M * C >= 1.
+extern "C" int rkmh_lut_gather_rows(const int32_t* lut, const int32_t* idx, int32_t* out,
+                                    int N, int C, int64_t M, int smem,
+                                    cudaStream_t stream) {
+  const int64_t total = M * C;
+  if (smem) {
+    const size_t bytes = (size_t)N * C * sizeof(int32_t);
+    if (bytes > 48 * 1024) {
+      cudaFuncSetAttribute(gather_rows_smem, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+    }
+    const int64_t blocks = (total + (int64_t)THREADS * SMEM_ITEMS - 1) / (THREADS * SMEM_ITEMS);
+    gather_rows_smem<<<(unsigned)blocks, THREADS, bytes, stream>>>(lut, idx, out, N, C, total);
+  } else {
+    const int64_t blocks = (total + THREADS - 1) / THREADS;
+    gather_rows_ldg<<<(unsigned)blocks, THREADS, 0, stream>>>(lut, idx, out, C, total);
+  }
+  return (int)cudaGetLastError();
+}
+
+// lut [N, C] int32, idx [N, M] int32 with values in [0, C) -> out [N, M]
+// int32.  Requires N >= 1 and C * 4 bytes within the per-block limit.
+extern "C" int rkmh_lut_gather_lanes(const int32_t* lut, const int32_t* idx, int32_t* out,
+                                     int N, int C, int M, cudaStream_t stream) {
+  const size_t bytes = (size_t)C * sizeof(int32_t);
+  if (bytes > 48 * 1024) {
+    cudaFuncSetAttribute(gather_lanes, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+  }
+  gather_lanes<<<N, 128, bytes, stream>>>(lut, idx, out, C, M);
+  return (int)cudaGetLastError();
+}

@@ -20,7 +20,8 @@
 //
 // What bounds it on the card: random row loads from the table (one bucket
 // row of S*(3+Wm) u32 per valid element, 80 B at S=4, Wm=2; the zika table
-// is ~40 MB, so most loads miss L1 and many miss L2).  The design loads
+// is [131072, 20] int32 = 10.5 MB, which fits the 50 MB L2, so most loads
+// miss L1 and hit L2; the hit rate is not measured).  The design loads
 // only what it needs from that row: the S lo and S occ lanes for the
 // compare, then hi and the Wm mask words of the one matching slot.  The
 // read's row sits in shared memory; counting stays on chip: per warp, a

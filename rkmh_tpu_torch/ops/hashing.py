@@ -138,3 +138,15 @@ def multi_k_window_hashes(codes: torch.Tensor, ks, seed: int = 42) -> torch.Tens
 def kmer_window_hashes(codes: torch.Tensor, k: int, seed: int = 42) -> torch.Tensor:
     """Canonical hash of every k-window: [B, L] uint8 -> [B, L-k+1] int64."""
     return multi_k_window_hashes(codes, [k], seed)
+
+
+def window_mask(lengths: torch.Tensor, L: int, ks) -> torch.Tensor:
+    """[B, sum_k (L-k+1)] bool, True for the windows that exist in the
+    unpadded read, in the column order of multi_k_window_hashes
+    (``rkmh_tpu/ops/hashing.py:213``)."""
+    ks = [ks] if isinstance(ks, int) else list(ks)
+    parts = [torch.arange(L - k + 1, device=lengths.device)[None, :] < (lengths - (k - 1))[:, None]
+             for k in ks if L - k + 1 > 0]
+    if not parts:  # every k exceeds L: zero windows, like multi_k_window_hashes
+        return torch.zeros(lengths.shape + (0,), dtype=torch.bool, device=lengths.device)
+    return torch.cat(parts, dim=-1)

@@ -1,8 +1,9 @@
 """Build, load and launch the port's CUDA kernels.
 
-The sources are ``rkmh_tpu_torch/csrc/*.cu``.  They compile with ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, loaded
-with ctypes.  The library goes to ``rkmh_tpu_torch/_build/`` (listed in
+The sources are ``rkmh_tpu_torch/csrc/*.cu``.  Each compiles with its own
+``nvcc`` process for ``sm_90a``, all started together, and the objects
+link into one shared library with a plain C interface, loaded with
+ctypes.  The library goes to ``rkmh_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name keyed by a hash of the sources and flags, so
 the first use in a fresh checkout builds it and later uses load it.
 Nothing is built or loaded on import.
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lib = None  # the loaded library, shared by every Kernel of this process
 
@@ -55,18 +56,33 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel, wait for every one, raise on a failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    results = [(cmd, *proc.communicate(), proc.returncode) for cmd, proc in zip(cmds, procs)]
+    for cmd, out, err, rc in results:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}{err}")
+
+
 def build() -> Path:
-    """Compile every source into the library; returns its path."""
+    """Compile every source (one nvcc each, in parallel) and link the
+    library; returns its path."""
     nvcc = _nvcc()
     path = library_path()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    stem = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources()]
+    tmp = BUILD_DIR / f"{stem}.tmp.so"
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources(), objs)])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for leftover in (*objs, tmp):
+            leftover.unlink(missing_ok=True)
     return path
 
 
@@ -115,8 +131,16 @@ WINDOW_HASH = Kernel("rkmh_window_hash", [_p, _i, _i, _i, ctypes.c_uint64, _p, _
 # rkmh_panel_probe(rows, lens|NULL, B, n, table, log2_buckets, slots,
 #                  mask_words, num_refs, min_diff, min_matches, out, stream)
 PANEL_PROBE = Kernel("rkmh_panel_probe", [_p, _p, _i, _i, _p, _i, _i, _i, _i, _i, _i, _p])
+# rkmh_set_probe(rows, row_stride, lens, B, n, table, log2_buckets, slots,
+#                mask_words, num_types, num_uniq, out, stream)
+SET_PROBE = Kernel("rkmh_set_probe", [_p, _i64, _p, _i, _i, _p, _i, _i, _i, _i, _i, _p])
+# rkmh_lut_gather_rows(lut, idx, out, N, C, M, smem, stream)
+LUT_GATHER_ROWS = Kernel("rkmh_lut_gather_rows", [_p, _p, _p, _i, _i, _i64, _i])
+# rkmh_lut_gather_lanes(lut, idx, out, N, C, M, stream)
+LUT_GATHER_LANES = Kernel("rkmh_lut_gather_lanes", [_p, _p, _p, _i, _i, _i])
 
-KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE}
+KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE, "set_probe": SET_PROBE,
+           "lut_gather_rows": LUT_GATHER_ROWS, "lut_gather_lanes": LUT_GATHER_LANES}
 
 
 def reset_launch_counts() -> None:

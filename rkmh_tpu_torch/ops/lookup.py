@@ -1,14 +1,15 @@
 """Panel lookup table: the (hash, occ) -> reference-bitmask bucket table.
 
 (a) The host builder is a numpy copy of ``rkmh_tpu/ops/lookup.py:77-293``
-(``predicted_buckets``, ``pick_slots``, ``table_slots``,
+and :393-415 (``predicted_buckets``, ``pick_slots`` with both slot
+policies, ``projected_table_bytes``, ``table_slots``,
 ``_collect_entries``, ``_bucket_of``, ``build_panel_table``,
-``PanelTable``), copied for the reason given in ``io/fastx.py``.  It
-builds the identical table from the same sketches, with the same defaults
-(64 MB budget).  Not copied: the ``RKMH_TPU_SLOTS`` /
-``RKMH_TPU_TABLE_BUDGET_MB`` overrides, the forced geometry of
-tensor-parallel shards, the ``compact`` slot policy and the device-side
-builders, which serve the hpv16 set tables.
+``PanelTable``, ``build_set_table``), copied for the reason given in
+``io/fastx.py``.  It builds the identical table from the same sketches or
+hash sets, with the same defaults (64 MB budget).  Not copied: the
+``RKMH_TPU_SLOTS`` / ``RKMH_TPU_TABLE_BUDGET_MB`` overrides, the forced
+geometry of tensor-parallel shards and the device-side table builds (the
+hpv16 set table is built here on the host and copied to the card once).
 
 (b) The query, plain PyTorch (``lookup.py:296-390``): ``bucket_indices``,
 ``counts_from_rows``, ``lookup_intersection_counts(_masked)``.  Table
@@ -63,14 +64,37 @@ def predicted_buckets(n_entries: int, slots: int) -> int:
         nb *= 2
 
 
-def pick_slots(n_entries: int, mask_words: int) -> int:
-    """Smallest slot width S in {2, 4} whose predicted table fits the size
-    budget, else 8 (the classify panels' "narrow" policy)."""
+def _table_bytes(n_entries: int, mask_words: int, slots: int) -> int:
+    return 4 * slots * (3 + mask_words) * predicted_buckets(n_entries, slots)
+
+
+def pick_slots(n_entries: int, mask_words: int, policy: str = "narrow") -> int:
+    """Slot width for a new table.
+
+    ``narrow`` (classify panels): the smallest S in {2, 4} whose predicted
+    table fits the size budget, else 8.  ``compact`` (set tables): the S in
+    {2, 3, 4} with the fewest predicted table bytes if that fits the
+    budget, else the fewer bytes of S = 8 and S = 12 (the hundreds-of-MB
+    hpv16 panels; the choice of candidates is the JAX package's)."""
     budget = _BUDGET_MB * (1 << 20)
+    if policy == "compact":
+        best = min((2, 3, 4), key=lambda s: _table_bytes(n_entries, mask_words, s))
+        if _table_bytes(n_entries, mask_words, best) <= budget:
+            return best
+        return min((8, 12), key=lambda s: _table_bytes(n_entries, mask_words, s))
+    if policy != "narrow":
+        raise ValueError(f"unknown slot policy {policy!r}")
     for s in (2, 4):
-        if 4 * s * (3 + mask_words) * predicted_buckets(n_entries, s) <= budget:
+        if _table_bytes(n_entries, mask_words, s) <= budget:
             return s
     return 8
+
+
+def projected_table_bytes(n_entries: int, num_refs: int, policy: str = "compact") -> int:
+    """Predicted bytes of the table build_panel_table makes for n entries over
+    num_refs references (the auto-picked slots and bucket count)."""
+    wm = max(1, (num_refs + 31) // 32)
+    return _table_bytes(max(n_entries, 1), wm, pick_slots(n_entries, wm, policy))
 
 
 def table_slots(width: int, num_refs: int) -> int:
@@ -132,7 +156,8 @@ def _bucket_of(lo: np.ndarray, hi: np.ndarray, occ: np.ndarray, nb: int):
     return (x >> np.uint32(32 - int(np.log2(nb)))).astype(np.int64)
 
 
-def build_panel_table(ref_sk, ref_lens=None, num_refs: int | None = None) -> PanelTable:
+def build_panel_table(ref_sk, ref_lens=None, num_refs: int | None = None,
+                      policy: str = "narrow") -> PanelTable:
     """Build the bucket table from a sorted sketch matrix [R, t] (uint64,
     or int64 bit patterns; SENTINEL-padded rows, as bottom_s_sketch makes
     them)."""
@@ -145,13 +170,13 @@ def build_panel_table(ref_sk, ref_lens=None, num_refs: int | None = None) -> Pan
 
     ents = _collect_entries(ref_sk, ref_lens, R, Wm)
     if ents is None:
-        S = pick_slots(0, Wm)
+        S = pick_slots(0, Wm, policy)
         empty = np.zeros((1, S * (3 + Wm)), dtype=np.uint32)
         empty[:, 2 * S : 3 * S] = _EMPTY_OCC
         return PanelTable(empty, R, Wm)
     h, occ, masks = ents
     n = len(h)
-    S = pick_slots(n, Wm)
+    S = pick_slots(n, Wm, policy)
     lo = h.astype(np.uint32)
     hi = (h >> np.uint64(32)).astype(np.uint32)
 
@@ -180,6 +205,27 @@ def build_panel_table(ref_sk, ref_lens=None, num_refs: int | None = None) -> Pan
     for w in range(Wm):
         table[bs, (3 + w) * S + slot] = masks[order, w]
     return PanelTable(table, R, Wm)
+
+
+def build_set_table(ref_hash_rows, num_refs: int | None = None) -> PanelTable:
+    """Per-reference hash arrays (uint64 or int64 bit patterns, any order,
+    duplicates and zeros allowed) -> a table of occ-0 entries only: the
+    set semantics of the hpv16 comparators (rkmh.cpp:2673/2688).  A query
+    element that repeats an earlier one carries occ > 0 and misses, so a
+    full sorted read row counts distinct shared hashes."""
+    cleaned = []
+    for row in ref_hash_rows:
+        row = np.asarray(row)
+        row = np.unique(row.view(np.uint64) if row.dtype == np.int64 else row.astype(np.uint64))
+        cleaned.append(row[row != 0])
+    maxlen = max([1, *map(len, cleaned)])
+    mat = np.full((len(cleaned), maxlen), _SENTINEL_U64, dtype=np.uint64)
+    lens = np.zeros(len(cleaned), dtype=np.int32)
+    for i, row in enumerate(cleaned):
+        mat[i, : len(row)] = row
+        lens[i] = len(row)
+    R = len(cleaned) if num_refs is None else num_refs
+    return build_panel_table(mat, lens, num_refs=R, policy="compact")
 
 
 # ---------------------------------------------------------------------------

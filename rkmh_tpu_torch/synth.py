@@ -1,22 +1,35 @@
 """Deterministic synthetic workloads, made with numpy from a seed.
 
-The zika-shaped panel of the repo's headline configuration: 60 genomes of
-10,807 bp that derive from one random base genome at ~5% substitution
-divergence each, like a strain panel, and 150 bp reads sampled from known
-genomes with i.i.d. true substitutions (a replacement base is drawn from
-the three other bases, the noise model of tests/test_quant_accuracy.py)
-plus a small share of ``N`` bases.  The tests and ``chip_smoke.py`` use
-it in place of real reference data.
+The tests and ``chip_smoke.py`` use them in place of real reference data.
+
+* stream: the zika-shaped panel of the repo's headline configuration: 60
+  genomes of 10,807 bp that derive from one random base genome at ~5%
+  substitution divergence each, like a strain panel, and 150 bp reads
+  sampled from known genomes with i.i.d. true substitutions (a
+  replacement base is drawn from the three other bases, the noise model
+  of tests/test_quant_accuracy.py) plus a small share of ``N`` bases.
+* hpv16: a refpath at the shape of the real one: ``all_pave_ref.fa``
+  with 182 unrelated type genomes of ~7,900 bp (one named ``HPV16REF``)
+  and ``new_refs.fa`` with the 10 HPV16 sublineage genomes A1 A2 A3 A4
+  B1 B2 C1 D1 D2 D3, each ~1% from the HPV16 genome (a lineage-level and
+  a sublineage-level set of substitutions); and nanopore-like reads of
+  ~4.5 kb on average (log-normal, clipped to 500-20,000 bp, from either
+  strand of the circular genomes, so a read longer than its genome wraps
+  around) with ~8% substitutions.  The noise is substitutions only: real
+  nanopore reads also carry indels, which this model leaves out.
 
     python -m rkmh_tpu_torch.synth --out-dir DIR [--reads N] [--seed S]
+    python -m rkmh_tpu_torch.synth --hpv16 --out-dir DIR [--reads N] [--seed S]
 
-writes DIR/refs.fa and DIR/reads.fq.
+write DIR/refs.fa and DIR/reads.fq, or the refpath DIR/all_pave_ref.fa,
+DIR/new_refs.fa and the reads DIR/reads.fq.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -97,6 +110,115 @@ def write_workload(out_dir: str, n_reads: int, read_len: int = READ_LEN,
     return refs, reads, names, src
 
 
+HPV16_NUM_TYPES = 182
+HPV16_GENOME_LEN = 7900
+HPV16_SUBLINEAGES = ("A1", "A2", "A3", "A4", "B1", "B2", "C1", "D1", "D2", "D3")
+LINEAGE_DIVERGENCE = 0.006
+SUBLINEAGE_DIVERGENCE = 0.004
+NANOPORE_MEAN_LEN = 4500
+NANOPORE_LEN_SIGMA = 0.6
+NANOPORE_MIN_LEN = 500
+NANOPORE_MAX_LEN = 20000
+NANOPORE_SUB_RATE = 0.08
+FROM_SUBLINEAGE = 0.8
+
+
+@dataclass
+class Hpv16Panel:
+    """Type genomes and HPV16 sublineage genomes as uint8 codes 0..3."""
+
+    type_names: list
+    types: list
+    sub_names: list
+    subs: list
+    hpv16: int  # index of the HPV16 type genome
+
+
+def _substitute(codes: np.ndarray, rate: float, rng) -> np.ndarray:
+    out = codes.copy()
+    mut = rng.random(out.shape) < rate
+    out[mut] = (out[mut] + rng.integers(1, 4, int(mut.sum()), dtype=np.uint8)) % 4
+    return out
+
+
+def make_hpv16_panel(seed: int = 0, num_types: int = HPV16_NUM_TYPES,
+                     genome_len: int = HPV16_GENOME_LEN,
+                     sublineages=HPV16_SUBLINEAGES) -> Hpv16Panel:
+    """Random type genomes of genome_len +- 200 bp; the one at index
+    min(15, num_types - 1) is named HPV16REF and the sublineages derive
+    from it: per lineage letter one set of substitutions, per sublineage
+    another."""
+    rng = np.random.default_rng(seed)
+    hpv16 = min(15, num_types - 1)
+    numbers = [i + 1 for i in range(num_types)]
+    numbers[hpv16] = 16
+    types = [rng.integers(0, 4, int(n), dtype=np.uint8)
+             for n in genome_len + rng.integers(-200, 201, num_types)]
+    lineages = {ln: _substitute(types[hpv16], LINEAGE_DIVERGENCE, rng)
+                for ln in sorted({s[0] for s in sublineages})}
+    subs = [_substitute(lineages[s[0]], SUBLINEAGE_DIVERGENCE, rng) for s in sublineages]
+    return Hpv16Panel([f"HPV{n}REF" for n in numbers], types, list(sublineages), subs, hpv16)
+
+
+def make_nanopore_reads(n: int, seed: int, panel: Hpv16Panel,
+                        mean_len: int = NANOPORE_MEAN_LEN, min_len: int = NANOPORE_MIN_LEN,
+                        max_len: int = NANOPORE_MAX_LEN, sub_rate: float = NANOPORE_SUB_RATE):
+    """-> (n ASCII reads of varying length, the type name each was drawn
+    from).  A share FROM_SUBLINEAGE of the reads comes from the sublineage
+    genomes (type HPV16), the rest from the other types."""
+    rng = np.random.default_rng(seed)
+    sigma = NANOPORE_LEN_SIGMA
+    lens = np.clip(rng.lognormal(np.log(mean_len) - sigma**2 / 2, sigma, n),
+                   min_len, max_len).astype(np.int64)
+    others = [i for i in range(len(panel.types)) if i != panel.hpv16] or [panel.hpv16]
+    reads, truth = [], []
+    for length in lens:
+        if rng.random() < FROM_SUBLINEAGE:
+            genome = panel.subs[rng.integers(len(panel.subs))]
+            truth.append(panel.type_names[panel.hpv16])
+        else:
+            t = others[rng.integers(len(others))]
+            genome = panel.types[t]
+            truth.append(panel.type_names[t])
+        codes = genome[(rng.integers(len(genome)) + np.arange(length)) % len(genome)]
+        if rng.random() < 0.5:
+            codes = 3 - codes[::-1]  # the other strand
+        reads.append(_ACGTN[_substitute(codes, sub_rate, rng)])
+    return reads, truth
+
+
+def write_fastq_records(path: str, seqs, first: int = 0):
+    """Reads of any lengths, named read<i> for i = first, first+1, ..."""
+    with open(path, "w") as fh:
+        for i, seq in enumerate(seqs):
+            s = seq.tobytes().decode()
+            fh.write(f"@read{first + i}\n{s}\n+\n{'I' * len(s)}\n")
+
+
+def write_hpv16_refpath(out_dir: str, seed: int = 0, **panel_kw) -> Hpv16Panel:
+    """Write out_dir/all_pave_ref.fa and out_dir/new_refs.fa, the layout
+    ``hpv16 -R out_dir`` reads; returns the panel."""
+    os.makedirs(out_dir, exist_ok=True)
+    panel = make_hpv16_panel(seed, **panel_kw)
+    write_fasta(os.path.join(out_dir, "all_pave_ref.fa"),
+                [f"{n} synthetic type genome" for n in panel.type_names],
+                [_ACGTN[g] for g in panel.types])
+    write_fasta(os.path.join(out_dir, "new_refs.fa"),
+                [f"{n} synthetic HPV16 sublineage" for n in panel.sub_names],
+                [_ACGTN[g] for g in panel.subs])
+    return panel
+
+
+def write_hpv16_workload(out_dir: str, n_reads: int, seed: int = 0, **panel_kw):
+    """The refpath plus out_dir/reads.fq of n_reads nanopore-like reads;
+    returns (reads path, the type name each read was drawn from)."""
+    panel = write_hpv16_refpath(out_dir, seed, **panel_kw)
+    reads, truth = make_nanopore_reads(n_reads, seed + 1, panel)
+    path = os.path.join(out_dir, "reads.fq")
+    write_fastq_records(path, reads)
+    return path, truth
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", required=True)
@@ -105,9 +227,15 @@ def main(argv=None) -> int:
     ap.add_argument("--refs", type=int, default=NUM_REFS)
     ap.add_argument("--genome-len", type=int, default=GENOME_LEN)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--hpv16", action="store_true",
+                    help="write an hpv16 refpath and nanopore-like reads instead "
+                         "(--read-len, --refs and --genome-len do not apply)")
     args = ap.parse_args(argv)
-    write_workload(args.out_dir, args.reads, args.read_len, args.refs,
-                   args.genome_len, args.seed)
+    if args.hpv16:
+        write_hpv16_workload(args.out_dir, args.reads, args.seed)
+    else:
+        write_workload(args.out_dir, args.reads, args.read_len, args.refs,
+                       args.genome_len, args.seed)
     return 0
 
 

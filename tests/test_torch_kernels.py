@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from rkmh_tpu_torch.ops import kernels
+from rkmh_tpu_torch.ops import gather, kernels
 from rkmh_tpu_torch.ops.hashing import kmer_window_hashes_plain, multi_k_window_hashes
-from rkmh_tpu_torch.ops.lookup import build_panel_table
+from rkmh_tpu_torch.ops.lookup import build_panel_table, build_set_table
 from rkmh_tpu_torch.ops.probe import panel_probe, panel_probe_plain
+from rkmh_tpu_torch.ops.set_probe import set_probe, set_probe_plain
 from rkmh_tpu_torch.ops.sketch import SENTINEL, bottom_s_sketch
 
 
@@ -110,10 +111,83 @@ def test_panel_probe_kernel_edge_shapes(cuda_device):
                        panel_probe_plain(no_cols, None, empty, 3, 0, -1))
 
 
+def _set_table(seed, T, U, t):
+    """A set table over T + U references drawn from one pool (types 1 and
+    2 hold the same set, so reads tie between them), plus the pool."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(1, 2**63, size=4 * t, dtype=np.int64)
+    pool[::3] |= np.int64(-(2**63))  # high words >= 2**31
+    rows = [rng.choice(pool, t) for _ in range(T + U)]
+    if T >= 3:
+        rows[2] = rows[1]
+    table = torch.from_numpy(build_set_table(rows, num_refs=T + U).table.view(np.int32))
+    return table, pool, rows, rng
+
+
+def _sorted_rows(rng, pool, n_reads, width, dup=0.2):
+    """Sorted read rows with duplicates, zeros (invalid windows) and
+    strangers; returns (rows [B, width], lens [B])."""
+    raw = rng.choice(np.concatenate([pool, rng.integers(1, 2**63, len(pool), np.int64)]),
+                     size=(n_reads, width))
+    raw[:, 1::7] = raw[:, ::7][:, : raw[:, 1::7].shape[1]]  # repeats
+    raw[rng.random(raw.shape) < dup / 2] = 0
+    return bottom_s_sketch(torch.from_numpy(raw), width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,U,width", [(1, 0, 64), (30, 10, 500), (182, 14, 4000),
+                                       (300, 40, 256)])
+def test_set_probe_kernel_matches_plain(cuda_device, T, U, width):
+    table, pool, rows, rng = _set_table(T + width, T, U, 96)
+    full, lens = _sorted_rows(rng, pool, 64, width)
+    k = min(96, width)  # a read tied between types 1 and 2 (type 0 of T = 1)
+    src = rows[1] if T >= 3 else rows[0]
+    full[3, :k] = torch.from_numpy(np.sort(src.view(np.uint64))[:k].view(np.int64))
+    lens[3] = k
+    full[5:8], lens[5:8] = SENTINEL, 0  # reads with no valid element
+    table, full, lens = table.to(cuda_device), full.to(cuda_device), lens.to(cuda_device)
+    for n in (width, width // 2):  # all columns, and cut short of some lens
+        got = set_probe(full[:, :n], lens, table, T, U)
+        torch.cuda.synchronize()
+        want = set_probe_plain(full[:, :n], lens, table, T, U)
+        assert torch.equal(got, want), (T, U, width, n)
+    assert int(want[:, 1].max()) > 1 and (want[5:8] == 0).all()
+    assert int(want[3, 0]) == (1 if T >= 3 else 0)  # the first of the tied types
+
+
+@pytest.mark.cuda
+def test_set_probe_kernel_takes_a_40kb_read(cuda_device):
+    table, pool, _, rng = _set_table(40, 182, 14, 2000)
+    full, lens = _sorted_rows(rng, pool, 2, 40_000)
+    got = set_probe(full.to(cuda_device), lens.to(cuda_device), table.to(cuda_device), 182, 14)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), set_probe_plain(full, lens, table, 182, 14))
+    assert int(got[:, 1].min()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 64, 512, 4096, 16384])
+def test_lut_gather_kernels_match_plain(cuda_device, N):
+    rng = np.random.default_rng(N)
+    lut = torch.from_numpy(rng.integers(-2**31, 2**31, (N, 128)).astype(np.int32)).to(cuda_device)
+    for M in (N, 3):
+        idx = torch.from_numpy(rng.integers(0, N, (M, 128)).astype(np.int32)).to(cuda_device)
+        before = kernels.LUT_GATHER_ROWS.launches
+        got = gather.lut_gather_rows(lut, idx)
+        torch.cuda.synchronize()
+        assert kernels.LUT_GATHER_ROWS.launches == before + 1
+        assert torch.equal(got, gather.lut_gather_rows_plain(lut, idx))
+    idx = torch.from_numpy(rng.integers(0, 128, (N, 77)).astype(np.int32)).to(cuda_device)
+    got = gather.lut_gather_lanes(lut, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.lut_gather_lanes_plain(lut, idx))
+
+
 def test_library_is_keyed_by_sources_and_flags(monkeypatch):
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR and path == kernels.library_path()
-    assert {p.name for p in kernels.sources()} == {"window_hash.cu", "panel_probe.cu"}
+    assert {p.name for p in kernels.sources()} == {"window_hash.cu", "panel_probe.cu",
+                                                   "set_probe.cu", "lut_gather.cu"}
     monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-lineinfo",))
     assert kernels.library_path() != path
 
@@ -128,4 +202,5 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_launch_counts_reset():
     kernels.WINDOW_HASH.launches = 3
     kernels.reset_launch_counts()
-    assert kernels.launch_counts() == {"window_hash": 0, "panel_probe": 0}
+    assert kernels.launch_counts() == {"window_hash": 0, "panel_probe": 0, "set_probe": 0,
+                                       "lut_gather_rows": 0, "lut_gather_lanes": 0}

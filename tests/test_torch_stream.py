@@ -110,6 +110,7 @@ def test_port_never_imports_jax():
     code = ("import sys\n"
             "import rkmh_tpu_torch.cli, rkmh_tpu_torch.commands.stream\n"
             "import rkmh_tpu_torch.convert, rkmh_tpu_torch.synth, rkmh_tpu_torch.ops.kernels\n"
+            "import rkmh_tpu_torch.commands.hpv16_cmd, rkmh_tpu_torch.bench.bench_gather\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rkmh_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
