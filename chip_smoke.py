@@ -40,7 +40,32 @@ line) without CUDA or without the package beside it.  In order it:
     that the first 64 lines and the .tst file equal the CPU plain path's;
     it reports the table, the set-up seconds, e2e and device-step Mbp/s
     and reads/s, the share of reads typed as their source type, and one
-    step at the auto batch size.
+    step at the auto batch size;
+11. checks the counter kernels (K6 counter_add, K7 counter_mask) exactly
+    against their plain versions on the card: random hashes (>= 2**63 and
+    zeros among them) with masks, at counter sizes 2e8, 1e7, 2**27 and the
+    prime 1009; times both and their plain versions at the stream shape
+    (B=16384, L=160, k=12, the counter pass's window mask) on a 2e8-slot
+    counter, and reports how many distinct slots one batch adds to and
+    K6's time on as many random hashes (its atomics' contention);
+12. checks K2's filter mode against its plain version on the zika panel
+    in both row modes with -N/-D thresholds, and times it;
+13. drives ``stream -M 2 -I 40`` over the slice's 2**20 reads (default
+    2e8-slot counters, device cuda), counters zeroed just before and read
+    just after (K1, K6, K7 and K2 must run); checks one line per read and
+    that the whole first 16,384 reads, run alone, give byte-identical
+    output on the card and on the CPU plain path; reports e2e reads/s,
+    the counter pass's seconds and the device step;
+14. drives ``filter -M 2 -I 40 -N 10`` over the same reads with -o (K1,
+    K6, K7 and K2's filter mode must run); checks that the records
+    written equal the reads kept, that the whole first 16,384 reads give
+    byte-identical output on the card and the CPU, and that a ``-f`` plus
+    ``-i`` run over them (the stream given as a file object) does too;
+    reports e2e reads/s and the share of reads kept;
+15. drives ``hpv16 -M 2`` over 12,800 reads with N bases (default
+    8e8-slot counter; K1, K6, K7 and K3 must run); checks that a whole
+    256-read input gives byte-identical stdout and .tst on the card and
+    the CPU; reports e2e Mbp/s.
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record and ``{"ok": true, "device": {...}}``.  Any failure raises.
@@ -64,6 +89,10 @@ N_HPV16_READS = 12800
 N_HPV16_CPU_LINES = 64
 HPV16_K = 18
 HPV16_BATCH = 512
+COUNTER_SIZES = (200_000_000, 10_000_000, 1 << 27, 1009)
+MIN_OCC, MAX_SAMPLES, FILTER_MIN_MATCHES = 2, 40, 10
+N_HPV16_M_CPU_READS = 256
+HPV16_N_RATE = 0.001
 
 
 def say(msg: str) -> None:
@@ -184,7 +213,60 @@ def time_kernels(panel, codes, hashes) -> dict:
     return t
 
 
-def run_slice(dev, card: str, panel) -> dict:
+def write_zika(tmp: str) -> dict:
+    """The stream slice's input: the zika-shaped panel and 2**20 reads
+    (with N bases at synth.N_RATE), plus a file of the first N_CPU_LINES."""
+    from rkmh_tpu_torch import synth
+
+    t0 = time.perf_counter()
+    refs, reads, names, src = synth.write_workload(tmp, N_SLICE_READS)
+    head = os.path.join(tmp, "head.fq")
+    with open(reads) as src_fh, open(head, "w") as dst:
+        for _ in range(4 * N_CPU_LINES):
+            dst.write(src_fh.readline())
+    say(f"slice input: {N_SLICE_READS} reads x {synth.READ_LEN} bp, "
+        f"{len(names)} refs x {synth.GENOME_LEN} bp, made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return {"dir": tmp, "refs": refs, "reads": reads, "head": head, "names": names,
+            "src": src}
+
+
+def driven(fn, path: str, kernels_needed) -> tuple[float, dict]:
+    """Run one main path with the launch counters zeroed just before and
+    read just after; -> (wall seconds, launches).  Raises if a kernel of
+    the path was not launched."""
+    import torch
+
+    from rkmh_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    say(f"{path} launches: {launches}")
+    require_launches(launches, kernels_needed, path)
+    return seconds, launches
+
+
+def read_text(path: str) -> str:
+    with open(path) as fh:
+        return fh.read()
+
+
+def require_same(gpu: str, cpu: str, what: str) -> None:
+    """Byte-identical GPU and CPU outputs, or an error naming the first
+    differing line."""
+    if gpu != cpu:
+        g, c = gpu.splitlines(), cpu.splitlines()
+        bad = next((i for i, (a, b) in enumerate(zip(g, c)) if a != b), min(len(g), len(c)))
+        raise AssertionError(f"{what}: GPU and CPU outputs differ at line {bad} "
+                             f"({len(g)} vs {len(c)} lines)")
+
+
+def run_slice(dev, card: str, panel, zika: dict) -> dict:
     import numpy as np
     import torch
 
@@ -192,56 +274,34 @@ def run_slice(dev, card: str, panel) -> dict:
     from rkmh_tpu_torch.bench.timing import cuda_time_ms
     from rkmh_tpu_torch.classify import engine
     from rkmh_tpu_torch.commands import stream
-    from rkmh_tpu_torch.ops import kernels
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        refs, reads, names, src = synth.write_workload(tmp, N_SLICE_READS)
-        say(f"slice input: {N_SLICE_READS} reads x {synth.READ_LEN} bp, "
-            f"{len(names)} refs x {synth.GENOME_LEN} bp, made in "
-            f"{time.perf_counter() - t0:.2f} s")
-        out_gpu = os.path.join(tmp, "gpu.tsv")
-        cfg = dict(ref_files=[refs], ks=(12,), sketch_size=1000)
+    tmp = zika["dir"]
+    out_gpu = os.path.join(tmp, "gpu.tsv")
+    cfg = dict(ref_files=[zika["refs"]], ks=(12,), sketch_size=1000)
+    e2e_s, launches = driven(
+        lambda: stream.run(stream.StreamConfig(read_files=[zika["reads"]], out_file=out_gpu,
+                                               device="cuda", **cfg)),
+        "stream", ("window_hash", "panel_probe"))
 
-        kernels.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stream.run(stream.StreamConfig(read_files=[reads], out_file=out_gpu,
-                                       device="cuda", **cfg))
-        torch.cuda.synchronize()
-        e2e_s = time.perf_counter() - t0
-        launches = kernels.launch_counts()
-        say(f"slice launches: {launches}")
-        require_launches(launches, ("window_hash", "panel_probe"), "stream")
+    with open(out_gpu) as fh:
+        gpu_lines = fh.readlines()
+    if len(gpu_lines) != N_SLICE_READS:
+        raise AssertionError(f"{len(gpu_lines)} lines for {N_SLICE_READS} reads")
+    for i in (0, len(gpu_lines) - 1):
+        if gpu_lines[i].split("\t")[1] != f"read{i}":
+            raise AssertionError(f"line {i} is out of order: {gpu_lines[i]!r}")
 
-        with open(out_gpu) as fh:
-            gpu_lines = fh.readlines()
-        if len(gpu_lines) != N_SLICE_READS:
-            raise AssertionError(f"{len(gpu_lines)} lines for {N_SLICE_READS} reads")
-        for i in (0, len(gpu_lines) - 1):
-            if gpu_lines[i].split("\t")[1] != f"read{i}":
-                raise AssertionError(f"line {i} is out of order: {gpu_lines[i]!r}")
+    out_cpu = os.path.join(tmp, "cpu.tsv")
+    t0 = time.perf_counter()
+    stream.run(stream.StreamConfig(read_files=[zika["head"]], out_file=out_cpu,
+                                   device="cpu", **cfg))
+    cpu_s = time.perf_counter() - t0
+    require_same("".join(gpu_lines[:N_CPU_LINES]), read_text(out_cpu), "stream")
+    say(f"slice: first {N_CPU_LINES} GPU lines byte-identical to the CPU plain "
+        f"path ({cpu_s:.2f} s on the CPU)")
 
-        head = os.path.join(tmp, "head.fq")
-        with open(reads) as src_fh, open(head, "w") as dst:
-            for _ in range(4 * N_CPU_LINES):
-                dst.write(src_fh.readline())
-        out_cpu = os.path.join(tmp, "cpu.tsv")
-        t0 = time.perf_counter()
-        stream.run(stream.StreamConfig(read_files=[head], out_file=out_cpu,
-                                       device="cpu", **cfg))
-        cpu_s = time.perf_counter() - t0
-        with open(out_cpu) as fh:
-            cpu_lines = fh.readlines()
-        if cpu_lines != gpu_lines[:N_CPU_LINES]:
-            bad = next(i for i, (a, b) in enumerate(zip(cpu_lines, gpu_lines)) if a != b)
-            raise AssertionError(f"GPU and CPU outputs differ at line {bad}: "
-                                 f"{gpu_lines[bad]!r} vs {cpu_lines[bad]!r}")
-        say(f"slice: first {N_CPU_LINES} GPU lines byte-identical to the CPU plain "
-            f"path ({cpu_s:.2f} s on the CPU)")
-
-        assigned = np.array([ln.split("\t", 1)[0] for ln in gpu_lines])
-        share = float(np.mean(assigned == np.asarray(names)[src]))
+    assigned = np.array([ln.split("\t", 1)[0] for ln in gpu_lines])
+    share = float(np.mean(assigned == np.asarray(zika["names"])[zika["src"]]))
 
     # device step over resident batches (parse and format excluded)
     genomes = synth.make_panel()[1]
@@ -484,6 +544,287 @@ def run_hpv16(dev, card: str) -> dict:
     return res
 
 
+def random_hashes(seed: int, shape):
+    """int64 hashes, about half >= 2**63 as uint64, ~5% zeros, repeated
+    values, and a mask of ~80% of the elements, on the host."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    h = rng.integers(-(2**63), 2**63 - 1, size=shape, dtype=np.int64)
+    h[rng.random(shape) < 0.05] = 0
+    h[:, 1::4] = h[:, ::4][:, : h[:, 1::4].shape[1]]
+    return torch.from_numpy(h), torch.from_numpy(rng.random(shape) < 0.8)
+
+
+def check_counters(dev, hashes) -> dict:
+    """K6 and K7 exactly against their plain versions at every size of
+    COUNTER_SIZES, then timed at the stream shape (``hashes`` = K1's
+    [16384, 149] output for 150 bp reads padded to 160, with the window
+    mask of the counter pass) on a 2e8-slot counter; returns {name:
+    (max_abs_err, ms, plain_ms)}."""
+    import torch
+
+    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.ops import counter
+    from rkmh_tpu_torch.ops.hashing import window_mask
+
+    h, m = (t.to(dev) for t in random_hashes(17, (4096, 149)))
+    worst = {"counter_add": 0, "counter_mask": 0}
+    for size in COUNTER_SIZES:
+        got = torch.zeros(size, dtype=torch.int32, device=dev)
+        want = torch.zeros(size, dtype=torch.int32, device=dev)
+        counter._counter_add_cuda(got, h, m)
+        counter._counter_add_cuda(got, h[:64], None)
+        counter.counter_add_plain(want, h, m)
+        counter.counter_add_plain(want, h[:64], None)
+        err_add = max_abs_err(got, want)
+        if err_add or not torch.equal(got, want):
+            raise AssertionError(f"counter-add kernel disagrees with the plain version at "
+                                 f"size {size}")
+        kept = []
+        for lo, hi in ((MIN_OCC, counter.INT32_MAX), (0, MAX_SAMPLES), (3, 5)):
+            g = counter._counter_mask_cuda(got, h, lo, hi)
+            w = counter.counter_mask_plain(want, h, lo, hi)
+            err_mask = max_abs_err(g, w)
+            if err_mask or not torch.equal(g, w):
+                raise AssertionError(f"counter-mask kernel disagrees with the plain version "
+                                     f"at size {size}, bounds ({lo}, {hi})")
+            worst["counter_mask"] = max(worst["counter_mask"], err_mask)
+            kept.append(f"({lo}, {hi}) {float((w != 0).float().mean()):.3f}")
+        say(f"K6/K7 size {size}: table and masks exact=True, slot 0 count "
+            f"{int(want[0])}, max count {int(want.max())}, share kept {', '.join(kept)}")
+        worst["counter_add"] = max(worst["counter_add"], err_add)
+        del got, want
+
+    big = COUNTER_SIZES[0]
+    table = torch.zeros(big, dtype=torch.int32, device=dev)
+    mask = window_mask(torch.full((hashes.shape[0],), 150, device=dev), 160, [12])
+    plain_table = table.clone()
+    t = {
+        "counter_add": cuda_time_ms(lambda: counter._counter_add_cuda(table, hashes, mask), 20),
+        "counter_add_plain": cuda_time_ms(
+            lambda: counter.counter_add_plain(plain_table, hashes, mask), 5),
+        "counter_mask": cuda_time_ms(
+            lambda: counter._counter_mask_cuda(table, hashes, MIN_OCC, counter.INT32_MAX), 20),
+        "counter_mask_plain": cuda_time_ms(
+            lambda: counter.counter_mask_plain(table, hashes, MIN_OCC, counter.INT32_MAX), 5),
+    }
+    for name, ms in t.items():
+        say(f"time {name}: {ms:.4f} ms per call, hashes {tuple(hashes.shape)}, "
+            f"counter {big} slots")
+    # what K6's atomics contend on: reads repeat k-mers, so one batch sends
+    # many adds to one slot; the same launch on distinct random hashes
+    added = counter.slots(hashes[mask], big)
+    _, mult = torch.unique(added, return_counts=True)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    distinct = torch.randint(-(2**63), 2**63 - 1, tuple(hashes.shape), dtype=torch.int64,
+                             device=dev, generator=gen)
+    ms_distinct = cuda_time_ms(lambda: counter._counter_add_cuda(table, distinct, mask), 20)
+    say(f"counter_add contention: the batch's {added.numel()} counted hashes fall in "
+        f"{mult.numel()} distinct slots (the hottest takes {int(mult.max())} adds, slot 0 "
+        f"{int((added == 0).sum())}); K6 on as many random hashes: {ms_distinct:.4f} ms")
+    return {name: (worst[name], t[name], t[name + "_plain"]) for name in worst}
+
+
+def check_k2_filter(dev, panel, hashes) -> tuple[int, float, float]:
+    """K2's filter mode against its plain version on the zika panel in both
+    row modes with -N/-D thresholds; -> (max_abs_err, ms, plain_ms)."""
+    import torch
+
+    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.ops.probe import _panel_probe_filter_cuda, panel_probe_filter_plain
+    from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+
+    R = panel.num_refs
+    worst = 0
+    for s in (1000, 50):
+        sk, lens = bottom_s_sketch(hashes, s)
+        for mode, rows, ln in (("a raw", hashes, None), (f"b sketch s={s}", sk, lens)):
+            if s != 1000 and ln is None:
+                continue
+            for min_diff, min_matches in ((0, -1), (0, FILTER_MIN_MATCHES), (2, 60)):
+                got = _panel_probe_filter_cuda(rows, ln, panel.table, R, panel.lens,
+                                               min_diff, min_matches)
+                want = panel_probe_filter_plain(rows, ln, panel.table, R, panel.lens,
+                                                min_diff, min_matches)
+                err = max_abs_err(got, want)
+                say(f"K2 filter mode {mode} -D {min_diff} -N {min_matches}: exact={err == 0} "
+                    f"kept={float(want[3].float().mean()):.4f} "
+                    f"flag histogram={torch.bincount(want[4], minlength=8).tolist()}")
+                if err or not torch.equal(got, want):
+                    raise AssertionError(f"panel-probe filter mode disagrees in mode {mode}")
+                worst = max(worst, err)
+    ms = cuda_time_ms(lambda: _panel_probe_filter_cuda(hashes, None, panel.table, R, panel.lens,
+                                                       0, FILTER_MIN_MATCHES), 50)
+    plain_ms = cuda_time_ms(lambda: panel_probe_filter_plain(
+        hashes, None, panel.table, R, panel.lens, 0, FILTER_MIN_MATCHES), 5)
+    say(f"time panel_probe_filter: {ms:.4f} ms vs {plain_ms:.4f} ms plain per call at "
+        f"rows {tuple(hashes.shape)}, table {tuple(panel.table.shape)}")
+    return worst, ms, plain_ms
+
+
+def run_stream_counters(dev, card: str, zika: dict) -> dict:
+    """The stream -M 2 -I 40 path (see the module doc)."""
+    import torch
+
+    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.classify import engine
+    from rkmh_tpu_torch.commands import stream
+    from rkmh_tpu_torch.commands.common import (
+        DEFAULT_CHUNK_READS,
+        bucketed_batches,
+        build_ref_panel_from_files,
+        count_read_kmers,
+        iter_packed_chunks,
+        load_packed,
+    )
+
+    tmp = zika["dir"]
+    cfg = dict(ref_files=[zika["refs"]], ks=(12,), sketch_size=1000, min_kmer_occ=MIN_OCC,
+               max_samples=MAX_SAMPLES)
+    out_gpu = os.path.join(tmp, "stream_mi.tsv")
+    e2e_s, launches = driven(
+        lambda: stream.run(stream.StreamConfig(read_files=[zika["reads"]], out_file=out_gpu,
+                                               device="cuda", **cfg)),
+        "stream -M -I", ("window_hash", "counter_add", "counter_mask", "panel_probe"))
+    with open(out_gpu) as fh:
+        n_lines = sum(1 for _ in fh)
+    if n_lines != N_SLICE_READS:
+        raise AssertionError(f"stream -M -I: {n_lines} lines for {N_SLICE_READS} reads")
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        path = os.path.join(tmp, f"stream_mi_head.{device}.tsv")
+        stream.run(stream.StreamConfig(read_files=[zika["head"]], out_file=path,
+                                       device=device, **cfg))
+        outs[device] = read_text(path)
+    require_same(outs["cuda"], outs["cpu"], "stream -M -I")
+    say(f"stream -M {MIN_OCC} -I {MAX_SAMPLES}: the whole {N_CPU_LINES}-read input "
+        "byte-identical on the card and the CPU plain path")
+
+    # the counter pass alone, then the device step over resident batches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counter = count_read_kmers(iter_packed_chunks([zika["reads"]], DEFAULT_CHUNK_READS), (12,),
+                               stream.DEFAULT_COUNTER_SIZE, B, dev)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    panel = build_ref_panel_from_files([zika["refs"]], (12,), 1000, dev,
+                                       max_samples=MAX_SAMPLES)
+    packed = load_packed([zika["head"]])
+    batch = torch.from_numpy(next(bucketed_batches(packed, B))[1]).to(dev)
+    step_ms = cuda_time_ms(lambda: engine.classify_codes_table(
+        batch, panel, (12,), 1000, 0, -1, counter.table, MIN_OCC), 20)
+    res = {"e2e_s": e2e_s, "e2e_reads_per_s": N_SLICE_READS / e2e_s, "count_pass_s": count_s,
+           "device_step_ms_per_16k_batch": step_ms,
+           "device_step_reads_per_s": batch.shape[0] / (step_ms / 1e3), "launches": launches}
+    say(f"stream -M {MIN_OCC} -I {MAX_SAMPLES} on {card}: e2e {res['e2e_reads_per_s']:.1f} "
+        f"reads/s ({e2e_s:.2f} s for {N_SLICE_READS} reads, two passes, panel build "
+        f"included); counter pass alone {count_s:.2f} s; device step "
+        f"{res['device_step_reads_per_s']:.1f} reads/s ({step_ms:.4f} ms per "
+        f"{batch.shape[0]}-read batch)")
+    return res
+
+
+def run_filter(dev, card: str, zika: dict) -> dict:
+    """The filter -M 2 -I 40 -N 10 path (see the module doc)."""
+    from rkmh_tpu_torch.commands import filter_cmd
+
+    tmp = zika["dir"]
+    cfg = dict(ref_files=[zika["refs"]], ks=(12,), sketch_size=1000, min_kmer_occ=MIN_OCC,
+               max_samples=MAX_SAMPLES, min_matches=FILTER_MIN_MATCHES)
+    out_gpu = os.path.join(tmp, "filter.fq")
+    stats = {}
+    e2e_s, launches = driven(
+        lambda: filter_cmd.run(filter_cmd.FilterConfig(read_files=[zika["reads"]],
+                                                       out_file=out_gpu, device="cuda", **cfg),
+                               stats=stats),
+        "filter", ("window_hash", "counter_add", "counter_mask", "panel_probe_filter"))
+    with open(out_gpu) as fh:
+        n_lines = sum(1 for _ in fh)
+    if stats.get("reads") != N_SLICE_READS or n_lines != 4 * stats["kept"]:
+        raise AssertionError(f"filter: {n_lines} lines for {stats} reads kept")
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        path = os.path.join(tmp, f"filter_head.{device}.fq")
+        filter_cmd.run(filter_cmd.FilterConfig(read_files=[zika["head"]], out_file=path,
+                                               device=device, **cfg))
+        with open(zika["head"], "rb") as stdin:
+            both = os.path.join(tmp, f"filter_fi.{device}.txt")
+            filter_cmd.run(filter_cmd.FilterConfig(read_files=[zika["head"]], in_stream=True,
+                                                   out_file=both, device=device, **cfg),
+                           stdin=stdin)
+        outs[device] = (read_text(path), read_text(both))
+    require_same(outs["cuda"][0], outs["cpu"][0], "filter")
+    require_same(outs["cuda"][1], outs["cpu"][1], "filter -f -i")
+    n_sample = outs["cuda"][1].count("Sample: ")
+    if n_sample != N_CPU_LINES or not outs["cuda"][1].startswith(outs["cuda"][0]):
+        raise AssertionError(f"filter -f -i: {n_sample} Sample lines for {N_CPU_LINES} reads")
+    say(f"filter: the whole {N_CPU_LINES}-read input byte-identical on the card and the CPU "
+        "plain path, in file mode and with -f plus -i (the stream as a file object)")
+    res = {"e2e_s": e2e_s, "e2e_reads_per_s": N_SLICE_READS / e2e_s,
+           "kept_share": stats["kept"] / N_SLICE_READS, "launches": launches}
+    say(f"filter -M {MIN_OCC} -I {MAX_SAMPLES} -N {FILTER_MIN_MATCHES} on {card}: e2e "
+        f"{res['e2e_reads_per_s']:.1f} reads/s ({e2e_s:.2f} s for {N_SLICE_READS} reads, two "
+        f"passes, panel build and record output included); kept {stats['kept']} "
+        f"({res['kept_share']:.4f})")
+    return res
+
+
+def run_hpv16_counter(dev, card: str) -> dict:
+    """The hpv16 -M 2 path (see the module doc)."""
+    from rkmh_tpu_torch import synth
+    from rkmh_tpu_torch.commands import hpv16_cmd
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        reads, _ = synth.write_hpv16_workload(tmp, N_HPV16_READS, n_rate=HPV16_N_RATE)
+        head = os.path.join(tmp, "head.fq")
+        with open(reads) as src_fh, open(head, "w") as dst:
+            for _ in range(4 * N_HPV16_M_CPU_READS):
+                dst.write(src_fh.readline())
+        with open(head) as fh:
+            head_mbp = sum(len(ln) - 1 for i, ln in enumerate(fh) if i % 4 == 1) / 1e6
+        with open(reads) as fh:
+            mbp = sum(len(ln) - 1 for i, ln in enumerate(fh) if i % 4 == 1) / 1e6
+        cfg = dict(refpath=tmp, ks=(HPV16_K,), batch_size=HPV16_BATCH, min_kmer_occ=MIN_OCC)
+        try:
+            run_dir = os.path.join(tmp, "run")
+            os.makedirs(run_dir)
+            os.chdir(run_dir)
+            e2e_s, launches = driven(
+                lambda: hpv16_cmd.run(hpv16_cmd.Hpv16Config(
+                    read_files=[reads], out_file=os.path.join(run_dir, "out.tsv"),
+                    device="cuda", **cfg)),
+                "hpv16 -M", ("window_hash", "counter_add", "counter_mask", "set_probe"))
+            n_lines = read_text(os.path.join(run_dir, "out.tsv")).count("\n")
+            if n_lines != N_HPV16_READS:
+                raise AssertionError(f"hpv16 -M: {n_lines} lines for {N_HPV16_READS} reads")
+            outs = {}
+            for device in ("cuda", "cpu"):
+                wd = os.path.join(tmp, device)
+                os.makedirs(wd)
+                os.chdir(wd)
+                path = os.path.join(wd, "out.tsv")
+                hpv16_cmd.run(hpv16_cmd.Hpv16Config(read_files=[head], out_file=path,
+                                                    device=device, **cfg))
+                outs[device] = (read_text(path),
+                                read_text(f"lineage_specific_hashes.{HPV16_K}.tst"))
+        finally:
+            os.chdir(cwd)
+    require_same(outs["cuda"][0], outs["cpu"][0], "hpv16 -M")
+    require_same(outs["cuda"][1], outs["cpu"][1], "hpv16 -M .tst")
+    say(f"hpv16 -M: the whole {N_HPV16_M_CPU_READS}-read input ({head_mbp:.3f} Mbp) gives "
+        "byte-identical stdout and .tst on the card and the CPU plain path")
+    res = {"e2e_s": e2e_s, "e2e_mbp_per_s": mbp / e2e_s, "launches": launches}
+    say(f"hpv16 -M {MIN_OCC} on {card}: e2e {res['e2e_mbp_per_s']:.3f} Mbp/s "
+        f"({e2e_s:.2f} s for {N_HPV16_READS} reads, {mbp:.3f} Mbp, N rate {HPV16_N_RATE}, two "
+        "passes, table build included)")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -513,10 +854,21 @@ def main() -> int:
     panel, genomes = zika_panel(dev)
     err_k2, (codes, hashes) = check_k2(dev, panel, genomes)
     times = time_kernels(panel, codes, hashes)
-    sl = run_slice(dev, f"{card} ({smi})", panel)
-    gathers = check_gathers(dev)
-    gather_launches = run_gather_path()
-    hp = run_hpv16(dev, f"{card} ({smi})")
+    card_smi = f"{card} ({smi})"
+    with tempfile.TemporaryDirectory() as work:
+        zika = write_zika(work)
+        sl = run_slice(dev, card_smi, panel, zika)
+        gathers = check_gathers(dev)
+        gather_launches = run_gather_path()
+        hp = run_hpv16(dev, card_smi)
+        counters = check_counters(dev, hashes)
+        filt = check_k2_filter(dev, panel, hashes)
+        st_mi = run_stream_counters(dev, card_smi, zika)
+        fl = run_filter(dev, card_smi, zika)
+    hpm = run_hpv16_counter(dev, card_smi)
+
+    def launched(name):
+        return sum(r["launches"][name] for r in (sl, hp, st_mi, fl, hpm))
 
     def gather_entry(name, line):
         err, ms, plain_ms = gathers[name]
@@ -525,25 +877,37 @@ def main() -> int:
                 "launches": gather_launches[name], "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms}
 
+    def counter_entry(name, line):
+        err, ms, plain_ms = counters[name]
+        return {"name": name, "route": "cuda", "source": "rkmh_tpu_torch/csrc/counter.cu",
+                "replaces": f"rkmh_tpu/ops/counter.py:{line}", "launches": launched(name),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
     record = {"kernels": [
         {"name": "window_hash", "route": "cuda",
          "source": "rkmh_tpu_torch/csrc/window_hash.cu",
          "replaces": "rkmh_tpu/ops/pallas_hash.py:39",
-         "launches": sl["launches"]["window_hash"] + hp["launches"]["window_hash"],
-         "max_abs_err": err_k1,
+         "launches": launched("window_hash"), "max_abs_err": err_k1,
          "ms": times["window_hash"], "plain_ms": times["window_hash_plain"]},
         {"name": "panel_probe", "route": "cuda",
          "source": "rkmh_tpu_torch/csrc/panel_probe.cu",
          "replaces": "rkmh_tpu/ops/lookup.py:321",
-         "launches": sl["launches"]["panel_probe"], "max_abs_err": err_k2,
+         "launches": launched("panel_probe"), "max_abs_err": err_k2,
          "ms": times["panel_probe"], "plain_ms": times["panel_probe_plain"]},
+        {"name": "panel_probe_filter", "route": "cuda",
+         "source": "rkmh_tpu_torch/csrc/panel_probe.cu",
+         "replaces": "rkmh_tpu/classify/engine.py:56",
+         "launches": launched("panel_probe_filter"), "max_abs_err": filt[0],
+         "ms": filt[1], "plain_ms": filt[2]},
         {"name": "set_probe", "route": "cuda",
          "source": "rkmh_tpu_torch/csrc/set_probe.cu",
          "replaces": "rkmh_tpu/classify/engine.py:794",
-         "launches": hp["launches"]["set_probe"], "max_abs_err": hp["err_k3"],
+         "launches": launched("set_probe"), "max_abs_err": hp["err_k3"],
          "ms": hp["set_probe"], "plain_ms": hp["set_probe_plain"]},
         gather_entry("lut_gather_rows", 109),
         gather_entry("lut_gather_lanes", 140),
+        counter_entry("counter_add", 37),
+        counter_entry("counter_mask", 46),
     ]}
     say(smi)
     say(json.dumps(record))

@@ -1,5 +1,5 @@
-"""Shared command plumbing: the reference panel, input chunks, batching and
-the pipelined dispatch/fetch/emit loop.
+"""Shared command plumbing: the reference panel, input chunks, the -M
+counter pass, batching and the pipelined dispatch/fetch/emit loop.
 
 Counterpart of ``rkmh_tpu/commands/common.py:17-553``.  Differences:
 
@@ -14,6 +14,8 @@ Counterpart of ``rkmh_tpu/commands/common.py:17-553``.  Differences:
 
 from __future__ import annotations
 
+import os
+import stat
 import sys
 from collections import deque
 
@@ -24,10 +26,12 @@ from torch import nn
 from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.io.fastx import iter_batches, read_fastx
 from rkmh_tpu_torch.io.packing import encode_seqs, length_buckets
+from rkmh_tpu_torch.ops.counter import HashCounter
 from rkmh_tpu_torch.ops.lookup import build_panel_table
 
 DEFAULT_KMER = 16          # rkmh.cpp:728-731
 DEFAULT_SKETCH = 1000      # rkmh.cpp:592
+DEFAULT_COUNTER_SIZE = 200_000_000  # stream's counters, rkmh.cpp:739-742
 DEFAULT_BATCH_CPU = 2048
 DEFAULT_BATCH_CUDA = 16384
 DEFAULT_CHUNK_READS = 65536
@@ -64,28 +68,53 @@ class RefPanel(nn.Module):
         return len(self.keys)
 
 
-def build_ref_panel(ref_packed, ks, sketch_size: int, device: torch.device) -> RefPanel:
+def build_ref_panel(ref_packed, ks, sketch_size: int, device: torch.device,
+                    max_samples: int | None = None,
+                    counter_size: int = DEFAULT_COUNTER_SIZE,
+                    distinct_counter: bool = False) -> RefPanel:
     """Hash and sketch a parsed panel on ``device``, then build its table
-    on the host (numpy, identical to the JAX package's builder)."""
+    on the host (numpy, identical to the JAX package's builder).
+
+    With max_samples set (-I), the panel's k-mers are counted first in a
+    ``hash % counter_size`` counter on the device (every occurrence for
+    stream, rkmh.cpp:828-837; once per reference with distinct_counter,
+    for filter, rkmh.cpp:340-357), and only hashes counted at most
+    max_samples times enter the sketches."""
     codes = torch.from_numpy(ref_packed.codes).to(device)
-    sk, sk_lens = engine.sketch_batch(codes, ks, sketch_size)
+    if max_samples is None:
+        sk, sk_lens = engine.sketch_batch(codes, ks, sketch_size)
+    else:
+        lens = torch.from_numpy(ref_packed.lens).to(device)
+        counter = HashCounter(counter_size, device)
+        if distinct_counter:
+            counter.add(*engine.distinct_hash_mask(codes, lens, ks))
+        else:
+            counter.add(*engine.hash_batch_with_mask(codes, lens, ks))
+        sk, sk_lens = engine.sketch_batch_informative(codes, counter.table, ks, sketch_size,
+                                                      max_samples)
+        del counter
     pt = build_panel_table(sk.cpu().numpy(), sk_lens.cpu().numpy())
     table = torch.from_numpy(pt.table.view(np.int32)).to(device)
     return RefPanel(ref_packed.names, sk, sk_lens, table)
 
 
-def build_ref_panel_from_files(ref_files, ks, sketch_size: int,
-                               device: torch.device) -> RefPanel:
-    """build_ref_panel over files parsed and concatenated in order."""
-    return build_ref_panel(PyPacked(read_fastx(ref_files)), ks, sketch_size, device)
+def build_ref_panel_from_files(ref_files, ks, sketch_size: int, device: torch.device,
+                               **counter_kw) -> RefPanel:
+    """build_ref_panel over files parsed and concatenated in order;
+    counter_kw are build_ref_panel's -I arguments."""
+    return build_ref_panel(PyPacked(read_fastx(ref_files)), ks, sketch_size, device,
+                           **counter_kw)
 
 
 class PyPacked:
-    """Parsed records as [N, L] codes + lengths + names."""
+    """Parsed records as [N, L] codes + lengths + names, and the raw
+    sequences and qualities (None for FASTA) that filter re-emits."""
 
     def __init__(self, records):
         self.codes, self.lens = encode_seqs([r.seq for r in records])
         self.names = [r.name for r in records]
+        self.seqs = [r.seq for r in records]
+        self.quals = [r.qual for r in records]
 
     def __len__(self):
         return len(self.names)
@@ -103,14 +132,55 @@ def resolve_chunk_reads(requested: int) -> int:
     return requested if requested and requested > 0 else DEFAULT_CHUNK_READS
 
 
+def _as_list(paths) -> list:
+    """A single path or file object -> [it]; a list or tuple as it is."""
+    return list(paths) if isinstance(paths, (list, tuple)) else [paths]
+
+
 def iter_packed_chunks(paths, chunk_reads: int):
     """Yield PyPacked chunks of <= chunk_reads records, files in order
-    (chunks never span files), so only one parsed chunk is resident."""
-    if isinstance(paths, (str, bytes)):
-        paths = [paths]
-    for p in paths:
+    (chunks never span files), so only one parsed chunk is resident.
+    ``paths`` holds paths, ``-`` (stdin) or binary file objects."""
+    for p in _as_list(paths):
         for recs in iter_batches(p, chunk_reads):
             yield PyPacked(recs)
+
+
+def _rereadable(p) -> bool:
+    if not isinstance(p, (str, bytes)) or p in ("-", b"-"):
+        return False
+    try:
+        return not stat.S_ISFIFO(os.stat(p).st_mode)
+    except OSError:
+        return True  # let the parser raise the error for a missing file
+
+
+def two_pass_chunks(paths, chunk_reads: int):
+    """(first-pass iterable, second-pass factory) over PyPacked chunks,
+    for the -M commands, which read their input twice (counter pass, then
+    classify pass).  Plain files are read again from disk; stdin, FIFOs
+    and file objects can be read once only, so their chunks are buffered
+    for the second pass (``rkmh_tpu/commands/common.py:353``)."""
+    paths = _as_list(paths)
+    if all(_rereadable(p) for p in paths):
+        return (iter_packed_chunks(paths, chunk_reads),
+                lambda: iter_packed_chunks(paths, chunk_reads))
+    chunks = list(iter_packed_chunks(paths, chunk_reads))
+    return iter(chunks), lambda: iter(chunks)
+
+
+def count_read_kmers(chunks, ks, counter_size: int, batch_size: int,
+                     device: torch.device) -> HashCounter:
+    """The -M counter pass: every window of every read (hash 0 of an
+    invalid k-mer included, padding excluded) into a new ``hash %
+    counter_size`` counter on ``device`` (rkmh.cpp:903-910)."""
+    counter = HashCounter(counter_size, device)
+    for chunk in chunks:
+        for _, codes, lens in bucketed_batches(chunk, batch_size):
+            counter.add(*engine.hash_batch_with_mask(
+                torch.from_numpy(codes).to(device, non_blocking=True),
+                torch.from_numpy(lens).to(device, non_blocking=True), ks))
+    return counter
 
 
 def bucketed_batches(packed, batch_size: int):
@@ -146,10 +216,11 @@ class ChunkState:
 class ChunkedPipeline:
     """Dispatch -> grouped fetch -> in-order emit.
 
-    Dispatches are asynchronous on the device; up to 2 * FETCH_GROUP batch
-    results stay in flight and are fetched FETCH_GROUP at a time.  Chunks are
-    emitted in input order the moment they complete, so residency is the
-    in-flight window plus ~2 chunks, whatever the input size.
+    Dispatches are asynchronous on the device; up to 2 * group batch
+    results stay in flight and are fetched group at a time (FETCH_GROUP by
+    default).  Chunks are emitted in input order the moment they complete,
+    so residency is the in-flight window plus ~2 chunks, whatever the input
+    size.
 
     on_result(state, meta, host_array): record one batch's fetched result
         into its chunk state and advance state.filled.
@@ -157,10 +228,11 @@ class ChunkedPipeline:
     fetch(device_results) -> host arrays, in order.
     """
 
-    def __init__(self, on_result, emit, fetch):
+    def __init__(self, on_result, emit, fetch, group: int = FETCH_GROUP):
         self.on_result = on_result
         self.emit = emit
         self.fetch = fetch
+        self.group = group
         self.pending = deque()   # (state, meta, device_result)
         self.emit_q = deque()    # chunk states in input order
 
@@ -183,8 +255,8 @@ class ChunkedPipeline:
             self.emit_q.append(st)
             for rows, codes, lens in bucketed_batches(chunk, batch_size):
                 self.pending.append((st, *dispatch(st, rows, codes, lens)))
-                if len(self.pending) > 2 * FETCH_GROUP:
-                    self._flush(FETCH_GROUP)
+                if len(self.pending) > 2 * self.group:
+                    self._flush(self.group)
             st.dispatched = True
         while self.pending:
             self._flush(len(self.pending))

@@ -3,7 +3,8 @@
 ``rkmh_tpu``'s ``RefPanel`` holds uint64 sketches and a uint32 bucket
 table, and its ``Hpv16Tables.comb_table`` is a uint32 set table; as numpy
 arrays they become the port's tensors by reinterpreting the bits as int64
-and int32.
+and int32.  A ``HashCounter``'s int32 table (``.to_numpy()``) carries over
+as it is.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from rkmh_tpu_torch.commands.common import RefPanel
+from rkmh_tpu_torch.ops.counter import HashCounter
 from rkmh_tpu_torch.ops.lookup import table_slots
 
 
@@ -37,3 +39,14 @@ def set_table_from_numpy(table_u32, device) -> torch.Tensor:
     if table.ndim != 2:
         raise ValueError(f"a set table is 2-D, got shape {table.shape}")
     return torch.from_numpy(table.view(np.int32)).to(device)
+
+
+def counter_from_numpy(table_i32, device) -> HashCounter:
+    """[size] int32 counter table (the JAX package's ``HashCounter.to_numpy()``)
+    -> a HashCounter on ``device`` holding the same counts, bit for bit."""
+    table = np.array(table_i32)  # an own, writable copy
+    if table.ndim != 1 or table.dtype != np.int32:
+        raise ValueError(f"a counter table is 1-D int32, got {table.dtype} {table.shape}")
+    counter = HashCounter(table.shape[0], device)
+    counter.table.copy_(torch.from_numpy(table))
+    return counter

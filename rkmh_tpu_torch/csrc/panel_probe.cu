@@ -10,6 +10,14 @@
 // memory.  Output: int32 [3, B] = best ref, shared count, flag bits
 // diff_ok | depth_fail << 1 | match_fail << 2.
 //
+// The filter mode (rkmh_panel_probe_filter) runs the same probe with the
+// epilogue of classify/engine.py::argmax_filter (:56) and the packing of
+// filter_sketches_table_packed (:886): the running max starts at 0 (best
+// = -1, shared = 0 when every count is 0), total_union = min(sketch_len,
+// ref_lens[best]) when some count is > 0, depth_fail = sketch_len <= 0.
+// Output: int32 [5, B] = best, shared, total_union, keep, flag bits
+// depth_fail | match_fail << 1 | diff_ok << 2.
+//
 // Input rows are [B, n] uint64, in one of two modes:
 //   (a) lens == NULL: raw window hashes (used when W <= s); valid = h != 0,
 //       occ = number of equal elements earlier in the row (O(n^2), so the
@@ -43,10 +51,12 @@ constexpr uint64_t SENTINEL = 0xFFFFFFFFFFFFFFFFULL;
 constexpr uint32_t MIX = 0x85EBCA77u;
 constexpr uint32_t MUL = 0x9E3779B1u;
 
+template <bool FILTER>
 __global__ void panel_probe_kernel(const uint64_t* __restrict__ rows,
                                    const int32_t* __restrict__ lens, int B, int n,
                                    const uint32_t* __restrict__ table, int log2nb,
-                                   int S, int Wm, int R, int min_diff,
+                                   int S, int Wm, int R,
+                                   const int32_t* __restrict__ ref_lens, int min_diff,
                                    int min_matches, int32_t* __restrict__ out) {
   extern __shared__ __align__(8) unsigned char smem[];
   uint64_t* row = reinterpret_cast<uint64_t*>(smem);   // [n]
@@ -120,8 +130,10 @@ __global__ void panel_probe_kernel(const uint64_t* __restrict__ rows,
   __syncthreads();
 
   if (warp != 0) return;
-  // argmax_stream: running max from -1, strict > (first ref wins ties)
-  int mx = -1, best = INT_MAX;
+  // running max from -1 (stream) or 0 (filter), strict > (first ref wins
+  // ties); best stays INT_MAX in filter mode when every count is 0
+  const int init = FILTER ? 0 : -1;
+  int mx = init, best = INT_MAX;
   for (int r = lane; r < R; r += 32) {
     if (cnt[r] > mx) {
       mx = cnt[r];
@@ -138,18 +150,45 @@ __global__ void panel_probe_kernel(const uint64_t* __restrict__ rows,
   }
   mx = __shfl_sync(FULL, mx, 0);
   best = __shfl_sync(FULL, best, 0);
-  // previous best: max(-1, max(counts[:best]))
-  int pm = -1;
-  for (int r = lane; r < best; r += 32) pm = max(pm, cnt[r]);
+  // previous best: max(init, max(counts[:best]))
+  int pm = init;
+  for (int r = lane; r < min(best, R); r += 32) pm = max(pm, cnt[r]);
   for (int off = 16; off > 0; off >>= 1) pm = max(pm, __shfl_down_sync(FULL, pm, off));
-  if (lane == 0) {
-    const int sk_len = sorted_mode ? len : n_valid;
-    const int flags = ((mx - pm) > min_diff ? 1 : 0) | (sk_len <= min_matches ? 2 : 0) |
-                      (mx < min_matches ? 4 : 0);
+  if (lane != 0) return;
+  const int sk_len = sorted_mode ? len : n_valid;
+  if (FILTER) {
+    const bool updated = mx > 0;
+    const int shared = updated ? mx : 0;
+    const bool diff_ok = shared - (updated ? pm : 0) > min_diff;
+    const bool depth_fail = sk_len <= 0;
+    const bool match_fail = shared < min_matches;
+    out[b] = updated ? best : -1;
+    out[B + b] = shared;
+    out[2 * B + b] = updated ? min(sk_len, ref_lens[best]) : 0;
+    out[3 * B + b] = !depth_fail && !match_fail && diff_ok;
+    out[4 * B + b] = (depth_fail ? 1 : 0) | (match_fail ? 2 : 0) | (diff_ok ? 4 : 0);
+  } else {
     out[b] = best;
     out[B + b] = mx;
-    out[2 * B + b] = flags;
+    out[2 * B + b] = ((mx - pm) > min_diff ? 1 : 0) | (sk_len <= min_matches ? 2 : 0) |
+                     (mx < min_matches ? 4 : 0);
   }
+}
+
+template <bool FILTER>
+int launch(const int64_t* rows, const int32_t* lens, int B, int n, const int32_t* table,
+           int log2nb, int S, int Wm, int R, const int32_t* ref_lens, int min_diff,
+           int min_matches, int32_t* out, cudaStream_t stream) {
+  const size_t smem = (size_t)n * 8 + (size_t)Wm * 32 * 4;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(panel_probe_kernel<FILTER>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  panel_probe_kernel<FILTER><<<B, THREADS, smem, stream>>>(
+      reinterpret_cast<const uint64_t*>(rows), lens, B, n,
+      reinterpret_cast<const uint32_t*>(table), log2nb, S, Wm, R, ref_lens, min_diff,
+      min_matches, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -161,14 +200,17 @@ extern "C" int rkmh_panel_probe(const int64_t* rows, const int32_t* lens, int B,
                                 const int32_t* table, int log2nb, int S, int Wm, int R,
                                 int min_diff, int min_matches, int32_t* out,
                                 cudaStream_t stream) {
-  const size_t smem = (size_t)n * 8 + (size_t)Wm * 32 * 4;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(panel_probe_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  panel_probe_kernel<<<B, THREADS, smem, stream>>>(
-      reinterpret_cast<const uint64_t*>(rows), lens, B, n,
-      reinterpret_cast<const uint32_t*>(table), log2nb, S, Wm, R, min_diff,
-      min_matches, out);
-  return (int)cudaGetLastError();
+  return launch<false>(rows, lens, B, n, table, log2nb, S, Wm, R, nullptr, min_diff,
+                       min_matches, out, stream);
+}
+
+// The filter mode: as rkmh_panel_probe, plus ref_lens [R] int32 (the
+// references' sketch lengths) -> out [5, B] int32.
+extern "C" int rkmh_panel_probe_filter(const int64_t* rows, const int32_t* lens, int B,
+                                       int n, const int32_t* table, int log2nb, int S,
+                                       int Wm, int R, const int32_t* ref_lens,
+                                       int min_diff, int min_matches, int32_t* out,
+                                       cudaStream_t stream) {
+  return launch<true>(rows, lens, B, n, table, log2nb, S, Wm, R, ref_lens, min_diff,
+                      min_matches, out, stream);
 }

@@ -5,11 +5,14 @@ Counterpart of ``rkmh_tpu/ops/intersect.py::occ_ranks`` (:35) for sorted
 rows, and of the sort-free prefix-equality count of
 ``rkmh_tpu/classify/engine.py:306-311`` for unsorted rows.  Both give the
 same multiset of (value, rank) pairs for a row, so the probe counts agree.
+Also ``sort_hashes_padded`` (``rkmh_tpu/ops/intersect.py:122``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from rkmh_tpu_torch.ops.sketch import INT64_MIN, SENTINEL
 
 
 def occ_ranks(sorted_rows: torch.Tensor) -> torch.Tensor:
@@ -29,3 +32,12 @@ def prefix_eq_ranks(rows: torch.Tensor) -> torch.Tensor:
     eq = rows[..., None, :] == rows[..., :, None]           # [.., i, j]: x_j == x_i
     before = torch.ones((W, W), dtype=torch.bool, device=rows.device).tril(-1)
     return (eq & before).sum(dim=-1)
+
+
+def sort_hashes_padded(hashes: torch.Tensor, mask: torch.Tensor):
+    """Rows sorted ascending as uint64 with masked-out entries sent to
+    SENTINEL, plus the valid counts [B] int32.  Unlike a sketch, zeros
+    (invalid k-mers) are kept: rkmh sorts the raw array."""
+    x = torch.where(mask, hashes, torch.full_like(hashes, SENTINEL))
+    x = torch.sort(x ^ INT64_MIN, dim=-1).values ^ INT64_MIN
+    return x, mask.sum(dim=-1, dtype=torch.int32)

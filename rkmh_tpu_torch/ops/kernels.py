@@ -131,6 +131,11 @@ WINDOW_HASH = Kernel("rkmh_window_hash", [_p, _i, _i, _i, ctypes.c_uint64, _p, _
 # rkmh_panel_probe(rows, lens|NULL, B, n, table, log2_buckets, slots,
 #                  mask_words, num_refs, min_diff, min_matches, out, stream)
 PANEL_PROBE = Kernel("rkmh_panel_probe", [_p, _p, _i, _i, _p, _i, _i, _i, _i, _i, _i, _p])
+# rkmh_panel_probe_filter(rows, lens|NULL, B, n, table, log2_buckets, slots,
+#                         mask_words, num_refs, ref_lens, min_diff, min_matches,
+#                         out, stream)
+PANEL_PROBE_FILTER = Kernel("rkmh_panel_probe_filter",
+                            [_p, _p, _i, _i, _p, _i, _i, _i, _i, _p, _i, _i, _p])
 # rkmh_set_probe(rows, row_stride, lens, B, n, table, log2_buckets, slots,
 #                mask_words, num_types, num_uniq, out, stream)
 SET_PROBE = Kernel("rkmh_set_probe", [_p, _i64, _p, _i, _i, _p, _i, _i, _i, _i, _i, _p])
@@ -138,9 +143,15 @@ SET_PROBE = Kernel("rkmh_set_probe", [_p, _i64, _p, _i, _i, _p, _i, _i, _i, _i, 
 LUT_GATHER_ROWS = Kernel("rkmh_lut_gather_rows", [_p, _p, _p, _i, _i, _i64, _i])
 # rkmh_lut_gather_lanes(lut, idx, out, N, C, M, stream)
 LUT_GATHER_LANES = Kernel("rkmh_lut_gather_lanes", [_p, _p, _p, _i, _i, _i])
+# rkmh_counter_add(hashes, mask|NULL, n, table, size, stream)
+COUNTER_ADD = Kernel("rkmh_counter_add", [_p, _p, _i64, _p, _i64])
+# rkmh_counter_mask(hashes, n, table, size, lo, hi, out, stream)
+COUNTER_MASK = Kernel("rkmh_counter_mask", [_p, _i64, _p, _i64, _i, _i, _p])
 
-KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE, "set_probe": SET_PROBE,
-           "lut_gather_rows": LUT_GATHER_ROWS, "lut_gather_lanes": LUT_GATHER_LANES}
+KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE,
+           "panel_probe_filter": PANEL_PROBE_FILTER, "set_probe": SET_PROBE,
+           "lut_gather_rows": LUT_GATHER_ROWS, "lut_gather_lanes": LUT_GATHER_LANES,
+           "counter_add": COUNTER_ADD, "counter_mask": COUNTER_MASK}
 
 
 def reset_launch_counts() -> None:

@@ -1,11 +1,14 @@
 """The fused panel probe: sketch rows -> per-read (best, shared, flags).
 
 One call runs, per read, the occurrence ranks, the bucket-table probe,
-the per-reference counts and the stream argmax.  On a CUDA tensor it is
-the panel-probe kernel (``csrc/panel_probe.cu``); on a CPU tensor it is
+the per-reference counts and the argmax.  On a CUDA tensor it is the
+panel-probe kernel (``csrc/panel_probe.cu``); on a CPU tensor it is
 ``panel_probe_plain``, the composition of the plain ports of the JAX
 package's functions (``ops/intersect``, ``ops/lookup``,
 ``classify/engine.argmax_stream``), which the kernel must match exactly.
+``panel_probe_filter`` is the same probe with the filter command's
+epilogue (``classify/engine.argmax_filter``); its plain version is
+``panel_probe_filter_plain``.
 
 Rows are [B, n] int64 hashes in one of two modes:
 
@@ -40,10 +43,19 @@ def pack_result(best, shared, diff_ok, depth_fail, match_fail) -> torch.Tensor:
     return torch.stack([best.to(torch.int32), shared.to(torch.int32), flags])
 
 
-def panel_probe_plain(rows: torch.Tensor, lens: torch.Tensor | None, table: torch.Tensor,
-                      num_refs: int, min_diff: int, min_matches: int) -> torch.Tensor:
-    from rkmh_tpu_torch.classify.engine import argmax_stream
+def pack_filter_result(best, shared, total_union, keep, depth_fail, match_fail,
+                       diff_ok) -> torch.Tensor:
+    """argmax_filter's outputs -> int32 [5, B] (best, shared, total_union,
+    keep, flag bits depth_fail | match_fail << 1 | diff_ok << 2), the
+    layout of ``rkmh_tpu/classify/engine.py:886-906``."""
+    flags = depth_fail.to(torch.int32) | (match_fail.to(torch.int32) << 1) | (
+        diff_ok.to(torch.int32) << 2)
+    return torch.stack([t.to(torch.int32) for t in (best, shared, total_union, keep)]
+                       + [flags])
 
+
+def _plain_counts(rows, lens, table, num_refs):
+    """-> ([B, R] counts, [B] sketch lengths) in either row mode."""
     if lens is None:
         valid = rows != 0
         occ = prefix_eq_ranks(rows)
@@ -54,11 +66,30 @@ def panel_probe_plain(rows: torch.Tensor, lens: torch.Tensor | None, table: torc
             rows != SENTINEL)
         occ = occ_ranks(rows)
         sk_lens = lens
-    counts = lookup_intersection_counts_masked(rows, valid, occ, table, num_refs)
+    return lookup_intersection_counts_masked(rows, valid, occ, table, num_refs), sk_lens
+
+
+def panel_probe_plain(rows: torch.Tensor, lens: torch.Tensor | None, table: torch.Tensor,
+                      num_refs: int, min_diff: int, min_matches: int) -> torch.Tensor:
+    from rkmh_tpu_torch.classify.engine import argmax_stream
+
+    counts, sk_lens = _plain_counts(rows, lens, table, num_refs)
     return pack_result(*argmax_stream(counts, min_diff, min_matches, sk_lens))
 
 
-def _panel_probe_cuda(rows, lens, table, num_refs, min_diff, min_matches):
+def panel_probe_filter_plain(rows: torch.Tensor, lens: torch.Tensor | None,
+                             table: torch.Tensor, num_refs: int, ref_lens: torch.Tensor,
+                             min_diff: int, min_matches: int) -> torch.Tensor:
+    from rkmh_tpu_torch.classify.engine import argmax_filter
+
+    counts, sk_lens = _plain_counts(rows, lens, table, num_refs)
+    return pack_filter_result(*argmax_filter(counts, min_diff, min_matches, sk_lens,
+                                             ref_lens))
+
+
+def _cuda_args(rows, lens, table, num_refs):
+    """Checks what the kernel takes; -> (rows, lens, table, log2 buckets,
+    slots, mask words), contiguous."""
     if rows.dtype != torch.int64 or rows.dim() != 2:
         raise ValueError(f"panel probe takes [B, n] int64 rows, got "
                          f"{tuple(rows.shape)} {rows.dtype}")
@@ -82,10 +113,29 @@ def _panel_probe_cuda(rows, lens, table, num_refs, min_diff, min_matches):
         if lens.shape != (B,) or lens.device != rows.device:
             raise ValueError("lens must be [B] on the rows' device")
         lens = lens.to(torch.int32).contiguous()
+    return rows, lens, table, nb.bit_length() - 1, S, Wm
+
+
+def _panel_probe_cuda(rows, lens, table, num_refs, min_diff, min_matches):
+    rows, lens, table, log2nb, S, Wm = _cuda_args(rows, lens, table, num_refs)
+    B, n = rows.shape
     out = torch.empty((3, B), dtype=torch.int32, device=rows.device)
     if B:
-        kernels.PANEL_PROBE(rows, lens, B, n, table, nb.bit_length() - 1, S, Wm,
-                            num_refs, min_diff, min_matches, out)
+        kernels.PANEL_PROBE(rows, lens, B, n, table, log2nb, S, Wm, num_refs, min_diff,
+                            min_matches, out)
+    return out
+
+
+def _panel_probe_filter_cuda(rows, lens, table, num_refs, ref_lens, min_diff, min_matches):
+    rows, lens, table, log2nb, S, Wm = _cuda_args(rows, lens, table, num_refs)
+    if ref_lens.shape != (num_refs,) or ref_lens.device != rows.device:
+        raise ValueError("ref_lens must be [num_refs] on the rows' device")
+    ref_lens = ref_lens.to(torch.int32).contiguous()
+    B, n = rows.shape
+    out = torch.empty((5, B), dtype=torch.int32, device=rows.device)
+    if B:
+        kernels.PANEL_PROBE_FILTER(rows, lens, B, n, table, log2nb, S, Wm, num_refs,
+                                   ref_lens, min_diff, min_matches, out)
     return out
 
 
@@ -97,3 +147,17 @@ def panel_probe(rows: torch.Tensor, lens: torch.Tensor | None, table: torch.Tens
     if rows.device.type != "cpu":
         raise ValueError(f"no panel-probe path for device {rows.device}")
     return panel_probe_plain(rows, lens, table, num_refs, min_diff, min_matches)
+
+
+def panel_probe_filter(rows: torch.Tensor, lens: torch.Tensor | None, table: torch.Tensor,
+                       num_refs: int, ref_lens: torch.Tensor, min_diff: int,
+                       min_matches: int) -> torch.Tensor:
+    """[B, n] int64 rows + the references' sketch lengths [R] -> int32
+    [5, B] (best, shared, total_union, keep, flags)."""
+    if rows.device.type == "cuda":
+        return _panel_probe_filter_cuda(rows, lens, table, num_refs, ref_lens, min_diff,
+                                        min_matches)
+    if rows.device.type != "cpu":
+        raise ValueError(f"no panel-probe path for device {rows.device}")
+    return panel_probe_filter_plain(rows, lens, table, num_refs, ref_lens, min_diff,
+                                    min_matches)

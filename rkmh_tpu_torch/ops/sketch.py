@@ -1,7 +1,8 @@
-"""Bottom-s MinHash sketches of window-hash rows.
+"""Bottom-s MinHash sketches of window-hash rows, and depth masks.
 
 Counterpart of ``rkmh_tpu/ops/sketch.py`` (``SENTINEL`` :20,
-``bottom_s_sketch`` :46): sort each row ascending as uint64, with the
+``bottom_s_sketch`` :46, ``mask_by_frequency`` :64,
+``mask_by_frequency_range`` :73): sort each row ascending as uint64, with the
 invalid hash 0 sent to SENTINEL so it sorts last, and keep the first
 min(s, W) columns.  Hashes are int64 bit patterns, so the unsigned sort is
 a signed ``torch.sort`` of ``x ^ INT64_MIN``, flipped back afterwards.
@@ -24,3 +25,17 @@ def bottom_s_sketch(hashes: torch.Tensor, sketch_size: int):
     sk = x[..., : min(sketch_size, x.shape[-1])]
     lens = (sk != SENTINEL).sum(dim=-1, dtype=torch.int32)
     return sk, lens
+
+
+def mask_by_frequency(hashes: torch.Tensor, counts: torch.Tensor, min_occ: int) -> torch.Tensor:
+    """Hashes whose counted depth is >= min_occ, 0 elsewhere (stream and
+    hpv16 -M, rkmh.cpp:916, 2663)."""
+    return torch.where(counts >= min_occ, hashes, torch.zeros_like(hashes))
+
+
+def mask_by_frequency_range(hashes: torch.Tensor, counts: torch.Tensor, min_occ: int,
+                            max_occ: int) -> torch.Tensor:
+    """Hashes whose count lies in [min_occ, max_occ], 0 elsewhere (-I keeps
+    (0, max_samples), rkmh.cpp:835-836)."""
+    keep = (counts >= min_occ) & (counts <= max_occ)
+    return torch.where(keep, hashes, torch.zeros_like(hashes))

@@ -18,8 +18,12 @@ The tests and ``chip_smoke.py`` use them in place of real reference data.
   around) with ~8% substitutions.  The noise is substitutions only: real
   nanopore reads also carry indels, which this model leaves out.
 
-    python -m rkmh_tpu_torch.synth --out-dir DIR [--reads N] [--seed S]
-    python -m rkmh_tpu_torch.synth --hpv16 --out-dir DIR [--reads N] [--seed S]
+``n_rate`` (``--n-rate``) sets the share of bases turned to ``N`` (stream
+reads: 0.001 by default; hpv16 reads: none by default), so that reads
+hold invalid k-mers, whose hash is 0.
+
+    python -m rkmh_tpu_torch.synth --out-dir DIR [--reads N] [--seed S] [--n-rate F]
+    python -m rkmh_tpu_torch.synth --hpv16 --out-dir DIR [--reads N] [--seed S] [--n-rate F]
 
 write DIR/refs.fa and DIR/reads.fq, or the refpath DIR/all_pave_ref.fa,
 DIR/new_refs.fa and the reads DIR/reads.fq.
@@ -90,7 +94,7 @@ def write_fastq(path: str, seqs: np.ndarray, first: int = 0, mode: str = "w"):
 
 def write_workload(out_dir: str, n_reads: int, read_len: int = READ_LEN,
                    num_refs: int = NUM_REFS, genome_len: int = GENOME_LEN,
-                   seed: int = 0, chunk: int = 1 << 16):
+                   seed: int = 0, chunk: int = 1 << 16, n_rate: float = N_RATE):
     """Write out_dir/refs.fa and out_dir/reads.fq; returns (refs path,
     reads path, ref names, [n_reads] source index of every read)."""
     os.makedirs(out_dir, exist_ok=True)
@@ -101,7 +105,8 @@ def write_workload(out_dir: str, n_reads: int, read_len: int = READ_LEN,
     srcs = []
     for first in range(0, n_reads, chunk):
         n = min(chunk, n_reads - first)
-        seqs, src = make_reads(genomes, n, read_len, seed=seed + 1 + first // chunk)
+        seqs, src = make_reads(genomes, n, read_len, n_rate=n_rate,
+                               seed=seed + 1 + first // chunk)
         write_fastq(reads, seqs, first, mode="w" if first == 0 else "a")
         srcs.append(src)
     if not srcs:
@@ -162,10 +167,13 @@ def make_hpv16_panel(seed: int = 0, num_types: int = HPV16_NUM_TYPES,
 
 def make_nanopore_reads(n: int, seed: int, panel: Hpv16Panel,
                         mean_len: int = NANOPORE_MEAN_LEN, min_len: int = NANOPORE_MIN_LEN,
-                        max_len: int = NANOPORE_MAX_LEN, sub_rate: float = NANOPORE_SUB_RATE):
+                        max_len: int = NANOPORE_MAX_LEN, sub_rate: float = NANOPORE_SUB_RATE,
+                        n_rate: float = 0.0):
     """-> (n ASCII reads of varying length, the type name each was drawn
     from).  A share FROM_SUBLINEAGE of the reads comes from the sublineage
-    genomes (type HPV16), the rest from the other types."""
+    genomes (type HPV16), the rest from the other types; a share n_rate of
+    bases becomes N (drawn only when n_rate > 0, so the reads of a seed
+    stay the same without it)."""
     rng = np.random.default_rng(seed)
     sigma = NANOPORE_LEN_SIGMA
     lens = np.clip(rng.lognormal(np.log(mean_len) - sigma**2 / 2, sigma, n),
@@ -183,7 +191,10 @@ def make_nanopore_reads(n: int, seed: int, panel: Hpv16Panel,
         codes = genome[(rng.integers(len(genome)) + np.arange(length)) % len(genome)]
         if rng.random() < 0.5:
             codes = 3 - codes[::-1]  # the other strand
-        reads.append(_ACGTN[_substitute(codes, sub_rate, rng)])
+        codes = _substitute(codes, sub_rate, rng)
+        if n_rate > 0:
+            codes[rng.random(codes.shape) < n_rate] = 4  # N
+        reads.append(_ACGTN[codes])
     return reads, truth
 
 
@@ -209,11 +220,12 @@ def write_hpv16_refpath(out_dir: str, seed: int = 0, **panel_kw) -> Hpv16Panel:
     return panel
 
 
-def write_hpv16_workload(out_dir: str, n_reads: int, seed: int = 0, **panel_kw):
+def write_hpv16_workload(out_dir: str, n_reads: int, seed: int = 0, n_rate: float = 0.0,
+                         **panel_kw):
     """The refpath plus out_dir/reads.fq of n_reads nanopore-like reads;
     returns (reads path, the type name each read was drawn from)."""
     panel = write_hpv16_refpath(out_dir, seed, **panel_kw)
-    reads, truth = make_nanopore_reads(n_reads, seed + 1, panel)
+    reads, truth = make_nanopore_reads(n_reads, seed + 1, panel, n_rate=n_rate)
     path = os.path.join(out_dir, "reads.fq")
     write_fastq_records(path, reads)
     return path, truth
@@ -227,15 +239,20 @@ def main(argv=None) -> int:
     ap.add_argument("--refs", type=int, default=NUM_REFS)
     ap.add_argument("--genome-len", type=int, default=GENOME_LEN)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-rate", type=float, default=None,
+                    help=f"share of bases turned to N (default {N_RATE} for stream "
+                         "reads, 0 for hpv16 reads)")
     ap.add_argument("--hpv16", action="store_true",
                     help="write an hpv16 refpath and nanopore-like reads instead "
                          "(--read-len, --refs and --genome-len do not apply)")
     args = ap.parse_args(argv)
     if args.hpv16:
-        write_hpv16_workload(args.out_dir, args.reads, args.seed)
+        write_hpv16_workload(args.out_dir, args.reads, args.seed,
+                             n_rate=args.n_rate or 0.0)
     else:
         write_workload(args.out_dir, args.reads, args.read_len, args.refs,
-                       args.genome_len, args.seed)
+                       args.genome_len, args.seed,
+                       n_rate=N_RATE if args.n_rate is None else args.n_rate)
     return 0
 
 

@@ -5,9 +5,10 @@ cut down to 12 types x ~2 kb plus HPV16 sublineages) and the same
 nanopore-like reads (300-3,000 bp, made from a seed); the port runs its
 plain path on the CPU.  Cases: -k 16, -k 16 -k 18 (tables at ks[0],
 reads at both), a refpath with one lineage letter (the single-group
-family skips the subtraction), and a batch that holds one long read among
-short ones (the probe width comes from the unpadded lengths).  Hashes
->= 2**63 appear throughout.  Tolerance: none; every output is integer or
+family skips the subtraction), a batch that holds one long read among
+short ones (the probe width comes from the unpadded lengths), and -M on
+reads with N bases (small counters that force collisions, a power of two
+and a decimal prime).  Hashes >= 2**63 appear throughout.  Tolerance: none; every output is integer or
 text and must be equal byte for byte.
 """
 
@@ -55,12 +56,13 @@ def data(tmp_path_factory):
     skew, _ = synth.make_nanopore_reads(40, 7, full, mean_len=1100, min_len=300, max_len=1200)
     skew[17] = synth.make_nanopore_reads(1, 8, full, mean_len=3000, min_len=3000,
                                          max_len=3000)[0][0]
+    with_n, _ = synth.make_nanopore_reads(40, 9, full, n_rate=0.01, **kw)
     return {"full": str(d / "full"), "one": str(d / "one"),
             "mixed": _reads(d / "mixed.fq", mixed), "mixed_one": _reads(d / "mixed1.fq", mixed_one),
-            "skew": _reads(d / "skew.fq", skew)}
+            "skew": _reads(d / "skew.fq", skew), "with_n": _reads(d / "with_n.fq", with_n)}
 
 
-def _run_both(tmp_path, monkeypatch, refpath, reads, ks, batch_size=8):
+def _run_both(tmp_path, monkeypatch, refpath, reads, ks, batch_size=8, **kw):
     out, tst = {}, {}
     for name, mod, extra in (("jax", jcmd, {}), ("torch", hpv16_cmd, {"device": "cpu"})):
         wd = tmp_path / name
@@ -68,7 +70,7 @@ def _run_both(tmp_path, monkeypatch, refpath, reads, ks, batch_size=8):
         monkeypatch.chdir(wd)  # the .tst side file lands in the working directory
         buf = io.StringIO()
         assert mod.run(mod.Hpv16Config(read_files=[reads], refpath=refpath, ks=ks,
-                                       batch_size=batch_size, **extra), out=buf) == 0
+                                       batch_size=batch_size, **kw, **extra), out=buf) == 0
         out[name] = buf.getvalue()
         tst[name] = (wd / f"lineage_specific_hashes.{ks[0]}.tst").read_text()
     return out, tst
@@ -89,6 +91,22 @@ def test_hpv16_output_byte_identical_to_jax(data, tmp_path, monkeypatch, refpath
     assert any(int(ln.split("\t")[2].split("/")[0]) > 0 for ln in lines)  # reads do match
 
 
+@pytest.mark.parametrize("ks,kw", [
+    ((16,), dict(min_kmer_occ=2, counter_size=65536)),
+    ((16, 18), dict(min_kmer_occ=3, counter_size=100_003)),
+], ids=["M2-pow2", "M3-prime-k16-k18"])
+def test_hpv16_M_byte_identical_to_jax(data, tmp_path, monkeypatch, ks, kw):
+    out, tst = _run_both(tmp_path, monkeypatch, data["full"], data["with_n"], ks, **kw)
+    assert len(out["jax"].splitlines()) == 40
+    assert out["torch"] == out["jax"]
+    assert tst["torch"] == tst["jax"]
+    plain = io.StringIO()  # the counter changed what the reads share
+    hpv16_cmd.run(hpv16_cmd.Hpv16Config(read_files=[data["with_n"]], refpath=data["full"],
+                                        ks=ks, batch_size=8, tst_file=False, device="cpu"),
+                  out=plain)
+    assert plain.getvalue() != out["torch"]
+
+
 def test_cli_hpv16_matches_jax(data, tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     out = str(tmp_path / "out.tsv")
@@ -103,8 +121,9 @@ def test_cli_hpv16_matches_jax(data, tmp_path, monkeypatch, capsys):
         assert fh.read() == want.getvalue()
 
 
-@pytest.mark.parametrize("flag", [["-M", "2"], ["--devices", "2"], ["--resume"], ["--tp", "2"],
-                                  ["--dist-procs", "2"], ["--counter-size", "4096"]])
+@pytest.mark.parametrize("flag", [["--dist-coordinator", "h:1"], ["--devices", "2"],
+                                  ["--resume"], ["--tp", "2"], ["--dist-procs", "2"],
+                                  ["--metrics"]])
 def test_cli_rejects_flags_not_yet_ported(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["hpv16", "-f", "reads.fq", "-R", "refs", *flag])
@@ -113,8 +132,8 @@ def test_cli_rejects_flags_not_yet_ported(flag, capsys):
 
 
 def test_run_rejects_config_not_yet_ported():
-    with pytest.raises(ValueError, match="-M, --tp not yet ported"):
-        hpv16_cmd.run(hpv16_cmd.Hpv16Config(min_kmer_occ=2, tp=2, device="cpu"))
+    with pytest.raises(ValueError, match="--resume, --tp not yet ported"):
+        hpv16_cmd.run(hpv16_cmd.Hpv16Config(min_kmer_occ=2, resume=True, tp=2, device="cpu"))
 
 
 def test_table_past_the_cap_names_the_missing_fallback(data, tmp_path, monkeypatch):

@@ -14,10 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from rkmh_tpu_torch.ops import gather, kernels
+from rkmh_tpu_torch.ops import counter, gather, kernels
 from rkmh_tpu_torch.ops.hashing import kmer_window_hashes_plain, multi_k_window_hashes
 from rkmh_tpu_torch.ops.lookup import build_panel_table, build_set_table
-from rkmh_tpu_torch.ops.probe import panel_probe, panel_probe_plain
+from rkmh_tpu_torch.ops.probe import (
+    panel_probe,
+    panel_probe_filter,
+    panel_probe_filter_plain,
+    panel_probe_plain,
+)
 from rkmh_tpu_torch.ops.set_probe import set_probe, set_probe_plain
 from rkmh_tpu_torch.ops.sketch import SENTINEL, bottom_s_sketch
 
@@ -93,6 +98,27 @@ def test_panel_probe_kernel_matches_plain(cuda_device, R, width):
             want = panel_probe_plain(rows, ln, table, R, md, mm)
             assert torch.equal(got, want), (R, width, ln is None, md, mm)
     assert int(want[1].max()) > 0  # reads do match the panel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,width", [(1, 64), (40, 149), (300, 256), (60, 7000)])
+def test_panel_probe_filter_kernel_matches_plain(cuda_device, R, width):
+    table, raw = _panel(R + width + 1, R, 64, 96, width)
+    raw[:4] = 0  # reads with no valid hash: depth fails, best -1
+    raw[4:8] = torch.randint(1, 2**62, (4, width))  # reads that match nothing
+    ref_lens = torch.from_numpy(np.random.default_rng(R).integers(0, 80, R).astype(np.int32))
+    table, raw, ref_lens = table.to(cuda_device), raw.to(cuda_device), ref_lens.to(cuda_device)
+    sk, lens = bottom_s_sketch(raw, width if width > 1000 else width // 2)
+    cases = [(sk, lens)] + ([(raw, None)] if width <= 256 else [])
+    before = kernels.PANEL_PROBE_FILTER.launches
+    for rows, ln in cases:
+        for md, mm in ((0, -1), (1, 3), (0, 30), (-1, 0)):
+            got = panel_probe_filter(rows, ln, table, R, ref_lens, md, mm)
+            torch.cuda.synchronize()
+            want = panel_probe_filter_plain(rows, ln, table, R, ref_lens, md, mm)
+            assert torch.equal(got, want), (R, width, ln is None, md, mm)
+    assert kernels.PANEL_PROBE_FILTER.launches == before + 4 * len(cases)
+    assert int(want[1].max()) > 0 and (want[0, :8] == -1).all()
 
 
 @pytest.mark.cuda
@@ -183,11 +209,55 @@ def test_lut_gather_kernels_match_plain(cuda_device, N):
     assert torch.equal(got, gather.lut_gather_lanes_plain(lut, idx))
 
 
+def _hashes(seed, shape):
+    """Random int64 hashes, a third >= 2**63 as uint64, with zeros and
+    repeats; plus a random mask."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(-(2**63), 2**63 - 1, size=shape, dtype=np.int64)
+    h[rng.random(shape) < 0.05] = 0
+    flat = h.reshape(-1)
+    flat[1::5] = flat[::5][: flat[1::5].size]
+    return torch.from_numpy(h), torch.from_numpy(rng.random(shape) < 0.8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [200_000_000, 10_000_000, 2**27, 1009, 1])
+def test_counter_kernels_match_plain(cuda_device, size):
+    hashes, mask = _hashes(size % 1000, (300, 149))
+    table = torch.zeros(size, dtype=torch.int32)
+    counter.counter_add_plain(table, hashes, mask)
+    counter.counter_add_plain(table, hashes[:7], None)
+    got = torch.zeros(size, dtype=torch.int32, device=cuda_device)
+    h, m = hashes.to(cuda_device), mask.to(cuda_device)
+    before = (kernels.COUNTER_ADD.launches, kernels.COUNTER_MASK.launches)
+    counter.counter_add(got, h, m)
+    counter.counter_add(got, h[:7], None)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), table)
+    assert int(table[0]) > 0  # hash 0 counts in slot 0
+    for lo, hi in ((2, counter.INT32_MAX), (0, 3), (1, 1), (-5, 2**40)):
+        want = counter.counter_mask(table, hashes, lo, hi)
+        assert torch.equal(counter.counter_mask(got, h, lo, hi).cpu(), want), (lo, hi)
+    assert (kernels.COUNTER_ADD.launches, kernels.COUNTER_MASK.launches) == (
+        before[0] + 2, before[1] + 4)
+
+
+@pytest.mark.cuda
+def test_counter_kernels_skip_empty_inputs(cuda_device):
+    table = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    empty = torch.zeros((3, 0), dtype=torch.int64, device=cuda_device)
+    before = kernels.launch_counts()
+    counter.counter_add(table, empty, torch.zeros((3, 0), dtype=torch.bool, device=cuda_device))
+    assert counter.counter_mask(table, empty, 0, 1).shape == (3, 0)
+    assert kernels.launch_counts() == before and int(table.sum()) == 0
+
+
 def test_library_is_keyed_by_sources_and_flags(monkeypatch):
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR and path == kernels.library_path()
     assert {p.name for p in kernels.sources()} == {"window_hash.cu", "panel_probe.cu",
-                                                   "set_probe.cu", "lut_gather.cu"}
+                                                   "set_probe.cu", "lut_gather.cu",
+                                                   "counter.cu"}
     monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-lineinfo",))
     assert kernels.library_path() != path
 
@@ -202,5 +272,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_launch_counts_reset():
     kernels.WINDOW_HASH.launches = 3
     kernels.reset_launch_counts()
-    assert kernels.launch_counts() == {"window_hash": 0, "panel_probe": 0, "set_probe": 0,
-                                       "lut_gather_rows": 0, "lut_gather_lanes": 0}
+    assert kernels.launch_counts() == {"window_hash": 0, "panel_probe": 0,
+                                       "panel_probe_filter": 0, "set_probe": 0,
+                                       "lut_gather_rows": 0, "lut_gather_lanes": 0,
+                                       "counter_add": 0, "counter_mask": 0}

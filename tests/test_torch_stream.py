@@ -4,8 +4,11 @@ Both packages classify the same synthetic files (rkmh_tpu_torch.synth,
 made from a seed): zika-shaped short reads at k=12 s=1000 (W <= s),
 long reads at s=50 (W > s), -k 12 -k 16, -N/-D thresholds, and reads of
 mixed lengths (empty and shorter than k included) split over several
-chunks and batches.  The port runs its plain path on the CPU.  Also: the
-CLI surface, and that the port never imports JAX.
+chunks and batches; -M, -I and both, on small counters that force
+collisions (a decimal prime and a power of two), reads with N bases.  The
+port runs its plain path on the CPU.  Also: the CLI surface (rkmh's dead
+parity flags accepted with rkmh-tpu's warnings), and that the port never
+imports JAX.
 """
 
 import io
@@ -66,12 +69,20 @@ def _both(workload, reads, **kw):
     (["short"], dict(ks=(12, 16), sketch_size=1000)),
     (["short", "long"], dict(ks=(12,), sketch_size=1000, min_matches=12, min_diff=3)),
     (["mixed"], dict(ks=(12,), sketch_size=200, batch_size=16, chunk_reads=50)),
-], ids=["k12-s1000", "long-s50", "k12-k16", "N-D", "mixed-lengths"])
+    (["short"], dict(ks=(12,), sketch_size=1000, min_kmer_occ=2, counter_size=65521)),
+    (["short", "long"], dict(ks=(12,), sketch_size=1000, max_samples=3, counter_size=4096)),
+    (["mixed", "short"], dict(ks=(12, 16), sketch_size=50, min_kmer_occ=2, max_samples=4,
+                              counter_size=16384, batch_size=16, chunk_reads=50)),
+], ids=["k12-s1000", "long-s50", "k12-k16", "N-D", "mixed-lengths", "M", "I", "M-I"])
 def test_stream_output_byte_identical_to_jax(workload, reads, kw):
     want, got = _both(workload, reads, **kw)
     n_reads = sum(1 for r in reads for _ in open(workload[r]) if _[0] in "@>")
     assert len(want.splitlines()) == n_reads
     assert got == want
+    counted = {"min_kmer_occ", "max_samples", "counter_size"}
+    if counted & set(kw):  # the counters changed some lines
+        plain = {k: v for k, v in kw.items() if k not in counted}
+        assert _both(workload, reads, **plain)[1] != got
 
 
 def test_cli_stream_matches_jax(workload, tmp_path, capsys):
@@ -86,7 +97,25 @@ def test_cli_stream_matches_jax(workload, tmp_path, capsys):
         assert fh.read() == want.getvalue()
 
 
-@pytest.mark.parametrize("flag", [["-M", "2"], ["-I", "3"], ["-i"], ["--devices", "2"],
+def test_cli_accepts_dead_parity_flags_as_jax_does(workload, tmp_path, capsys):
+    """rkmh's parsed-but-dead flags run with rkmh-tpu's warnings, and the
+    output is rkmh-tpu's; rkmh-tpu-torch exited 2 on them before."""
+    from rkmh_tpu.cli import main as jax_main
+
+    argv = ["stream", "-r", workload["refs"], "-f", workload["short"], "-k", "12",
+            "-S", "5", "-z", "-m", "-F", "pre.fq", "-F", "pre2.fq", "-p", "r.map",
+            "-q", "q.map", "-d"]
+    out = str(tmp_path / "out.tsv")
+    assert jax_main([*argv, "-o", out + ".jax"]) == 0
+    want_err = [ln for ln in capsys.readouterr().err.splitlines() if "warning" in ln]
+    assert cli.main([*argv, "--device", "cpu", "-o", out]) == 0
+    got_err = [ln for ln in capsys.readouterr().err.splitlines() if "warning" in ln]
+    assert len(want_err) == 5 and got_err == want_err
+    with open(out) as a, open(out + ".jax") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("flag", [["-R", "x.json"], ["--metrics"], ["-i"], ["--devices", "2"],
                                   ["--resume"], ["--ref-sketches", "x.json"]])
 def test_cli_rejects_flags_not_yet_ported(flag, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -111,6 +140,7 @@ def test_port_never_imports_jax():
             "import rkmh_tpu_torch.cli, rkmh_tpu_torch.commands.stream\n"
             "import rkmh_tpu_torch.convert, rkmh_tpu_torch.synth, rkmh_tpu_torch.ops.kernels\n"
             "import rkmh_tpu_torch.commands.hpv16_cmd, rkmh_tpu_torch.bench.bench_gather\n"
+            "import rkmh_tpu_torch.commands.filter_cmd, rkmh_tpu_torch.ops.counter\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rkmh_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
