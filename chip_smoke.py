@@ -10,14 +10,27 @@ line) without CUDA or without the package beside it.  In order it:
 2. builds the CUDA kernels from ``rkmh_tpu_torch/csrc`` (one nvcc per
    source, in parallel) and times the build;
 3. checks the window-hash kernel (K1) bit for bit against its plain
-   PyTorch version on the card: random codes with invalid bases,
-   k in {4, 12, 16, 17, 31, 32, 33} and multi-k;
+   PyTorch version on the card: random codes with invalid bases, poly-A
+   and (AC)n rows, k in {1, 4, 12, 16, 17, 18, 31, 32, 33, 64} (packed
+   variant to 32, one instance compiled for each k; byte-wise above) and
+   multi-k;
 4. checks the panel-probe kernel (K2) against its plain version on a
    synthetic zika-shaped panel (60 refs, k=12, s=1000) at B=16384, in
-   both row modes and with thresholds; best, shared and flags must be
-   equal;
+   both row modes and with thresholds, and prints the probes, hits and
+   mask bits per read; then on duplicate-heavy rows (a value 40 times, a
+   row of one value) with R = 60, 200 and 257 (counters in 2 registers,
+   in 8, in shared memory), both row modes and both epilogues, and on raw
+   rows of 1,000 and 12,000 hashes (ranks tables of 3n and of n slots
+   per read, one of them filled by a row of distinct values); outputs
+   must be equal;
 5. times both kernels and their plain versions at the stream slice's
-   shapes (B=16384, L=160, k=12, zika table) with CUDA events;
+   shapes (B=16384, L=160, k=12, zika table) with CUDA events, and
+   computes their bounds (``bench/bounds.py``: bytes over 3.35 TB/s).
+   Every kernel's (and library call's) time is device time, its calls
+   replayed from a CUDA graph (``bench/timing.cuda_graph_time_ms``); an
+   eager loop of a tens-of-microseconds kernel measures its Python
+   wrapper, so that time is kept beside it as ``eager_ms``; plain
+   versions are timed eagerly;
 6. drives the stream slice: synthetic 60 x 10,807 bp panel and 2**20
    reads of 150 bp through ``commands.stream.run`` (k=12, s=1000, device
    cuda), with the launch counters zeroed just before and read just
@@ -26,13 +39,15 @@ line) without CUDA or without the package beside it.  In order it:
    reads; it reports e2e reads/s, device-step reads/s over resident
    batches and the share of reads assigned to their source genome;
 7. checks the LUT-gather kernels (K4, K5) bit for bit against their plain
-   versions at every N of the gather sweep and times both;
+   versions at every N of the gather sweep and times both, beside one
+   ``torch.gather`` on an int64 index (the library yardstick);
 8. drives the gather path, ``rkmh_tpu_torch.bench.bench_gather.main()``,
    with the counters zeroed just before and read just after;
 9. builds the hpv16 tables on the card from a synthetic full-width
    refpath (182 types of ~7.9 kb, 10 sublineages, k=18) and checks the
-   set-probe kernel (K3) against its plain version on 512 nanopore-like
-   reads and on one 40 kb read, outputs exactly equal; times both;
+   set-probe kernel (K3) against its plain version (and K1 against its
+   own) on 512 nanopore-like reads and on one 40 kb read, outputs
+   exactly equal; times both and counts the table sectors K3 reaches;
 10. drives the hpv16 slice: 12,800 reads (~57 Mbp) through
     ``commands.hpv16_cmd.run`` (k=18, batch 512, device cuda) in a
     temporary working directory, counters zeroed just before and read
@@ -68,7 +83,12 @@ line) without CUDA or without the package beside it.  In order it:
     the CPU; reports e2e Mbp/s.
 
 The last three lines are the card's name and power limit, the kernels'
-JSON record and ``{"ok": true, "device": {...}}``.  Any failure raises.
+JSON record (per kernel: launches on the driven paths, in all and by
+path, max_abs_err against the plain version, ms, eager_ms, plain_ms, bound_ms,
+bound_by, bound_share = bound_ms / ms, and library_ms, one PyTorch call
+computing the same function where there is one: ``torch.gather`` for K4
+and K5, none for the others) and ``{"ok": true, "device": {...}}``.  Any
+failure raises.
 """
 
 from __future__ import annotations
@@ -83,7 +103,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 N_SLICE_READS = 1 << 20
 N_CPU_LINES = 16384
 B = 16384
-KS_K1 = (4, 12, 16, 17, 31, 32, 33)
+KS_K1 = (1, 4, 12, 16, 17, 18, 31, 32, 33, 64)  # packed k <= 32, byte-wise above
 GATHER_NS = (8, 64, 512, 4096, 16384)
 N_HPV16_READS = 12800
 N_HPV16_CPU_LINES = 64
@@ -128,10 +148,13 @@ def check_k1(dev) -> int:
     from rkmh_tpu_torch.ops.hashing import kmer_window_hashes_plain, multi_k_window_hashes
 
     rng = np.random.default_rng(7)
-    codes = rng.integers(0, 4, size=(2048, 160), dtype=np.uint8)
+    # 2047 rows: the flattened windows end inside a block of the packed variant
+    codes = rng.integers(0, 4, size=(2047, 160), dtype=np.uint8)
     codes[rng.random(codes.shape) < 0.01] = 4
     codes[rng.random(codes.shape) < 0.005] = 255
     codes[:, 150:] = 255
+    codes[:16, :150] = 0  # duplicate-heavy: poly-A reads and (AC)n repeats
+    codes[16:32, :150] = np.arange(150) % 2
     x = torch.from_numpy(codes).to(dev)
     worst = 0
     for k in KS_K1:
@@ -162,9 +185,10 @@ def zika_panel(dev):
     return build_ref_panel(PyPacked(recs), (12,), 1000, dev), genomes
 
 
-def check_k2(dev, panel, genomes) -> tuple[int, object]:
+def check_k2(dev, panel, genomes) -> tuple:
     import torch
 
+    from rkmh_tpu_torch.bench import bounds
     from rkmh_tpu_torch import synth
     from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
     from rkmh_tpu_torch.ops.probe import _panel_probe_cuda, panel_probe_plain
@@ -190,19 +214,114 @@ def check_k2(dev, panel, genomes) -> tuple[int, object]:
                 if err or not torch.equal(got, want):
                     raise AssertionError(f"panel-probe kernel disagrees in mode {mode}")
                 worst = max(worst, err)
-    return worst, (codes, hashes)
+    # the counting design's premise: hits are a minority of the probes
+    st = bounds.panel_probe_stats(hashes, None, panel.table, R)
+    say(f"K2 raw rows: {st.probes / B:.2f} probes, {st.hits / B:.2f} hits per read; a hit's "
+        f"mask holds {st.mask_bits / max(st.hits, 1):.2f} of {R} reference bits; the probes "
+        f"reach {st.table_bytes} bytes of the {panel.table.numel() * 4}-byte table")
+    return worst, (codes, hashes), st
 
 
-def time_kernels(panel, codes, hashes) -> dict:
-    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+def dup_heavy_panel(dev, R: int, n_reads: int, width: int = 149):
+    """A table over R random references in which references 0 and R-1
+    hold one value 40 times, and raw rows of `width` hashes drawn from the
+    same pool: a third hold that value 40 times, a third nothing else (a
+    low-complexity read), a third two values alternating; 5% zeros.  The
+    last row holds distinct values (60 from the pool), so a ranks table of
+    one slot per element fills up."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch.ops.lookup import build_panel_table
+    from rkmh_tpu_torch.ops.sketch import SENTINEL
+
+    rng = np.random.default_rng(R)
+    pool = rng.integers(1, 2**63, size=4096, dtype=np.int64)
+    pool[::3] |= np.int64(-(2**63))
+    v = pool[0]
+    sk = np.full((R, 1000), SENTINEL, dtype=np.int64)
+    for r in range(R):
+        vals = rng.choice(pool[1:], 1000)
+        if r in (0, R - 1):
+            vals[:40] = v
+        sk[r] = np.sort(vals.view(np.uint64)).view(np.int64)
+    table = build_panel_table(sk, np.full(R, 1000, np.int32)).table.view(np.int32)
+    rows = rng.choice(pool, size=(n_reads, width))
+    rows[0::3, rng.permutation(width)[:40]] = v
+    rows[1::3] = v
+    rows[2::3, ::2] = pool[5]
+    rows[rng.random(rows.shape) < 0.05] = 0
+    rows[-1] = rng.integers(1, 2**63, size=width)
+    rows[-1, :60] = np.unique(pool)[:60]
+    if np.unique(rows[-1]).size != width:
+        raise AssertionError("the distinct row repeats a value")
+    return torch.from_numpy(table).to(dev), torch.from_numpy(rows).to(dev)
+
+
+def check_k2_variants(dev) -> int:
+    """K2 on duplicate-heavy rows, with its counters in 2 registers (R =
+    60), in 8 (R = 200) and in shared memory (R = 257), both row modes,
+    both epilogues; B = 4099 is no multiple of the reads per block.  Then
+    raw rows wider than the engine sends (NOSORT_MAX_W = 256), which the
+    kernel takes: 1,000 (3n ranks slots per read, R = 60 and 257) and
+    12,000 (n slots: 3n do not fit in shared memory; the distinct row
+    fills its table), both epilogues."""
+    import torch
+
+    from rkmh_tpu_torch.ops.probe import (
+        _panel_probe_cuda,
+        _panel_probe_filter_cuda,
+        panel_probe_filter_plain,
+        panel_probe_plain,
+    )
+    from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+
+    worst = 0
+    cases = [(60, 149, 4099, "2 register counters"), (200, 149, 4099, "8 register counters"),
+             (257, 149, 4099, "shared counters"), (60, 1000, 99, "3n ranks slots"),
+             (257, 1000, 99, "3n ranks slots, shared counters"),
+             (60, 12000, 5, "n ranks slots")]
+    for R, width, n_reads, variant in cases:
+        table, raw = dup_heavy_panel(dev, R, n_reads, width)
+        ref_lens = torch.full((R,), 1000, dtype=torch.int32, device=dev)
+        modes = [("raw", raw, None)]
+        if width == 149:
+            modes.append(("sorted s=50", *bottom_s_sketch(raw, 50)))
+        for mode, rows, ln in modes:
+            got = _panel_probe_cuda(rows, ln, table, R, 1, 20)
+            want = panel_probe_plain(rows, ln, table, R, 1, 20)
+            got_f = _panel_probe_filter_cuda(rows, ln, table, R, ref_lens, 1, 20)
+            want_f = panel_probe_filter_plain(rows, ln, table, R, ref_lens, 1, 20)
+            err = max(max_abs_err(got, want), max_abs_err(got_f, want_f))
+            say(f"K2 duplicate-heavy R={R} width={width} ({variant}), {mode}: "
+                f"exact={err == 0}, max shared {int(want[1].max())}, distinct row shared "
+                f"{int(want[1, -1])}, flag histogram "
+                f"{torch.bincount(want[2], minlength=8).tolist()}")
+            if err or not (torch.equal(got, want) and torch.equal(got_f, want_f)):
+                raise AssertionError(f"panel-probe kernel disagrees on duplicate-heavy rows, "
+                                     f"R={R}, width={width}, {mode}")
+            worst = max(worst, err)
+        if int(want[1].max()) < 40:
+            raise AssertionError("the duplicate-heavy rows did not reach rank 40")
+    return worst
+
+
+def time_kernels(panel, codes, hashes, k2_stats) -> dict:
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
     from rkmh_tpu_torch.ops.hashing import _window_hashes_cuda, kmer_window_hashes_plain
     from rkmh_tpu_torch.ops.probe import _panel_probe_cuda, panel_probe_plain
 
     R = panel.num_refs
+    B = codes.shape[0]
+    rows_and_table = bounds.tensor_bytes(hashes) + k2_stats.table_bytes
     t = {
-        "window_hash": cuda_time_ms(lambda: _window_hashes_cuda(codes, [12], 42), 50),
+        "window_hash": cuda_graph_time_ms(lambda: _window_hashes_cuda(codes, [12], 42), 20),
+        "window_hash_eager": cuda_time_ms(lambda: _window_hashes_cuda(codes, [12], 42), 50),
         "window_hash_plain": cuda_time_ms(lambda: kmer_window_hashes_plain(codes, 12), 10),
-        "panel_probe": cuda_time_ms(
+        "panel_probe": cuda_graph_time_ms(
+            lambda: _panel_probe_cuda(hashes, None, panel.table, R, 0, -1), 20),
+        "panel_probe_eager": cuda_time_ms(
             lambda: _panel_probe_cuda(hashes, None, panel.table, R, 0, -1), 50),
         "panel_probe_plain": cuda_time_ms(
             lambda: panel_probe_plain(hashes, None, panel.table, R, 0, -1), 5),
@@ -210,7 +329,16 @@ def time_kernels(panel, codes, hashes) -> dict:
     for name, ms in t.items():
         say(f"time {name}: {ms:.4f} ms per call at B={codes.shape[0]}, "
             f"L={codes.shape[1]}, k=12, table {tuple(panel.table.shape)}")
-    return t
+    bound = {"window_hash": bounds.bound_ms(bounds.tensor_bytes(codes, hashes)),
+             "panel_probe": bounds.bound_ms(rows_and_table + 3 * 4 * B),
+             "panel_probe_filter": bounds.bound_ms(rows_and_table + 4 * R + 5 * 4 * B)}
+    say(f"bounds (ms, bytes over 3.35 TB/s): {bound}")
+    return t, bound
+
+
+def bound_fields(ms: float, bound_ms: float, library_ms=None) -> dict:
+    return {"bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / ms,
+            "library_ms": library_ms}
 
 
 def write_zika(tmp: str) -> dict:
@@ -271,7 +399,7 @@ def run_slice(dev, card: str, panel, zika: dict) -> dict:
     import torch
 
     from rkmh_tpu_torch import synth
-    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
     from rkmh_tpu_torch.classify import engine
     from rkmh_tpu_torch.commands import stream
 
@@ -329,12 +457,14 @@ def run_slice(dev, card: str, panel, zika: dict) -> dict:
 
 def check_gathers(dev) -> dict:
     """K4 at every N of the sweep and K5 against their plain versions;
-    returns {name: (max_abs_err, ms, plain_ms)} at the sweep's largest N
-    for K4 and at N = 512 for K5."""
+    returns {name: (max_abs_err, ms, plain_ms, library_ms, bound_ms)} at
+    the sweep's largest N for K4 and at N = 512 for K5.  The library call
+    is one ``torch.gather`` on an index made int64 before the timing."""
     import numpy as np
     import torch
 
-    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
     from rkmh_tpu_torch.ops import gather
 
     rng = np.random.default_rng(13)
@@ -350,11 +480,19 @@ def check_gathers(dev) -> dict:
         err = max_abs_err(got.long(), want.long())
         if err or not torch.equal(got, want):
             raise AssertionError(f"{name} kernel disagrees with the plain version at N={N}")
-        ms = cuda_time_ms(lambda: kern(lut, idx), 50)
+        idx64 = idx.long()
+        dim = 0 if name == "lut_gather_rows" else 1
+        if not torch.equal(torch.gather(lut, dim, idx64), want):
+            raise AssertionError(f"torch.gather does not compute {name}")
+        ms = cuda_graph_time_ms(lambda: kern(lut, idx), 50)
+        eager_ms = cuda_time_ms(lambda: kern(lut, idx), 50)
         plain_ms = cuda_time_ms(lambda: plain(lut, idx), 50)
+        library_ms = cuda_graph_time_ms(lambda: torch.gather(lut, dim, idx64), 50)
+        bound_ms = bounds.bound_ms(bounds.tensor_bytes(lut, idx, got))
         variant = gather.rows_variant(lut) if name == "lut_gather_rows" else "smem row"
-        say(f"{name} N={N} ({variant}): bit-exact=True, {ms:.4f} ms vs {plain_ms:.4f} ms plain")
-        res[name] = (err, ms, plain_ms)
+        say(f"{name} N={N} ({variant}): bit-exact=True, {ms:.4f} ms ({eager_ms:.4f} eager) vs "
+            f"{plain_ms:.4f} ms plain, {library_ms:.4f} ms torch.gather, bound {bound_ms:.6f} ms")
+        res[name] = (err, ms, plain_ms, library_ms, bound_ms, eager_ms)
     return res
 
 
@@ -379,11 +517,12 @@ def check_k3(dev, tb, packed, panel) -> tuple[int, dict]:
     import numpy as np
     import torch
 
+    from rkmh_tpu_torch.bench import bounds
     from rkmh_tpu_torch import synth
-    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
     from rkmh_tpu_torch.classify import engine
     from rkmh_tpu_torch.io.packing import encode_seqs
-    from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
+    from rkmh_tpu_torch.ops.hashing import kmer_window_hashes_plain, multi_k_window_hashes
     from rkmh_tpu_torch.ops.set_probe import _set_probe_cuda, set_probe_plain
     from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
 
@@ -397,8 +536,10 @@ def check_k3(dev, tb, packed, panel) -> tuple[int, dict]:
     for label, codes, ln in (("B=512 batch", batch, lens), ("one 40 kb read", long_codes,
                                                             long_lens)):
         x = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
-        full, sk_lens = bottom_s_sketch(multi_k_window_hashes(x, [HPV16_K]),
-                                        x.shape[1] - HPV16_K + 1)
+        hashes = multi_k_window_hashes(x, [HPV16_K])
+        if not torch.equal(hashes, kmer_window_hashes_plain(x, HPV16_K)):
+            raise AssertionError(f"window-hash kernel disagrees with the plain version on {label}")
+        full, sk_lens = bottom_s_sketch(hashes, x.shape[1] - HPV16_K + 1)
         Wc = engine.hpv16_compact_width(ln, x.shape[1], (HPV16_K,))
         rows = full[:, :Wc]
         got = _set_probe_cuda(rows, sk_lens, tb.comb_table, T, U)
@@ -411,14 +552,23 @@ def check_k3(dev, tb, packed, panel) -> tuple[int, dict]:
             raise AssertionError(f"set-probe kernel disagrees with the plain version on {label}")
         worst = max(worst, err)
         if not times:
-            times = {"set_probe": cuda_time_ms(
+            times = {"set_probe": cuda_graph_time_ms(
+                         lambda: _set_probe_cuda(rows, sk_lens, tb.comb_table, T, U), 10),
+                     "set_probe_eager": cuda_time_ms(
                          lambda: _set_probe_cuda(rows, sk_lens, tb.comb_table, T, U), 20),
                      "set_probe_plain": cuda_time_ms(
                          lambda: set_probe_plain(rows, sk_lens, tb.comb_table, T, U), 3,
                          warmup=1)}
-            say(f"time set_probe: {times['set_probe']:.4f} ms vs {times['set_probe_plain']:.4f}"
+            st = bounds.set_probe_stats(rows, sk_lens, tb.comb_table, T + U)
+            times["set_probe_bound"] = bounds.bound_ms(
+                bounds.read_row_bytes(rows, sk_lens) + bounds.tensor_bytes(sk_lens, got)
+                + st.table_bytes)
+            say(f"time set_probe: {times['set_probe']:.4f} ms ({times['set_probe_eager']:.4f} "
+                f"eager) vs {times['set_probe_plain']:.4f}"
                 f" ms plain per {HPV16_BATCH}-read batch, rows {tuple(rows.shape)}, "
-                f"table {tuple(tb.comb_table.shape)}")
+                f"table {tuple(tb.comb_table.shape)}; {st.probes} run starts probed, {st.hits} "
+                f"hit, {st.table_bytes} table bytes reached (of "
+                f"{tb.comb_table.numel() * 4}); bound {times['set_probe_bound']:.4f} ms")
     return worst, times
 
 
@@ -428,7 +578,7 @@ def run_hpv16(dev, card: str) -> dict:
     import torch
 
     from rkmh_tpu_torch import synth
-    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
     from rkmh_tpu_torch.classify import engine
     from rkmh_tpu_torch.commands import hpv16_cmd
     from rkmh_tpu_torch.commands.common import bucketed_batches, load_packed
@@ -565,7 +715,8 @@ def check_counters(dev, hashes) -> dict:
     (max_abs_err, ms, plain_ms)}."""
     import torch
 
-    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
     from rkmh_tpu_torch.ops import counter
     from rkmh_tpu_torch.ops.hashing import window_mask
 
@@ -602,10 +753,15 @@ def check_counters(dev, hashes) -> dict:
     mask = window_mask(torch.full((hashes.shape[0],), 150, device=dev), 160, [12])
     plain_table = table.clone()
     t = {
-        "counter_add": cuda_time_ms(lambda: counter._counter_add_cuda(table, hashes, mask), 20),
+        "counter_add": cuda_graph_time_ms(
+            lambda: counter._counter_add_cuda(table, hashes, mask), 20),
+        "counter_add_eager": cuda_time_ms(
+            lambda: counter._counter_add_cuda(table, hashes, mask), 20),
         "counter_add_plain": cuda_time_ms(
             lambda: counter.counter_add_plain(plain_table, hashes, mask), 5),
-        "counter_mask": cuda_time_ms(
+        "counter_mask": cuda_graph_time_ms(
+            lambda: counter._counter_mask_cuda(table, hashes, MIN_OCC, counter.INT32_MAX), 20),
+        "counter_mask_eager": cuda_time_ms(
             lambda: counter._counter_mask_cuda(table, hashes, MIN_OCC, counter.INT32_MAX), 20),
         "counter_mask_plain": cuda_time_ms(
             lambda: counter.counter_mask_plain(table, hashes, MIN_OCC, counter.INT32_MAX), 5),
@@ -620,19 +776,30 @@ def check_counters(dev, hashes) -> dict:
     gen = torch.Generator(device=dev).manual_seed(23)
     distinct = torch.randint(-(2**63), 2**63 - 1, tuple(hashes.shape), dtype=torch.int64,
                              device=dev, generator=gen)
-    ms_distinct = cuda_time_ms(lambda: counter._counter_add_cuda(table, distinct, mask), 20)
+    ms_distinct = cuda_graph_time_ms(lambda: counter._counter_add_cuda(table, distinct, mask),
+                                     20)
     say(f"counter_add contention: the batch's {added.numel()} counted hashes fall in "
         f"{mult.numel()} distinct slots (the hottest takes {int(mult.max())} adds, slot 0 "
         f"{int((added == 0).sum())}); K6 on as many random hashes: {ms_distinct:.4f} ms")
-    return {name: (worst[name], t[name], t[name + "_plain"]) for name in worst}
+    # bounds: the hashes and mask (K6) or the hashes in and out (K7), plus
+    # the counter's sectors the slots reach, read and written (K6) or read
+    add_sectors = bounds.sector_bytes(torch.unique(added) * 4)
+    get_sectors = bounds.sector_bytes(torch.unique(counter.slots(hashes.reshape(-1), big)) * 4)
+    bound = {"counter_add": bounds.bound_ms(bounds.tensor_bytes(hashes, mask) + 2 * add_sectors),
+             "counter_mask": bounds.bound_ms(2 * bounds.tensor_bytes(hashes) + get_sectors)}
+    say(f"counter bounds (ms): {bound}; sectors reached: add {add_sectors} B, "
+        f"mask {get_sectors} B")
+    return {name: (worst[name], t[name], t[name + "_plain"], bound[name], t[name + "_eager"])
+            for name in worst}
 
 
-def check_k2_filter(dev, panel, hashes) -> tuple[int, float, float]:
+def check_k2_filter(dev, panel, hashes) -> tuple[int, float, float, float]:
     """K2's filter mode against its plain version on the zika panel in both
-    row modes with -N/-D thresholds; -> (max_abs_err, ms, plain_ms)."""
+    row modes with -N/-D thresholds; -> (max_abs_err, ms, plain_ms,
+    eager_ms)."""
     import torch
 
-    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
     from rkmh_tpu_torch.ops.probe import _panel_probe_filter_cuda, panel_probe_filter_plain
     from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
 
@@ -655,20 +822,22 @@ def check_k2_filter(dev, panel, hashes) -> tuple[int, float, float]:
                 if err or not torch.equal(got, want):
                     raise AssertionError(f"panel-probe filter mode disagrees in mode {mode}")
                 worst = max(worst, err)
-    ms = cuda_time_ms(lambda: _panel_probe_filter_cuda(hashes, None, panel.table, R, panel.lens,
-                                                       0, FILTER_MIN_MATCHES), 50)
+    eager_ms = cuda_time_ms(lambda: _panel_probe_filter_cuda(hashes, None, panel.table, R,
+                                                             panel.lens, 0, FILTER_MIN_MATCHES), 50)
+    ms = cuda_graph_time_ms(lambda: _panel_probe_filter_cuda(hashes, None, panel.table, R,
+                                                             panel.lens, 0, FILTER_MIN_MATCHES), 20)
     plain_ms = cuda_time_ms(lambda: panel_probe_filter_plain(
         hashes, None, panel.table, R, panel.lens, 0, FILTER_MIN_MATCHES), 5)
-    say(f"time panel_probe_filter: {ms:.4f} ms vs {plain_ms:.4f} ms plain per call at "
-        f"rows {tuple(hashes.shape)}, table {tuple(panel.table.shape)}")
-    return worst, ms, plain_ms
+    say(f"time panel_probe_filter: {ms:.4f} ms ({eager_ms:.4f} eager) vs {plain_ms:.4f} ms plain "
+        f"per call at rows {tuple(hashes.shape)}, table {tuple(panel.table.shape)}")
+    return worst, ms, plain_ms, eager_ms
 
 
 def run_stream_counters(dev, card: str, zika: dict) -> dict:
     """The stream -M 2 -I 40 path (see the module doc)."""
     import torch
 
-    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
     from rkmh_tpu_torch.classify import engine
     from rkmh_tpu_torch.commands import stream
     from rkmh_tpu_torch.commands.common import (
@@ -852,8 +1021,9 @@ def main() -> int:
 
     err_k1 = check_k1(dev)
     panel, genomes = zika_panel(dev)
-    err_k2, (codes, hashes) = check_k2(dev, panel, genomes)
-    times = time_kernels(panel, codes, hashes)
+    err_k2, (codes, hashes), k2_stats = check_k2(dev, panel, genomes)
+    err_k2 = max(err_k2, check_k2_variants(dev))
+    times, bound = time_kernels(panel, codes, hashes, k2_stats)
     card_smi = f"{card} ({smi})"
     with tempfile.TemporaryDirectory() as work:
         zika = write_zika(work)
@@ -866,44 +1036,43 @@ def main() -> int:
         st_mi = run_stream_counters(dev, card_smi, zika)
         fl = run_filter(dev, card_smi, zika)
     hpm = run_hpv16_counter(dev, card_smi)
+    paths = {"stream": sl, "hpv16": hp, "stream -M -I": st_mi, "filter": fl, "hpv16 -M": hpm}
 
     def launched(name):
-        return sum(r["launches"][name] for r in (sl, hp, st_mi, fl, hpm))
+        return sum(r["launches"][name] for r in paths.values())
+
+    def entry(name, source, replaces, err, ms, eager_ms, plain_ms, bound_ms, library_ms=None,
+              launches=None):
+        by_path = {p: r["launches"][name] for p, r in paths.items() if r["launches"][name]}
+        return {"name": name, "route": "cuda", "source": f"rkmh_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": launched(name) if launches is None else launches,
+                "launches_by_path": by_path if launches is None else {"gather": launches},
+                "max_abs_err": err, "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                **bound_fields(ms, bound_ms, library_ms)}
 
     def gather_entry(name, line):
-        err, ms, plain_ms = gathers[name]
-        return {"name": name, "route": "cuda", "source": "rkmh_tpu_torch/csrc/lut_gather.cu",
-                "replaces": f"scripts/bench_gather.py:{line}",
-                "launches": gather_launches[name], "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms}
+        err, ms, plain_ms, library_ms, bound_ms, eager_ms = gathers[name]
+        return entry(name, "lut_gather.cu", f"scripts/bench_gather.py:{line}", err, ms,
+                     eager_ms, plain_ms, bound_ms, library_ms, gather_launches[name])
 
     def counter_entry(name, line):
-        err, ms, plain_ms = counters[name]
-        return {"name": name, "route": "cuda", "source": "rkmh_tpu_torch/csrc/counter.cu",
-                "replaces": f"rkmh_tpu/ops/counter.py:{line}", "launches": launched(name),
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        err, ms, plain_ms, bound_ms, eager_ms = counters[name]
+        return entry(name, "counter.cu", f"rkmh_tpu/ops/counter.py:{line}", err, ms, eager_ms,
+                     plain_ms, bound_ms)
 
     record = {"kernels": [
-        {"name": "window_hash", "route": "cuda",
-         "source": "rkmh_tpu_torch/csrc/window_hash.cu",
-         "replaces": "rkmh_tpu/ops/pallas_hash.py:39",
-         "launches": launched("window_hash"), "max_abs_err": err_k1,
-         "ms": times["window_hash"], "plain_ms": times["window_hash_plain"]},
-        {"name": "panel_probe", "route": "cuda",
-         "source": "rkmh_tpu_torch/csrc/panel_probe.cu",
-         "replaces": "rkmh_tpu/ops/lookup.py:321",
-         "launches": launched("panel_probe"), "max_abs_err": err_k2,
-         "ms": times["panel_probe"], "plain_ms": times["panel_probe_plain"]},
-        {"name": "panel_probe_filter", "route": "cuda",
-         "source": "rkmh_tpu_torch/csrc/panel_probe.cu",
-         "replaces": "rkmh_tpu/classify/engine.py:56",
-         "launches": launched("panel_probe_filter"), "max_abs_err": filt[0],
-         "ms": filt[1], "plain_ms": filt[2]},
-        {"name": "set_probe", "route": "cuda",
-         "source": "rkmh_tpu_torch/csrc/set_probe.cu",
-         "replaces": "rkmh_tpu/classify/engine.py:794",
-         "launches": launched("set_probe"), "max_abs_err": hp["err_k3"],
-         "ms": hp["set_probe"], "plain_ms": hp["set_probe_plain"]},
+        entry("window_hash", "window_hash.cu", "rkmh_tpu/ops/pallas_hash.py:39", err_k1,
+              times["window_hash"], times["window_hash_eager"], times["window_hash_plain"],
+              bound["window_hash"]),
+        entry("panel_probe", "panel_probe.cu", "rkmh_tpu/ops/lookup.py:321", err_k2,
+              times["panel_probe"], times["panel_probe_eager"], times["panel_probe_plain"],
+              bound["panel_probe"]),
+        entry("panel_probe_filter", "panel_probe.cu", "rkmh_tpu/classify/engine.py:56",
+              filt[0], filt[1], filt[3], filt[2], bound["panel_probe_filter"]),
+        entry("set_probe", "set_probe.cu", "rkmh_tpu/classify/engine.py:794", hp["err_k3"],
+              hp["set_probe"], hp["set_probe_eager"], hp["set_probe_plain"],
+              hp["set_probe_bound"]),
         gather_entry("lut_gather_rows", 109),
         gather_entry("lut_gather_lanes", 140),
         counter_entry("counter_add", 37),

@@ -1,4 +1,5 @@
-"""Timing on the card: CUDA events, and the card's name and power limit."""
+"""Timing on the card: CUDA events (eager, or replayed from a CUDA graph),
+and the card's name and power limit."""
 
 from __future__ import annotations
 
@@ -19,6 +20,33 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_graph_time_ms(fn, iters: int, replays: int = 5) -> float:
+    """Mean device ms per call of fn: iters calls captured in one CUDA
+    graph, replayed `replays` times between CUDA events.  An eager loop
+    of a kernel that runs for tens of microseconds times its Python
+    wrapper's launch path instead; the graph leaves only the device work.
+    fn must launch on the current stream and not synchronise."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def card_name_and_power_limit() -> str:

@@ -66,18 +66,20 @@ def _run_all(cmds: list[list[str]]) -> None:
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}{err}")
 
 
-def build() -> Path:
-    """Compile every source (one nvcc each, in parallel) and link the
-    library; returns its path."""
+def build(srcs: list[Path] | None = None, path: Path | None = None) -> Path:
+    """Compile the sources (default: every source; one nvcc each, in
+    parallel) and link them into the library at ``path`` (default:
+    ``library_path()``); returns its path."""
     nvcc = _nvcc()
-    path = library_path()
-    BUILD_DIR.mkdir(exist_ok=True)
+    srcs = sources() if srcs is None else srcs
+    path = library_path() if path is None else path
+    path.parent.mkdir(parents=True, exist_ok=True)
     stem = f"{path.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources()]
-    tmp = BUILD_DIR / f"{stem}.tmp.so"
+    objs = [path.parent / f"{stem}.{src.stem}.o" for src in srcs]
+    tmp = path.parent / f"{stem}.tmp.so"
     try:
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                  for src, obj in zip(sources(), objs)])
+                  for src, obj in zip(srcs, objs)])
         _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
     finally:
@@ -109,12 +111,16 @@ class Kernel:
         self.launches = 0
         self._fn = None
 
+    def function(self, lib: ctypes.CDLL):
+        """This entry point of a loaded library, with its argument types."""
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
     def __call__(self, *args):
         if self._fn is None:
-            fn = getattr(load_library(), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = self.function(load_library())
         device = next(a.device for a in args if isinstance(a, torch.Tensor))
         cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
         with torch.cuda.device(device):

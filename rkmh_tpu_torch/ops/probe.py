@@ -27,10 +27,12 @@ from rkmh_tpu_torch.ops.intersect import occ_ranks, prefix_eq_ranks
 from rkmh_tpu_torch.ops.lookup import lookup_intersection_counts_masked, table_slots
 from rkmh_tpu_torch.ops.sketch import SENTINEL
 
-# raw-hash mode cap on W: its ranks cost O(W^2) per read; longer rows take
-# the sorted-sketch mode (the JAX package's NOSORT_MAX_W, engine.py:290)
+# raw-hash mode cap on W: the plain version's ranks cost O(W^2) per read;
+# longer rows take the sorted-sketch mode (the JAX package's NOSORT_MAX_W,
+# engine.py:290)
 NOSORT_MAX_W = 256
-# per-reference counters live in shared memory: 32 * ceil(R/32) ints
+# past 256 references the kernel's counters live in shared memory: 32 *
+# ceil(R/32) ints per read
 MAX_REFS = 8192
 _SMEM_BYTES = 232448 - 1024  # a block's shared memory on sm_90, less static use
 
@@ -104,9 +106,11 @@ def _cuda_args(rows, lens, table, num_refs):
     B, n = rows.shape
     S = table_slots(table.shape[1], num_refs)
     Wm = table.shape[1] // S - 3
-    if n * 8 + Wm * 128 > _SMEM_BYTES:
-        raise ValueError(f"panel probe kernel: a row of {n} hashes does not fit "
-                         "in shared memory")
+    # per read: raw rows need >= n ranks-table slots of 8 bytes, and past
+    # 256 references the counters go to shared memory too
+    if (n * 8 if lens is None else 0) + (Wm * 128 if Wm > 8 else 0) > _SMEM_BYTES:
+        raise ValueError(f"panel probe kernel: the ranks table of a row of {n} hashes "
+                         "does not fit in shared memory")
     rows = rows.contiguous()
     table = table.contiguous()
     if lens is not None:

@@ -44,15 +44,16 @@ def _codes(seed, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 4, 8, 9, 12, 16, 17, 31, 32, 33, 64, 100])
-@pytest.mark.parametrize("L", [96, 400])  # one tile of windows, several tiles
+@pytest.mark.parametrize("k", [*range(1, 34), 64, 100])  # packed k <= 32, byte-wise above
+@pytest.mark.parametrize("L", [96, 160, 400])
 def test_window_hash_kernel_matches_plain(cuda_device, k, L):
-    codes = _codes(k + L, (48, L)).to(cuda_device)
+    # 37 rows: the flattened windows end inside a block
+    codes = _codes(k + L, (37, L)).to(cuda_device)
     before = kernels.WINDOW_HASH.launches
     got = multi_k_window_hashes(codes, [k])
     torch.cuda.synchronize()
     assert kernels.WINDOW_HASH.launches == before + (k <= L)  # k > L: no windows
-    assert got.shape == (48, max(L - k + 1, 0))
+    assert got.shape == (37, max(L - k + 1, 0))
     assert torch.equal(got, kmer_window_hashes_plain(codes, k))
 
 
@@ -64,6 +65,22 @@ def test_window_hash_kernel_multi_k_and_short_rows(cuda_device):
     want = torch.cat([kmer_window_hashes_plain(codes, k) for k in ks], dim=-1)
     assert got.shape == (20, 149 + 145 + 128)
     assert torch.equal(got, want)
+    # rows of one window each: a block's 256 windows span 256 rows
+    tiny = _codes(4, (300, 32)).to(cuda_device)
+    assert torch.equal(multi_k_window_hashes(tiny, [32, 31]),
+                       torch.cat([kmer_window_hashes_plain(tiny, k) for k in (32, 31)], -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 18, 33])
+def test_window_hash_kernel_hpv16_length_rows(cuda_device, k):
+    codes = _codes(k, (5, 20096))  # a ~20 kb nanopore read padded to 128
+    codes[1] = 0  # poly-A: every window the same canonical k-mer
+    codes = codes.to(cuda_device)
+    got = multi_k_window_hashes(codes, [k])
+    torch.cuda.synchronize()
+    assert torch.equal(got, kmer_window_hashes_plain(codes, k))
+    assert (got[1] == got[1, 0]).all() and int(got[1, 0]) != 0
 
 
 def _panel(seed, R, t, n_reads, width):
@@ -82,10 +99,62 @@ def _panel(seed, R, t, n_reads, width):
     return table, torch.from_numpy(reads)
 
 
+def _dup_panel(seed, R, width, n_reads=99):
+    """A table in which references 0 and R-1 hold one value 40 times, and
+    duplicate-heavy read rows: one value 40 times among others, a row of
+    one value (a poly-A read's hashes), two values alternating."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(1, 2**63, size=256, dtype=np.int64)
+    pool[::3] |= np.int64(-(2**63))
+    v = pool[0]
+    sk = np.full((R, 64), SENTINEL, dtype=np.int64)
+    lens = np.full(R, 64, np.int32)
+    for r in range(R):
+        vals = rng.choice(pool[1:], 64)
+        if r in (0, R - 1):
+            vals[:40] = v
+        sk[r] = np.sort(vals.view(np.uint64)).view(np.int64)
+    table = torch.from_numpy(build_panel_table(sk, lens).table.view(np.int32))
+    reads = rng.choice(pool, size=(n_reads, width))
+    reads[0::3, :40] = v
+    reads[1::3] = v
+    reads[2::3, ::2] = pool[5]
+    reads[rng.random(reads.shape) < 0.05] = 0
+    perm = np.argsort(rng.random(reads.shape), axis=1)
+    return table, torch.from_numpy(np.take_along_axis(reads, perm, 1))
+
+
+# the kernel keeps the counters of R <= 256 references in registers and
+# of more in shared memory; 99 rows are not a multiple of its reads per block
+PROBE_SHAPES = [(1, 64), (33, 149), (60, 149), (256, 149), (257, 149), (300, 256),
+                (8192, 149), (60, 7000)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,width", [(1, 64), (40, 149), (300, 256), (60, 7000)])
+@pytest.mark.parametrize("R", [1, 60, 256, 257, 8192])
+def test_panel_probe_kernel_duplicate_heavy_rows(cuda_device, R):
+    table, raw = _dup_panel(R, R, 149)
+    ref_lens = torch.full((R,), 64, dtype=torch.int32, device=cuda_device)
+    table, raw = table.to(cuda_device), raw.to(cuda_device)
+    poly_a = multi_k_window_hashes(torch.zeros((5, 160), dtype=torch.uint8,
+                                               device=cuda_device), [12])
+    sk, lens = bottom_s_sketch(raw, 149)
+    for rows, ln in ((raw, None), (sk, lens), (poly_a, None)):
+        for md, mm in ((0, -1), (1, 20)):
+            got = panel_probe(rows, ln, table, R, md, mm)
+            torch.cuda.synchronize()
+            assert torch.equal(got, panel_probe_plain(rows, ln, table, R, md, mm)), (R, md)
+            got = panel_probe_filter(rows, ln, table, R, ref_lens, md, mm)
+            assert torch.equal(got, panel_probe_filter_plain(rows, ln, table, R, ref_lens,
+                                                             md, mm)), (R, md)
+    want = panel_probe_plain(raw, None, table, R, 0, -1)
+    assert int(want[1, 1]) == 40  # a row of one value: ranks 0..39 all hit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,width", PROBE_SHAPES)
 def test_panel_probe_kernel_matches_plain(cuda_device, R, width):
-    table, raw = _panel(R + width, R, 64, 96, width)
+    table, raw = _panel(R + width, R, 64, 99, width)
     table, raw = table.to(cuda_device), raw.to(cuda_device)
     # past 1000 the sketch keeps every element: a row of 7000 needs more
     # than the default 48 KB of shared memory
@@ -101,9 +170,9 @@ def test_panel_probe_kernel_matches_plain(cuda_device, R, width):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,width", [(1, 64), (40, 149), (300, 256), (60, 7000)])
+@pytest.mark.parametrize("R,width", PROBE_SHAPES)
 def test_panel_probe_filter_kernel_matches_plain(cuda_device, R, width):
-    table, raw = _panel(R + width + 1, R, 64, 96, width)
+    table, raw = _panel(R + width + 1, R, 64, 99, width)
     raw[:4] = 0  # reads with no valid hash: depth fails, best -1
     raw[4:8] = torch.randint(1, 2**62, (4, width))  # reads that match nothing
     ref_lens = torch.from_numpy(np.random.default_rng(R).integers(0, 80, R).astype(np.int32))
@@ -119,6 +188,31 @@ def test_panel_probe_filter_kernel_matches_plain(cuda_device, R, width):
             assert torch.equal(got, want), (R, width, ln is None, md, mm)
     assert kernels.PANEL_PROBE_FILTER.launches == before + 4 * len(cases)
     assert int(want[1].max()) > 0 and (want[0, :8] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,width", [(60, 1000), (257, 1000), (60, 12000)])
+def test_panel_probe_kernel_wide_raw_rows(cuda_device, R, width):
+    # raw rows past NOSORT_MAX_W, which the engine does not send but the
+    # kernel takes: 3n ranks slots per read at 1000, n at 12,000 (3n would
+    # not fit in shared memory), where the last row, of distinct values,
+    # fills the table; 7 rows are no multiple of the reads per block
+    table, raw = _panel(R + width + 2, R, 64, 7, width)
+    first = raw[0][raw[0] != 0].unique()[:30]  # pool values: some hit
+    raw[-1] = torch.from_numpy(np.random.default_rng(width).integers(1, 2**63, width))
+    raw[-1, : first.numel()] = first
+    assert raw[-1].unique().numel() == width
+    ref_lens = torch.full((R,), 64, dtype=torch.int32)
+    table, raw, ref_lens = table.to(cuda_device), raw.to(cuda_device), ref_lens.to(cuda_device)
+    for md, mm in ((0, -1), (1, 3)):
+        got = panel_probe(raw, None, table, R, md, mm)
+        torch.cuda.synchronize()
+        want = panel_probe_plain(raw, None, table, R, md, mm)
+        assert torch.equal(got, want), (R, width, md, mm)
+        got = panel_probe_filter(raw, None, table, R, ref_lens, md, mm)
+        assert torch.equal(got, panel_probe_filter_plain(raw, None, table, R, ref_lens, md,
+                                                         mm)), (R, width, md, mm)
+    assert int(want[1].min()) > 0  # every read, the distinct one too, matches
 
 
 @pytest.mark.cuda
