@@ -44,10 +44,14 @@ line) without CUDA or without the package beside it.  In order it:
 8. drives the gather path, ``rkmh_tpu_torch.bench.bench_gather.main()``,
    with the counters zeroed just before and read just after;
 9. builds the hpv16 tables on the card from a synthetic full-width
-   refpath (182 types of ~7.9 kb, 10 sublineages, k=18) and checks the
-   set-probe kernel (K3) against its plain version (and K1 against its
-   own) on 512 nanopore-like reads and on one 40 kb read, outputs
-   exactly equal; times both and counts the table sectors K3 reaches;
+   refpath (182 types of ~7.9 kb, 10 sublineages, k=18), the kernel's
+   packed layout of the set table included (once, timed), and checks the
+   set-probe kernel (K3) against its plain version on the logical table
+   (and K1 against its own) on 512 nanopore-like reads, on the same
+   batch with every seventh read emptied, on one 40 kb read and on a
+   small table of 280 references (9 mask words), outputs exactly equal;
+   checks that the batch launches more blocks than reads; times both and
+   counts the table sectors K3 reaches in either layout;
 10. drives the hpv16 slice: 12,800 reads (~57 Mbp) through
     ``commands.hpv16_cmd.run`` (k=18, batch 512, device cuda) in a
     temporary working directory, counters zeroed just before and read
@@ -58,11 +62,15 @@ line) without CUDA or without the package beside it.  In order it:
     step at the auto batch size;
 11. checks the counter kernels (K6 counter_add, K7 counter_mask) exactly
     against their plain versions on the card: random hashes (>= 2**63 and
-    zeros among them) with masks, at counter sizes 2e8, 1e7, 2**27 and the
-    prime 1009; times both and their plain versions at the stream shape
-    (B=16384, L=160, k=12, the counter pass's window mask) on a 2e8-slot
-    counter, and reports how many distinct slots one batch adds to and
-    K6's time on as many random hashes (its atomics' contention);
+    zeros among them) with a mask tensor, with the window mask derived in
+    the kernel from read lengths and without a mask, three calls into one
+    table, through the bins and as one atomic per element, at counter
+    sizes 2e8, 1e7, 2**27 and the prime 1009; times both and their plain
+    versions at the stream shape (B=16384, L=160, k=12, the counter
+    pass's window mask, derived in the kernel) on a 2e8-slot counter, and
+    reports how many distinct slots one batch adds to and K6's time on as
+    many random hashes; checks that a ``HashCounter`` keeps the bins for
+    the batch and leaves them for the random hashes;
 12. checks K2's filter mode against its plain version on the zika panel
     in both row modes with -N/-D thresholds, and times it;
 13. drives ``stream -M 2 -I 40`` over the slice's 2**20 reads (default
@@ -513,7 +521,9 @@ def run_gather_path() -> dict:
 
 def check_k3(dev, tb, packed, panel) -> tuple[int, dict]:
     """K3 against its plain version on the first HPV16_BATCH reads (one
-    padded batch) and on one 40 kb read; returns (max_abs_err, times)."""
+    padded batch), the same batch with every seventh read emptied, one 40
+    kb read, and a small table of 9 mask words; returns (max_abs_err,
+    times)."""
     import numpy as np
     import torch
 
@@ -523,7 +533,13 @@ def check_k3(dev, tb, packed, panel) -> tuple[int, dict]:
     from rkmh_tpu_torch.classify import engine
     from rkmh_tpu_torch.io.packing import encode_seqs
     from rkmh_tpu_torch.ops.hashing import kmer_window_hashes_plain, multi_k_window_hashes
-    from rkmh_tpu_torch.ops.set_probe import _set_probe_cuda, set_probe_plain
+    from rkmh_tpu_torch.ops.lookup import build_set_table
+    from rkmh_tpu_torch.ops.set_probe import (
+        SEGMENT,
+        _set_probe_cuda,
+        pack_set_table,
+        set_probe_plain,
+    )
     from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
 
     T, U = len(tb.type_names), tb.n_lin + tb.n_sub
@@ -542,34 +558,69 @@ def check_k3(dev, tb, packed, panel) -> tuple[int, dict]:
         full, sk_lens = bottom_s_sketch(hashes, x.shape[1] - HPV16_K + 1)
         Wc = engine.hpv16_compact_width(ln, x.shape[1], (HPV16_K,))
         rows = full[:, :Wc]
-        got = _set_probe_cuda(rows, sk_lens, tb.comb_table, T, U)
-        want = set_probe_plain(rows, sk_lens, tb.comb_table, T, U)
-        err = max_abs_err(got, want)
-        say(f"K3 {label}: rows {tuple(rows.shape)}, exact={err == 0}, "
-            f"mean shared={want[:, 1].float().mean().item():.1f}, "
-            f"mean group hits={want[:, 2:].sum(1).float().mean().item():.2f}")
-        if err or not torch.equal(got, want):
-            raise AssertionError(f"set-probe kernel disagrees with the plain version on {label}")
-        worst = max(worst, err)
+        cases = [(label, sk_lens)]
         if not times:
+            emptied = sk_lens.clone()
+            emptied[::7] = 0
+            cases.append((f"{label}, every seventh read emptied", emptied))
+        for name, row_lens in cases:
+            got = _set_probe_cuda(rows, row_lens, tb.probe_table, T, U)
+            want = set_probe_plain(rows, row_lens, tb.comb_table, T, U)
+            err = max_abs_err(got, want)
+            blocks = int((-(-row_lens.clamp(max=Wc) // SEGMENT)).clamp(min=1).sum())
+            say(f"K3 {name}: rows {tuple(rows.shape)}, exact={err == 0}, {blocks} blocks with "
+                f"work for {rows.shape[0]} reads, "
+                f"mean shared={want[:, 1].float().mean().item():.1f}, "
+                f"mean group hits={want[:, 2:].sum(1).float().mean().item():.2f}")
+            if err or not torch.equal(got, want):
+                raise AssertionError(f"set-probe kernel disagrees with the plain version on "
+                                     f"{name}")
+            worst = max(worst, err)
+        if not times:
+            blocks = int((-(-sk_lens.clamp(max=Wc) // SEGMENT)).clamp(min=1).sum())
+            if blocks <= rows.shape[0]:
+                raise AssertionError("the set-probe kernel has no more blocks with work than "
+                                     "reads")
+            probe = tb.probe_table
             times = {"set_probe": cuda_graph_time_ms(
-                         lambda: _set_probe_cuda(rows, sk_lens, tb.comb_table, T, U), 10),
+                         lambda: _set_probe_cuda(rows, sk_lens, probe, T, U), 10),
                      "set_probe_eager": cuda_time_ms(
-                         lambda: _set_probe_cuda(rows, sk_lens, tb.comb_table, T, U), 20),
+                         lambda: _set_probe_cuda(rows, sk_lens, probe, T, U), 20),
                      "set_probe_plain": cuda_time_ms(
                          lambda: set_probe_plain(rows, sk_lens, tb.comb_table, T, U), 3,
                          warmup=1)}
             st = bounds.set_probe_stats(rows, sk_lens, tb.comb_table, T + U)
-            times["set_probe_bound"] = bounds.bound_ms(
-                bounds.read_row_bytes(rows, sk_lens) + bounds.tensor_bytes(sk_lens, got)
-                + st.table_bytes)
+            row_bytes = bounds.read_row_bytes(rows, sk_lens) + bounds.tensor_bytes(sk_lens, got)
+            times["set_probe_bound"] = bounds.bound_ms(row_bytes + st.table_bytes)
+            packed_bytes = bounds.packed_set_table_bytes(st, probe)
             say(f"time set_probe: {times['set_probe']:.4f} ms ({times['set_probe_eager']:.4f} "
                 f"eager) vs {times['set_probe_plain']:.4f}"
                 f" ms plain per {HPV16_BATCH}-read batch, rows {tuple(rows.shape)}, "
                 f"table {tuple(tb.comb_table.shape)}; {st.probes} run starts probed, {st.hits} "
-                f"hit, {st.table_bytes} table bytes reached (of "
-                f"{tb.comb_table.numel() * 4}); bound {times['set_probe_bound']:.4f} ms")
-    return worst, times
+                f"hit, {st.mask_bits} mask bits, {st.table_bytes} table bytes reached (of "
+                f"{tb.comb_table.numel() * 4}); bound {times['set_probe_bound']:.4f} ms; in "
+                f"the packed layout ({probe.nbytes} bytes) {st.buckets} key records and "
+                f"{st.hit_slots} slot records, {packed_bytes} bytes, "
+                f"{bounds.bound_ms(row_bytes + packed_bytes):.4f} ms")
+
+    # a table of 280 references: 9 mask words, slot records of 48 bytes
+    rng = np.random.default_rng(41)
+    pool = rng.integers(1, 2**63, size=4000, dtype=np.int64)
+    pool[::3] |= np.int64(-(2**63))
+    wide = torch.from_numpy(build_set_table([rng.choice(pool, 500) for _ in range(280)],
+                                            num_refs=280).table.view(np.int32)).to(dev)
+    rows, row_lens = bottom_s_sketch(torch.from_numpy(
+        rng.choice(np.concatenate([pool, rng.integers(1, 2**63, 4000)]), size=(64, 5000))).to(dev),
+        5000)
+    got = _set_probe_cuda(rows, row_lens, pack_set_table(wide, 280), 250, 30)
+    want = set_probe_plain(rows, row_lens, wide, 250, 30)
+    err = max_abs_err(got, want)
+    say(f"K3 280 references (9 mask words): table {tuple(wide.shape)}, rows "
+        f"{tuple(rows.shape)}, exact={err == 0}, mean shared="
+        f"{want[:, 1].float().mean().item():.1f}")
+    if err or not torch.equal(got, want):
+        raise AssertionError("set-probe kernel disagrees with the plain version at 9 mask words")
+    return max(worst, err), times
 
 
 def run_hpv16(dev, card: str) -> dict:
@@ -604,7 +655,8 @@ def run_hpv16(dev, card: str) -> dict:
         table = tb.comb_table
         S = table_slots(table.shape[1], T + U)
         say(f"hpv16 table: {tuple(table.shape)} int32 = {table.numel() * 4 / 2**20:.1f} MiB, "
-            f"S={S}, Wm={table.shape[1] // S - 3}, {T} types + {U} groups; set-up s: "
+            f"S={S}, Wm={table.shape[1] // S - 3}, {T} types + {U} groups; packed for the "
+            f"probe: {tb.probe_table.nbytes / 2**20:.1f} MiB beside it; set-up s: "
             + ", ".join(f"{k} {v:.3f}" for k, v in tb.setup_s.items()))
         err_k3, times = check_k3(dev, tb, packed, panel)
 
@@ -662,7 +714,8 @@ def run_hpv16(dev, card: str) -> dict:
     batches = [(torch.from_numpy(codes).to(dev),
                 engine.hpv16_compact_width(lens, codes.shape[1], (HPV16_K,)))
                for _, codes, lens in bucketed_batches(packed, HPV16_BATCH)]
-    step = lambda: [engine.hpv16_batch_comb(c, table, (HPV16_K,), T, U, Wc)  # noqa: E731
+    probe = tb.probe_table
+    step = lambda: [engine.hpv16_batch_comb(c, probe, (HPV16_K,), T, U, Wc)  # noqa: E731
                     for c, Wc in batches]
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_time_ms(step, 2, warmup=1)
@@ -675,7 +728,7 @@ def run_hpv16(dev, card: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     big_ms = cuda_time_ms(
-        lambda: engine.hpv16_batch_comb(big, table, (HPV16_K,), T, U, wc_long), 1, warmup=1)
+        lambda: engine.hpv16_batch_comb(big, probe, (HPV16_K,), T, U, wc_long), 1, warmup=1)
     peak_big = torch.cuda.max_memory_allocated() / 2**30
 
     res = {"e2e_s": e2e_s, "e2e_mbp_per_s": mbp / e2e_s,
@@ -713,6 +766,7 @@ def check_counters(dev, hashes) -> dict:
     [16384, 149] output for 150 bp reads padded to 160, with the window
     mask of the counter pass) on a 2e8-slot counter; returns {name:
     (max_abs_err, ms, plain_ms)}."""
+    import numpy as np
     import torch
 
     from rkmh_tpu_torch.bench import bounds
@@ -721,18 +775,24 @@ def check_counters(dev, hashes) -> dict:
     from rkmh_tpu_torch.ops.hashing import window_mask
 
     h, m = (t.to(dev) for t in random_hashes(17, (4096, 149)))
+    read_lens = torch.from_numpy(np.random.default_rng(18).integers(0, 161, 4096)).to(dev)
+    read_lens[:3] = torch.tensor([0, 5, 160], device=dev)  # shorter than k, and full
+    by_lens = window_mask(read_lens, 160, [12])
     worst = {"counter_add": 0, "counter_mask": 0}
     for size in COUNTER_SIZES:
-        got = torch.zeros(size, dtype=torch.int32, device=dev)
         want = torch.zeros(size, dtype=torch.int32, device=dev)
-        counter._counter_add_cuda(got, h, m)
-        counter._counter_add_cuda(got, h[:64], None)
         counter.counter_add_plain(want, h, m)
+        counter.counter_add_plain(want, h, by_lens)
         counter.counter_add_plain(want, h[:64], None)
-        err_add = max_abs_err(got, want)
-        if err_add or not torch.equal(got, want):
-            raise AssertionError(f"counter-add kernel disagrees with the plain version at "
-                                 f"size {size}")
+        for binned in (True, False):  # through the bins, and one atomic per element
+            got = torch.zeros(size, dtype=torch.int32, device=dev)
+            counter._counter_add_cuda(got, h, m, binned=binned)
+            counter._counter_add_cuda(got, h, None, (read_lens, 160, [12]), binned=binned)
+            counter._counter_add_cuda(got, h[:64], None, binned=binned)
+            err_add = max_abs_err(got, want)
+            if err_add or not torch.equal(got, want):
+                raise AssertionError(f"counter-add kernel (binned={binned}) disagrees with the "
+                                     f"plain version at size {size}")
         kept = []
         for lo, hi in ((MIN_OCC, counter.INT32_MAX), (0, MAX_SAMPLES), (3, 5)):
             g = counter._counter_mask_cuda(got, h, lo, hi)
@@ -750,12 +810,18 @@ def check_counters(dev, hashes) -> dict:
 
     big = COUNTER_SIZES[0]
     table = torch.zeros(big, dtype=torch.int32, device=dev)
-    mask = window_mask(torch.full((hashes.shape[0],), 150, device=dev), 160, [12])
+    lens150 = torch.full((hashes.shape[0],), 150, dtype=torch.int32, device=dev)
+    windows = (lens150, 160, [12])  # as the counter pass calls K6
+    mask = window_mask(lens150, 160, [12])
     plain_table = table.clone()
     t = {
         "counter_add": cuda_graph_time_ms(
-            lambda: counter._counter_add_cuda(table, hashes, mask), 20),
+            lambda: counter._counter_add_cuda(table, hashes, None, windows), 20),
         "counter_add_eager": cuda_time_ms(
+            lambda: counter._counter_add_cuda(table, hashes, None, windows), 20),
+        "counter_add_direct": cuda_graph_time_ms(
+            lambda: counter._counter_add_cuda(table, hashes, None, windows, binned=False), 20),
+        "counter_add_mask_tensor": cuda_graph_time_ms(
             lambda: counter._counter_add_cuda(table, hashes, mask), 20),
         "counter_add_plain": cuda_time_ms(
             lambda: counter.counter_add_plain(plain_table, hashes, mask), 5),
@@ -781,11 +847,25 @@ def check_counters(dev, hashes) -> dict:
     say(f"counter_add contention: the batch's {added.numel()} counted hashes fall in "
         f"{mult.numel()} distinct slots (the hottest takes {int(mult.max())} adds, slot 0 "
         f"{int((added == 0).sum())}); K6 on as many random hashes: {ms_distinct:.4f} ms")
-    # bounds: the hashes and mask (K6) or the hashes in and out (K7), plus
+    # the route a counter pass settles on, read from its first call through the bins
+    for label, hs, merges in (("the stream batch", hashes, True),
+                              ("as many random hashes", distinct, False)):
+        c = counter.HashCounter(big, dev)
+        want = torch.zeros_like(c.table)
+        for _ in range(2):
+            c.add_windows(hs, lens150, 160, 12)
+            counter.counter_add_plain(want, hs, mask)
+        if c.binned is not merges or not torch.equal(c.table, want):
+            raise AssertionError(f"HashCounter on {label}: through the bins={c.binned}, table "
+                                 f"exact={torch.equal(c.table, want)}")
+        say(f"HashCounter on {label}: later calls through the bins={c.binned}, table exact=True")
+        del c, want
+    # bounds: the hashes and read lengths (K6) or the hashes in and out (K7), plus
     # the counter's sectors the slots reach, read and written (K6) or read
     add_sectors = bounds.sector_bytes(torch.unique(added) * 4)
     get_sectors = bounds.sector_bytes(torch.unique(counter.slots(hashes.reshape(-1), big)) * 4)
-    bound = {"counter_add": bounds.bound_ms(bounds.tensor_bytes(hashes, mask) + 2 * add_sectors),
+    bound = {"counter_add": bounds.bound_ms(bounds.tensor_bytes(hashes, lens150)
+                                            + 2 * add_sectors),
              "counter_mask": bounds.bound_ms(2 * bounds.tensor_bytes(hashes) + get_sectors)}
     say(f"counter bounds (ms): {bound}; sectors reached: add {add_sectors} B, "
         f"mask {get_sectors} B")
@@ -879,6 +959,9 @@ def run_stream_counters(dev, card: str, zika: dict) -> dict:
                                stream.DEFAULT_COUNTER_SIZE, B, dev)
     torch.cuda.synchronize()
     count_s = time.perf_counter() - t0
+    if counter.binned is not True:
+        raise AssertionError(f"the counter pass of reads that repeat their k-mers took K6's "
+                             f"route binned={counter.binned}")
     panel = build_ref_panel_from_files([zika["refs"]], (12,), 1000, dev,
                                        max_samples=MAX_SAMPLES)
     packed = load_packed([zika["head"]])

@@ -47,6 +47,8 @@ class ProbeStats:
     hits: int              # of them, those whose (hash, occ) is in the table
     mask_bits: int         # set bits over the hits' mask words
     table_bytes: int       # the sectors of the table the probes reach
+    buckets: int = 0       # distinct bucket rows probed
+    hit_slots: int = 0     # distinct (bucket, slot) entries hit
 
 
 def probe_stats(rows: torch.Tensor, valid: torch.Tensor, occ: torch.Tensor,
@@ -75,12 +77,14 @@ def probe_stats(rows: torch.Tensor, valid: torch.Tensor, occ: torch.Tensor,
     buckets = torch.unique(bucket)
     lanes = torch.arange(S, 3 * S, device=rows.device)
     addr = [((buckets[:, None] * width + lanes) * 4).reshape(-1)]
+    keys = buckets[:0]
     if hit_keys:
         keys = torch.unique(torch.cat(hit_keys))
         hit_lanes = torch.tensor([0] + [3 + w for w in range(Wm)], device=rows.device) * S
         addr.append((((keys // S)[:, None] * width + hit_lanes + (keys % S)[:, None]) * 4)
                     .reshape(-1))
-    return ProbeStats(int(h.numel()), hits, bits, sector_bytes(torch.cat(addr)))
+    return ProbeStats(int(h.numel()), hits, bits, sector_bytes(torch.cat(addr)),
+                      int(buckets.numel()), int(keys.numel()))
 
 
 def panel_probe_stats(rows: torch.Tensor, lens: torch.Tensor | None, table: torch.Tensor,
@@ -102,6 +106,17 @@ def set_probe_stats(rows: torch.Tensor, lens: torch.Tensor, table: torch.Tensor,
     valid = ((torch.arange(n, device=rows.device)[None, :] < lens[:, None])
              & (rows != SENTINEL) & (occ == 0))
     return probe_stats(rows, valid, occ, table, num_refs)
+
+
+def packed_set_table_bytes(st: ProbeStats, packed) -> int:
+    """The bytes the same probes reach in K3's packed layout
+    (``ops/set_probe.PackedSetTable``): one key record per probed bucket,
+    one slot record per entry hit, each in whole sectors."""
+    def sectors(words: int) -> int:
+        return -(-4 * words // SECTOR) * SECTOR
+
+    return (st.buckets * sectors(packed.keys.shape[1])
+            + st.hit_slots * sectors(packed.slots.shape[1]))
 
 
 def read_row_bytes(rows: torch.Tensor, lens: torch.Tensor | None) -> int:

@@ -1,28 +1,45 @@
-"""K1 and K2 of this checkout against other builds of the same kernels,
-in turns, in one process on one card.
+"""The hand kernels of this checkout against other builds of them, in
+turns, in one process on one card.
 
     python -m rkmh_tpu_torch.bench.kernel_ab --old-csrc DIR [--variant NAME=DIR ...]
+                                             [--only PREFIX ...]
 
-``--old-csrc`` DIR holds an earlier ``window_hash.cu`` and
-``panel_probe.cu`` with the same C entry points, for example an earlier
-commit's (``git show REV:rkmh_tpu_torch/csrc/panel_probe.cu >
-DIR/panel_probe.cu``).  Each ``--variant`` DIR holds one or both of them,
-for example this checkout's source with one design choice edited.  Each
-directory builds with nvcc into a library of its own.  The wrappers of
-``ops/hashing`` and ``ops/probe`` then run on each library in turn (old,
-new, the variants, the variants in reverse, new, old; a library is timed
-only in the cases whose kernels it holds), timed with CUDA events as
-device time (calls replayed from a CUDA graph) and as an eager loop
-(which, for a kernel of tens of microseconds, measures the Python launch
-path), at:
+``--old-csrc`` DIR holds earlier versions of some of ``window_hash.cu``,
+``panel_probe.cu``, ``counter.cu`` and ``set_probe.cu``, for example an
+earlier commit's (``git show REV:rkmh_tpu_torch/csrc/counter.cu >
+DIR/counter.cu``).  An old ``window_hash.cu`` or ``panel_probe.cu`` has
+today's C entry points; an old ``counter.cu`` or ``set_probe.cu`` has
+those the kernels had before their redesign (one atomicAdd per element of
+a mask tensor; one block per read on the logical table), which this
+script still knows how to call.  Each ``--variant`` DIR holds some of this
+checkout's sources with one design choice edited, entry points unchanged.
+Each directory builds with nvcc into a library of its own.  The wrappers
+then run on each library in turn (old, new, the variants, the variants in
+reverse, new, old; a library is timed only in the cases whose kernels it
+holds), timed with CUDA events as device time (calls replayed from a CUDA
+graph) and as an eager loop (which, for a kernel of tens of microseconds,
+measures the Python launch path), at:
 
 * the stream batch: 16,384 synthetic 150 bp reads padded to 160 codes,
   k=12, the synthetic zika panel (60 references, s=1000, table [131072,
   20] int32): K1 (and K1 at k=21, a k none of the repo's configurations
   uses); K2 on the raw rows, on sorted s=50 sketches and in its filter
-  mode; the device step (K1 + K2);
+  mode; the device step (K1 + K2); K6 into a 2e8-slot counter as the
+  counter pass calls it (the window mask from the read lengths; the old
+  kernel reads the mask tensor), through the bins and as one atomic per
+  element, and with a mask tensor;
 * the hpv16 batch: 512 nanopore-like reads, k=18, padded to the longest
-  read: K1.
+  read: K1; K6 into an 8e8-slot counter; K3 on the sorted rows against
+  the 182-type + 14-group set table (480 MiB), also with other segment
+  sizes; the hpv16 step (K1, sort, K3).
+
+K6's diagnostics (printed, and under ``k6_diagnostics`` in the JSON):
+one atomicAdd per slot computed beforehand (``bench/diag_atomics.cu``),
+on the batch's slots as they come, sorted, and on as many random slots;
+K6, old and new, on counters of 1e7, 2e8 and 8e8 slots; its device time
+kernel by kernel; and, for either batch, how many elements the merge put
+into how many adds to the table, from which a ``HashCounter`` takes the
+route of a counter pass (``k6_merge``).
 
 Before timing, every library's output must equal the plain version's.
 It also prints the registers ptxas gives each new kernel and the SASS
@@ -40,6 +57,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -54,21 +72,42 @@ from rkmh_tpu_torch.bench.timing import (
 )
 from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.io.packing import CODE_LUT, encode_seqs
-from rkmh_tpu_torch.ops import kernels
-from rkmh_tpu_torch.ops.hashing import _window_hashes_cuda, kmer_window_hashes_plain
+from rkmh_tpu_torch.ops import counter, kernels
+from rkmh_tpu_torch.ops.hashing import (
+    _window_hashes_cuda,
+    kmer_window_hashes_plain,
+    window_mask,
+)
+from rkmh_tpu_torch.ops.lookup import table_slots
 from rkmh_tpu_torch.ops.probe import (
     _panel_probe_cuda,
     _panel_probe_filter_cuda,
     panel_probe_filter_plain,
     panel_probe_plain,
 )
+from rkmh_tpu_torch.ops.set_probe import _set_probe_cuda, set_probe_plain
 from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
 
-SOURCES = ("window_hash.cu", "panel_probe.cu")
-SWAPPED = (kernels.WINDOW_HASH, kernels.PANEL_PROBE, kernels.PANEL_PROBE_FILTER)
+SOURCES = ("window_hash.cu", "panel_probe.cu", "counter.cu", "set_probe.cu")
+SWAPPED = (kernels.WINDOW_HASH, kernels.PANEL_PROBE, kernels.PANEL_PROBE_FILTER,
+           kernels.COUNTER_ADD, kernels.COUNTER_MASK, kernels.SET_PROBE)
+# of those, the entry points an old library has under another signature
+REDESIGNED = (kernels.COUNTER_ADD, kernels.COUNTER_MASK, kernels.SET_PROBE)
+_p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# rkmh_counter_add(hashes, mask|NULL, n, table, size, stream), before its redesign
+OLD_COUNTER_ADD = kernels.Kernel("rkmh_counter_add", [_p, _p, _i64, _p, _i64])
+# rkmh_set_probe(rows, row_stride, lens, B, n, table, log2_buckets, slots, mask_words,
+#                num_types, num_uniq, out, stream), before its redesign
+OLD_SET_PROBE = kernels.Kernel("rkmh_set_probe",
+                               [_p, _i64, _p, _i, _i, _p, _i, _i, _i, _i, _i, _p])
+DIAG_ADD_SLOTS = kernels.Kernel("rkmh_diag_add_slots", [_p, _i64, _p])
+DIAG_SOURCE = Path(__file__).resolve().parent / "diag_atomics.cu"
 B, L, K, S = 16384, 160, 12, 1000
 K_OTHER = 21  # a k <= 32 that none of the repo's configurations uses
 HPV16_B, HPV16_K = 512, 18
+STREAM_COUNTER, HPV16_COUNTER = 200_000_000, 800_000_000
+DIAG_COUNTERS = (10_000_000, 200_000_000, 800_000_000)
+K3_SEGMENTS = (512, 1024, 4096)  # beside ops/set_probe.SEGMENT
 ITERS = 50        # eager calls per timing
 GRAPH_CALLS = 20  # calls per CUDA graph, replayed 5 times
 
@@ -78,17 +117,37 @@ def say(msg: str) -> None:
 
 
 @contextlib.contextmanager
-def using(lib: ctypes.CDLL):
-    """The K1/K2 wrappers launch the entry points of ``lib`` (those it has)."""
-    saved = [kern._fn for kern in SWAPPED]
+def using(lib: ctypes.CDLL, old: bool = False):
+    """The wrappers launch the entry points of ``lib`` (those it has).  Of
+    an old library, the redesigned kernels' entry points go to
+    OLD_COUNTER_ADD and OLD_SET_PROBE instead."""
+    olds = (OLD_COUNTER_ADD, OLD_SET_PROBE)
+    saved = [kern._fn for kern in (*SWAPPED, *olds)]
     try:
-        for kern in SWAPPED:
+        for kern in SWAPPED if not old else (*set(SWAPPED) - set(REDESIGNED), *olds):
             if hasattr(lib, kern.symbol):
                 kern._fn = kern.function(lib)
         yield
     finally:
-        for kern, fn in zip(SWAPPED, saved):
+        for kern, fn in zip((*SWAPPED, *olds), saved):
             kern._fn = fn
+
+
+def old_counter_add(table, hashes, mask):
+    """K6 before its redesign: one atomicAdd per element of a mask tensor."""
+    OLD_COUNTER_ADD(hashes, mask, hashes.numel(), table, table.shape[0])
+    return table
+
+
+def old_set_probe(rows, lens, table, num_types, num_uniq):
+    """K3 before its redesign: one block per read on the logical table."""
+    nb = table.shape[0]
+    slots = table_slots(table.shape[1], num_types + num_uniq)
+    out = torch.empty((rows.shape[0], 2 + num_uniq), dtype=torch.int64, device=rows.device)
+    OLD_SET_PROBE(rows, rows.stride(0), lens, rows.shape[0], rows.shape[1], table,
+                  nb.bit_length() - 1, slots, table.shape[1] // slots - 3, num_types,
+                  num_uniq, out)
+    return out
 
 
 def variant(arg: str) -> tuple[str, Path]:
@@ -103,15 +162,21 @@ def has_kernels(lib, kerns) -> bool:
     return all(hasattr(lib, kern.symbol) for kern in kerns)
 
 
+def held_sources(d: Path) -> list[Path]:
+    """The kernel sources a directory holds."""
+    return [d / s for s in SOURCES if (d / s).exists()]
+
+
 def build_libraries(old_csrc: Path, variants: list) -> dict:
     ab = kernels.BUILD_DIR / "ab"
-    paths = {"old": kernels.build([old_csrc / s for s in SOURCES], ab / "libold.so"),
-             "new": kernels.build()}
-    for name, d in variants:
-        srcs = [d / s for s in SOURCES if (d / s).exists()]
+    paths = {}
+    for name, d in (("old", old_csrc), *variants):
+        srcs = held_sources(d)
         if not srcs:
-            raise FileNotFoundError(f"variant {name}: {d} holds none of {SOURCES}")
+            raise FileNotFoundError(f"{name}: {d} holds none of {SOURCES}")
         paths[name] = kernels.build(srcs, ab / f"lib{name}.so")
+    paths["new"] = kernels.build()
+    paths["diag"] = kernels.build([DIAG_SOURCE], ab / "libdiag.so")
     say(f"libraries: {paths}")
     return {name: ctypes.CDLL(str(p)) for name, p in paths.items()}
 
@@ -136,7 +201,7 @@ def ptxas_registers() -> dict:
 
 
 def sass_counts(lib_path: Path) -> dict:
-    """{kernel: SASS instructions} of the K1 and K2 kernels in a library."""
+    """{kernel: SASS instructions} of the kernels in a library."""
     tool = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).parent / "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
@@ -148,7 +213,7 @@ def sass_counts(lib_path: Path) -> dict:
             counts[name] = 0
         elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
             counts[name] += 1
-    return {n: c for n, c in counts.items() if "window_hash" in n or "panel_probe" in n}
+    return counts
 
 
 def stream_batch(dev):
@@ -165,18 +230,168 @@ def stream_batch(dev):
 
 
 def hpv16_batch(dev):
+    """-> (codes [512, Lmax] on the card, unpadded lengths [512] int32)."""
     panel = synth.make_hpv16_panel(0)
     reads, _ = synth.make_nanopore_reads(HPV16_B, 1, panel)
-    codes, _ = encode_seqs([r.tobytes() for r in reads])
-    return torch.from_numpy(codes).to(dev)
+    codes, lens = encode_seqs([r.tobytes() for r in reads])
+    return torch.from_numpy(codes).to(dev), torch.from_numpy(lens.astype(np.int32)).to(dev)
+
+
+def hpv16_tables(dev):
+    """The full-width synthetic hpv16 tables, as ``chip_smoke.py`` builds them."""
+    from rkmh_tpu_torch.commands import hpv16_cmd
+
+    with tempfile.TemporaryDirectory() as tmp:
+        synth.write_hpv16_refpath(tmp, 0)
+        return hpv16_cmd.build_tables(
+            hpv16_cmd.Hpv16Config(refpath=tmp, ks=(HPV16_K,), tst_file=False), (HPV16_K,), dev)
+
+
+class Case:
+    """One timed call.  ``new`` runs on this checkout's entry points (the
+    new library and the variants), ``old`` on the old library's (None:
+    the same call).  ``check`` compares one run with the plain version."""
+
+    def __init__(self, kerns, new, old=None, check=None, old_kerns=None):
+        self.kerns, self.new, self.old, self.check = kerns, new, old or new, check
+        self.old_kerns = kerns if old_kerns is None else old_kerns
+
+    def fn(self, name):
+        return self.old if name == "old" else self.new
+
+    def runs_on(self, name, lib) -> bool:
+        return has_kernels(lib, self.old_kerns if name == "old" else self.kerns)
+
+
+def equals(plain):
+    """A check for a call that returns its result: equal to plain()."""
+    want = []
+
+    def check(fn):
+        if not want:
+            want.append(plain())
+        return torch.equal(fn(), want[0])
+    return check
+
+
+def adds_like_plain(table, hashes, mask):
+    """A check for a counter add into ``table`` (zeroed before and after):
+    the table equals counter_add_plain's."""
+    want = []
+
+    def check(fn):
+        if not want:
+            want.append(counter.counter_add_plain(torch.zeros_like(table), hashes, mask))
+        table.zero_()
+        fn()
+        ok = torch.equal(table, want[0])
+        table.zero_()
+        return ok
+    return check
+
+
+def device_time_by_kernel(fn, calls: int = 10) -> dict:
+    """{kernel name: mean device microseconds per call of fn}, from
+    torch.profiler over ``calls`` eager calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        us = getattr(ev, "cuda_time_total", 0) if us is None else us
+        if us and ev.device_type.name == "CUDA":
+            out[ev.key[:60]] = us / calls
+    return out
+
+
+def k6_diagnostics(libs, hashes, mask, windows, dev) -> dict:
+    """What sets K6's time: the atomics alone on precomputed slots (as
+    they come, sorted, random), and K6 old and new by counter size."""
+    diag = DIAG_ADD_SLOTS.function(libs["diag"])
+    DIAG_ADD_SLOTS._fn = diag
+    res = {}
+    table = torch.zeros(STREAM_COUNTER, dtype=torch.int32, device=dev)
+    slots = counter.slots(hashes[mask], STREAM_COUNTER).to(torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    cases = {"as they come": slots, "sorted": torch.sort(slots).values,
+             "random": torch.randint(0, STREAM_COUNTER, slots.shape, dtype=torch.int32,
+                                     device=dev, generator=gen)}
+    for label, sl in cases.items():
+        want = torch.bincount(sl.long(), minlength=1)
+        table.zero_()
+        DIAG_ADD_SLOTS(sl, sl.numel(), table)
+        if not torch.equal(table[: want.numel()].long(), want):
+            raise AssertionError(f"the atomics diagnostic miscounts on slots {label}")
+        ms = [cuda_graph_time_ms(lambda: DIAG_ADD_SLOTS(sl, sl.numel(), table), GRAPH_CALLS)
+              for _ in range(2)]
+        res[f"atomics alone, {sl.numel()} slots {label} ({int(torch.unique(sl).numel())} "
+            f"distinct), 2e8-slot table"] = ms
+    del table
+    for size in DIAG_COUNTERS:
+        table = torch.zeros(size, dtype=torch.int32, device=dev)
+        runs = {"old": [], "new": [], "new, one atomic per element": []}
+        for name in ("old", "new", "new", "old"):
+            if name == "old" and not has_kernels(libs["old"], (OLD_COUNTER_ADD,)):
+                continue
+            with using(libs[name], old=name == "old"):
+                if name == "old":
+                    runs["old"].append(cuda_graph_time_ms(
+                        lambda: old_counter_add(table, hashes, mask), GRAPH_CALLS))
+                    continue
+                runs["new"].append(cuda_graph_time_ms(
+                    lambda: counter._counter_add_cuda(table, hashes, None, windows),
+                    GRAPH_CALLS))
+                runs["new, one atomic per element"].append(cuda_graph_time_ms(
+                    lambda: counter._counter_add_cuda(table, hashes, None, windows,
+                                                      binned=False), GRAPH_CALLS))
+        for label, ms in runs.items():
+            if ms:
+                res[f"K6 {label}, {size}-slot table"] = ms
+        del table
+    # as many random hashes, nearly all distinct slots: nothing to merge
+    table = torch.zeros(STREAM_COUNTER, dtype=torch.int32, device=dev)
+    distinct = torch.randint(-(2**63), 2**63 - 1, tuple(hashes.shape), dtype=torch.int64,
+                             device=dev, generator=gen)
+    with using(libs["new"]):
+        for label, kw in (("through the bins", {"binned": True}),
+                          ("one atomic per element", {"binned": False})):
+            res[f"K6 new, {label}, random hashes, 2e8-slot table"] = [
+                cuda_graph_time_ms(lambda: counter._counter_add_cuda(
+                    table, distinct, None, windows, **kw), GRAPH_CALLS) for _ in range(2)]
+        by_kernel = device_time_by_kernel(
+            lambda: counter._counter_add_cuda(table, hashes, None, windows))
+    say(f"K6 through the bins, device microseconds per call by kernel: {by_kernel}")
+    for label, ms in res.items():
+        say(f"K6 diagnostic: {label}: {', '.join(f'{x:.4f}' for x in ms)} ms")
+    res["device_us_by_kernel"] = by_kernel
+    return res
+
+
+def k6_merge_stats(table, hashes, windows) -> dict:
+    """What K6's merge does with one batch, and the route a HashCounter
+    would give the rest of a pass of such batches."""
+    stats = torch.zeros(2, dtype=torch.int32, device=table.device)
+    counter._counter_add_cuda(table, hashes, None, windows, binned=True, stats=stats)
+    table.zero_()
+    adds, elements = stats.tolist()
+    return {"elements": elements, "adds": adds,
+            "through_the_bins": counter.merge_pays(elements, adds)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", type=Path, required=True,
-                    help="directory with the earlier window_hash.cu and panel_probe.cu")
+                    help="directory with earlier versions of some of " + ", ".join(SOURCES))
     ap.add_argument("--variant", type=variant, action="append", default=[],
                     metavar="NAME=DIR", help="a further build, of the sources DIR holds")
+    ap.add_argument("--only", action="append", default=[], metavar="PREFIX",
+                    help="time only the cases whose name starts so (k1, k2, k3, k6, ...)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
@@ -189,66 +404,142 @@ def main(argv=None) -> int:
     R = panel.num_refs
     hashes = _window_hashes_cuda(codes, [K], 42)
     sk, lens = bottom_s_sketch(hashes, 50)
-    hp = hpv16_batch(dev)
+    hp, hp_lens = hpv16_batch(dev)
     say(f"stream batch {tuple(codes.shape)}, table {tuple(panel.table.shape)}; "
         f"hpv16 batch {tuple(hp.shape)}")
 
+    # K6: the counter pass's call on both batches
+    read_lens = torch.full((B,), 150, dtype=torch.int32, device=dev)
+    windows, mask = (read_lens, L, [K]), window_mask(read_lens, L, [K])
+    stream_table = torch.zeros(STREAM_COUNTER, dtype=torch.int32, device=dev)
+    hp_hashes = _window_hashes_cuda(hp, [HPV16_K], 42)
+    hp_windows = (hp_lens, hp.shape[1], [HPV16_K])
+    hp_mask = window_mask(hp_lens, hp.shape[1], [HPV16_K])
+    hp_table = torch.zeros(HPV16_COUNTER, dtype=torch.int32, device=dev)
+
+    # K3: the sorted rows of the hpv16 batch against the full-width tables
+    tb = hpv16_tables(dev)
+    T, U = len(tb.type_names), tb.n_lin + tb.n_sub
+    Wc = engine.hpv16_compact_width(hp_lens.cpu().numpy(), hp.shape[1], (HPV16_K,))
+    full, hp_sk_lens = bottom_s_sketch(hp_hashes, hp_hashes.shape[1])
+    hp_rows = full[:, :Wc]
+    k3_plain = equals(lambda: set_probe_plain(hp_rows, hp_sk_lens, tb.comb_table, T, U))
+    say(f"hpv16 tables: logical {tuple(tb.comb_table.shape)}, packed "
+        f"{tb.probe_table.nbytes / 2**20:.1f} MiB (set-up s: {tb.setup_s}); rows "
+        f"{tuple(hp_rows.shape)}")
+
     K1, K2, K2F = (kernels.WINDOW_HASH,), (kernels.PANEL_PROBE,), (kernels.PANEL_PROBE_FILTER,)
-    # case: (call, its plain version or None, the kernels it launches)
+    K6, K3 = (kernels.COUNTER_ADD,), (kernels.SET_PROBE,)
+
+    def k6_case(table, h, win, msk, **kw):
+        return Case(K6, lambda: counter._counter_add_cuda(table, h, None, win, **kw),
+                    lambda: old_counter_add(table, h, msk), adds_like_plain(table, h, msk),
+                    (OLD_COUNTER_ADD,))
+
+    def old_hpv16_step():
+        rows, ln = bottom_s_sketch(_window_hashes_cuda(hp, [HPV16_K], 42), hp_hashes.shape[1])
+        return old_set_probe(rows[:, :Wc], ln, tb.comb_table, T, U)
+
     cases = {
-        "k1_stream": (lambda: _window_hashes_cuda(codes, [K], 42),
-                      lambda: kmer_window_hashes_plain(codes, K), K1),
-        "k1_stream_k21": (lambda: _window_hashes_cuda(codes, [K_OTHER], 42),
-                          lambda: kmer_window_hashes_plain(codes, K_OTHER), K1),
-        "k1_hpv16": (lambda: _window_hashes_cuda(hp, [HPV16_K], 42),
-                     lambda: kmer_window_hashes_plain(hp, HPV16_K), K1),
-        "k2_raw": (lambda: _panel_probe_cuda(hashes, None, panel.table, R, 0, -1),
-                   lambda: panel_probe_plain(hashes, None, panel.table, R, 0, -1), K2),
-        "k2_sorted_s50": (lambda: _panel_probe_cuda(sk, lens, panel.table, R, 0, -1),
-                          lambda: panel_probe_plain(sk, lens, panel.table, R, 0, -1), K2),
-        "k2_filter_raw": (
-            lambda: _panel_probe_filter_cuda(hashes, None, panel.table, R, panel.lens, 0, 10),
-            lambda: panel_probe_filter_plain(hashes, None, panel.table, R, panel.lens, 0, 10),
-            K2F),
-        "device_step": (lambda: engine.classify_codes_table(codes, panel, (K,), S, 0, -1),
-                        None, K1 + K2),
+        "k1_stream": Case(K1, lambda: _window_hashes_cuda(codes, [K], 42),
+                          check=equals(lambda: kmer_window_hashes_plain(codes, K))),
+        "k1_stream_k21": Case(K1, lambda: _window_hashes_cuda(codes, [K_OTHER], 42),
+                              check=equals(lambda: kmer_window_hashes_plain(codes, K_OTHER))),
+        "k1_hpv16": Case(K1, lambda: _window_hashes_cuda(hp, [HPV16_K], 42),
+                         check=equals(lambda: kmer_window_hashes_plain(hp, HPV16_K))),
+        "k2_raw": Case(K2, lambda: _panel_probe_cuda(hashes, None, panel.table, R, 0, -1),
+                       check=equals(lambda: panel_probe_plain(hashes, None, panel.table, R, 0,
+                                                              -1))),
+        "k2_sorted_s50": Case(K2, lambda: _panel_probe_cuda(sk, lens, panel.table, R, 0, -1),
+                              check=equals(lambda: panel_probe_plain(sk, lens, panel.table, R,
+                                                                     0, -1))),
+        "k2_filter_raw": Case(
+            K2F, lambda: _panel_probe_filter_cuda(hashes, None, panel.table, R, panel.lens, 0, 10),
+            check=equals(lambda: panel_probe_filter_plain(hashes, None, panel.table, R,
+                                                          panel.lens, 0, 10))),
+        "device_step": Case(K1 + K2,
+                            lambda: engine.classify_codes_table(codes, panel, (K,), S, 0, -1)),
+        "k6_stream": k6_case(stream_table, hashes, windows, mask),
+        "k6_stream_one_atomic_each": k6_case(stream_table, hashes, windows, mask, binned=False),
+        "k6_stream_mask_tensor": Case(
+            K6, lambda: counter._counter_add_cuda(stream_table, hashes, mask),
+            lambda: old_counter_add(stream_table, hashes, mask),
+            adds_like_plain(stream_table, hashes, mask), (OLD_COUNTER_ADD,)),
+        "k6_hpv16": k6_case(hp_table, hp_hashes, hp_windows, hp_mask),
+        "k6_hpv16_one_atomic_each": k6_case(hp_table, hp_hashes, hp_windows, hp_mask,
+                                            binned=False),
+        "k3_hpv16": Case(K3, lambda: _set_probe_cuda(hp_rows, hp_sk_lens, tb.probe_table, T, U),
+                         lambda: old_set_probe(hp_rows, hp_sk_lens, tb.comb_table, T, U),
+                         k3_plain, (OLD_SET_PROBE,)),
+        **{f"k3_hpv16_seg{seg}": Case(
+            K3, lambda seg=seg: _set_probe_cuda(hp_rows, hp_sk_lens, tb.probe_table, T, U,
+                                                seg=seg),
+            lambda: old_set_probe(hp_rows, hp_sk_lens, tb.comb_table, T, U), k3_plain,
+            (OLD_SET_PROBE,)) for seg in K3_SEGMENTS},
+        "hpv16_step": Case(K1 + K3, lambda: engine.hpv16_batch_comb(hp, tb.probe_table,
+                                                                     (HPV16_K,), T, U, Wc),
+                           old_hpv16_step, old_kerns=(OLD_SET_PROBE,)),
     }
+    if args.only:
+        cases = {c: v for c, v in cases.items() if c.startswith(tuple(args.only))}
+
     raw_stats = bounds.panel_probe_stats(hashes, None, panel.table, R)
     sk_stats = bounds.panel_probe_stats(sk, lens, panel.table, R)
+    k3_stats = bounds.set_probe_stats(hp_rows, hp_sk_lens, tb.comb_table, T + U)
     k1_bytes = {"k1_stream": bounds.tensor_bytes(codes, hashes),
                 "k1_stream_k21": bounds.tensor_bytes(codes) + B * (L - K_OTHER + 1) * 8,
                 "k1_hpv16": hp.numel() * 9 - hp.shape[0] * (HPV16_K - 1) * 8}
     k2_bytes = bounds.tensor_bytes(hashes) + raw_stats.table_bytes
+
+    def k6_bound(h, msk, ln, size):  # the hashes and read lengths, the slots' sectors twice
+        sectors = bounds.sector_bytes(torch.unique(counter.slots(h[msk], size)) * 4)
+        return bounds.bound_ms(bounds.tensor_bytes(h, ln) + 2 * sectors)
+
+    k3_rows = bounds.read_row_bytes(hp_rows, hp_sk_lens) + 4 * HPV16_B + 8 * HPV16_B * (2 + U)
     bound = {**{c: bounds.bound_ms(b) for c, b in k1_bytes.items()},
              "k2_raw": bounds.bound_ms(k2_bytes + 3 * 4 * B),
              "k2_filter_raw": bounds.bound_ms(k2_bytes + 5 * 4 * B + 4 * R),
              "k2_sorted_s50": bounds.bound_ms(bounds.read_row_bytes(sk, lens) + 4 * B
-                                              + sk_stats.table_bytes + 3 * 4 * B)}
+                                              + sk_stats.table_bytes + 3 * 4 * B),
+             "k6_stream": k6_bound(hashes, mask, read_lens, STREAM_COUNTER),
+             "k6_hpv16": k6_bound(hp_hashes, hp_mask, hp_lens, HPV16_COUNTER),
+             "k3_hpv16": bounds.bound_ms(k3_rows + k3_stats.table_bytes),
+             "k3_hpv16_packed_layout": bounds.bound_ms(
+                 k3_rows + bounds.packed_set_table_bytes(k3_stats, tb.probe_table))}
     say(f"K2 raw rows: {raw_stats.probes / B:.2f} probes, {raw_stats.hits / B:.2f} hits per "
         f"read, {raw_stats.mask_bits / max(raw_stats.hits, 1):.2f} of {R} mask bits set per "
-        f"hit, {raw_stats.table_bytes} table bytes reached; bounds (ms): {bound}")
+        f"hit, {raw_stats.table_bytes} table bytes reached; K3: {vars(k3_stats)}; "
+        f"bounds (ms): {bound}")
     names = [name for name, _ in args.variant]
     order = ("old", "new", *names, *names[::-1], "new", "old")
     res = {"card": card, "iters": ITERS, "order": list(order), "bound_ms": bound,
-           "k2_raw_probe_stats": vars(raw_stats), "ms": {}, "eager_ms": {}}
-    for case, (fn, plain, kerns) in cases.items():
-        want = plain() if plain is not None else None
-        runs = {name: [] for name in libs}
-        eager = {name: [] for name in libs}
-        for name in order:
-            if not has_kernels(libs[name], kerns):
+           "k2_raw_probe_stats": vars(raw_stats), "k3_probe_stats": vars(k3_stats),
+           "ms": {}, "eager_ms": {}}
+    timed = [n for n in libs if n != "diag"]
+    for name, case in cases.items():
+        runs = {n: [] for n in timed}
+        eager = {n: [] for n in timed}
+        for lib in order:
+            if not case.runs_on(lib, libs[lib]):
                 continue
-            with using(libs[name]):
-                if want is not None and not torch.equal(fn(), want):
-                    raise AssertionError(f"{case}: the {name} kernels disagree with the plain "
+            with using(libs[lib], old=lib == "old"):
+                fn = case.fn(lib)
+                if case.check is not None and not case.check(fn):
+                    raise AssertionError(f"{name}: the {lib} kernels disagree with the plain "
                                          "version")
-                runs[name].append(cuda_graph_time_ms(fn, GRAPH_CALLS))
-                eager[name].append(cuda_time_ms(fn, ITERS))
-        res["ms"][case] = {n: r for n, r in runs.items() if r}
-        res["eager_ms"][case] = {n: r for n, r in eager.items() if r}
-        say(f"{case}: " + ", ".join(
+                runs[lib].append(cuda_graph_time_ms(fn, GRAPH_CALLS))
+                eager[lib].append(cuda_time_ms(fn, ITERS))
+        res["ms"][name] = {n: r for n, r in runs.items() if r}
+        res["eager_ms"][name] = {n: r for n, r in eager.items() if r}
+        say(f"{name}: " + ", ".join(
             f"{n} {np.mean(r):.4f} ms ({', '.join(f'{x:.4f}' for x in r)}; eager "
             f"{', '.join(f'{x:.4f}' for x in eager[n])})" for n, r in runs.items() if r))
+    if not args.only or any(o.startswith("k6") for o in args.only):
+        res["k6_diagnostics"] = k6_diagnostics(libs, hashes, mask, windows, dev)
+        res["k6_merge"] = {"stream": k6_merge_stats(stream_table, hashes, windows),
+                           "hpv16": k6_merge_stats(hp_table, hp_hashes, hp_windows)}
+        say(f"K6 merge, elements into adds to the table, and a counter pass's route: "
+            f"{res['k6_merge']}")
     res["ptxas_registers"] = ptxas_registers()
     res["sass_instructions"] = sass_counts(kernels.library_path())
     res["sass_instructions_old"] = sass_counts(kernels.BUILD_DIR / "ab" / "libold.so")

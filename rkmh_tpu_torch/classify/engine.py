@@ -162,12 +162,13 @@ def hpv16_compact_width(lens, L: int, ks, grid: int = 8) -> int:
     return min(W, max(q, -(-need // q) * q))
 
 
-def hpv16_batch_comb(codes: torch.Tensor, comb_table: torch.Tensor, ks, num_types: int,
+def hpv16_batch_comb(codes: torch.Tensor, comb_table, ks, num_types: int,
                      num_uniq: int, Wc: int, counter: torch.Tensor | None = None,
                      min_occ: int = 0) -> torch.Tensor:
     """The hpv16 step: [B, L] uint8 codes -> int64 [B, 2+U] (best type, its
     distinct shared count, the U lineage/sublineage unique-k-mer counts)
-    against the combined type + group set table.  Every window hash of a
+    against the combined type + group set table (on a GPU its
+    ``ops/set_probe.PackedSetTable``).  Every window hash of a
     read (with -M, those counted at least min_occ times) is sorted (a
     full-width bottom_s_sketch) and cut to Wc columns."""
     hashes = depth_filtered_hashes(codes, ks, counter, min_occ)

@@ -27,6 +27,7 @@ from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.io.fastx import iter_batches, read_fastx
 from rkmh_tpu_torch.io.packing import encode_seqs, length_buckets
 from rkmh_tpu_torch.ops.counter import HashCounter
+from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
 from rkmh_tpu_torch.ops.lookup import build_panel_table
 
 DEFAULT_KMER = 16          # rkmh.cpp:728-731
@@ -177,9 +178,10 @@ def count_read_kmers(chunks, ks, counter_size: int, batch_size: int,
     counter = HashCounter(counter_size, device)
     for chunk in chunks:
         for _, codes, lens in bucketed_batches(chunk, batch_size):
-            counter.add(*engine.hash_batch_with_mask(
-                torch.from_numpy(codes).to(device, non_blocking=True),
-                torch.from_numpy(lens).to(device, non_blocking=True), ks))
+            batch = torch.from_numpy(codes).to(device, non_blocking=True)
+            counter.add_windows(multi_k_window_hashes(batch, ks),
+                                torch.from_numpy(lens).to(device, non_blocking=True),
+                                batch.shape[1], ks)
     return counter
 
 

@@ -13,7 +13,8 @@ working directory and the stderr table stats are byte-identical to
 All of it reads one combined set table over the T types and the U unique
 groups (``ops/lookup.build_set_table``): the hashing and the group
 differences run on the device, the table is built on the host and copied
-to the device once.  With -M, a first pass counts every read k-mer in a
+to the device once, where the set-probe kernel's packed layout of it is
+made once as well (``ops/set_probe.pack_set_table``).  With -M, a first pass counts every read k-mer in a
 ``hash % counter_size`` counter on the device (rkmh.cpp:2513-2530) and
 the classify pass drops the k-mers counted fewer than min_kmer_occ times
 before it sorts a read's hashes (rkmh.cpp:2663).  Not ported yet:
@@ -44,6 +45,7 @@ from rkmh_tpu_torch.commands.common import (
 )
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.ops.lookup import build_set_table, projected_table_bytes
+from rkmh_tpu_torch.ops.set_probe import pack_set_table
 from rkmh_tpu_torch.ops.sketch import INT64_MIN, SENTINEL
 
 DEFAULT_COUNTER_SIZE = 800_000_000  # rkmh.cpp:2516
@@ -131,10 +133,14 @@ def _family_unique(hashes, mask, groups):
 
 
 class Hpv16Tables:
-    """What the read loop needs: the combined set table on the device, the
-    name maps, and the set-up seconds of each build phase."""
+    """What the read loop needs: the combined set table on the device
+    (``comb_table``, the logical layout; ``probe_table``, what the probe
+    takes there: on a GPU the kernel's packed layout, on the CPU the same
+    logical table), the name maps, and the set-up seconds of each build
+    phase."""
 
-    __slots__ = ("type_names", "comb_table", "lin_names", "sublin_names", "setup_s")
+    __slots__ = ("type_names", "comb_table", "probe_table", "lin_names", "sublin_names",
+                 "setup_s")
 
     @property
     def n_lin(self):
@@ -213,6 +219,10 @@ def build_tables(cfg: Hpv16Config, ks: tuple, device: torch.device) -> Hpv16Tabl
     clock.lap("host_build")
     tb.comb_table = torch.from_numpy(table.view(np.int32)).to(device)
     clock.lap("h2d")
+    tb.probe_table = tb.comb_table
+    if device.type == "cuda":
+        tb.probe_table = pack_set_table(tb.comb_table, n_all)
+        clock.lap("repack")
 
     uniq_rows = [np.unique(r) for r in rows[len(type_recs):]]
     lin_uniqs, sublin_uniqs = uniq_rows[: len(lin_names)], uniq_rows[len(lin_names):]
@@ -306,7 +316,7 @@ def _run(cfg: Hpv16Config, out) -> int:
         # the probe width comes from the UNPADDED lengths (engine docstring)
         Wc = engine.hpv16_compact_width(lens, codes.shape[1], ks)
         batch = torch.from_numpy(codes).to(device, non_blocking=True)
-        return (rows, lens), engine.hpv16_batch_comb(batch, tb.comb_table, ks, num_types,
+        return (rows, lens), engine.hpv16_batch_comb(batch, tb.probe_table, ks, num_types,
                                                      num_uniq, Wc, counter, cfg.min_kmer_occ)
 
     def on_result(st, meta, arr):

@@ -1,5 +1,5 @@
 // K3: fused hpv16 set-table probe — bucket probe, per-reference distinct
-// counts and the type argmax, one block per read.
+// counts and the type argmax.
 //
 // There is no Pallas kernel for this in rkmh_tpu: XLA fuses it there.  It
 // replaces the chain rkmh_tpu/classify/engine.py:751-758 (the occ ranks
@@ -15,25 +15,44 @@
 // windows, compacted to the first n columns) with lens [B]: valid = i <
 // len and h != SENTINEL.  The table is a SET table: every entry has occ 0
 // (ops/lookup.py::build_set_table), so only the first element of a run of
-// equal hashes can hit; a later one carries occ > 0 and misses the (lo,
-// occ) compare.  The kernel therefore probes only run starts, and finds a
-// run start from row[i-1] alone: the previous lane's value by a shuffle,
-// the previous iteration's last value from memory for lane 0.  The row is
-// not staged in shared memory, so no read length is too long.
+// equal hashes can hit; a later one carries occ > 0 and misses.  The
+// kernel therefore probes only run starts, and finds a run start from
+// row[i-1] alone: the previous lane's value by a shuffle, and for lane 0
+// the element before it from memory, also where that element belongs to
+// another block's segment.  The row is not staged in shared memory, so no
+// read length is too long.
 //
-// What bounds it on the card: one random bucket-row access per distinct
-// valid element into a table far larger than the 50 MB L2 (hpv16 at k=18:
-// ~1.4M entries, S=12, Wm=7, rows of 480 B, 240-480 MB), so nearly every
-// probe is an HBM miss.  The design loads only what it needs from that
-// row: the S lo and the S occ lanes (2 * 48 B at S=12, all loads in flight
-// before any compare), then, for a candidate slot, hi and the Wm mask
-// words of that slot together (8 more 32 B sectors at Wm=7).  Per read of
-// D distinct windows that is about D * (4 + 8 * hit rate) sectors of 32 B
-// of HBM traffic.  Counting stays on chip: per warp, the OR of the 32
-// lanes' mask words names the bits to count, one ballot per such bit
-// gives the votes of 32 elements for one reference, and lane b adds the
-// votes for bit b to a per-reference counter in shared memory.  One warp
-// then takes the first-max argmax over the types.
+// What bounds it on the card: one random access per distinct valid element
+// into a table far larger than the 50 MB L2 (hpv16 at k=18: ~1.4M entries,
+// 2^20 buckets of S=12 slots, Wm=7 mask words), so a probe is a trip to
+// HBM and the kernel lasts as long as its slowest block.  The design:
+//
+// * The table is read in a layout made for this card, once per run, by
+//   ops/set_probe.pack_set_table: per bucket one key record (the S lo
+//   words and, in its last word, a bitmap of the occupied slots, padded to
+//   a power of two of at least 16 bytes: 64 bytes at S=12) and per slot one
+//   record (hi, then the Wm mask words, padded to 16 bytes: 32 bytes, one
+//   sector, at Wm=7).  A probe loads one key record with 16-byte
+//   ld.global.nc vectors; only a lo match on an occupied slot loads that
+//   slot's record, where hi is checked.  That is 2 sectors per probe and 1
+//   per hit, against 4 and 8 in the logical [hi*S | lo*S | occ*S | mask]
+//   lanes, and the key records (64 MiB at 2^20 buckets) are few enough
+//   that many stay in L2 from one probe to the next.
+// * Work is split by elements: block (b, j) takes elements [j * seg, (j +
+//   1) * seg) of read b and leaves at once when the read is shorter, so a
+//   batch of 512 reads of unequal lengths fills the card and no block
+//   lasts longer than one segment.
+// * A lane holds the key record of one probe at a time: the loads in
+//   flight come from the many warps an SM then holds.  Two probes a lane
+//   before the first compare took 19% longer on the card and four 54%
+//   (their registers cut the warps).
+// * Counting stays on chip: per warp, the OR of the 32 lanes' mask words
+//   names the bits to count, one ballot per such bit gives the votes of 32
+//   elements for one reference, and lane b adds the votes for bit b to a
+//   per-reference counter in shared memory.  A read of one segment takes
+//   its argmax from there.  A longer read's blocks add their non-zero
+//   counters to a [B, 32 * Wm] buffer, and the last of them to finish (a
+//   ticket counter after a __threadfence) takes the first-max argmax.
 
 #include <climits>
 #include <cstdint>
@@ -42,72 +61,110 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MASK_CHUNK = 8;  // mask words loaded per batch of loads
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr uint64_t SENTINEL = 0xFFFFFFFFFFFFFFFFULL;
 constexpr uint32_t MIX = 0x85EBCA77u;
 constexpr uint32_t MUL = 0x9E3779B1u;
 
-__global__ void set_probe_kernel(const uint64_t* __restrict__ rows, int64_t row_stride,
-                                 const int32_t* __restrict__ lens, int n,
-                                 const uint32_t* __restrict__ table, int log2nb, int S,
-                                 int Wm, int T, int U, int64_t* __restrict__ out) {
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// The warp's 32 mask words for reference word `word`: lane b adds the
+// number of lanes whose bit b is set to cnt[32 * word + b].
+__device__ __forceinline__ void count_votes(uint32_t mine, int word, int lane, int* cnt) {
+  uint32_t bits = __reduce_or_sync(FULL, mine);
+  int votes_here = 0;
+  while (bits) {
+    const int bit = __ffs(bits) - 1;
+    bits &= bits - 1;
+    const int votes = __popc(__ballot_sync(FULL, (mine >> bit) & 1u));
+    if (lane == bit) votes_here = votes;
+  }
+  if (votes_here) atomicAdd(&cnt[32 * word + lane], votes_here);
+}
+
+// KV: 16-byte vectors per key record (S < 4 * KV).
+template <int KV>
+__global__ void __launch_bounds__(THREADS)
+set_probe_kernel(const uint64_t* __restrict__ rows, int64_t row_stride,
+                 const int32_t* __restrict__ lens, int n, const uint4* __restrict__ keys,
+                 const uint4* __restrict__ slots, int log2nb, int S, int Wm, int seg, int T,
+                 int U, int* __restrict__ counts, int* __restrict__ done,
+                 int64_t* __restrict__ out) {
   extern __shared__ int cnt[];  // [32 * Wm] per-reference counters
+  __shared__ bool last;
 
   const int b = blockIdx.x;
+  const int len = min(lens[b], n);
+  const int first = blockIdx.y * seg;
+  if (blockIdx.y > 0 && first >= len) return;  // the read ends before this segment
+  const int end = min(first + seg, len);
+  const int nseg = max(1, (len + seg - 1) / seg);  // blocks that stay for read b
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int r = tid; r < 32 * Wm; r += blockDim.x) cnt[r] = 0;
+  for (int r = tid; r < 32 * Wm; r += THREADS) cnt[r] = 0;
   __syncthreads();
 
   const uint64_t* row = rows + (int64_t)b * row_stride;
-  const int len = min(lens[b], n);
-  const int width = S * (3 + Wm);
+  const int SV = (Wm + 4) / 4;  // 16-byte vectors per slot record: hi + Wm words
 
   // warp-uniform loop bound: every lane takes part in the shuffles and ballots
-  for (int base = warp * 32; base < len; base += blockDim.x) {
+  for (int base = first + warp * 32; base < end; base += THREADS) {
     const int i = base + lane;
-    const uint64_t h = i < len ? row[i] : SENTINEL;
+    const uint64_t h = i < end ? row[i] : SENTINEL;
     uint64_t prev = __shfl_up_sync(FULL, h, 1);
-    if (lane == 0 && i > 0) prev = row[i - 1];
-    const bool probe = i < len && h != SENTINEL && (i == 0 || prev != h);
-
+    if (lane == 0 && i > 0 && i < end) prev = row[i - 1];
+    const bool probe = i < end && h != SENTINEL && (i == 0 || prev != h);
     const uint32_t lo = (uint32_t)h, hi = (uint32_t)(h >> 32);
-    const uint32_t* trow = table;
-    int slot = -1;
+    const uint32_t x = (lo ^ (hi * MIX)) * MUL;  // bucket_indices at occ = 0
+    const size_t bucket = log2nb == 0 ? 0u : x >> (32 - log2nb);
+    int slot = -1;  // the occupied slot whose lo matches
     if (probe) {
-      const uint32_t x = (lo ^ (hi * MIX)) * MUL;  // bucket_indices at occ = 0
-      trow = table + (size_t)(log2nb == 0 ? 0u : x >> (32 - log2nb)) * width;
-      for (int s = 0; s < S; ++s) {
-        const uint32_t l = __ldg(trow + S + s), o = __ldg(trow + 2 * S + s);
-        if (slot < 0 && l == lo && o == 0u) slot = s;
+      uint4 key[KV];
+#pragma unroll
+      for (int v = 0; v < KV; ++v) key[v] = __ldg(keys + bucket * KV + v);
+      const uint32_t occupied = key[KV - 1].w;
+#pragma unroll
+      for (int s = 4 * KV - 2; s >= 0; --s) {  // downwards: the first match stays
+        if (s < S && word_of(key[s / 4], s % 4) == lo && ((occupied >> s) & 1u)) slot = s;
       }
     }
-    // hi is checked on the one candidate slot, loaded with its mask words
-    const uint32_t slot_hi = slot >= 0 ? __ldg(trow + slot) : 0u;
-
-    for (int w0 = 0; w0 < Wm; w0 += MASK_CHUNK) {
-      uint32_t m[MASK_CHUNK];
+    const uint4* rec = slot >= 0 ? slots + (bucket * S + slot) * SV : nullptr;
+    // its record, two vectors (8 words) at a time: word 0 is hi, word 1 + w mask word w
+    for (int v0 = 0; v0 < SV; v0 += 2) {
+      uint4 m[2];
 #pragma unroll
-      for (int j = 0; j < MASK_CHUNK; ++j)
-        m[j] = slot >= 0 && w0 + j < Wm ? __ldg(trow + (3 + w0 + j) * S + slot) : 0u;
-      const bool ok = slot >= 0 && slot_hi == hi;
+      for (int v = 0; v < 2; ++v) {
+        m[v] = rec != nullptr && v0 + v < SV ? __ldg(rec + v0 + v) : make_uint4(0u, 0u, 0u, 0u);
+      }
+      if (v0 == 0 && rec != nullptr && m[0].x != hi) rec = nullptr;
 #pragma unroll
-      for (int j = 0; j < MASK_CHUNK; ++j) {
-        if (w0 + j >= Wm) break;  // warp-uniform
-        const uint32_t mj = ok ? m[j] : 0u;
-        uint32_t bits = __reduce_or_sync(FULL, mj);
-        int mine = 0;  // lane `bit` keeps the vote count of bit `bit`
-        while (bits) {
-          const int bit = __ffs(bits) - 1;
-          bits &= bits - 1;
-          const int votes = __popc(__ballot_sync(FULL, (mj >> bit) & 1u));
-          if (lane == bit) mine = votes;
-        }
-        if (mine) atomicAdd(&cnt[32 * (w0 + j) + lane], mine);
+      for (int j = 0; j < 8; ++j) {
+        const int w = 4 * v0 + j - 1;  // mask word of flat word 4 * v0 + j
+        if (w < 0) continue;
+        if (w >= Wm) break;  // warp-uniform
+        count_votes(rec != nullptr ? word_of(m[j / 4], j % 4) : 0u, w, lane, cnt);
       }
     }
   }
   __syncthreads();
+
+  if (nseg > 1) {
+    // a read of several segments: add to its counters in device memory;
+    // the last block to get here reads them back and takes the argmax
+    int* total = counts + (int64_t)b * 32 * Wm;
+    for (int r = tid; r < 32 * Wm; r += THREADS) {
+      if (cnt[r]) atomicAdd(&total[r], cnt[r]);
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(&done[b], 1) == nseg - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    for (int r = tid; r < 32 * Wm; r += THREADS) cnt[r] = __ldcg(&total[r]);
+    __syncthreads();
+  }
 
   if (warp != 0) return;
   // jnp.argmax over the types: the first maximal index (0 when all are 0)
@@ -134,21 +191,49 @@ __global__ void set_probe_kernel(const uint64_t* __restrict__ rows, int64_t row_
   for (int u = lane; u < U; u += 32) o[2 + u] = cnt[T + u];
 }
 
+template <int KV>
+int launch(const int64_t* rows, int64_t row_stride, const int32_t* lens, int B, int n,
+           const int32_t* keys, const int32_t* slots, int log2nb, int S, int Wm, int T, int U,
+           int seg, int32_t* counts, int32_t* done, int64_t* out, cudaStream_t stream) {
+  const size_t smem = (size_t)Wm * 32 * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(set_probe_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  }
+  const dim3 grid(B, n > seg ? (n + seg - 1) / seg : 1);
+  set_probe_kernel<KV><<<grid, THREADS, smem, stream>>>(
+      reinterpret_cast<const uint64_t*>(rows), row_stride, lens, n,
+      reinterpret_cast<const uint4*>(keys), reinterpret_cast<const uint4*>(slots), log2nb, S,
+      Wm, seg, T, U, counts, done, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // rows [B, n] uint64 (row stride row_stride elements, sorted), lens [B]
-// int32, table [2^log2nb, S*(3+Wm)] uint32 holding occ-0 entries only ->
-// out [B, 2+U] int64.  Requires B >= 1, T >= 1 and T + U <= 32 * Wm.
+// int32, the packed set table (keys [2^log2nb, KW] uint32 with KW = max(4,
+// next power of two of S + 1): S lo words, zeros, the occupancy bitmap
+// last; slots [2^log2nb * S, SW] uint32 with SW = 4 * ceil((1 + Wm) / 4):
+// hi, the Wm mask words, zeros; both 16-byte aligned) -> out [B, 2+U]
+// int64.  Block (b, j) takes elements [j * seg, (j + 1) * seg) of read b.
+// counts [B, 32 * Wm] and done [B], zeroed, are needed when n > seg.
+// Requires B >= 1, T >= 1, T + U <= 32 * Wm, S <= 31, seg a positive
+// multiple of 32 with ceil(n / seg) <= 65535.
 extern "C" int rkmh_set_probe(const int64_t* rows, int64_t row_stride, const int32_t* lens,
-                              int B, int n, const int32_t* table, int log2nb, int S, int Wm,
-                              int T, int U, int64_t* out, cudaStream_t stream) {
-  const size_t smem = (size_t)Wm * 32 * sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(set_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+                              int B, int n, const int32_t* keys, const int32_t* slots,
+                              int log2nb, int S, int Wm, int T, int U, int seg,
+                              int32_t* counts, int32_t* done, int64_t* out,
+                              cudaStream_t stream) {
+  if (seg < 32 || seg % 32 || (n + seg - 1) / seg > 65535 || S < 1 || S > 31 ||
+      (n > seg && (counts == nullptr || done == nullptr))) {
+    return (int)cudaErrorInvalidValue;
   }
-  set_probe_kernel<<<B, THREADS, smem, stream>>>(
-      reinterpret_cast<const uint64_t*>(rows), row_stride, lens, n,
-      reinterpret_cast<const uint32_t*>(table), log2nb, S, Wm, T, U, out);
-  return (int)cudaGetLastError();
+#define RKMH_SET_PROBE(KV)                                                                 \
+  return launch<KV>(rows, row_stride, lens, B, n, keys, slots, log2nb, S, Wm, T, U, seg, \
+                    counts, done, out, stream)
+  if (S < 4) RKMH_SET_PROBE(1);
+  if (S < 8) RKMH_SET_PROBE(2);
+  if (S < 16) RKMH_SET_PROBE(4);
+  RKMH_SET_PROBE(8);
+#undef RKMH_SET_PROBE
 }

@@ -130,7 +130,7 @@ class Kernel:
         self.launches += 1
 
 
-_p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_p, _i, _i64, _u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
 
 # rkmh_window_hash(codes, B, L, k, seed, out, out_cols, col0, stream)
 WINDOW_HASH = Kernel("rkmh_window_hash", [_p, _i, _i, _i, ctypes.c_uint64, _p, _i64, _i64])
@@ -142,17 +142,22 @@ PANEL_PROBE = Kernel("rkmh_panel_probe", [_p, _p, _i, _i, _p, _i, _i, _i, _i, _i
 #                         out, stream)
 PANEL_PROBE_FILTER = Kernel("rkmh_panel_probe_filter",
                             [_p, _p, _i, _i, _p, _i, _i, _i, _i, _p, _i, _i, _p])
-# rkmh_set_probe(rows, row_stride, lens, B, n, table, log2_buckets, slots,
-#                mask_words, num_types, num_uniq, out, stream)
-SET_PROBE = Kernel("rkmh_set_probe", [_p, _i64, _p, _i, _i, _p, _i, _i, _i, _i, _i, _p])
+# rkmh_set_probe(rows, row_stride, lens, B, n, key records, slot records, log2_buckets,
+#                slots, mask_words, num_types, num_uniq, segment, counts|NULL, done|NULL,
+#                out, stream)
+SET_PROBE = Kernel("rkmh_set_probe", [_p, _i64, _p, _i, _i, _p, _p, _i, _i, _i, _i, _i, _i,
+                                      _p, _p, _p])
 # rkmh_lut_gather_rows(lut, idx, out, N, C, M, smem, stream)
 LUT_GATHER_ROWS = Kernel("rkmh_lut_gather_rows", [_p, _p, _p, _i, _i, _i64, _i])
 # rkmh_lut_gather_lanes(lut, idx, out, N, C, M, stream)
 LUT_GATHER_LANES = Kernel("rkmh_lut_gather_lanes", [_p, _p, _p, _i, _i, _i])
-# rkmh_counter_add(hashes, mask|NULL, n, table, size, stream)
-COUNTER_ADD = Kernel("rkmh_counter_add", [_p, _p, _i64, _p, _i64])
-# rkmh_counter_mask(hashes, n, table, size, lo, hi, out, stream)
-COUNTER_MASK = Kernel("rkmh_counter_mask", [_p, _i64, _p, _i64, _i, _i, _p])
+# rkmh_counter_add(hashes, mask|NULL, lens|NULL, L, ks (host ints), nk, n, table, size,
+#                  magic, log2_ceil, cursor|NULL, bins|NULL, shift, nbins, cap, stats|NULL,
+#                  stream)
+COUNTER_ADD = Kernel("rkmh_counter_add", [_p, _p, _p, _i, _p, _i, _i64, _p, _i64, _u64, _i,
+                                          _p, _p, _i, _i, _i, _p])
+# rkmh_counter_mask(hashes, n, table, size, magic, log2_ceil, lo, hi, out, stream)
+COUNTER_MASK = Kernel("rkmh_counter_mask", [_p, _i64, _p, _i64, _u64, _i, _i, _i, _p])
 
 KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE,
            "panel_probe_filter": PANEL_PROBE_FILTER, "set_probe": SET_PROBE,

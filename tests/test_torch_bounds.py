@@ -67,6 +67,22 @@ def test_set_probe_stats_probe_run_starts_only():
     assert st.hits >= int(want[:, 1].max()) > 0
 
 
+def test_probe_stats_count_the_packed_layout_too():
+    from rkmh_tpu_torch.ops.set_probe import pack_set_table
+
+    _, _, pool, rng = _panel(6)
+    T, U = 12, 3
+    table = torch.from_numpy(build_set_table([rng.choice(pool, 60) for _ in range(T + U)],
+                                             num_refs=T + U).table.view(np.int32))
+    rows, lens = bottom_s_sketch(torch.from_numpy(rng.choice(pool, size=(6, 120))), 120)
+    st = bounds.set_probe_stats(rows, lens, table, T + U)
+    assert 0 < st.hit_slots <= st.hits and 0 < st.buckets <= min(st.probes, table.shape[0])
+    packed = pack_set_table(table, T + U)
+    # one key record per bucket and one slot record per entry hit, in whole sectors
+    key_bytes = -(-4 * packed.keys.shape[1] // 32) * 32
+    assert bounds.packed_set_table_bytes(st, packed) == st.buckets * key_bytes + st.hit_slots * 32
+
+
 def test_kernel_ab_variant_argument():
     assert kernel_ab.variant("n_slots=_scratch/v/n") == ("n_slots", Path("_scratch/v/n"))
     for bad in ("n_slots", "=dir", "n_slots=", "old=dir", "new=dir"):
@@ -82,3 +98,87 @@ def test_kernel_ab_times_a_library_only_on_its_kernels():
     assert kernel_ab.has_kernels(lib, (kernels.PANEL_PROBE, kernels.PANEL_PROBE_FILTER))
     assert not kernel_ab.has_kernels(lib, (kernels.WINDOW_HASH,))
     assert not kernel_ab.has_kernels(lib, (kernels.WINDOW_HASH, kernels.PANEL_PROBE))
+
+
+def test_kernel_ab_takes_the_counter_and_set_probe_sources(tmp_path):
+    assert set(kernel_ab.SOURCES) == {"window_hash.cu", "panel_probe.cu", "counter.cu",
+                                      "set_probe.cu"}
+    assert kernel_ab.held_sources(tmp_path) == []
+    for name in ("set_probe.cu", "counter.cu", "notes.txt"):
+        (tmp_path / name).write_text("")
+    assert kernel_ab.held_sources(tmp_path) == [tmp_path / "counter.cu",
+                                                tmp_path / "set_probe.cu"]
+    assert kernel_ab.DIAG_SOURCE.exists() and kernel_ab.DIAG_SOURCE.parent.name == "bench"
+    assert kernel_ab.DIAG_SOURCE not in kernels.sources()  # not part of the port's library
+
+
+class _OldCounters:  # a library built from the counter.cu and set_probe.cu before the redesign
+    rkmh_counter_add = rkmh_counter_mask = rkmh_set_probe = staticmethod(lambda *a: 0)
+
+
+def test_kernel_ab_calls_an_old_library_by_its_old_entry_points():
+    lib = _OldCounters()
+    new = [kern._fn for kern in kernel_ab.SWAPPED]
+    with kernel_ab.using(lib, old=True):
+        # the redesigned kernels keep this checkout's entry points; the old
+        # ones are reached through the old signatures
+        assert [kern._fn for kern in kernel_ab.REDESIGNED] == [
+            kern._fn for kern in kernels.KERNELS.values() if kern in kernel_ab.REDESIGNED]
+        assert kernels.COUNTER_ADD._fn is new[kernel_ab.SWAPPED.index(kernels.COUNTER_ADD)]
+        assert kernel_ab.OLD_COUNTER_ADD._fn is not None
+        assert kernel_ab.OLD_SET_PROBE._fn is not None
+        assert len(kernel_ab.OLD_COUNTER_ADD.argtypes) < len(kernels.COUNTER_ADD.argtypes)
+    assert kernel_ab.OLD_COUNTER_ADD._fn is None and kernel_ab.OLD_SET_PROBE._fn is None
+    with kernel_ab.using(lib):  # a variant: this checkout's signatures
+        assert kernels.COUNTER_ADD._fn is not None and kernels.SET_PROBE._fn is not None
+        assert kernel_ab.OLD_COUNTER_ADD._fn is None
+    assert [kern._fn for kern in kernel_ab.SWAPPED] == new
+
+
+def test_kernel_ab_case_runs_where_its_kernels_are():
+    lib = _OldCounters()
+    case = kernel_ab.Case((kernels.COUNTER_ADD,), new=lambda: "new", old=lambda: "old",
+                          old_kerns=(kernel_ab.OLD_COUNTER_ADD,))
+    assert case.fn("old")() == "old" and case.fn("new")() == "new" and case.fn("v")() == "new"
+    assert case.runs_on("old", lib) and case.runs_on("new", lib)
+    k1 = kernel_ab.Case((kernels.WINDOW_HASH,), new=lambda: 1)
+    assert k1.fn("old")() == 1 and not k1.runs_on("old", lib) and not k1.runs_on("new", lib)
+
+
+def test_kernel_ab_checks_compare_with_the_plain_version():
+    table = torch.zeros(101, dtype=torch.int32)
+    hashes = torch.arange(-40, 40).reshape(4, 20)
+    mask = hashes % 3 != 0
+    check = kernel_ab.adds_like_plain(table, hashes, mask)
+    from rkmh_tpu_torch.ops import counter
+
+    assert check(lambda: counter.counter_add(table, hashes, mask)) and int(table.sum()) == 0
+    assert not check(lambda: counter.counter_add(table, hashes, None))
+    same = kernel_ab.equals(lambda: torch.ones(3))
+    assert same(lambda: torch.ones(3)) and not same(lambda: torch.zeros(3))
+
+
+@pytest.mark.parametrize("argv,ok", [
+    (["--old-csrc", "d"], True),
+    (["--old-csrc", "d", "--only", "k6", "--only", "k3", "--variant", "plain_flush=v"], True),
+    ([], False),
+    (["--old-csrc", "d", "--variant", "old=v"], False),
+])
+def test_kernel_ab_arguments(argv, ok, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if ok:
+        assert kernel_ab.main(argv) == 1  # parsed; then refuses to run without a card
+        assert "needs a CUDA device" in capsys.readouterr().err
+    else:
+        with pytest.raises(SystemExit):
+            kernel_ab.main(argv)
+
+
+def test_e2e_ab_script_parses_and_names_both_paths():
+    import subprocess
+
+    script = Path(kernel_ab.__file__).with_name("e2e_ab.sh")
+    assert subprocess.run(["bash", "-n", str(script)]).returncode == 0
+    text = script.read_text()
+    assert "cli stream" in text and "cli hpv16" in text and "outputs identical" in text
+    assert text.count('run "$OTHER" other') == text.count('run "$ROOT" this') == 2

@@ -31,7 +31,7 @@ from rkmh_tpu_torch.commands import hpv16_cmd
 from rkmh_tpu_torch.io.packing import encode_seqs
 from rkmh_tpu_torch.ops import lookup
 from rkmh_tpu_torch.ops.hashing import window_mask
-from rkmh_tpu_torch.ops.set_probe import _set_probe_cuda, set_probe
+from rkmh_tpu_torch.ops.set_probe import _set_probe_cuda, pack_set_table, set_probe
 
 SENT = np.uint64(0xFFFFFFFFFFFFFFFF)
 SMALL = dict(num_types=12, genome_len=2000)
@@ -204,16 +204,22 @@ def test_set_probe_plain_matches_the_jax_chain():
 
 
 def test_set_probe_kernel_wrapper_rejects_what_it_cannot_take():
-    table = torch.zeros((4, 2 * (3 + 2)), dtype=torch.int32)
+    logical = torch.zeros((4, 2 * (3 + 2)), dtype=torch.int32)
+    table = pack_set_table(logical, 40)
     rows, lens = torch.zeros((2, 8), dtype=torch.int64), torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="int64 rows"):
         _set_probe_cuda(rows.int(), lens, table, 30, 10)
+    with pytest.raises(ValueError, match="PackedSetTable"):  # the kernel never repacks
+        _set_probe_cuda(rows, lens, logical, 30, 10)
     with pytest.raises(ValueError, match="power of two"):
-        _set_probe_cuda(rows, lens, torch.zeros((3, 10), dtype=torch.int32), 30, 10)
+        _set_probe_cuda(rows, lens, pack_set_table(torch.zeros((3, 10), dtype=torch.int32), 40),
+                        30, 10)
     with pytest.raises(ValueError, match="lens"):
         _set_probe_cuda(rows, lens[:1], table, 30, 10)
     with pytest.raises(ValueError, match=">= 1 type"):
         _set_probe_cuda(rows, lens, table, 0, 10)
+    with pytest.raises(ValueError, match="do not fit"):
+        _set_probe_cuda(rows, lens, table, 60, 10)
 
 
 @pytest.mark.parametrize("ks", [(5,), (3, 7, 40)])

@@ -14,8 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from rkmh_tpu_torch.ops import counter, gather, kernels
-from rkmh_tpu_torch.ops.hashing import kmer_window_hashes_plain, multi_k_window_hashes
+from rkmh_tpu_torch.ops import counter, gather, kernels, lookup
+from rkmh_tpu_torch.ops.hashing import (
+    kmer_window_hashes_plain,
+    multi_k_window_hashes,
+    window_mask,
+)
 from rkmh_tpu_torch.ops.lookup import build_panel_table, build_set_table
 from rkmh_tpu_torch.ops.probe import (
     panel_probe,
@@ -23,7 +27,12 @@ from rkmh_tpu_torch.ops.probe import (
     panel_probe_filter_plain,
     panel_probe_plain,
 )
-from rkmh_tpu_torch.ops.set_probe import set_probe, set_probe_plain
+from rkmh_tpu_torch.ops.set_probe import (
+    _set_probe_cuda,
+    pack_set_table,
+    set_probe,
+    set_probe_plain,
+)
 from rkmh_tpu_torch.ops.sketch import SENTINEL, bottom_s_sketch
 
 
@@ -266,11 +275,16 @@ def test_set_probe_kernel_matches_plain(cuda_device, T, U, width):
     lens[3] = k
     full[5:8], lens[5:8] = SENTINEL, 0  # reads with no valid element
     table, full, lens = table.to(cuda_device), full.to(cuda_device), lens.to(cuda_device)
+    packed = pack_set_table(table, T + U)  # once, on the card
+    before = kernels.SET_PROBE.launches
     for n in (width, width // 2):  # all columns, and cut short of some lens
-        got = set_probe(full[:, :n], lens, table, T, U)
+        got = set_probe(full[:, :n], lens, packed, T, U)
         torch.cuda.synchronize()
         want = set_probe_plain(full[:, :n], lens, table, T, U)
         assert torch.equal(got, want), (T, U, width, n)
+    assert kernels.SET_PROBE.launches == before + 2
+    with pytest.raises(ValueError, match="PackedSetTable"):
+        set_probe(full, lens, table, T, U)  # the kernel never repacks a logical table
     assert int(want[:, 1].max()) > 1 and (want[5:8] == 0).all()
     assert int(want[3, 0]) == (1 if T >= 3 else 0)  # the first of the tied types
 
@@ -279,10 +293,53 @@ def test_set_probe_kernel_matches_plain(cuda_device, T, U, width):
 def test_set_probe_kernel_takes_a_40kb_read(cuda_device):
     table, pool, _, rng = _set_table(40, 182, 14, 2000)
     full, lens = _sorted_rows(rng, pool, 2, 40_000)
-    got = set_probe(full.to(cuda_device), lens.to(cuda_device), table.to(cuda_device), 182, 14)
+    packed = pack_set_table(table.to(cuda_device), 182 + 14)
+    got = set_probe(full.to(cuda_device), lens.to(cuda_device), packed, 182, 14)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), set_probe_plain(full, lens, table, 182, 14))
     assert int(got[:, 1].min()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4, 8, 12, 20])  # 1, 2, 4, 4 and 8 vectors a key record
+@pytest.mark.parametrize("T,U", [(20, 5), (182, 14), (250, 30)], ids=["Wm1", "Wm7", "Wm9"])
+def test_set_probe_kernel_slot_widths_and_segments(cuda_device, monkeypatch, S, T, U):
+    monkeypatch.setattr(lookup, "pick_slots", lambda *a, **k: S)
+    table, pool, rows, rng = _set_table(S + T, T, U, 96)
+    assert table.shape[1] == S * (3 + (T + U + 31) // 32)
+    full, lens = _sorted_rows(rng, pool, 33, 700)
+    full[:, 1::3] = full[:, ::3][:, : full[:, 1::3].shape[1]]  # runs that cross segments
+    full, lens = bottom_s_sketch(full, 700)
+    full[4], lens[4] = SENTINEL, 0           # an empty read: its one block writes zeros
+    full[9, 40:], lens[9] = SENTINEL, 40     # a short read among longer ones
+    want = set_probe_plain(full, lens, table, T, U)
+    packed = pack_set_table(table.to(cuda_device), T + U)
+    x, ln = full.to(cuda_device), lens.to(cuda_device)
+    for seg in (32, 96, 512, 2048):  # 22, 8, 2 and 1 blocks a read
+        got = _set_probe_cuda(x, ln, packed, T, U, seg=seg)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (S, T, U, seg)
+    assert int(want[:, 1].max()) > 1 and (want[4] == 0).all()
+
+
+@pytest.mark.cuda
+def test_set_probe_kernel_batch_of_unequal_reads(cuda_device):
+    # 512 reads of 0 to 9,000 elements: blocks of many reads' segments
+    # finish in any order, and each read's last block takes its argmax
+    table, pool, _, rng = _set_table(77, 182, 14, 2000)
+    full, lens = _sorted_rows(rng, pool, 512, 9000, dup=0.02)
+    keep = torch.from_numpy(rng.integers(0, 9001, 512).astype(np.int32))
+    keep[::50] = 0
+    lens = torch.minimum(lens, keep)
+    full[torch.arange(9000)[None, :] >= lens[:, None]] = SENTINEL
+    packed = pack_set_table(table.to(cuda_device), 182 + 14)
+    x, ln = full.to(cuda_device), lens.to(cuda_device)
+    want = set_probe_plain(x, ln, table.to(cuda_device), 182, 14)
+    for _ in range(3):
+        got = set_probe(x, ln, packed, 182, 14)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert (want[::50] == 0).all() and int(want[:, 1].max()) > 100
 
 
 @pytest.mark.cuda
@@ -316,7 +373,8 @@ def _hashes(seed, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", [200_000_000, 10_000_000, 2**27, 1009, 1])
-def test_counter_kernels_match_plain(cuda_device, size):
+@pytest.mark.parametrize("binned", [None, False, True])  # by size, one atomic each, bins
+def test_counter_kernels_match_plain(cuda_device, size, binned):
     hashes, mask = _hashes(size % 1000, (300, 149))
     table = torch.zeros(size, dtype=torch.int32)
     counter.counter_add_plain(table, hashes, mask)
@@ -324,8 +382,12 @@ def test_counter_kernels_match_plain(cuda_device, size):
     got = torch.zeros(size, dtype=torch.int32, device=cuda_device)
     h, m = hashes.to(cuda_device), mask.to(cuda_device)
     before = (kernels.COUNTER_ADD.launches, kernels.COUNTER_MASK.launches)
-    counter.counter_add(got, h, m)
-    counter.counter_add(got, h[:7], None)
+    if binned is None:
+        counter.counter_add(got, h, m)
+        counter.counter_add(got, h[:7], None)
+    else:
+        counter._counter_add_cuda(got, h, m, binned=binned)
+        counter._counter_add_cuda(got, h[:7], None, binned=binned)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), table)
     assert int(table[0]) > 0  # hash 0 counts in slot 0
@@ -334,6 +396,109 @@ def test_counter_kernels_match_plain(cuda_device, size):
         assert torch.equal(counter.counter_mask(got, h, lo, hi).cpu(), want), (lo, hi)
     assert (kernels.COUNTER_ADD.launches, kernels.COUNTER_MASK.launches) == (
         before[0] + 2, before[1] + 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [200_000_000, 10_000_000, 2**27, 1009, 7])
+@pytest.mark.parametrize("ks", [(12,), (16, 18), (5, 200, 33)])  # k = 200 > L: no windows
+def test_counter_add_kernel_derives_the_window_mask(cuda_device, size, ks):
+    L = 160
+    rng = np.random.default_rng(size % 1000 + len(ks))
+    lens = torch.from_numpy(rng.integers(0, L + 1, 1200).astype(np.int32))
+    lens[:4] = torch.tensor([0, 3, 17, L])  # reads shorter than k, and a full one
+    hashes, _ = _hashes(len(ks), (1200, sum(max(L - k + 1, 0) for k in ks)))
+    want = torch.zeros(size, dtype=torch.int32)
+    for _ in range(2):  # two calls into one table
+        counter.counter_add_plain(want, hashes, window_mask(lens, L, ks))
+    h, ln = hashes.to(cuda_device), lens.to(cuda_device)
+    for binned in (False, True):
+        got = torch.zeros(size, dtype=torch.int32, device=cuda_device)
+        counter._counter_add_cuda(got, h, None, (ln, L, ks), binned=binned)
+        counter._counter_add_cuda(got, h, None, (ln, L, ks), binned=binned)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (size, ks, binned)
+    got = counter.HashCounter(size, cuda_device).add_windows(h, ln, L, ks).add_windows(
+        h, ln, L, ks).table
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < 2 * hashes.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one value", "mostly zeros", "two bins", "nine k values"])
+def test_counter_add_kernel_skewed_inputs(cuda_device, case):
+    # lists that overflow (what does not fit is added directly), the set of
+    # one bin flushed early, and more k values than the kernel derives a
+    # mask for (the wrapper then builds the mask tensor)
+    size = 200_000_000
+    hashes, mask = _hashes(len(case), (2000, 149))
+    windows = None
+    if case == "one value":
+        hashes[:] = -(2**63) + 12345      # a poly-A input: every add into one slot
+    elif case == "mostly zeros":
+        hashes[torch.from_numpy(np.random.default_rng(2).random(hashes.shape) < 0.9)] = 0
+    elif case == "two bins":               # 298,000 distinct slots in two bins
+        hashes = torch.arange(hashes.numel()).reshape(hashes.shape) % 149_000 + (
+            torch.arange(hashes.numel()).reshape(hashes.shape) % 2) * 100_000_000
+    else:
+        ks = (152, 153, 154, 155, 156, 157, 158, 159, 160)
+        hashes, mask = hashes[:, : sum(160 - k + 1 for k in ks)].contiguous(), None
+        windows = (torch.from_numpy(np.random.default_rng(1).integers(0, 161, 2000)), 160, ks)
+    want = torch.zeros(size, dtype=torch.int32, device=cuda_device)
+    h = hashes.to(cuda_device)
+    m = None if mask is None else mask.to(cuda_device)
+    plain_mask = m if windows is None else window_mask(windows[0].to(cuda_device), *windows[1:])
+    counter.counter_add_plain(want, h, plain_mask)
+    if windows is not None:
+        windows = (windows[0].to(cuda_device), *windows[1:])
+    for binned in (False, True):
+        got = torch.zeros(size, dtype=torch.int32, device=cuda_device)
+        counter._counter_add_cuda(got, h, m, windows, binned=binned)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (case, binned)
+    assert int(want.max()) > (1000 if case in ("one value", "mostly zeros") else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copies,binned", [(1, False), (6, True)])
+def test_hash_counter_reads_its_route_from_the_first_binned_call(cuda_device, copies, binned):
+    L, k, B = 160, 12, 1200
+    rng = np.random.default_rng(copies)
+    distinct = rng.integers(1, 2**63, size=B * (L - k + 1) // copies, dtype=np.int64)
+    hashes = torch.from_numpy(rng.permutation(np.tile(distinct, copies))).reshape(B, -1)
+    lens = torch.from_numpy(rng.integers(0, L + 1, B).astype(np.int32))
+    small = hashes[:5].contiguous()  # under BINNED_MIN_N: one atomic each, no reading
+    assert small.numel() < counter.BINNED_MIN_N <= hashes.numel()
+    want = torch.zeros(200_000_000, dtype=torch.int32, device=cuda_device)
+    h, ln, sm = hashes.to(cuda_device), lens.to(cuda_device), small.to(cuda_device)
+    for _ in range(3):
+        counter.counter_add_plain(want, h, window_mask(ln, L, [k]))
+    counter.counter_add_plain(want, sm, window_mask(ln[:5], L, [k]))
+    c = counter.HashCounter(200_000_000, cuda_device)
+    c.add_windows(sm, ln[:5], L, k)
+    assert c.binned is None
+    before = kernels.COUNTER_ADD.launches
+    for _ in range(3):
+        c.add_windows(h, ln, L, k)
+        assert c.binned is binned
+    torch.cuda.synchronize()
+    assert torch.equal(c.table, want) and kernels.COUNTER_ADD.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_counter_add_kernel_reports_what_the_merge_did(cuda_device):
+    rng = np.random.default_rng(8)
+    distinct = torch.from_numpy(rng.integers(1, 2**63, size=300_000, dtype=np.int64))
+    hashes = distinct.repeat(4).reshape(1200, 1000).to(cuda_device)  # four copies of each
+    table = torch.zeros(10_000_000, dtype=torch.int32, device=cuda_device)
+    stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    assert counter._counter_add_cuda(table, hashes, None, stats=stats)
+    adds, elements = stats.tolist()
+    slots = int(torch.unique(counter.slots(distinct, 10_000_000)).numel())
+    # a slot's copies meet in one bin, whose set holds them all: one add a slot
+    assert (adds, elements) == (slots, 1_200_000) and 290_000 < slots <= 300_000
+    assert int(table.sum()) == 1_200_000 and int(table.max()) >= 4
+    assert not counter._counter_add_cuda(table, hashes[:1], None, stats=stats)
+    assert stats.tolist() == [adds, elements]  # one atomic per element reports nothing
 
 
 @pytest.mark.cuda
