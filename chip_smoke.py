@@ -39,10 +39,13 @@ line) without CUDA or without the package beside it.  In order it:
    reads; it reports e2e reads/s, device-step reads/s over resident
    batches and the share of reads assigned to their source genome;
 7. checks the LUT-gather kernels (K4, K5) bit for bit against their plain
-   versions at every N of the gather sweep and times both, beside one
-   ``torch.gather`` on an int64 index (the library yardstick);
+   versions at every N of the gather sweep, K4 by every route that takes
+   the shape (LUT staged whole, read through the cache), and times K4 at
+   N = 512, 4096 and 16384 and K5, beside one ``torch.gather`` on an int64
+   index (the library yardstick);
 8. drives the gather path, ``rkmh_tpu_torch.bench.bench_gather.main()``,
-   with the counters zeroed just before and read just after;
+   with the counters zeroed just before and read just after; every K4
+   route must have launched (its launches by route);
 9. builds the hpv16 tables on the card from a synthetic full-width
    refpath (182 types of ~7.9 kb, 10 sublineages, k=18), the kernel's
    packed layout of the set table included (once, timed), and checks the
@@ -65,12 +68,16 @@ line) without CUDA or without the package beside it.  In order it:
     zeros among them) with a mask tensor, with the window mask derived in
     the kernel from read lengths and without a mask, three calls into one
     table, through the bins and as one atomic per element, at counter
-    sizes 2e8, 1e7, 2**27 and the prime 1009; times both and their plain
-    versions at the stream shape (B=16384, L=160, k=12, the counter
-    pass's window mask, derived in the kernel) on a 2e8-slot counter, and
-    reports how many distinct slots one batch adds to and K6's time on as
-    many random hashes; checks that a ``HashCounter`` keeps the bins for
-    the batch and leaves them for the random hashes;
+    sizes 2e8, 1e7, 2**27 and the prime 1009, K7 also on views 1-3
+    elements in (8 bytes off a 16-byte boundary at odd offsets); times both
+    and their plain versions at the stream shape (B=16384, L=160, k=12,
+    the counter pass's window mask, derived in the kernel) on a 2e8-slot
+    counter, and K7 at the hpv16 -M shape (K1's output for the 512-read
+    hpv16 batch of step 9, padding zeros included) on an 8e8-slot counter,
+    checked exactly there too; reports how many distinct slots one batch
+    adds to and K6's time on as many random hashes; checks that a
+    ``HashCounter`` keeps the bins for the batch and leaves them for the
+    random hashes;
 12. checks K2's filter mode against its plain version on the zika panel
     in both row modes with -N/-D thresholds, and times it;
 13. drives ``stream -M 2 -I 40`` over the slice's 2**20 reads (default
@@ -95,8 +102,9 @@ JSON record (per kernel: launches on the driven paths, in all and by
 path, max_abs_err against the plain version, ms, eager_ms, plain_ms, bound_ms,
 bound_by, bound_share = bound_ms / ms, and library_ms, one PyTorch call
 computing the same function where there is one: ``torch.gather`` for K4
-and K5, none for the others) and ``{"ok": true, "device": {...}}``.  Any
-failure raises.
+and K5, none for the others; K4 adds its launches by route and its times
+at each timed N, K7 its times at the hpv16 -M shape) and ``{"ok": true,
+"device": {...}}``.  Any failure raises.
 """
 
 from __future__ import annotations
@@ -113,11 +121,13 @@ N_CPU_LINES = 16384
 B = 16384
 KS_K1 = (1, 4, 12, 16, 17, 18, 31, 32, 33, 64)  # packed k <= 32, byte-wise above
 GATHER_NS = (8, 64, 512, 4096, 16384)
+GATHER_TIMED_NS = (512, 4096, 16384)  # K4's cache route; the last one is the record's
 N_HPV16_READS = 12800
 N_HPV16_CPU_LINES = 64
 HPV16_K = 18
 HPV16_BATCH = 512
 COUNTER_SIZES = (200_000_000, 10_000_000, 1 << 27, 1009)
+HPV16_COUNTER = 800_000_000  # hpv16 -M's default counter
 MIN_OCC, MAX_SAMPLES, FILTER_MIN_MATCHES = 2, 40, 10
 N_HPV16_M_CPU_READS = 256
 HPV16_N_RATE = 0.001
@@ -463,11 +473,15 @@ def run_slice(dev, card: str, panel, zika: dict) -> dict:
     return res
 
 
-def check_gathers(dev) -> dict:
-    """K4 at every N of the sweep and K5 against their plain versions;
-    returns {name: (max_abs_err, ms, plain_ms, library_ms, bound_ms)} at
-    the sweep's largest N for K4 and at N = 512 for K5.  The library call
-    is one ``torch.gather`` on an index made int64 before the timing."""
+def check_gathers(dev) -> tuple[dict, dict]:
+    """K4 by every route that takes each N of the sweep (the LUT staged
+    whole where it fits a block, the cache route everywhere) and K5,
+    against their plain versions; then K4 by its
+    shape's own route timed at N = 512, 4096 and 16384.  Returns ({name:
+    (max_abs_err, ms, plain_ms, library_ms, bound_ms, eager_ms)} at the
+    sweep's largest N for K4 and at N = 512 for K5, {N: K4's fields}).
+    The library call is one ``torch.gather`` on an index made int64 before
+    the timing."""
     import numpy as np
     import torch
 
@@ -476,7 +490,7 @@ def check_gathers(dev) -> dict:
     from rkmh_tpu_torch.ops import gather
 
     rng = np.random.default_rng(13)
-    res = {}
+    res, by_n = {}, {}
     cases = [("lut_gather_rows", gather._lut_gather_rows_cuda, gather.lut_gather_rows_plain,
               N, N) for N in GATHER_NS]
     cases.append(("lut_gather_lanes", gather._lut_gather_lanes_cuda,
@@ -484,46 +498,68 @@ def check_gathers(dev) -> dict:
     for name, kern, plain, N, hi in cases:
         lut = torch.from_numpy(rng.integers(-2**31, 2**31, (N, 128)).astype(np.int32)).to(dev)
         idx = torch.from_numpy(rng.integers(0, hi, (N, 128)).astype(np.int32)).to(dev)
-        got, want = kern(lut, idx), plain(lut, idx)
-        err = max_abs_err(got.long(), want.long())
-        if err or not torch.equal(got, want):
-            raise AssertionError(f"{name} kernel disagrees with the plain version at N={N}")
+        want = plain(lut, idx)
+        rows = name == "lut_gather_rows"
+        routes = [None]
+        if rows:
+            routes += ["ldg"] + (["smem"] if N * 128 * 4 <= gather._SMEM_BYTES else [])
+        err = 0
+        for route in routes:
+            got = kern(lut, idx, route) if rows else kern(lut, idx)
+            err = max(err, max_abs_err(got.long(), want.long()))
+            if err or not torch.equal(got, want):
+                raise AssertionError(f"{name} kernel disagrees with the plain version at N={N}"
+                                     f" by route {route or 'of the shape'}")
         idx64 = idx.long()
-        dim = 0 if name == "lut_gather_rows" else 1
+        dim = 0 if rows else 1
         if not torch.equal(torch.gather(lut, dim, idx64), want):
             raise AssertionError(f"torch.gather does not compute {name}")
+        variant = gather.rows_variant(lut) if rows else "smem row"
+        if rows:
+            say(f"{name} N={N}: bit-exact=True by its shape's route ({variant}) and by "
+                f"{', '.join(routes[1:])}")
+        if rows and N not in GATHER_TIMED_NS:
+            continue
         ms = cuda_graph_time_ms(lambda: kern(lut, idx), 50)
         eager_ms = cuda_time_ms(lambda: kern(lut, idx), 50)
         plain_ms = cuda_time_ms(lambda: plain(lut, idx), 50)
         library_ms = cuda_graph_time_ms(lambda: torch.gather(lut, dim, idx64), 50)
-        bound_ms = bounds.bound_ms(bounds.tensor_bytes(lut, idx, got))
-        variant = gather.rows_variant(lut) if name == "lut_gather_rows" else "smem row"
-        say(f"{name} N={N} ({variant}): bit-exact=True, {ms:.4f} ms ({eager_ms:.4f} eager) vs "
+        bound_ms = bounds.bound_ms(bounds.tensor_bytes(lut, idx, want))
+        say(f"{name} N={N} ({variant}): {ms:.4f} ms ({eager_ms:.4f} eager) vs "
             f"{plain_ms:.4f} ms plain, {library_ms:.4f} ms torch.gather, bound {bound_ms:.6f} ms")
         res[name] = (err, ms, plain_ms, library_ms, bound_ms, eager_ms)
-    return res
+        if rows:
+            by_n[N] = {"route": variant, "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_share": bound_ms / ms}
+    return res, by_n
 
 
 def run_gather_path() -> dict:
     import torch
 
     from rkmh_tpu_torch.bench import bench_gather
-    from rkmh_tpu_torch.ops import kernels
+    from rkmh_tpu_torch.ops import gather, kernels
 
     kernels.reset_launch_counts()
     bench_gather.main()
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    say(f"gather path launches: {launches}")
+    by_route = dict(kernels.LUT_GATHER_ROWS.by_route)
+    say(f"gather path launches: {launches}; lut_gather_rows by route: {by_route}")
     require_launches(launches, ("lut_gather_rows", "lut_gather_lanes"), "gather")
-    return launches
+    for route in gather.ROUTES:
+        if by_route.get(route, 0) <= 0:
+            raise AssertionError(f"the gather path launched no lut_gather_rows by the {route} "
+                                 "route")
+    return {**launches, "lut_gather_rows_by_route": by_route}
 
 
-def check_k3(dev, tb, packed, panel) -> tuple[int, dict]:
+def check_k3(dev, tb, packed, panel) -> tuple[int, dict, object]:
     """K3 against its plain version on the first HPV16_BATCH reads (one
     padded batch), the same batch with every seventh read emptied, one 40
     kb read, and a small table of 9 mask words; returns (max_abs_err,
-    times)."""
+    times, K1's hashes of the batch)."""
     import numpy as np
     import torch
 
@@ -548,13 +584,14 @@ def check_k3(dev, tb, packed, panel) -> tuple[int, dict]:
     long_read, _ = synth.make_nanopore_reads(1, 99, panel, mean_len=40000, min_len=40000,
                                              max_len=40000)
     long_codes, long_lens = encode_seqs([long_read[0].tobytes()])
-    worst, times = 0, {}
+    worst, times, batch_hashes = 0, {}, None
     for label, codes, ln in (("B=512 batch", batch, lens), ("one 40 kb read", long_codes,
                                                             long_lens)):
         x = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
         hashes = multi_k_window_hashes(x, [HPV16_K])
         if not torch.equal(hashes, kmer_window_hashes_plain(x, HPV16_K)):
             raise AssertionError(f"window-hash kernel disagrees with the plain version on {label}")
+        batch_hashes = hashes if batch_hashes is None else batch_hashes
         full, sk_lens = bottom_s_sketch(hashes, x.shape[1] - HPV16_K + 1)
         Wc = engine.hpv16_compact_width(ln, x.shape[1], (HPV16_K,))
         rows = full[:, :Wc]
@@ -620,7 +657,7 @@ def check_k3(dev, tb, packed, panel) -> tuple[int, dict]:
         f"{want[:, 1].float().mean().item():.1f}")
     if err or not torch.equal(got, want):
         raise AssertionError("set-probe kernel disagrees with the plain version at 9 mask words")
-    return max(worst, err), times
+    return max(worst, err), times, batch_hashes
 
 
 def run_hpv16(dev, card: str) -> dict:
@@ -658,7 +695,7 @@ def run_hpv16(dev, card: str) -> dict:
             f"S={S}, Wm={table.shape[1] // S - 3}, {T} types + {U} groups; packed for the "
             f"probe: {tb.probe_table.nbytes / 2**20:.1f} MiB beside it; set-up s: "
             + ", ".join(f"{k} {v:.3f}" for k, v in tb.setup_s.items()))
-        err_k3, times = check_k3(dev, tb, packed, panel)
+        err_k3, times, batch_hashes = check_k3(dev, tb, packed, panel)
 
         gpu_dir, cpu_dir = os.path.join(tmp, "gpu"), os.path.join(tmp, "cpu")
         os.makedirs(gpu_dir)
@@ -735,7 +772,8 @@ def run_hpv16(dev, card: str) -> dict:
            "e2e_reads_per_s": N_HPV16_READS / e2e_s,
            "device_step_mbp_per_s": mbp / (step_ms / 1e3),
            "device_step_reads_per_s": N_HPV16_READS / (step_ms / 1e3),
-           "typed_share": typed, "launches": launches, "err_k3": err_k3, **times}
+           "typed_share": typed, "launches": launches, "err_k3": err_k3, **times,
+           "batch_hashes": batch_hashes}  # K7's hpv16 -M shape, for check_counters
     say(f"hpv16 slice on {card}: e2e {res['e2e_mbp_per_s']:.3f} Mbp/s, "
         f"{res['e2e_reads_per_s']:.1f} reads/s ({e2e_s:.2f} s for {N_HPV16_READS} reads, "
         f"table build and parse included); device step {res['device_step_mbp_per_s']:.1f} "
@@ -760,12 +798,15 @@ def random_hashes(seed: int, shape):
     return torch.from_numpy(h), torch.from_numpy(rng.random(shape) < 0.8)
 
 
-def check_counters(dev, hashes) -> dict:
+def check_counters(dev, hashes, hp_hashes) -> tuple[dict, dict]:
     """K6 and K7 exactly against their plain versions at every size of
-    COUNTER_SIZES, then timed at the stream shape (``hashes`` = K1's
+    COUNTER_SIZES (K7 also on views at element offsets 1-3, 8 bytes off a
+    16-byte boundary), then timed at the stream shape (``hashes`` = K1's
     [16384, 149] output for 150 bp reads padded to 160, with the window
-    mask of the counter pass) on a 2e8-slot counter; returns {name:
-    (max_abs_err, ms, plain_ms)}."""
+    mask of the counter pass) on a 2e8-slot counter, and K7 at the hpv16 -M
+    shape (``hp_hashes`` = K1's output for a 512-read hpv16 batch, padding
+    zeros included) on an 8e8-slot counter; returns ({name: (max_abs_err,
+    ms, plain_ms, bound_ms, eager_ms)}, K7's hpv16 -M fields)."""
     import numpy as np
     import torch
 
@@ -795,15 +836,17 @@ def check_counters(dev, hashes) -> dict:
                                      f"plain version at size {size}")
         kept = []
         for lo, hi in ((MIN_OCC, counter.INT32_MAX), (0, MAX_SAMPLES), (3, 5)):
-            g = counter._counter_mask_cuda(got, h, lo, hi)
             w = counter.counter_mask_plain(want, h, lo, hi)
-            err_mask = max_abs_err(g, w)
-            if err_mask or not torch.equal(g, w):
-                raise AssertionError(f"counter-mask kernel disagrees with the plain version "
-                                     f"at size {size}, bounds ({lo}, {hi})")
-            worst["counter_mask"] = max(worst["counter_mask"], err_mask)
+            for off in range(4):  # views 0-3 elements in: odd ones are 8 bytes off 16
+                view = h.reshape(-1)[off:]
+                g = counter._counter_mask_cuda(got, view, lo, hi)
+                err_mask = max_abs_err(g, w.reshape(-1)[off:])
+                if err_mask or not torch.equal(g, w.reshape(-1)[off:]):
+                    raise AssertionError(f"counter-mask kernel disagrees with the plain version "
+                                         f"at size {size}, bounds ({lo}, {hi}), offset {off}")
+                worst["counter_mask"] = max(worst["counter_mask"], err_mask)
             kept.append(f"({lo}, {hi}) {float((w != 0).float().mean()):.3f}")
-        say(f"K6/K7 size {size}: table and masks exact=True, slot 0 count "
+        say(f"K6/K7 size {size}: table and masks (K7 also at offsets 1-3) exact=True, slot 0 count "
             f"{int(want[0])}, max count {int(want.max())}, share kept {', '.join(kept)}")
         worst["counter_add"] = max(worst["counter_add"], err_add)
         del got, want
@@ -861,16 +904,48 @@ def check_counters(dev, hashes) -> dict:
         say(f"HashCounter on {label}: later calls through the bins={c.binned}, table exact=True")
         del c, want
     # bounds: the hashes and read lengths (K6) or the hashes in and out (K7), plus
-    # the counter's sectors the slots reach, read and written (K6) or read
+    # the counter's sectors the slots reach, read and written (K6) or read (K7:
+    # those of the non-zero hashes; hash 0's output is 0 whatever its count)
+    def mask_sectors(h, size):
+        return bounds.sector_bytes(torch.unique(counter.slots(h[h != 0], size)) * 4)
+
     add_sectors = bounds.sector_bytes(torch.unique(added) * 4)
-    get_sectors = bounds.sector_bytes(torch.unique(counter.slots(hashes.reshape(-1), big)) * 4)
+    get_sectors = mask_sectors(hashes, big)
     bound = {"counter_add": bounds.bound_ms(bounds.tensor_bytes(hashes, lens150)
                                             + 2 * add_sectors),
              "counter_mask": bounds.bound_ms(2 * bounds.tensor_bytes(hashes) + get_sectors)}
     say(f"counter bounds (ms): {bound}; sectors reached: add {add_sectors} B, "
         f"mask {get_sectors} B")
+    del table, plain_table
+
+    # K7 at the hpv16 -M shape: an 8e8-slot counter that holds the batch once
+    hp_size = HPV16_COUNTER
+    hp_table = torch.zeros(hp_size, dtype=torch.int32, device=dev)
+    counter.counter_add_plain(hp_table, hp_hashes, hp_hashes != 0)
+    g = counter._counter_mask_cuda(hp_table, hp_hashes, MIN_OCC, counter.INT32_MAX)
+    w = counter.counter_mask_plain(hp_table, hp_hashes, MIN_OCC, counter.INT32_MAX)
+    err = max_abs_err(g, w)
+    if err or not torch.equal(g, w):
+        raise AssertionError("counter-mask kernel disagrees with the plain version at the "
+                             "hpv16 -M shape")
+    worst["counter_mask"] = max(worst["counter_mask"], err)
+    hp_sectors = mask_sectors(hp_hashes, hp_size)
+    run = lambda: counter._counter_mask_cuda(hp_table, hp_hashes, MIN_OCC,  # noqa: E731
+                                             counter.INT32_MAX)
+    hp_k7 = {"shape": list(hp_hashes.shape), "counter_slots": hp_size,
+             "zero_share": float((hp_hashes == 0).float().mean()),
+             "ms": cuda_graph_time_ms(run, 20), "eager_ms": cuda_time_ms(run, 20),
+             "plain_ms": cuda_time_ms(lambda: counter.counter_mask_plain(
+                 hp_table, hp_hashes, MIN_OCC, counter.INT32_MAX), 3, warmup=1),
+             "bound_ms": bounds.bound_ms(2 * bounds.tensor_bytes(hp_hashes) + hp_sectors)}
+    hp_k7["bound_share"] = hp_k7["bound_ms"] / hp_k7["ms"]
+    say(f"time counter_mask at the hpv16 -M shape {tuple(hp_hashes.shape)} "
+        f"({hp_k7['zero_share']:.4f} zeros), {hp_size}-slot counter: {hp_k7['ms']:.4f} ms "
+        f"({hp_k7['eager_ms']:.4f} eager) vs {hp_k7['plain_ms']:.4f} ms plain; exact=True; "
+        f"bound {hp_k7['bound_ms']:.4f} ms ({hp_sectors} B of sectors)")
+    del hp_table
     return {name: (worst[name], t[name], t[name + "_plain"], bound[name], t[name + "_eager"])
-            for name in worst}
+            for name in worst}, hp_k7
 
 
 def check_k2_filter(dev, panel, hashes) -> tuple[int, float, float, float]:
@@ -1111,10 +1186,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         zika = write_zika(work)
         sl = run_slice(dev, card_smi, panel, zika)
-        gathers = check_gathers(dev)
+        gathers, gathers_by_n = check_gathers(dev)
         gather_launches = run_gather_path()
         hp = run_hpv16(dev, card_smi)
-        counters = check_counters(dev, hashes)
+        counters, k7_hpv16 = check_counters(dev, hashes, hp.pop("batch_hashes"))
         filt = check_k2_filter(dev, panel, hashes)
         st_mi = run_stream_counters(dev, card_smi, zika)
         fl = run_filter(dev, card_smi, zika)
@@ -1134,15 +1209,16 @@ def main() -> int:
                 "max_abs_err": err, "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
                 **bound_fields(ms, bound_ms, library_ms)}
 
-    def gather_entry(name, line):
+    def gather_entry(name, line, **extra):
         err, ms, plain_ms, library_ms, bound_ms, eager_ms = gathers[name]
-        return entry(name, "lut_gather.cu", f"scripts/bench_gather.py:{line}", err, ms,
-                     eager_ms, plain_ms, bound_ms, library_ms, gather_launches[name])
+        return {**entry(name, "lut_gather.cu", f"scripts/bench_gather.py:{line}", err, ms,
+                        eager_ms, plain_ms, bound_ms, library_ms, gather_launches[name]),
+                **extra}
 
-    def counter_entry(name, line):
+    def counter_entry(name, line, **extra):
         err, ms, plain_ms, bound_ms, eager_ms = counters[name]
-        return entry(name, "counter.cu", f"rkmh_tpu/ops/counter.py:{line}", err, ms, eager_ms,
-                     plain_ms, bound_ms)
+        return {**entry(name, "counter.cu", f"rkmh_tpu/ops/counter.py:{line}", err, ms,
+                        eager_ms, plain_ms, bound_ms), **extra}
 
     record = {"kernels": [
         entry("window_hash", "window_hash.cu", "rkmh_tpu/ops/pallas_hash.py:39", err_k1,
@@ -1156,10 +1232,11 @@ def main() -> int:
         entry("set_probe", "set_probe.cu", "rkmh_tpu/classify/engine.py:794", hp["err_k3"],
               hp["set_probe"], hp["set_probe_eager"], hp["set_probe_plain"],
               hp["set_probe_bound"]),
-        gather_entry("lut_gather_rows", 109),
+        gather_entry("lut_gather_rows", 109, launches_by_route=gather_launches[
+            "lut_gather_rows_by_route"], by_n=gathers_by_n),
         gather_entry("lut_gather_lanes", 140),
         counter_entry("counter_add", 37),
-        counter_entry("counter_mask", 46),
+        counter_entry("counter_mask", 46, hpv16_m_shape=k7_hpv16),
     ]}
     say(smi)
     say(json.dumps(record))

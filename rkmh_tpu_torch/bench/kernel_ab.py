@@ -5,13 +5,11 @@ turns, in one process on one card.
                                              [--only PREFIX ...]
 
 ``--old-csrc`` DIR holds earlier versions of some of ``window_hash.cu``,
-``panel_probe.cu``, ``counter.cu`` and ``set_probe.cu``, for example an
-earlier commit's (``git show REV:rkmh_tpu_torch/csrc/counter.cu >
-DIR/counter.cu``).  An old ``window_hash.cu`` or ``panel_probe.cu`` has
-today's C entry points; an old ``counter.cu`` or ``set_probe.cu`` has
-those the kernels had before their redesign (one atomicAdd per element of
-a mask tensor; one block per read on the logical table), which this
-script still knows how to call.  Each ``--variant`` DIR holds some of this
+``panel_probe.cu``, ``counter.cu``, ``set_probe.cu`` and ``lut_gather.cu``,
+for example an earlier commit's (``git show REV:rkmh_tpu_torch/csrc/counter.cu
+> DIR/counter.cu``), whose entry points have this checkout's parameter
+lists (read from both sources; the script refuses a directory whose
+sources declare one otherwise).  Each ``--variant`` DIR holds some of this
 checkout's sources with one design choice edited, entry points unchanged.
 Each directory builds with nvcc into a library of its own.  The wrappers
 then run on each library in turn (old, new, the variants, the variants in
@@ -25,13 +23,18 @@ measures the Python launch path), at:
   20] int32): K1 (and K1 at k=21, a k none of the repo's configurations
   uses); K2 on the raw rows, on sorted s=50 sketches and in its filter
   mode; the device step (K1 + K2); K6 into a 2e8-slot counter as the
-  counter pass calls it (the window mask from the read lengths; the old
-  kernel reads the mask tensor), through the bins and as one atomic per
-  element, and with a mask tensor;
+  counter pass calls it (the window mask from the read lengths), through
+  the bins and as one atomic per element, and with a mask tensor; K7 on
+  the batch's hashes against a 2e8-slot counter that holds the batch, as
+  -M 2 calls it (``k7_stream``);
 * the hpv16 batch: 512 nanopore-like reads, k=18, padded to the longest
-  read: K1; K6 into an 8e8-slot counter; K3 on the sorted rows against
-  the 182-type + 14-group set table (480 MiB), also with other segment
-  sizes; the hpv16 step (K1, sort, K3).
+  read: K1; K6 into an 8e8-slot counter; K7 on the batch's window hashes,
+  padding zeros included, against an 8e8-slot counter that holds the
+  batch, as hpv16 -M 2 calls it (``k7_hpv16``); K3 on the sorted rows
+  against the 182-type + 14-group set table (480 MiB), also with other
+  segment sizes; the hpv16 step (K1, sort, K3);
+* the gather sweep's [N, 128] int32 LUTs and [N, 128] indices at N = 512,
+  4096 and 16384: K4 by the route the shape takes (``k4_N``).
 
 K6's diagnostics (printed, and under ``k6_diagnostics`` in the JSON):
 one atomicAdd per slot computed beforehand (``bench/diag_atomics.cu``),
@@ -39,7 +42,11 @@ on the batch's slots as they come, sorted, and on as many random slots;
 K6, old and new, on counters of 1e7, 2e8 and 8e8 slots; its device time
 kernel by kernel; and, for either batch, how many elements the merge put
 into how many adds to the table, from which a ``HashCounter`` takes the
-route of a counter pass (``k6_merge``).
+route of a counter pass (``k6_merge``).  K7's diagnostics (with the k7
+cases, under ``k7_diagnostics``): K7, old and new, at the stream batch on
+counters of 1e7, 2e8 and 8e8 slots, on the same hashes sorted by slot,
+and on as many zero hashes (no table load in the new kernel: the stream of
+hashes alone).
 
 Before timing, every library's output must equal the plain version's.
 It also prints the registers ptxas gives each new kernel and the SASS
@@ -72,13 +79,12 @@ from rkmh_tpu_torch.bench.timing import (
 )
 from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.io.packing import CODE_LUT, encode_seqs
-from rkmh_tpu_torch.ops import counter, kernels
+from rkmh_tpu_torch.ops import counter, gather, kernels
 from rkmh_tpu_torch.ops.hashing import (
     _window_hashes_cuda,
     kmer_window_hashes_plain,
     window_mask,
 )
-from rkmh_tpu_torch.ops.lookup import table_slots
 from rkmh_tpu_torch.ops.probe import (
     _panel_probe_cuda,
     _panel_probe_filter_cuda,
@@ -88,18 +94,11 @@ from rkmh_tpu_torch.ops.probe import (
 from rkmh_tpu_torch.ops.set_probe import _set_probe_cuda, set_probe_plain
 from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
 
-SOURCES = ("window_hash.cu", "panel_probe.cu", "counter.cu", "set_probe.cu")
+SOURCES = ("window_hash.cu", "panel_probe.cu", "counter.cu", "set_probe.cu", "lut_gather.cu")
 SWAPPED = (kernels.WINDOW_HASH, kernels.PANEL_PROBE, kernels.PANEL_PROBE_FILTER,
-           kernels.COUNTER_ADD, kernels.COUNTER_MASK, kernels.SET_PROBE)
-# of those, the entry points an old library has under another signature
-REDESIGNED = (kernels.COUNTER_ADD, kernels.COUNTER_MASK, kernels.SET_PROBE)
-_p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# rkmh_counter_add(hashes, mask|NULL, n, table, size, stream), before its redesign
-OLD_COUNTER_ADD = kernels.Kernel("rkmh_counter_add", [_p, _p, _i64, _p, _i64])
-# rkmh_set_probe(rows, row_stride, lens, B, n, table, log2_buckets, slots, mask_words,
-#                num_types, num_uniq, out, stream), before its redesign
-OLD_SET_PROBE = kernels.Kernel("rkmh_set_probe",
-                               [_p, _i64, _p, _i, _i, _p, _i, _i, _i, _i, _i, _p])
+           kernels.COUNTER_ADD, kernels.COUNTER_MASK, kernels.SET_PROBE,
+           kernels.LUT_GATHER_ROWS)
+_p, _i64 = ctypes.c_void_p, ctypes.c_int64
 DIAG_ADD_SLOTS = kernels.Kernel("rkmh_diag_add_slots", [_p, _i64, _p])
 DIAG_SOURCE = Path(__file__).resolve().parent / "diag_atomics.cu"
 B, L, K, S = 16384, 160, 12, 1000
@@ -108,6 +107,8 @@ HPV16_B, HPV16_K = 512, 18
 STREAM_COUNTER, HPV16_COUNTER = 200_000_000, 800_000_000
 DIAG_COUNTERS = (10_000_000, 200_000_000, 800_000_000)
 K3_SEGMENTS = (512, 1024, 4096)  # beside ops/set_probe.SEGMENT
+MIN_OCC = 2  # -M 2, as the README's stream -M example and chip_smoke.py
+K4_NS = (512, 4096, 16384)  # the gather sweep's N that take the cache route
 ITERS = 50        # eager calls per timing
 GRAPH_CALLS = 20  # calls per CUDA graph, replayed 5 times
 
@@ -116,38 +117,35 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+def entry_points(src: Path) -> dict[str, str]:
+    """{C entry point: its parameter list, whitespace collapsed} of a source."""
+    return {m.group(1): " ".join(m.group(2).split())
+            for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text())}
+
+
+def changed_entry_points(d: Path) -> frozenset:
+    """The entry points that DIR's sources declare with another parameter
+    list than this checkout's."""
+    changed = set()
+    for src in held_sources(d):
+        ours = entry_points(kernels.CSRC / src.name)
+        changed |= {sym for sym, params in entry_points(src).items()
+                    if ours.get(sym, params) != params}
+    return frozenset(changed)
+
+
 @contextlib.contextmanager
-def using(lib: ctypes.CDLL, old: bool = False):
-    """The wrappers launch the entry points of ``lib`` (those it has).  Of
-    an old library, the redesigned kernels' entry points go to
-    OLD_COUNTER_ADD and OLD_SET_PROBE instead."""
-    olds = (OLD_COUNTER_ADD, OLD_SET_PROBE)
-    saved = [kern._fn for kern in (*SWAPPED, *olds)]
+def using(lib: ctypes.CDLL):
+    """The wrappers launch the entry points of ``lib`` (those it has)."""
+    saved = [kern._fn for kern in SWAPPED]
     try:
-        for kern in SWAPPED if not old else (*set(SWAPPED) - set(REDESIGNED), *olds):
+        for kern in SWAPPED:
             if hasattr(lib, kern.symbol):
                 kern._fn = kern.function(lib)
         yield
     finally:
-        for kern, fn in zip((*SWAPPED, *olds), saved):
+        for kern, fn in zip(SWAPPED, saved):
             kern._fn = fn
-
-
-def old_counter_add(table, hashes, mask):
-    """K6 before its redesign: one atomicAdd per element of a mask tensor."""
-    OLD_COUNTER_ADD(hashes, mask, hashes.numel(), table, table.shape[0])
-    return table
-
-
-def old_set_probe(rows, lens, table, num_types, num_uniq):
-    """K3 before its redesign: one block per read on the logical table."""
-    nb = table.shape[0]
-    slots = table_slots(table.shape[1], num_types + num_uniq)
-    out = torch.empty((rows.shape[0], 2 + num_uniq), dtype=torch.int64, device=rows.device)
-    OLD_SET_PROBE(rows, rows.stride(0), lens, rows.shape[0], rows.shape[1], table,
-                  nb.bit_length() - 1, slots, table.shape[1] // slots - 3, num_types,
-                  num_uniq, out)
-    return out
 
 
 def variant(arg: str) -> tuple[str, Path]:
@@ -168,12 +166,18 @@ def held_sources(d: Path) -> list[Path]:
 
 
 def build_libraries(old_csrc: Path, variants: list) -> dict:
+    """{name: library}; raises for a directory whose sources declare an
+    entry point with another parameter list than this checkout's."""
     ab = kernels.BUILD_DIR / "ab"
     paths = {}
     for name, d in (("old", old_csrc), *variants):
         srcs = held_sources(d)
         if not srcs:
             raise FileNotFoundError(f"{name}: {d} holds none of {SOURCES}")
+        changed = changed_entry_points(d)
+        if changed:
+            raise ValueError(f"{name}: {d} declares {sorted(changed)} with another parameter "
+                             "list than this checkout's")
         paths[name] = kernels.build(srcs, ab / f"lib{name}.so")
     paths["new"] = kernels.build()
     paths["diag"] = kernels.build([DIAG_SOURCE], ab / "libdiag.so")
@@ -248,19 +252,14 @@ def hpv16_tables(dev):
 
 
 class Case:
-    """One timed call.  ``new`` runs on this checkout's entry points (the
-    new library and the variants), ``old`` on the old library's (None:
-    the same call).  ``check`` compares one run with the plain version."""
+    """One timed call of the wrappers, on whichever library they point at;
+    ``check`` compares one run with the plain version."""
 
-    def __init__(self, kerns, new, old=None, check=None, old_kerns=None):
-        self.kerns, self.new, self.old, self.check = kerns, new, old or new, check
-        self.old_kerns = kerns if old_kerns is None else old_kerns
+    def __init__(self, kerns, new, check=None):
+        self.kerns, self.new, self.check = kerns, new, check
 
-    def fn(self, name):
-        return self.old if name == "old" else self.new
-
-    def runs_on(self, name, lib) -> bool:
-        return has_kernels(lib, self.old_kerns if name == "old" else self.kerns)
+    def runs_on(self, lib) -> bool:
+        return has_kernels(lib, self.kerns)
 
 
 def equals(plain):
@@ -335,19 +334,16 @@ def k6_diagnostics(libs, hashes, mask, windows, dev) -> dict:
     del table
     for size in DIAG_COUNTERS:
         table = torch.zeros(size, dtype=torch.int32, device=dev)
-        runs = {"old": [], "new": [], "new, one atomic per element": []}
+        runs = {label: [] for name in ("old", "new")
+                for label in (name, f"{name}, one atomic per element")}
         for name in ("old", "new", "new", "old"):
-            if name == "old" and not has_kernels(libs["old"], (OLD_COUNTER_ADD,)):
+            if not has_kernels(libs[name], (kernels.COUNTER_ADD,)):
                 continue
-            with using(libs[name], old=name == "old"):
-                if name == "old":
-                    runs["old"].append(cuda_graph_time_ms(
-                        lambda: old_counter_add(table, hashes, mask), GRAPH_CALLS))
-                    continue
-                runs["new"].append(cuda_graph_time_ms(
+            with using(libs[name]):  # K6's entry point is the same in an old library
+                runs[name].append(cuda_graph_time_ms(
                     lambda: counter._counter_add_cuda(table, hashes, None, windows),
                     GRAPH_CALLS))
-                runs["new, one atomic per element"].append(cuda_graph_time_ms(
+                runs[f"{name}, one atomic per element"].append(cuda_graph_time_ms(
                     lambda: counter._counter_add_cuda(table, hashes, None, windows,
                                                       binned=False), GRAPH_CALLS))
         for label, ms in runs.items():
@@ -384,6 +380,35 @@ def k6_merge_stats(table, hashes, windows) -> dict:
             "through_the_bins": counter.merge_pays(elements, adds)}
 
 
+def k7_diagnostics(libs, hashes, dev) -> dict:
+    """What sets K7's time: K7, old and new, at the stream batch on
+    counters of 1e7, 2e8 and 8e8 slots (each holding the batch), on the
+    same hashes sorted by slot, and on as many zero hashes."""
+    res = {}
+    flat = hashes.reshape(-1)
+    for size in DIAG_COUNTERS:
+        table = counter.counter_add_plain(torch.zeros(size, dtype=torch.int32, device=dev),
+                                          hashes)
+        by_slot = flat[torch.argsort(counter.slots(flat, size))].reshape(hashes.shape)
+        cases = {f"{size}-slot table": hashes, f"{size}-slot table, sorted by slot": by_slot}
+        if size == STREAM_COUNTER:
+            cases["zero hashes"] = torch.zeros_like(hashes)
+        for label, x in cases.items():
+            runs = {"old": [], "new": []}
+            for name in ("old", "new", "new", "old"):
+                if has_kernels(libs[name], (kernels.COUNTER_MASK,)):
+                    with using(libs[name]):
+                        runs[name].append(cuda_graph_time_ms(lambda: counter._counter_mask_cuda(
+                            table, x, MIN_OCC, counter.INT32_MAX), GRAPH_CALLS))
+            for name, ms in runs.items():
+                if ms:
+                    res[f"K7 {name}, {label}"] = ms
+        del table
+    for label, ms in res.items():
+        say(f"K7 diagnostic: {label}: {', '.join(f'{x:.4f}' for x in ms)} ms")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", type=Path, required=True,
@@ -416,6 +441,19 @@ def main(argv=None) -> int:
     hp_windows = (hp_lens, hp.shape[1], [HPV16_K])
     hp_mask = window_mask(hp_lens, hp.shape[1], [HPV16_K])
     hp_table = torch.zeros(HPV16_COUNTER, dtype=torch.int32, device=dev)
+    # K7: -M 2 against counters that hold each batch once
+    k7_tables = {}
+    for key, h, msk, size in (("stream", hashes, mask, STREAM_COUNTER),
+                              ("hpv16", hp_hashes, hp_mask, HPV16_COUNTER)):
+        k7_tables[key] = counter.counter_add_plain(
+            torch.zeros(size, dtype=torch.int32, device=dev), h, msk)
+    say(f"K7 hpv16 batch: {tuple(hp_hashes.shape)} hashes, "
+        f"{float((hp_hashes == 0).float().mean()):.4f} of them 0")
+    # K4: the gather sweep's LUTs and indices
+    rng = np.random.default_rng(13)
+    luts = {N: (torch.from_numpy(rng.integers(-2**31, 2**31, (N, 128)).astype(np.int32)).to(dev),
+                torch.from_numpy(rng.integers(0, N, (N, 128)).astype(np.int32)).to(dev))
+            for N in K4_NS}
 
     # K3: the sorted rows of the hpv16 batch against the full-width tables
     tb = hpv16_tables(dev)
@@ -430,15 +468,22 @@ def main(argv=None) -> int:
 
     K1, K2, K2F = (kernels.WINDOW_HASH,), (kernels.PANEL_PROBE,), (kernels.PANEL_PROBE_FILTER,)
     K6, K3 = (kernels.COUNTER_ADD,), (kernels.SET_PROBE,)
+    K7, K4 = (kernels.COUNTER_MASK,), (kernels.LUT_GATHER_ROWS,)
 
     def k6_case(table, h, win, msk, **kw):
         return Case(K6, lambda: counter._counter_add_cuda(table, h, None, win, **kw),
-                    lambda: old_counter_add(table, h, msk), adds_like_plain(table, h, msk),
-                    (OLD_COUNTER_ADD,))
+                    check=adds_like_plain(table, h, msk))
 
-    def old_hpv16_step():
-        rows, ln = bottom_s_sketch(_window_hashes_cuda(hp, [HPV16_K], 42), hp_hashes.shape[1])
-        return old_set_probe(rows[:, :Wc], ln, tb.comb_table, T, U)
+    def k7_case(key, h):
+        table = k7_tables[key]
+        return Case(K7, lambda: counter._counter_mask_cuda(table, h, MIN_OCC, counter.INT32_MAX),
+                    check=equals(lambda: counter.counter_mask_plain(table, h, MIN_OCC,
+                                                                    counter.INT32_MAX)))
+
+    def k4_case(N):
+        lut, idx = luts[N]
+        return Case(K4, lambda: gather._lut_gather_rows_cuda(lut, idx),
+                    equals(lambda: gather.lut_gather_rows_plain(lut, idx)))
 
     cases = {
         "k1_stream": Case(K1, lambda: _window_hashes_cuda(codes, [K], 42),
@@ -463,22 +508,20 @@ def main(argv=None) -> int:
         "k6_stream_one_atomic_each": k6_case(stream_table, hashes, windows, mask, binned=False),
         "k6_stream_mask_tensor": Case(
             K6, lambda: counter._counter_add_cuda(stream_table, hashes, mask),
-            lambda: old_counter_add(stream_table, hashes, mask),
-            adds_like_plain(stream_table, hashes, mask), (OLD_COUNTER_ADD,)),
+            check=adds_like_plain(stream_table, hashes, mask)),
         "k6_hpv16": k6_case(hp_table, hp_hashes, hp_windows, hp_mask),
         "k6_hpv16_one_atomic_each": k6_case(hp_table, hp_hashes, hp_windows, hp_mask,
                                             binned=False),
         "k3_hpv16": Case(K3, lambda: _set_probe_cuda(hp_rows, hp_sk_lens, tb.probe_table, T, U),
-                         lambda: old_set_probe(hp_rows, hp_sk_lens, tb.comb_table, T, U),
-                         k3_plain, (OLD_SET_PROBE,)),
+                         check=k3_plain),
         **{f"k3_hpv16_seg{seg}": Case(
             K3, lambda seg=seg: _set_probe_cuda(hp_rows, hp_sk_lens, tb.probe_table, T, U,
-                                                seg=seg),
-            lambda: old_set_probe(hp_rows, hp_sk_lens, tb.comb_table, T, U), k3_plain,
-            (OLD_SET_PROBE,)) for seg in K3_SEGMENTS},
+                                                seg=seg), check=k3_plain) for seg in K3_SEGMENTS},
         "hpv16_step": Case(K1 + K3, lambda: engine.hpv16_batch_comb(hp, tb.probe_table,
-                                                                     (HPV16_K,), T, U, Wc),
-                           old_hpv16_step, old_kerns=(OLD_SET_PROBE,)),
+                                                                     (HPV16_K,), T, U, Wc)),
+        "k7_stream": k7_case("stream", hashes),
+        "k7_hpv16": k7_case("hpv16", hp_hashes),
+        **{f"k4_{N}": k4_case(N) for N in K4_NS},
     }
     if args.only:
         cases = {c: v for c, v in cases.items() if c.startswith(tuple(args.only))}
@@ -495,6 +538,10 @@ def main(argv=None) -> int:
         sectors = bounds.sector_bytes(torch.unique(counter.slots(h[msk], size)) * 4)
         return bounds.bound_ms(bounds.tensor_bytes(h, ln) + 2 * sectors)
 
+    def k7_bound(h, size):  # the hashes in and out, the non-zero hashes' sectors once
+        sectors = bounds.sector_bytes(torch.unique(counter.slots(h[h != 0], size)) * 4)
+        return bounds.bound_ms(2 * bounds.tensor_bytes(h) + sectors)
+
     k3_rows = bounds.read_row_bytes(hp_rows, hp_sk_lens) + 4 * HPV16_B + 8 * HPV16_B * (2 + U)
     bound = {**{c: bounds.bound_ms(b) for c, b in k1_bytes.items()},
              "k2_raw": bounds.bound_ms(k2_bytes + 3 * 4 * B),
@@ -505,7 +552,10 @@ def main(argv=None) -> int:
              "k6_hpv16": k6_bound(hp_hashes, hp_mask, hp_lens, HPV16_COUNTER),
              "k3_hpv16": bounds.bound_ms(k3_rows + k3_stats.table_bytes),
              "k3_hpv16_packed_layout": bounds.bound_ms(
-                 k3_rows + bounds.packed_set_table_bytes(k3_stats, tb.probe_table))}
+                 k3_rows + bounds.packed_set_table_bytes(k3_stats, tb.probe_table)),
+             "k7_stream": k7_bound(hashes, STREAM_COUNTER),
+             "k7_hpv16": k7_bound(hp_hashes, HPV16_COUNTER),
+             **{f"k4_{N}": bounds.bound_ms(3 * bounds.tensor_bytes(luts[N][0])) for N in K4_NS}}
     say(f"K2 raw rows: {raw_stats.probes / B:.2f} probes, {raw_stats.hits / B:.2f} hits per "
         f"read, {raw_stats.mask_bits / max(raw_stats.hits, 1):.2f} of {R} mask bits set per "
         f"hit, {raw_stats.table_bytes} table bytes reached; K3: {vars(k3_stats)}; "
@@ -520,10 +570,10 @@ def main(argv=None) -> int:
         runs = {n: [] for n in timed}
         eager = {n: [] for n in timed}
         for lib in order:
-            if not case.runs_on(lib, libs[lib]):
+            if not case.runs_on(libs[lib]):
                 continue
-            with using(libs[lib], old=lib == "old"):
-                fn = case.fn(lib)
+            with using(libs[lib]):
+                fn = case.new
                 if case.check is not None and not case.check(fn):
                     raise AssertionError(f"{name}: the {lib} kernels disagree with the plain "
                                          "version")
@@ -540,6 +590,8 @@ def main(argv=None) -> int:
                            "hpv16": k6_merge_stats(hp_table, hp_hashes, hp_windows)}
         say(f"K6 merge, elements into adds to the table, and a counter pass's route: "
             f"{res['k6_merge']}")
+    if not args.only or any(o.startswith("k7") for o in args.only):
+        res["k7_diagnostics"] = k7_diagnostics(libs, hashes, dev)
     res["ptxas_registers"] = ptxas_registers()
     res["sass_instructions"] = sass_counts(kernels.library_path())
     res["sass_instructions_old"] = sass_counts(kernels.BUILD_DIR / "ab" / "libold.so")

@@ -5,14 +5,16 @@ The flags are those of ``rkmh-tpu`` (``rkmh_tpu/cli.py``), plus
 ``stream``'s ``-r -f -k -s -M -N -D -I -t --counter-size --batch-size
 --chunk-reads -o``, ``filter``'s ``-r -f -k -s -M -N -D -I -i -t
 --counter-size --batch-size --chunk-reads -o`` and ``hpv16``'s ``-f -R
--k -s -M -t -N -D --counter-size --batch-size --chunk-reads -o``.  rkmh's
-dead parity flags (``-S -F -p -q -d``, and ``-z -m`` for stream) are
-accepted with rkmh-tpu's warnings.  Every other flag (``--ref-sketches``,
-``-R`` of stream and filter, ``--resume``, ``--devices``, ``--tp``,
-``--dist-*``, ``--metrics``, ``-i`` of stream) is parsed and rejected with
-an error naming it (for ``hpv16``: when it would change what runs,
-``commands.hpv16_cmd.not_ported``), so an rkmh-tpu command line never
-runs with a flag silently dropped.
+-k -s -M -t -N -D --counter-size --batch-size --chunk-reads -o``.
+``stream -i`` (and ``classify -i``) with ``-f`` runs as in rkmh-tpu: it
+logs that -i is ignored and classifies the files.  rkmh's dead parity
+flags (``-S -F -p -q -d``, and ``-z -m`` for stream) are accepted with
+rkmh-tpu's warnings.  Every other flag (``--ref-sketches``, ``-R`` of
+stream and filter, ``--resume``, ``--devices``, ``--tp``, ``--dist-*``,
+``--metrics``, and ``-i`` of stream without ``-f``) is parsed and
+rejected with an error naming it (for ``hpv16``: when it would change
+what runs, ``commands.hpv16_cmd.not_ported``), so an rkmh-tpu command
+line never runs with a flag silently dropped.
 """
 
 from __future__ import annotations
@@ -23,11 +25,10 @@ import sys
 from rkmh_tpu_torch.device import DEFAULT_DEVICE
 
 # (flags, dest, argparse keywords) of rkmh-tpu stream/filter flags the
-# port does not run yet
+# port does not run yet (stream -i: only without -f, checked in main)
 _NOT_PORTED = (
     (("--ref-sketches",), "ref_sketches", {}),
     (("-R", "--pre-references"), "pre_references", {}),
-    (("-i", "--in-stream"), "in_stream", {"action": "store_true", "default": None}),
     (("--resume",), "resume", {"action": "store_true", "default": None}),
     (("--devices",), "devices", {"type": int}),
     (("--tp",), "tp", {"type": int}),
@@ -96,14 +97,11 @@ def _add_classify_parser(sub, name: str):
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="cuda (default; an error without a GPU) or cpu")
     _add_dead_flags(p, stream=name != "filter")
-    if name == "filter":
-        p.add_argument("-i", "--in-stream", action="store_true", dest="in_stream",
-                       help="classify reads from stdin")
-    not_ported = [entry for entry in _NOT_PORTED
-                  if not (name == "filter" and entry[1] == "in_stream")]
-    for flags, dest, kw in not_ported:
+    p.add_argument("-i", "--in-stream", action="store_true", dest="in_stream",
+                   help="classify reads from stdin" if name == "filter" else
+                   "ignored with -f, as in rkmh (stdin streaming is not ported yet)")
+    for flags, dest, kw in _NOT_PORTED:
         p.add_argument(*flags, dest=dest, help=argparse.SUPPRESS, **{"default": None, **kw})
-    p.set_defaults(not_ported=not_ported)
 
 
 def _add_hpv16_parser(sub):
@@ -163,7 +161,7 @@ def _run_stream(args):
         min_matches=args.min_matches, min_diff=args.min_diff,
         max_samples=args.max_samples, counter_size=args.counter_size,
         batch_size=args.batch_size, chunk_reads=args.chunk_reads,
-        out_file=args.out_file, device=args.device,
+        out_file=args.out_file, in_stream=args.in_stream, device=args.device,
     ))
 
 
@@ -213,8 +211,10 @@ def main(argv=None) -> int:
         cfg = _hpv16_config(args)
         given = not_ported(cfg) + (["--metrics"] if args.metrics else [])
     else:
-        given = [flags[0] for flags, dest, _ in args.not_ported
+        given = [flags[0] for flags, dest, _ in _NOT_PORTED
                  if getattr(args, dest) is not None]  # given (--dist-rank 0 too)
+        if args.command != "filter" and args.in_stream and not args.reads:
+            given.append("-i")  # stdin streaming (rkmh_tpu/commands/stream.py:315)
     if given:
         ap.error(f"{args.command}: {', '.join(given)} not yet ported to rkmh-tpu-torch")
     run = {"hpv16": lambda: _run_hpv16(cfg), "filter": lambda: _run_filter(args)}.get(

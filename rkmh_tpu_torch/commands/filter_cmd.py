@@ -12,7 +12,12 @@ to ``rkmh-tpu filter``:
   classified a batch at a time, each reported as ``Sample: <name>\\tResult:
   <ref>\\t<shared>\\t<union>\\t[FAIL:DEPTH]\\t[FAIL:MATCHES]\\t[FAIL:DIFF]``
   (rkmh.cpp:1397-1399); a reader thread fills a bounded queue;
-* with both ``-f`` and ``-i``, the files run first, then the stream.
+* with both ``-f`` and ``-i``, the files run first, then the stream;
+* with ``-o FILE``, ``FILE.progress`` holds (reads done, output bytes),
+  saved after each file-mode chunk's records are flushed
+  (``commands/recovery.Progress``, rkmh_tpu/commands/filter_cmd.py:275-281),
+  byte-identical to rkmh-tpu's, so ``rkmh-tpu filter --resume`` can go on
+  from a run of this port.
 
 Classification uses the filter argmax (``engine.argmax_filter``: a read
 that matches nothing gets reference "" and fails the diff filter).  -I
@@ -24,6 +29,7 @@ ported yet: --ref-sketches, --resume, --devices / --tp and --dist-*.
 
 from __future__ import annotations
 
+import os
 import queue
 import sys
 import threading
@@ -47,6 +53,7 @@ from rkmh_tpu_torch.commands.common import (
     resolve_chunk_reads,
     two_pass_chunks,
 )
+from rkmh_tpu_torch.commands.recovery import Progress
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.io.fastx import iter_batches
 from rkmh_tpu_torch.io.packing import encode_seqs
@@ -84,7 +91,7 @@ def run(cfg: FilterConfig, out=None, stdin=None, stats: dict | None = None) -> i
     number of file-mode reads (``reads``) and of those kept (``kept``)."""
     if out is None and cfg.out_file:
         with open(cfg.out_file, "w") as fh:
-            return _run(cfg, fh, stdin, stats)
+            return _run(cfg, fh, stdin, stats, Progress(cfg.out_file))
     return _run(cfg, out or sys.stdout, stdin, stats)
 
 
@@ -108,7 +115,7 @@ class _Chunk(ChunkState):
         self.keep = np.zeros(len(chunk), dtype=bool)
 
 
-def _run(cfg: FilterConfig, out, stdin, stats) -> int:
+def _run(cfg: FilterConfig, out, stdin, stats, progress: Progress | None = None) -> int:
     device = resolve_device(cfg.device)
     batch_size = resolve_batch_size(cfg.batch_size, device)
     chunk_reads = resolve_chunk_reads(cfg.chunk_reads)
@@ -145,6 +152,10 @@ def _run(cfg: FilterConfig, out, stdin, stats) -> int:
             out.write("".join(_record(c.names[i], c.seqs[i], c.quals[i]) for i in kept))
             n_reads += st.n
             n_kept += len(kept)
+            if progress is not None:
+                # flush first: everything the sidecar points at is in the file
+                out.flush()
+                progress.save(n_reads, os.fstat(out.fileno()).st_size)
 
         def on_result(st, rows, arr):
             st.keep[rows] = arr[3].astype(bool)

@@ -9,9 +9,11 @@ Counterpart of ``rkmh_tpu/commands/stream.py`` (plain file path,
 -I sketches the references from the k-mers counted at most max_samples
 times over the panel; -M first counts every read k-mer in one pass over
 the input, then classifies in a second pass with the k-mers counted
-below min_kmer_occ dropped.  Both counters live on the device.  Not
-ported yet: -i (stdin streaming), --devices / --tp, --dist-*, --resume
-and --ref-sketches.
+below min_kmer_occ dropped.  Both counters live on the device.  -i with
+-f files logs that it is ignored and classifies the files, as rkmh-tpu
+does (rkmh_tpu/commands/stream.py:481-488; rkmh's -i is dead).  Not
+ported yet: -i without -f (stdin streaming), --devices / --tp, --dist-*,
+--resume and --ref-sketches.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ class StreamConfig:
     batch_size: int = 0          # 0 = auto (16384 on cuda, 2048 on cpu)
     chunk_reads: int = 0         # streaming window; 0 = default (65536)
     out_file: str = ""           # -o: write here instead of stdout
+    in_stream: bool = False      # -i: ignored with -f; stdin alone is not ported
     device: str = DEFAULT_DEVICE
 
 
@@ -104,12 +107,17 @@ def run(cfg: StreamConfig, out=None) -> int:
 
 
 def _run(cfg: StreamConfig, out) -> int:
+    if cfg.in_stream and not cfg.read_files:
+        raise ValueError("stream -i without -f (stdin streaming) is not yet ported")
     device = resolve_device(cfg.device)
     batch_size = resolve_batch_size(cfg.batch_size, device)
     chunk_reads = resolve_chunk_reads(cfg.chunk_reads)
     ks = tuple(cfg.ks) if cfg.ks else (DEFAULT_KMER,)
     if not cfg.ks:
         log("No kmer size(s) provided. Will use a default kmer size of 16.")
+    if cfg.in_stream:
+        log("stream -i ignored: -f inputs were given (rkmh classified the "
+            "files here too — its -i is dead); classifying the files")
 
     panel = build_ref_panel_from_files(cfg.ref_files, ks, cfg.sketch_size, device,
                                        max_samples=cfg.max_samples,

@@ -48,8 +48,22 @@
 // So small inputs, tables given no scratch, and counter passes whose first
 // batch merged little (ops/counter.py decides) take counter_add_direct,
 // one atomicAdd per element.  Integer adds commute, so the table is the same
-// whatever the order of blocks, flushes and atomics.  K7 stays one thread
-// per element with one random 4 B load.
+// whatever the order of blocks, flushes and atomics.
+//
+// What bounds K7 on the card: the 8 B hashes read and written once each (a
+// stream batch's 19.5 MB each way), plus one random 4 B load per non-zero
+// hash, of which only the distinct 32 B sectors must come from memory (~13
+// MB at the stream batch, reused 5.4 times; ~49 MB at the hpv16 -M batch,
+// past the L2).  K7 (counter_mask_kernel) gives a thread one 16-byte vector
+// of two hashes with both table loads in flight, loads nothing for hash 0
+// (the padding of the hpv16 -M batch, ~79% of it), and takes an odd head
+// element and an odd last element one by one, so that a view at any 8-byte
+// offset works and nothing past n is touched.  Measured on an H100 against
+// one thread per element (PERF.md §5): within 1.5%, no faster; 4 or 8
+// hashes a thread, a grid capped at the blocks the card holds and
+// evict-first hints on the hashes and out were each slower, so none of them
+// is here.  What the time follows is the order of the table loads: the
+// same hashes sorted by slot run 35-41% faster on the same sectors.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -308,14 +322,51 @@ bin_merge_kernel(const uint32_t* __restrict__ bins, const int32_t* __restrict__ 
   flush_set(keys, cnts, &used, table, stats);
 }
 
-__global__ void counter_mask_kernel(const uint64_t* __restrict__ hashes, int64_t n,
-                                    const int32_t* __restrict__ table, Modulus m, int lo,
-                                    int hi, uint64_t* __restrict__ out) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const uint64_t h = hashes[i];
-    const int c = __ldg(table + slot_of(h, m));
-    out[i] = (lo <= c && c <= hi) ? h : 0ULL;
+// ---------------------------------------------------------------------- K7
+
+constexpr int MASK_THREADS = 256;
+using u64 = unsigned long long;
+
+// h if lo <= count <= hi, else 0.
+__device__ __forceinline__ u64 kept(u64 h, int c, int lo, int hi) {
+  return (lo <= c && c <= hi) ? h : 0ULL;
+}
+
+// The count of h; no load for hash 0, whose output is 0 whatever its count.
+__device__ __forceinline__ int count_of(u64 h, const int32_t* __restrict__ table,
+                                        Modulus m) {
+  return h != 0 ? __ldg(table + slot_of(h, m)) : 0;
+}
+
+// hashes + head is 16-byte aligned (head is 0 or 1); the n - head elements
+// after it are nvec vectors of two and, if odd, one last element.  Block 0
+// takes the head and the last element one by one; a thread takes a vector,
+// its two table loads in flight together.  VEC_OUT: out + head is 16-byte
+// aligned too, so out is written in vectors; else (a misaligned view of the
+// hashes) one element at a time.
+template <bool VEC_OUT>
+__global__ void __launch_bounds__(MASK_THREADS)
+counter_mask_kernel(const u64* __restrict__ hashes, int64_t n, int64_t head,
+                    const int32_t* __restrict__ table, Modulus m, int lo, int hi,
+                    u64* __restrict__ out) {
+  const int64_t nvec = (n - head) >> 1;
+  if (blockIdx.x == 0 && threadIdx.x < 2) {
+    const int64_t i = threadIdx.x == 0 ? (head ? 0 : n) : (((n - head) & 1) ? n - 1 : n);
+    if (i < n) out[i] = kept(hashes[i], count_of(hashes[i], table, m), lo, hi);
+  }
+  const ulonglong2* hv = reinterpret_cast<const ulonglong2*>(hashes + head);
+  u64* o = out + head;
+  for (int64_t v = (int64_t)blockIdx.x * MASK_THREADS + threadIdx.x; v < nvec;
+       v += (int64_t)gridDim.x * MASK_THREADS) {
+    const ulonglong2 x = hv[v];
+    const int c0 = count_of(x.x, table, m), c1 = count_of(x.y, table, m);
+    const u64 y0 = kept(x.x, c0, lo, hi), y1 = kept(x.y, c1, lo, hi);
+    if (VEC_OUT) {
+      reinterpret_cast<ulonglong2*>(o)[v] = make_ulonglong2(y0, y1);
+    } else {
+      o[2 * v] = y0;
+      o[2 * v + 1] = y1;
+    }
   }
 }
 
@@ -378,12 +429,25 @@ extern "C" int rkmh_counter_add(const int64_t* hashes, const uint8_t* mask,
 }
 
 // out[i] = hashes[i] if lo <= table[hashes[i] % size] <= hi, else 0.
+// hashes and out may lie anywhere 8-byte aligned (a view of the hashes at an
+// odd element offset included); nothing past n is read or written.
 // Requires n >= 1, 1 <= size < 2^31; magic and log2_ceil as above.
 extern "C" int rkmh_counter_mask(const int64_t* hashes, int64_t n, const int32_t* table,
                                  int64_t size, uint64_t magic, int log2_ceil, int lo, int hi,
                                  int64_t* out, cudaStream_t stream) {
-  counter_mask_kernel<<<blocks_for(n), THREADS, 0, stream>>>(
-      reinterpret_cast<const uint64_t*>(hashes), n, table,
-      make_modulus(size, magic, log2_ceil), lo, hi, reinterpret_cast<uint64_t*>(out));
+  const u64* h = reinterpret_cast<const u64*>(hashes);
+  u64* o = reinterpret_cast<u64*>(out);
+  const int64_t head = ((uintptr_t)h & 15) ? 1 : 0;
+  const int64_t nvec = (n - head) >> 1;
+  int64_t blocks = (nvec + MASK_THREADS - 1) / MASK_THREADS;
+  blocks = blocks < 1 ? 1 : (blocks > MAX_BLOCKS ? MAX_BLOCKS : blocks);
+  const Modulus m = make_modulus(size, magic, log2_ceil);
+  if (((uintptr_t)(o + head) & 15) == 0) {
+    counter_mask_kernel<true><<<(unsigned)blocks, MASK_THREADS, 0, stream>>>(
+        h, n, head, table, m, lo, hi, o);
+  } else {
+    counter_mask_kernel<false><<<(unsigned)blocks, MASK_THREADS, 0, stream>>>(
+        h, n, head, table, m, lo, hi, o);
+  }
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,15 @@
 // read-only cache (__ldg); at N = 16384 it is 8 MB and stays in L2.
 // What bounds it on the card: 8 bytes of idx + out traffic per element
 // (plus the LUT once per block when staged); at N <= 512 the call moves
-// under 1 MB and is launch latency, at N = 16384 it moves 24 MB.
+// under 1 MB and is launch latency, at N = 16384 it moves 24 MB.  There
+// the cache route reads a 32 B L2 sector for each 4 B element, ~83 MB of
+// sectors in all, at about the L2's own rate (4.5 TB/s).  A route that
+// spread each 8-column tile of the LUT over the shared memory of a thread
+// block cluster (so that every LUT byte left memory once) was bit-exact
+// but 2-2.8x slower at N in {512, 4096, 16384} on an H100, whatever the
+// layout, the load instruction (generic or ld.shared::cluster) or the
+// loads in flight: 4-byte reads of a peer's shared memory at random run at
+// about one per 4 cycles an SM.  So it was removed (PERF.md §5).
 //
 // K5: one block per LUT row; the block stages row i (C ints, 512 B at
 // C = 128) in shared memory and gathers from it.  Random indices can

@@ -4,9 +4,11 @@ Counterparts of the two Pallas kernels of ``scripts/bench_gather.py``:
 ``_dg(lut, idx, 0)`` in ``dg0_kernel`` (:97-110) and ``_dg(lut, idx, 1)``
 in ``dg1_kernel`` (:140-141).  On a CPU tensor each is
 ``torch.take_along_dim``; on a CUDA tensor it is the matching kernel of
-``csrc/lut_gather.cu`` (K4, K5).  As with the TPU kernels'
-``PROMISE_IN_BOUNDS``, the kernels do not check the indices: the caller
-keeps them in range.
+``csrc/lut_gather.cu`` (K4, K5).  K4 takes one of two routes, chosen by
+the LUT's shape (``rows_variant``): the LUT staged whole in each block's
+shared memory (``smem``) or read through the cache (``ldg``).  As with
+the TPU kernels' ``PROMISE_IN_BOUNDS``, the kernels do not check the
+indices: the caller keeps them in range.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from rkmh_tpu_torch.ops import kernels
 # (N * C * 4, so N <= 400 at C = 128: the sweep's N in {8, 64})
 SMEM_LUT_BYTES = 200 * 1024
 _SMEM_BYTES = 232448  # a block's dynamic shared memory on sm_90
+ROUTES = ("smem", "ldg")  # K4's routes; the C entry point takes smem = 1 or 0
 
 
 def lut_gather_rows_plain(lut: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -30,7 +33,8 @@ def lut_gather_lanes_plain(lut: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
 
 
 def rows_variant(lut: torch.Tensor) -> str:
-    """Which K4 variant a LUT gets: ``smem`` (staged) or ``ldg``."""
+    """Which K4 route a LUT gets, from its shape alone: ``smem`` (staged
+    whole, up to SMEM_LUT_BYTES) or ``ldg``."""
     return "smem" if lut.numel() * 4 <= SMEM_LUT_BYTES else "ldg"
 
 
@@ -42,15 +46,20 @@ def _check_int32_2d(lut, idx, name):
         raise ValueError(f"{name}: lut and idx lie on {lut.device} and {idx.device}")
 
 
-def _lut_gather_rows_cuda(lut, idx):
+def _lut_gather_rows_cuda(lut, idx, route: str | None = None):
+    """K4 by the route ``rows_variant`` gives the LUT's shape, or by
+    ``route`` (the tests and benchmarks hold every route at one shape)."""
     _check_int32_2d(lut, idx, "lut_gather_rows")
     (N, C), M = lut.shape, idx.shape[0]
     if idx.shape[1] != C:
         raise ValueError(f"lut_gather_rows: idx has {idx.shape[1]} columns, lut {C}")
+    route = rows_variant(lut) if route is None else route
+    if route not in ROUTES or (route == "smem" and N * C * 4 > _SMEM_BYTES):
+        raise ValueError(f"lut_gather_rows: no {route!r} route for a LUT of {N} x {C}")
     lut, idx = lut.contiguous(), idx.contiguous()
     out = torch.empty((M, C), dtype=torch.int32, device=lut.device)
     if M * C:
-        kernels.LUT_GATHER_ROWS(lut, idx, out, N, C, M, int(rows_variant(lut) == "smem"))
+        kernels.LUT_GATHER_ROWS(lut, idx, out, N, C, M, int(route == "smem"), route=route)
     return out
 
 

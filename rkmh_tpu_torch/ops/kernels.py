@@ -10,7 +10,8 @@ Nothing is built or loaded on import.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch on the
 stream it is given (PyTorch's current stream); ``Kernel`` raises if that
-is not 0 and counts successful launches.
+is not 0 and counts successful launches, in all and, for a kernel with
+several routes (K4), by the route the caller names.
 """
 
 from __future__ import annotations
@@ -109,6 +110,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes + [ctypes.c_void_p]  # + the stream
         self.launches = 0
+        self.by_route: dict[str, int] = {}  # launches by the route the caller named
         self._fn = None
 
     def function(self, lib: ctypes.CDLL):
@@ -118,7 +120,7 @@ class Kernel:
         fn.restype = ctypes.c_int
         return fn
 
-    def __call__(self, *args):
+    def __call__(self, *args, route: str | None = None):
         if self._fn is None:
             self._fn = self.function(load_library())
         device = next(a.device for a in args if isinstance(a, torch.Tensor))
@@ -128,6 +130,8 @@ class Kernel:
         if err:
             raise RuntimeError(f"{self.symbol}: CUDA launch failed with error {err}")
         self.launches += 1
+        if route is not None:
+            self.by_route[route] = self.by_route.get(route, 0) + 1
 
 
 _p, _i, _i64, _u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
@@ -168,6 +172,7 @@ KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE,
 def reset_launch_counts() -> None:
     for kern in KERNELS.values():
         kern.launches = 0
+        kern.by_route = {}
 
 
 def launch_counts() -> dict[str, int]:

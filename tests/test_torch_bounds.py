@@ -102,7 +102,7 @@ def test_kernel_ab_times_a_library_only_on_its_kernels():
 
 def test_kernel_ab_takes_the_counter_and_set_probe_sources(tmp_path):
     assert set(kernel_ab.SOURCES) == {"window_hash.cu", "panel_probe.cu", "counter.cu",
-                                      "set_probe.cu"}
+                                      "set_probe.cu", "lut_gather.cu"}
     assert kernel_ab.held_sources(tmp_path) == []
     for name in ("set_probe.cu", "counter.cu", "notes.txt"):
         (tmp_path / name).write_text("")
@@ -112,37 +112,45 @@ def test_kernel_ab_takes_the_counter_and_set_probe_sources(tmp_path):
     assert kernel_ab.DIAG_SOURCE not in kernels.sources()  # not part of the port's library
 
 
-class _OldCounters:  # a library built from the counter.cu and set_probe.cu before the redesign
-    rkmh_counter_add = rkmh_counter_mask = rkmh_set_probe = staticmethod(lambda *a: 0)
+class _OldCounters:  # a library built from an old counter.cu and lut_gather.cu
+    rkmh_counter_add = rkmh_counter_mask = rkmh_lut_gather_rows = staticmethod(lambda *a: 0)
 
 
 def test_kernel_ab_calls_an_old_library_by_its_old_entry_points():
     lib = _OldCounters()
     new = [kern._fn for kern in kernel_ab.SWAPPED]
-    with kernel_ab.using(lib, old=True):
-        # the redesigned kernels keep this checkout's entry points; the old
-        # ones are reached through the old signatures
-        assert [kern._fn for kern in kernel_ab.REDESIGNED] == [
-            kern._fn for kern in kernels.KERNELS.values() if kern in kernel_ab.REDESIGNED]
-        assert kernels.COUNTER_ADD._fn is new[kernel_ab.SWAPPED.index(kernels.COUNTER_ADD)]
-        assert kernel_ab.OLD_COUNTER_ADD._fn is not None
-        assert kernel_ab.OLD_SET_PROBE._fn is not None
-        assert len(kernel_ab.OLD_COUNTER_ADD.argtypes) < len(kernels.COUNTER_ADD.argtypes)
-    assert kernel_ab.OLD_COUNTER_ADD._fn is None and kernel_ab.OLD_SET_PROBE._fn is None
-    with kernel_ab.using(lib):  # a variant: this checkout's signatures
-        assert kernels.COUNTER_ADD._fn is not None and kernels.SET_PROBE._fn is not None
-        assert kernel_ab.OLD_COUNTER_ADD._fn is None
+    with kernel_ab.using(lib):
+        # the wrappers launch the old library's entry points, which have
+        # this checkout's parameter lists; kernels it lacks keep theirs
+        assert kernels.COUNTER_ADD._fn is not None and kernels.COUNTER_MASK._fn is not None
+        assert kernels.LUT_GATHER_ROWS._fn is not None
+        assert kernels.SET_PROBE._fn is new[kernel_ab.SWAPPED.index(kernels.SET_PROBE)]
     assert [kern._fn for kern in kernel_ab.SWAPPED] == new
+
+
+def test_kernel_ab_reads_which_entry_points_changed(tmp_path):
+    from rkmh_tpu_torch.ops import kernels as k
+
+    for name in ("counter.cu", "lut_gather.cu"):
+        (tmp_path / name).write_text((k.CSRC / name).read_text())
+    assert kernel_ab.changed_entry_points(tmp_path) == frozenset()
+    assert kernel_ab.entry_points(tmp_path / "lut_gather.cu")["rkmh_lut_gather_rows"] == (
+        "const int32_t* lut, const int32_t* idx, int32_t* out, int N, int C, int64_t M, "
+        "int smem, cudaStream_t stream")
+    older = (tmp_path / "counter.cu").read_text().replace(  # K6 before its binned design
+        "const int32_t* lens, int L, const int* ks, int nk, int64_t n,", "int64_t n,")
+    (tmp_path / "counter.cu").write_text(older)
+    assert kernel_ab.changed_entry_points(tmp_path) == {"rkmh_counter_add"}
+    with pytest.raises(ValueError, match="rkmh_counter_add"):
+        kernel_ab.build_libraries(tmp_path, [])
 
 
 def test_kernel_ab_case_runs_where_its_kernels_are():
     lib = _OldCounters()
-    case = kernel_ab.Case((kernels.COUNTER_ADD,), new=lambda: "new", old=lambda: "old",
-                          old_kerns=(kernel_ab.OLD_COUNTER_ADD,))
-    assert case.fn("old")() == "old" and case.fn("new")() == "new" and case.fn("v")() == "new"
-    assert case.runs_on("old", lib) and case.runs_on("new", lib)
+    case = kernel_ab.Case((kernels.LUT_GATHER_ROWS,), new=lambda: "new")
+    assert case.new() == "new" and case.runs_on(lib)
     k1 = kernel_ab.Case((kernels.WINDOW_HASH,), new=lambda: 1)
-    assert k1.fn("old")() == 1 and not k1.runs_on("old", lib) and not k1.runs_on("new", lib)
+    assert not k1.runs_on(lib)
 
 
 def test_kernel_ab_checks_compare_with_the_plain_version():
@@ -161,6 +169,7 @@ def test_kernel_ab_checks_compare_with_the_plain_version():
 @pytest.mark.parametrize("argv,ok", [
     (["--old-csrc", "d"], True),
     (["--old-csrc", "d", "--only", "k6", "--only", "k3", "--variant", "plain_flush=v"], True),
+    (["--old-csrc", "d", "--only", "k7", "--only", "k4"], True),
     ([], False),
     (["--old-csrc", "d", "--variant", "old=v"], False),
 ])

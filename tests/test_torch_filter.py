@@ -7,20 +7,25 @@ included) holding reads that match nothing.  Cases: file mode with
 -N/-D/-M/-I (small counters that force collisions, a decimal prime and a
 power of two), -i mode with and without -M (with -M and no -f the counter
 stays empty and every read fails), -f plus -i, the CLI with its dead
-parity flags, and the flags that stay rejected.  The port runs its plain
-path on the CPU.  Tolerance: none; outputs are text and must be equal.
+parity flags, the flags that stay rejected, and the ``-o FILE.progress``
+sidecar (each save and the final file) at two chunk sizes.  The port runs
+its plain path on the CPU.  Tolerance: none; outputs are text and must be
+equal.
 """
 
 import io
+import os
 import sys
 
 import numpy as np
 import pytest
 
 from rkmh_tpu.cli import main as jax_main
+from rkmh_tpu.commands import recovery as jax_recovery
 from rkmh_tpu.commands.filter_cmd import FilterConfig as JaxConfig
 from rkmh_tpu.commands.filter_cmd import run as jax_run
 from rkmh_tpu_torch import cli, synth
+from rkmh_tpu_torch.commands import recovery
 from rkmh_tpu_torch.commands.filter_cmd import FilterConfig, run
 
 
@@ -108,6 +113,52 @@ def test_filter_stream_mode_byte_identical_to_jax(workload, reads, kw):
         assert all("FAIL:DEPTH" in ln for ln in lines)
     if reads:
         assert want.startswith(">")  # the -f records come first
+
+
+@pytest.mark.parametrize("chunk_reads", [37, 0])  # chunks of 37 reads, and one chunk
+@pytest.mark.parametrize("reads,in_stream,kw", [
+    (["short", "mixed"], False, dict(ks=(12,), min_matches=45)),
+    (["mixed"], False, dict(ks=(12,), min_kmer_occ=2, counter_size=16384, batch_size=16)),
+    (["short"], True, dict(ks=(12,), min_matches=10)),
+    ([], True, dict(ks=(12,))),
+], ids=["files", "files-M", "f-and-i", "i"])
+def test_filter_progress_sidecar_byte_identical_to_jax(workload, tmp_path, monkeypatch,
+                                                      reads, in_stream, kw, chunk_reads):
+    """``filter -o FILE`` writes FILE and FILE.progress as rkmh-tpu does:
+    a save after each file-mode chunk (reads done, bytes flushed), none for
+    the -i stream."""
+    saves = {"jax": [], "port": []}
+    for name, cls in (("jax", jax_recovery.Progress), ("port", recovery.Progress)):
+        def save(self, reads_done, output_bytes, _orig=cls.save, _log=saves[name]):
+            assert os.path.getsize(self.path[: -len(".progress")]) == output_bytes  # flushed
+            _log.append((reads_done, output_bytes))
+            _orig(self, reads_done, output_bytes)
+        monkeypatch.setattr(cls, "save", save)
+    files = [workload[r] for r in reads]
+    outs = {}
+    for name in ("jax", "port"):
+        out = str(tmp_path / f"{name}.out")
+        stdin = open(workload["mixed"], "rb") if in_stream else None
+        cfg = dict(ref_files=[workload["refs"]], read_files=files, in_stream=in_stream,
+                   chunk_reads=chunk_reads, out_file=out, **kw)
+        if name == "jax":
+            assert jax_run(JaxConfig(**cfg), stdin=stdin) == 0
+        else:
+            assert run(FilterConfig(device="cpu", **cfg), stdin=stdin) == 0
+        if stdin is not None:
+            stdin.close()
+        outs[name] = [open(p, "rb").read() if os.path.exists(p) else None
+                      for p in (out, out + ".progress")]
+    assert outs["port"] == outs["jax"]
+    assert saves["port"] == saves["jax"]
+    per_file = [sum(1 for ln in open(workload[r]) if ln[0] in "@>") for r in reads]
+    if not reads:  # -i alone: no file-mode chunk, so no sidecar
+        assert outs["port"][1] is None and saves["port"] == []
+    else:  # a save per chunk; chunks never span files
+        assert len(saves["port"]) == sum(-(-n // (chunk_reads or 65536)) for n in per_file)
+        assert saves["port"][-1][0] == sum(per_file)
+        assert outs["port"][1] == b'{"reads": %d, "bytes": %d}' % saves["port"][-1]
+        assert saves["port"][-1][1] <= len(outs["port"][0])  # -i lines come after it
 
 
 def test_filter_stream_parse_error_is_raised(workload):

@@ -4,7 +4,7 @@ Pallas kernels.
 ``dg0_kernel`` / ``dg1_kernel`` are local to ``scripts/bench_gather.py``'s
 ``main()``, so their body (``lax.gather`` with the dimension numbers of
 bench_gather.py:97-107) is repeated here under ``pl.pallas_call(...,
-interpret=True)``.  Inputs are made from a seed with numpy.  Tolerance:
+interpret=True)``, also at ragged shapes with M != N.  Inputs are made from a seed with numpy.  Tolerance:
 none, the outputs are int32 and must be equal.
 """
 
@@ -37,7 +37,7 @@ def _pallas_dg(lut, idx, dim):
         out_ref[:] = _dg(lut_ref[:], idx_ref[:], dim)
 
     return np.asarray(pl.pallas_call(
-        kernel, out_shape=jax.ShapeDtypeStruct(lut.shape, jnp.int32), interpret=True,
+        kernel, out_shape=jax.ShapeDtypeStruct(idx.shape, jnp.int32), interpret=True,
     )(lut, idx))
 
 
@@ -55,6 +55,19 @@ def test_gathers_match_the_pallas_kernels(N, dim):
     got = fn(torch.from_numpy(lut), torch.from_numpy(idx))
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), _pallas_dg(lut, idx, dim))
+
+
+@pytest.mark.parametrize("N", [1, 7, 8, 400, 401, 512, 4096, 16383, 16384])
+@pytest.mark.parametrize("C", [1, 100, 128, 256])
+def test_rows_gather_matches_the_pallas_kernel_at_ragged_shapes(N, C):
+    # the shapes the CUDA tests hold each K4 route at, with M != N
+    rng = np.random.default_rng(N * 3 + C)
+    M = N + 37 if N < 4096 else N // 3
+    lut = rng.integers(-2**31, 2**31, (N, C)).astype(np.int32)
+    idx = rng.integers(0, N, (M, C)).astype(np.int32)
+    idx[0] = N - 1
+    got = gather.lut_gather_rows(torch.from_numpy(lut), torch.from_numpy(idx))
+    assert np.array_equal(got.numpy(), _pallas_dg(lut, idx, 0))
 
 
 @pytest.mark.parametrize("N,C,M", [(1, 128, 5), (512, 128, 512), (300, 32, 7)])
@@ -85,6 +98,16 @@ def test_kernel_wrappers_reject_what_they_cannot_take():
     with pytest.raises(ValueError, match="shared memory"):
         gather._lut_gather_lanes_cuda(torch.zeros((1, 60000), dtype=torch.int32),
                                       torch.zeros((1, 4), dtype=torch.int32))
+
+
+def test_rows_wrapper_rejects_a_route_the_lut_does_not_fit():
+    idx = torch.zeros((4, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="no 'smem' route"):
+        gather._lut_gather_rows_cuda(torch.zeros((512, 128), dtype=torch.int32), idx, "smem")
+    with pytest.raises(ValueError, match="no 'cluster' route"):
+        gather._lut_gather_rows_cuda(torch.zeros((8, 128), dtype=torch.int32), idx, "cluster")
+    with pytest.raises(ValueError, match="no 'tma' route"):
+        gather._lut_gather_rows_cuda(torch.zeros((8, 128), dtype=torch.int32), idx, "tma")
 
 
 def test_check_gather_finds_a_wrong_kernel():

@@ -360,6 +360,36 @@ def test_lut_gather_kernels_match_plain(cuda_device, N):
     assert torch.equal(got, gather.lut_gather_lanes_plain(lut, idx))
 
 
+K4_SHAPES = [(N, C) for N in (1, 7, 8, 400, 401, 512, 4096, 16383, 16384)
+             for C in (1, 100, 128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C", K4_SHAPES)
+def test_lut_gather_rows_every_route_matches_plain(cuda_device, N, C):
+    """K4 by each route that takes the shape (staged where the LUT fits a
+    block, the cache route everywhere), M != N, and on idx and out that
+    are not 16-byte aligned; each launch counted by its route."""
+    rng = np.random.default_rng(N * 3 + C)
+    M = N + 37 if N < 4096 else N // 3
+    lut = torch.from_numpy(rng.integers(-2**31, 2**31, (N, C)).astype(np.int32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, N, (M, C)).astype(np.int32)).to(cuda_device)
+    idx[0] = N - 1
+    want = gather.lut_gather_rows_plain(lut, idx)
+    flat = torch.empty(M * C + 1, dtype=torch.int32, device=cuda_device)
+    shifted = flat[1:].view(M, C)  # 4 bytes past an aligned allocation
+    shifted.copy_(idx)
+    routes = ["ldg"] + (["smem"] if N * C * 4 <= gather._SMEM_BYTES else [])
+    for route in routes:
+        before = kernels.LUT_GATHER_ROWS.by_route.get(route, 0)
+        for x in (idx, shifted):
+            got = gather._lut_gather_rows_cuda(lut, x, route)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), route
+        assert kernels.LUT_GATHER_ROWS.by_route[route] == before + 2
+    assert torch.equal(gather.lut_gather_rows(lut, idx), want)  # the shape's own route
+
+
 def _hashes(seed, shape):
     """Random int64 hashes, a third >= 2**63 as uint64, with zeros and
     repeats; plus a random mask."""
@@ -396,6 +426,29 @@ def test_counter_kernels_match_plain(cuda_device, size, binned):
         assert torch.equal(counter.counter_mask(got, h, lo, hi).cpu(), want), (lo, hi)
     assert (kernels.COUNTER_ADD.launches, kernels.COUNTER_MASK.launches) == (
         before[0] + 2, before[1] + 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(8))
+@pytest.mark.parametrize("n", [1, 3, 7, 8, 4097, 5_000_001])
+def test_counter_mask_kernel_on_misaligned_views(cuda_device, offset, n):
+    # a view at an odd element offset starts 8 bytes past a 16-byte boundary:
+    # K7 takes its head and odd last element one by one; 5M elements take
+    # several rounds of the resident grid
+    size = 1009 if n < 10**6 else 200_000_000
+    hashes, mask = _hashes(n % 1000 + offset, (n + 8,))
+    table = torch.zeros(size, dtype=torch.int32, device=cuda_device)
+    h = hashes.to(cuda_device)
+    counter.counter_add_plain(table, h, mask.to(cuda_device))
+    view = h[offset : offset + n]
+    assert view.storage_offset() == offset and view.is_contiguous()
+    for lo, hi in ((2, counter.INT32_MAX), (0, 3), (0, 1)):
+        before = kernels.COUNTER_MASK.launches
+        got = counter.counter_mask(table, view, lo, hi)
+        torch.cuda.synchronize()
+        assert kernels.COUNTER_MASK.launches == before + 1
+        assert torch.equal(got, counter.counter_mask_plain(table, view, lo, hi)), (lo, hi)
+    assert n < 100 or int((view == 0).sum()) > 0  # hash 0 among the long views
 
 
 @pytest.mark.cuda

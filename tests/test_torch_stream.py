@@ -7,8 +7,9 @@ mixed lengths (empty and shorter than k included) split over several
 chunks and batches; -M, -I and both, on small counters that force
 collisions (a decimal prime and a power of two), reads with N bases.  The
 port runs its plain path on the CPU.  Also: the CLI surface (rkmh's dead
-parity flags accepted with rkmh-tpu's warnings), and that the port never
-imports JAX.
+parity flags accepted with rkmh-tpu's warnings; ``-f ... -i`` logs that -i
+is ignored and classifies the files, as rkmh-tpu does), and that the port
+never imports JAX.
 """
 
 import io
@@ -118,10 +119,39 @@ def test_cli_accepts_dead_parity_flags_as_jax_does(workload, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["-R", "x.json"], ["--metrics"], ["-i"], ["--devices", "2"],
                                   ["--resume"], ["--ref-sketches", "x.json"]])
 def test_cli_rejects_flags_not_yet_ported(flag, capsys):
+    # -i is stdin streaming only without -f (with -f it is ignored, below)
+    files = [] if flag == ["-i"] else ["-f", "reads.fq"]
     with pytest.raises(SystemExit) as exc:
-        cli.main(["stream", "-r", "refs.fa", "-f", "reads.fq", *flag])
+        cli.main(["stream", "-r", "refs.fa", *files, *flag])
     assert exc.value.code == 2
     assert f"{flag[0]} not yet ported" in capsys.readouterr().err
+
+
+IGNORED_I = ("stream -i ignored: -f inputs were given (rkmh classified the files here too "
+             "— its -i is dead); classifying the files")
+
+
+@pytest.mark.parametrize("command", ["stream", "classify"])
+def test_cli_stream_files_with_i_match_jax(workload, capsys, command):
+    """``-f reads -i``: rkmh-tpu logs that -i is ignored and classifies the
+    files; so does the port, with the same stdout and exit 0."""
+    from rkmh_tpu.cli import main as jax_main
+
+    argv = [command, "-r", workload["refs"], "-f", workload["short"], "-k", "12", "-i"]
+    assert jax_main(argv) == 0
+    want = capsys.readouterr()
+    assert cli.main([*argv, "--device", "cpu"]) == 0
+    got = capsys.readouterr()
+    assert got.out == want.out and len(got.out.splitlines()) == 200
+    assert IGNORED_I in want.err.splitlines() and IGNORED_I in got.err.splitlines()
+    with pytest.raises(SystemExit) as exc:  # -i alone is still stdin streaming
+        cli.main([command, "-r", workload["refs"], "-i", "--device", "cpu"])
+    assert exc.value.code == 2 and "-i not yet ported" in capsys.readouterr().err
+
+
+def test_stream_i_without_files_is_not_ported():
+    with pytest.raises(ValueError, match="not yet ported"):
+        run(StreamConfig(ref_files=["refs.fa"], in_stream=True, device="cpu"), out=io.StringIO())
 
 
 def test_cli_cuda_without_gpu_fails(workload, monkeypatch):
