@@ -8,7 +8,9 @@ line) without CUDA or without the package beside it.  In order it:
 
 1. reports the card (torch and nvidia-smi);
 2. builds the CUDA kernels from ``rkmh_tpu_torch/csrc`` (one nvcc per
-   source, in parallel) and times the build;
+   source, in parallel) and the native FASTA/FASTQ reader and line
+   formatter from ``rkmh_tpu_torch/io/native`` (g++), and times the
+   builds; a failed build fails the run;
 3. checks the window-hash kernel (K1) bit for bit against its plain
    PyTorch version on the card: random codes with invalid bases, poly-A
    and (AC)n rows, k in {1, 4, 12, 16, 17, 18, 31, 32, 33, 64} (packed
@@ -32,20 +34,31 @@ line) without CUDA or without the package beside it.  In order it:
    wrapper, so that time is kept beside it as ``eager_ms``; plain
    versions are timed eagerly;
 6. drives the stream slice: synthetic 60 x 10,807 bp panel and 2**20
-   reads of 150 bp through ``commands.stream.run`` (k=12, s=1000, device
-   cuda), with the launch counters zeroed just before and read just
-   after; it checks one line per read, that K1 and K2 ran, and that the
-   first 16,384 lines equal the port's CPU plain-path output on the same
-   reads; it reports e2e reads/s, device-step reads/s over resident
-   batches and the share of reads assigned to their source genome;
+   reads of 150 bp.  First, on the card's host, it times parse and
+   encode of the reads by the native reader and by the Python parser,
+   and line formatting by the native block formatter and by
+   ``format_lines_host``, and checks that both give equal codes, lengths,
+   names and lines.  Then it runs ``commands.stream.run`` (k=12, s=1000,
+   device cuda; the native reader and formatter), with the launch
+   counters zeroed just before and read just after; it checks one line
+   per read, that K1 and K2 ran, and that the first 16,384 lines equal
+   the port's CPU plain-path output on the same reads; it reports e2e
+   reads/s, device-step reads/s over resident batches and the share of
+   reads assigned to their source genome.  Last, one more stream run
+   under cProfile says where the host time goes;
 7. checks the LUT-gather kernels (K4, K5) bit for bit against their plain
-   versions at every N of the gather sweep, K4 by every route that takes
-   the shape (LUT staged whole, read through the cache), and times K4 at
-   N = 512, 4096 and 16384 and K5, beside one ``torch.gather`` on an int64
-   index (the library yardstick);
+   versions: K4 at every N of the gather sweep by every route that takes
+   the shape (LUT staged whole, read through the cache), K5 at the
+   sweep's [512, 128] and at [300, 128] with 300 and 77 indices a row by
+   every route that takes the inputs (the row in a warp's registers where
+   M % 4 == 0 and the tensors are 16-byte aligned, the row staged in
+   shared memory everywhere), on aligned and unaligned indices; times K4
+   at N = 512, 4096 and 16384, and K5 at [512, 128] by either route beside the launch
+   floor (an empty kernel on K5's grid, graph replay), each beside one
+   ``torch.gather`` on an int64 index (the library yardstick);
 8. drives the gather path, ``rkmh_tpu_torch.bench.bench_gather.main()``,
    with the counters zeroed just before and read just after; every K4
-   route must have launched (its launches by route);
+   route and K5's register route must have launched (launches by route);
 9. builds the hpv16 tables on the card from a synthetic full-width
    refpath (182 types of ~7.9 kb, 10 sublineages, k=18), the kernel's
    packed layout of the set table included (once, timed), and checks the
@@ -102,8 +115,9 @@ JSON record (per kernel: launches on the driven paths, in all and by
 path, max_abs_err against the plain version, ms, eager_ms, plain_ms, bound_ms,
 bound_by, bound_share = bound_ms / ms, and library_ms, one PyTorch call
 computing the same function where there is one: ``torch.gather`` for K4
-and K5, none for the others; K4 adds its launches by route and its times
-at each timed N, K7 its times at the hpv16 -M shape) and ``{"ok": true,
+and K5, none for the others; K4 and K5 add their launches by route, K4
+its times at each timed N, K5 its staged route's time and the launch
+floor, K7 its times at the hpv16 -M shape) and ``{"ok": true,
 "device": {...}}``.  Any failure raises.
 """
 
@@ -122,6 +136,7 @@ B = 16384
 KS_K1 = (1, 4, 12, 16, 17, 18, 31, 32, 33, 64)  # packed k <= 32, byte-wise above
 GATHER_NS = (8, 64, 512, 4096, 16384)
 GATHER_TIMED_NS = (512, 4096, 16384)  # K4's cache route; the last one is the record's
+K5_N = 512  # the gather sweep's K5 shape, [512, 128]
 N_HPV16_READS = 12800
 N_HPV16_CPU_LINES = 64
 HPV16_K = 18
@@ -412,6 +427,109 @@ def require_same(gpu: str, cpu: str, what: str) -> None:
                              f"({len(g)} vs {len(c)} lines)")
 
 
+def check_native_io(zika: dict) -> dict:
+    """The native reader and block formatter against the Python parser and
+    the per-line formatter on the slice's 2**20 reads: parse-and-encode and
+    format seconds on the card's host, and that both give equal codes,
+    lengths, names and lines.  The formatter formats each chunk as one
+    block, with a [3, n] result made from a seed."""
+    import numpy as np
+
+    from rkmh_tpu_torch.commands import stream
+    from rkmh_tpu_torch.commands.common import DEFAULT_CHUNK_READS, PyPacked, iter_packed_chunks
+    from rkmh_tpu_torch.io.fastx import iter_batches
+
+    reads = zika["reads"]
+    t0 = time.perf_counter()
+    native_chunks = list(iter_packed_chunks([reads], DEFAULT_CHUNK_READS))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_names = [c.names for c in native_chunks]
+    names_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_chunks = [PyPacked(recs) for recs in iter_batches(reads, DEFAULT_CHUNK_READS)]
+    python_s = time.perf_counter() - t0
+    if [len(c) for c in native_chunks] != [len(c) for c in py_chunks]:
+        raise AssertionError("the native and Python readers cut different chunks")
+    for i, (a, b, names) in enumerate(zip(native_chunks, py_chunks, native_names)):
+        if not (np.array_equal(a.codes, b.codes) and np.array_equal(a.lens, b.lens)
+                and names == b.names):
+            raise AssertionError(f"the native and Python readers differ in chunk {i}")
+    n = sum(len(c) for c in native_chunks)
+    if n != N_SLICE_READS:
+        raise AssertionError(f"the native reader read {n} of {N_SLICE_READS} reads")
+
+    rng = np.random.default_rng(19)
+    results = [np.stack([rng.integers(0, len(zika["names"]), len(c)),
+                         rng.integers(0, 1001, len(c)), rng.integers(0, 8, len(c))])
+               for c in native_chunks]
+    fmt = stream._NativeFormatCtx(zika["names"], 1000)
+    t0 = time.perf_counter()
+    blocks = [fmt.format_block(arr, np.arange(len(c)), stream._NamesOnly(c))
+              for arr, c in zip(results, native_chunks)]
+    native_fmt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lines = ["".join(stream.format_lines_host(zika["names"], c.names, arr, 1000))
+             for arr, c in zip(results, py_chunks)]
+    python_fmt_s = time.perf_counter() - t0
+    if blocks != lines:
+        raise AssertionError("the native block formatter and format_lines_host differ")
+    res = {"reads": n, "parse_encode_native_s": native_s, "names_to_str_s": names_s,
+           "parse_encode_python_s": python_s, "format_native_s": native_fmt_s,
+           "format_python_s": python_fmt_s}
+    say(f"host reader on {n} reads x 150 bp ({len(native_chunks)} chunks): parse and encode "
+        f"native {native_s:.3f} s (+ {names_s:.3f} s for the names as str), Python parser "
+        f"+ encode_seqs {python_s:.3f} s; codes, lengths and names equal")
+    say(f"host formatter on the same reads: native block {native_fmt_s:.3f} s, "
+        f"format_lines_host {python_fmt_s:.3f} s; lines equal")
+    return res
+
+
+def profile_stream(zika: dict, top: int = 12) -> dict:
+    """One stream run of the slice under cProfile, on the card: where the
+    main thread's time goes, by the functions that hold it (cumulative
+    seconds: the wait for the native parse on the reader thread,
+    bucketed_batches, the dispatch of the device step, the host-to-device
+    copy, the fetch, which waits for the device, and the output)."""
+    import cProfile
+    import pstats
+
+    from rkmh_tpu_torch.commands import stream
+
+    out = os.path.join(zika["dir"], "profiled.tsv")
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(stream.run, stream.StreamConfig(
+        ref_files=[zika["refs"]], read_files=[zika["reads"]], ks=(12,), sketch_size=1000,
+        out_file=out, device="cuda"))
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof)
+    # (file name part, function name part) of each span's functions; the
+    # native parse runs on the reader thread, which cProfile does not see:
+    # the main thread's wait for it is the queue's get
+    spans = {"wait for the reader thread (Queue.get)": ("queue.py", "get"),
+             "bucketed_batches": ("common.py", "bucketed_batches"),
+             "device step dispatch (classify_codes_table)": ("engine.py",
+                                                             "classify_codes_table"),
+             "H2D copy (Tensor.to)": ("~", "method 'to' of"),
+             "fetch (Tensor.cpu)": ("~", "method 'cpu' of"),
+             "format (on_result)": ("stream.py", "on_result"),
+             "render": ("stream.py", "render"),
+             "write": ("~", "method 'write' of '_io"),
+             "panel build (build_ref_panel_from_files)": ("common.py",
+                                                          "build_ref_panel_from_files")}
+    by_span = {label: sum(v[3] for (f, _, fn), v in stats.stats.items()
+                          if file_part in f and func in fn)
+               for label, (file_part, func) in spans.items()}
+    say(f"stream slice under cProfile: {wall:.2f} s wall (profiled); cumulative s by span: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in by_span.items()))
+    ranked = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    say("stream slice under cProfile, top functions by own time: " + "; ".join(
+        f"{os.path.basename(f)}:{ln} {fn} {v[2]:.3f} s ({v[1]} calls)"
+        for (f, ln, fn), v in ranked))
+    return {"wall_s": wall, "cumulative_s": by_span}
+
+
 def run_slice(dev, card: str, panel, zika: dict) -> dict:
     import numpy as np
     import torch
@@ -475,11 +593,10 @@ def run_slice(dev, card: str, panel, zika: dict) -> dict:
 
 def check_gathers(dev) -> tuple[dict, dict]:
     """K4 by every route that takes each N of the sweep (the LUT staged
-    whole where it fits a block, the cache route everywhere) and K5,
-    against their plain versions; then K4 by its
-    shape's own route timed at N = 512, 4096 and 16384.  Returns ({name:
-    (max_abs_err, ms, plain_ms, library_ms, bound_ms, eager_ms)} at the
-    sweep's largest N for K4 and at N = 512 for K5, {N: K4's fields}).
+    whole where it fits a block, the cache route everywhere), against its
+    plain version; then K4 by its shape's own route timed at N = 512, 4096
+    and 16384.  Returns ({name: (max_abs_err, ms, plain_ms, library_ms,
+    bound_ms, eager_ms)} at the sweep's largest N, {N: K4's fields}).
     The library call is one ``torch.gather`` on an index made int64 before
     the timing."""
     import numpy as np
@@ -493,46 +610,97 @@ def check_gathers(dev) -> tuple[dict, dict]:
     res, by_n = {}, {}
     cases = [("lut_gather_rows", gather._lut_gather_rows_cuda, gather.lut_gather_rows_plain,
               N, N) for N in GATHER_NS]
-    cases.append(("lut_gather_lanes", gather._lut_gather_lanes_cuda,
-                  gather.lut_gather_lanes_plain, 512, 128))
     for name, kern, plain, N, hi in cases:
         lut = torch.from_numpy(rng.integers(-2**31, 2**31, (N, 128)).astype(np.int32)).to(dev)
         idx = torch.from_numpy(rng.integers(0, hi, (N, 128)).astype(np.int32)).to(dev)
         want = plain(lut, idx)
-        rows = name == "lut_gather_rows"
-        routes = [None]
-        if rows:
-            routes += ["ldg"] + (["smem"] if N * 128 * 4 <= gather._SMEM_BYTES else [])
+        routes = [None, "ldg"] + (["smem"] if N * 128 * 4 <= gather._SMEM_BYTES else [])
         err = 0
         for route in routes:
-            got = kern(lut, idx, route) if rows else kern(lut, idx)
+            got = kern(lut, idx, route)
             err = max(err, max_abs_err(got.long(), want.long()))
             if err or not torch.equal(got, want):
                 raise AssertionError(f"{name} kernel disagrees with the plain version at N={N}"
                                      f" by route {route or 'of the shape'}")
         idx64 = idx.long()
-        dim = 0 if rows else 1
-        if not torch.equal(torch.gather(lut, dim, idx64), want):
+        if not torch.equal(torch.gather(lut, 0, idx64), want):
             raise AssertionError(f"torch.gather does not compute {name}")
-        variant = gather.rows_variant(lut) if rows else "smem row"
-        if rows:
-            say(f"{name} N={N}: bit-exact=True by its shape's route ({variant}) and by "
-                f"{', '.join(routes[1:])}")
-        if rows and N not in GATHER_TIMED_NS:
+        variant = gather.rows_variant(lut)
+        say(f"{name} N={N}: bit-exact=True by its shape's route ({variant}) and by "
+            f"{', '.join(routes[1:])}")
+        if N not in GATHER_TIMED_NS:
             continue
         ms = cuda_graph_time_ms(lambda: kern(lut, idx), 50)
         eager_ms = cuda_time_ms(lambda: kern(lut, idx), 50)
         plain_ms = cuda_time_ms(lambda: plain(lut, idx), 50)
-        library_ms = cuda_graph_time_ms(lambda: torch.gather(lut, dim, idx64), 50)
+        library_ms = cuda_graph_time_ms(lambda: torch.gather(lut, 0, idx64), 50)
         bound_ms = bounds.bound_ms(bounds.tensor_bytes(lut, idx, want))
-        say(f"{name} N={N} ({variant}): {ms:.4f} ms ({eager_ms:.4f} eager) vs "
-            f"{plain_ms:.4f} ms plain, {library_ms:.4f} ms torch.gather, bound {bound_ms:.6f} ms")
+        say(f"{name} N={N} ({variant}): {ms:.5f} ms ({eager_ms:.4f} eager) vs "
+            f"{plain_ms:.4f} ms plain, {library_ms:.5f} ms torch.gather, bound {bound_ms:.6f} ms")
         res[name] = (err, ms, plain_ms, library_ms, bound_ms, eager_ms)
-        if rows:
-            by_n[N] = {"route": variant, "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_share": bound_ms / ms}
+        by_n[N] = {"route": variant, "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": bound_ms, "bound_share": bound_ms / ms}
     return res, by_n
+
+
+def check_k5(dev) -> tuple[tuple, dict]:
+    """K5 against its plain version by each route that takes the inputs
+    (the register route at C = 128 with M % 4 == 0 on 16-byte aligned
+    tensors, the staged route everywhere), at the sweep's [512, 128], at a
+    ragged [300, 128] LUT with M = 300 (a last pass of 44 indices) and with
+    M = 77 (the staged route's alone), each also on indices that are not
+    16-byte aligned (the staged route's); then K5 at [512, 128] timed by
+    its shape's route and by the staged route, beside the launch floor (an
+    empty kernel on the register route's grid, graph replay) and one
+    ``torch.gather``.  Returns ((max_abs_err, ms, plain_ms, library_ms,
+    bound_ms, eager_ms), extra record fields)."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms, launch_floor_ms
+    from rkmh_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(14)
+    err, timed = 0, None
+    for N, M in ((K5_N, 128), (300, 300), (300, 77)):
+        lut = torch.from_numpy(rng.integers(-2**31, 2**31, (N, 128)).astype(np.int32)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, 128, (N, M)).astype(np.int32)).to(dev)
+        want = gather.lut_gather_lanes_plain(lut, idx)
+        shifted = torch.empty(N * M + 1, dtype=torch.int32, device=dev)[1:].view(N, M)
+        shifted.copy_(idx)  # 4 bytes past an aligned allocation
+        checked = []
+        for x in (idx, shifted):
+            variant = gather.lanes_variant(lut, x)
+            for route in ("reg", "smem") if variant == "reg" else ("smem",):
+                got = gather._lut_gather_lanes_cuda(lut, x, route)
+                err = max(err, max_abs_err(got.long(), want.long()))
+                if err or not torch.equal(got, want):
+                    raise AssertionError(f"lut_gather_lanes disagrees with the plain version at "
+                                         f"[{N}, 128], M={M}, by route {route}")
+                checked.append(f"{route} ({'aligned' if x is idx else 'unaligned'} indices)")
+        if (N, M) != (300, 77) and gather.lanes_variant(lut, idx) != "reg":
+            raise AssertionError(f"lut_gather_lanes [{N}, 128] M={M} does not take the reg route")
+        say(f"lut_gather_lanes [{N}, 128] M={M}: bit-exact=True by " + ", ".join(checked))
+        timed = timed or (lut, idx, want)
+    lut, idx, want = timed
+    idx64 = idx.long()
+    if not torch.equal(torch.gather(lut, 1, idx64), want):
+        raise AssertionError("torch.gather does not compute lut_gather_lanes")
+    kern = gather._lut_gather_lanes_cuda
+    ms = cuda_graph_time_ms(lambda: kern(lut, idx), 50)
+    staged_ms = cuda_graph_time_ms(lambda: kern(lut, idx, "smem"), 50)
+    floor_ms = launch_floor_ms(dev, -(-K5_N // 4), 128)  # the register route's grid
+    eager_ms = cuda_time_ms(lambda: kern(lut, idx), 50)
+    plain_ms = cuda_time_ms(lambda: gather.lut_gather_lanes_plain(lut, idx), 50)
+    library_ms = cuda_graph_time_ms(lambda: torch.gather(lut, 1, idx64), 50)
+    bound_ms = bounds.bound_ms(bounds.tensor_bytes(lut, idx, want))
+    say(f"lut_gather_lanes N={K5_N} (reg): {ms:.5f} ms ({eager_ms:.4f} eager); staged route "
+        f"{staged_ms:.5f} ms; launch floor {floor_ms:.5f} ms; {plain_ms:.4f} ms plain, "
+        f"{library_ms:.5f} ms torch.gather, bound {bound_ms:.6f} ms")
+    return ((err, ms, plain_ms, library_ms, bound_ms, eager_ms),
+            {"staged_route_ms": staged_ms, "launch_floor_ms": floor_ms,
+             "launch_floor_share": bound_ms / floor_ms})
 
 
 def run_gather_path() -> dict:
@@ -547,12 +715,17 @@ def run_gather_path() -> dict:
     launches = kernels.launch_counts()
     by_route = dict(kernels.LUT_GATHER_ROWS.by_route)
     say(f"gather path launches: {launches}; lut_gather_rows by route: {by_route}")
+    lanes_by_route = dict(kernels.LUT_GATHER_LANES.by_route)
+    say(f"gather path: lut_gather_lanes by route: {lanes_by_route}")
     require_launches(launches, ("lut_gather_rows", "lut_gather_lanes"), "gather")
     for route in gather.ROUTES:
         if by_route.get(route, 0) <= 0:
             raise AssertionError(f"the gather path launched no lut_gather_rows by the {route} "
                                  "route")
-    return {**launches, "lut_gather_rows_by_route": by_route}
+    if lanes_by_route.get("reg", 0) <= 0:
+        raise AssertionError("the gather path launched no lut_gather_lanes by the reg route")
+    return {**launches, "lut_gather_rows_by_route": by_route,
+            "lut_gather_lanes_by_route": lanes_by_route}
 
 
 def check_k3(dev, tb, packed, panel) -> tuple[int, dict, object]:
@@ -1162,6 +1335,7 @@ def main() -> int:
         print("chip_smoke: run it from a checkout holding rkmh_tpu_torch/", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from rkmh_tpu_torch.io import native
     from rkmh_tpu_torch.ops import kernels
 
     from rkmh_tpu_torch.bench.timing import card_name_and_power_limit
@@ -1176,6 +1350,11 @@ def main() -> int:
     lib = kernels.build()
     say(f"built {lib.name} from {[p.name for p in kernels.sources()]} in "
         f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    io_lib = native.build()
+    native.load()
+    say(f"built {io_lib.name} from {native.SOURCE.name} with {native.CXX} "
+        f"{' '.join(native.CXX_FLAGS)} in {time.perf_counter() - t0:.2f} s")
 
     err_k1 = check_k1(dev)
     panel, genomes = zika_panel(dev)
@@ -1185,8 +1364,11 @@ def main() -> int:
     card_smi = f"{card} ({smi})"
     with tempfile.TemporaryDirectory() as work:
         zika = write_zika(work)
+        check_native_io(zika)
         sl = run_slice(dev, card_smi, panel, zika)
+        profile_stream(zika)
         gathers, gathers_by_n = check_gathers(dev)
+        gathers["lut_gather_lanes"], k5_extra = check_k5(dev)
         gather_launches = run_gather_path()
         hp = run_hpv16(dev, card_smi)
         counters, k7_hpv16 = check_counters(dev, hashes, hp.pop("batch_hashes"))
@@ -1234,7 +1416,8 @@ def main() -> int:
               hp["set_probe_bound"]),
         gather_entry("lut_gather_rows", 109, launches_by_route=gather_launches[
             "lut_gather_rows_by_route"], by_n=gathers_by_n),
-        gather_entry("lut_gather_lanes", 140),
+        gather_entry("lut_gather_lanes", 140, launches_by_route=gather_launches[
+            "lut_gather_lanes_by_route"], **k5_extra),
         counter_entry("counter_add", 37),
         counter_entry("counter_mask", 46, hpv16_m_shape=k7_hpv16),
     ]}

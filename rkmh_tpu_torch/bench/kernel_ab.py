@@ -34,7 +34,14 @@ measures the Python launch path), at:
   against the 182-type + 14-group set table (480 MiB), also with other
   segment sizes; the hpv16 step (K1, sort, K3);
 * the gather sweep's [N, 128] int32 LUTs and [N, 128] indices at N = 512,
-  4096 and 16384: K4 by the route the shape takes (``k4_N``).
+  4096 and 16384: K4 by the route the shape takes (``k4_N``);
+* K5 at the sweep's [512, 128] with indices in 0..127, by the route the
+  shape takes (``k5_512``) and by the staged route (``k5_512_smem``), with
+  M = 512 indices a row (``k5_512x512``), and at a ragged [300, 128] LUT
+  with M = 77 (``k5_300x77``, the staged route's: M % 4 != 0),
+  beside the launch floor: an empty kernel (``bench/diag_launch.cu``) on
+  the grids of either K5 route and on one block, in graph replay
+  (``launch_floor_ms``).
 
 K6's diagnostics (printed, and under ``k6_diagnostics`` in the JSON):
 one atomicAdd per slot computed beforehand (``bench/diag_atomics.cu``),
@@ -76,6 +83,7 @@ from rkmh_tpu_torch.bench.timing import (
     card_name_and_power_limit,
     cuda_graph_time_ms,
     cuda_time_ms,
+    launch_floor_ms,
 )
 from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.io.packing import CODE_LUT, encode_seqs
@@ -97,7 +105,7 @@ from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
 SOURCES = ("window_hash.cu", "panel_probe.cu", "counter.cu", "set_probe.cu", "lut_gather.cu")
 SWAPPED = (kernels.WINDOW_HASH, kernels.PANEL_PROBE, kernels.PANEL_PROBE_FILTER,
            kernels.COUNTER_ADD, kernels.COUNTER_MASK, kernels.SET_PROBE,
-           kernels.LUT_GATHER_ROWS)
+           kernels.LUT_GATHER_ROWS, kernels.LUT_GATHER_LANES)
 _p, _i64 = ctypes.c_void_p, ctypes.c_int64
 DIAG_ADD_SLOTS = kernels.Kernel("rkmh_diag_add_slots", [_p, _i64, _p])
 DIAG_SOURCE = Path(__file__).resolve().parent / "diag_atomics.cu"
@@ -109,6 +117,11 @@ DIAG_COUNTERS = (10_000_000, 200_000_000, 800_000_000)
 K3_SEGMENTS = (512, 1024, 4096)  # beside ops/set_probe.SEGMENT
 MIN_OCC = 2  # -M 2, as the README's stream -M example and chip_smoke.py
 K4_NS = (512, 4096, 16384)  # the gather sweep's N that take the cache route
+# (N, M) of [N, 128] LUTs: the sweep's shape, 4 outputs a lane, a ragged one
+K5_SHAPES = {"512": (512, 128), "512x512": (512, 512), "300x77": (300, 77)}
+# grids (blocks, threads) of the launch floor: K5's reg route and staged route at
+# N = 512, and one block
+FLOOR_GRIDS = ((128, 128), (512, 128), (1, 32))
 ITERS = 50        # eager calls per timing
 GRAPH_CALLS = 20  # calls per CUDA graph, replayed 5 times
 
@@ -454,6 +467,9 @@ def main(argv=None) -> int:
     luts = {N: (torch.from_numpy(rng.integers(-2**31, 2**31, (N, 128)).astype(np.int32)).to(dev),
                 torch.from_numpy(rng.integers(0, N, (N, 128)).astype(np.int32)).to(dev))
             for N in K4_NS}
+    k5_luts = {key: (torch.from_numpy(rng.integers(-2**31, 2**31, (N, 128)).astype(np.int32))
+                     .to(dev), torch.from_numpy(rng.integers(0, 128, (N, M)).astype(np.int32))
+                     .to(dev)) for key, (N, M) in K5_SHAPES.items()}
 
     # K3: the sorted rows of the hpv16 batch against the full-width tables
     tb = hpv16_tables(dev)
@@ -468,7 +484,7 @@ def main(argv=None) -> int:
 
     K1, K2, K2F = (kernels.WINDOW_HASH,), (kernels.PANEL_PROBE,), (kernels.PANEL_PROBE_FILTER,)
     K6, K3 = (kernels.COUNTER_ADD,), (kernels.SET_PROBE,)
-    K7, K4 = (kernels.COUNTER_MASK,), (kernels.LUT_GATHER_ROWS,)
+    K7, K4, K5 = (kernels.COUNTER_MASK,), (kernels.LUT_GATHER_ROWS,), (kernels.LUT_GATHER_LANES,)
 
     def k6_case(table, h, win, msk, **kw):
         return Case(K6, lambda: counter._counter_add_cuda(table, h, None, win, **kw),
@@ -484,6 +500,11 @@ def main(argv=None) -> int:
         lut, idx = luts[N]
         return Case(K4, lambda: gather._lut_gather_rows_cuda(lut, idx),
                     equals(lambda: gather.lut_gather_rows_plain(lut, idx)))
+
+    def k5_case(key, route=None):
+        lut, idx = k5_luts[key]
+        return Case(K5, lambda: gather._lut_gather_lanes_cuda(lut, idx, route),
+                    equals(lambda: gather.lut_gather_lanes_plain(lut, idx)))
 
     cases = {
         "k1_stream": Case(K1, lambda: _window_hashes_cuda(codes, [K], 42),
@@ -522,6 +543,10 @@ def main(argv=None) -> int:
         "k7_stream": k7_case("stream", hashes),
         "k7_hpv16": k7_case("hpv16", hp_hashes),
         **{f"k4_{N}": k4_case(N) for N in K4_NS},
+        "k5_512": k5_case("512"),
+        "k5_512_smem": k5_case("512", "smem"),
+        "k5_512x512": k5_case("512x512"),
+        "k5_300x77": k5_case("300x77"),
     }
     if args.only:
         cases = {c: v for c, v in cases.items() if c.startswith(tuple(args.only))}
@@ -555,7 +580,10 @@ def main(argv=None) -> int:
                  k3_rows + bounds.packed_set_table_bytes(k3_stats, tb.probe_table)),
              "k7_stream": k7_bound(hashes, STREAM_COUNTER),
              "k7_hpv16": k7_bound(hp_hashes, HPV16_COUNTER),
-             **{f"k4_{N}": bounds.bound_ms(3 * bounds.tensor_bytes(luts[N][0])) for N in K4_NS}}
+             **{f"k4_{N}": bounds.bound_ms(3 * bounds.tensor_bytes(luts[N][0])) for N in K4_NS},
+             **{f"k5_{key}": bounds.bound_ms(bounds.tensor_bytes(lut, idx, idx))  # out = idx
+                for key, (lut, idx) in k5_luts.items()}}
+    bound["k5_512_smem"] = bound["k5_512"]
     say(f"K2 raw rows: {raw_stats.probes / B:.2f} probes, {raw_stats.hits / B:.2f} hits per "
         f"read, {raw_stats.mask_bits / max(raw_stats.hits, 1):.2f} of {R} mask bits set per "
         f"hit, {raw_stats.table_bytes} table bytes reached; K3: {vars(k3_stats)}; "
@@ -582,7 +610,7 @@ def main(argv=None) -> int:
         res["ms"][name] = {n: r for n, r in runs.items() if r}
         res["eager_ms"][name] = {n: r for n, r in eager.items() if r}
         say(f"{name}: " + ", ".join(
-            f"{n} {np.mean(r):.4f} ms ({', '.join(f'{x:.4f}' for x in r)}; eager "
+            f"{n} {np.mean(r):.5f} ms ({', '.join(f'{x:.5f}' for x in r)}; eager "
             f"{', '.join(f'{x:.4f}' for x in eager[n])})" for n, r in runs.items() if r))
     if not args.only or any(o.startswith("k6") for o in args.only):
         res["k6_diagnostics"] = k6_diagnostics(libs, hashes, mask, windows, dev)
@@ -592,6 +620,11 @@ def main(argv=None) -> int:
             f"{res['k6_merge']}")
     if not args.only or any(o.startswith("k7") for o in args.only):
         res["k7_diagnostics"] = k7_diagnostics(libs, hashes, dev)
+    if any(c.startswith("k5") for c in cases):
+        res["launch_floor_ms"] = {f"{b}x{t}": [launch_floor_ms(dev, b, t, GRAPH_CALLS)
+                                               for _ in range(2)] for b, t in FLOOR_GRIDS}
+        say(f"launch floor, an empty kernel by graph replay, ms per launch (blocks x threads): "
+            f"{res['launch_floor_ms']}")
     res["ptxas_registers"] = ptxas_registers()
     res["sass_instructions"] = sass_counts(kernels.library_path())
     res["sass_instructions_old"] = sass_counts(kernels.BUILD_DIR / "ab" / "libold.so")

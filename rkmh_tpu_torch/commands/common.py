@@ -5,8 +5,10 @@ Counterpart of ``rkmh_tpu/commands/common.py:17-553``.  Differences:
 
 * the panel is an ``nn.Module`` whose tables are buffers, built on the
   requested device; the on-disk panel cache is not ported yet;
-* input goes through the Python parser (``io/fastx``); the native C++
-  parser of ``rkmh_tpu/io/native`` is not reused yet;
+* path inputs go through the port's own copy of the native C++ parser
+  (``io/native``), built at first use; a build failure raises.  Stdin
+  (``-``) and file objects go through the Python parser (``io/fastx``),
+  as in the JAX package;
 * batches are not padded to powers of two: that padding only bounded the
   number of XLA compilations, and eager PyTorch compiles nothing;
 * ``ChunkedPipeline`` takes the fetch function as an argument.
@@ -15,8 +17,10 @@ Counterpart of ``rkmh_tpu/commands/common.py:17-553``.  Differences:
 from __future__ import annotations
 
 import os
+import queue
 import stat
 import sys
+import threading
 from collections import deque
 
 import numpy as np
@@ -24,8 +28,9 @@ import torch
 from torch import nn
 
 from rkmh_tpu_torch.classify import engine
+from rkmh_tpu_torch.io import native
 from rkmh_tpu_torch.io.fastx import iter_batches, read_fastx
-from rkmh_tpu_torch.io.packing import encode_seqs, length_buckets
+from rkmh_tpu_torch.io.packing import PAD_CODE, encode_seqs, length_buckets
 from rkmh_tpu_torch.ops.counter import HashCounter
 from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
 from rkmh_tpu_torch.ops.lookup import build_panel_table
@@ -37,6 +42,7 @@ DEFAULT_BATCH_CPU = 2048
 DEFAULT_BATCH_CUDA = 16384
 DEFAULT_CHUNK_READS = 65536
 FETCH_GROUP = 4            # results fetched per host sync; not tuned yet
+READ_AHEAD = 1             # parsed chunks a reader thread may hold ahead of their consumer
 MAX_LENGTH_BUCKETS = 4     # padded-length buckets per chunk
 
 
@@ -101,15 +107,16 @@ def build_ref_panel(ref_packed, ks, sketch_size: int, device: torch.device,
 
 def build_ref_panel_from_files(ref_files, ks, sketch_size: int, device: torch.device,
                                **counter_kw) -> RefPanel:
-    """build_ref_panel over files parsed and concatenated in order;
-    counter_kw are build_ref_panel's -I arguments."""
-    return build_ref_panel(PyPacked(read_fastx(ref_files)), ks, sketch_size, device,
-                           **counter_kw)
+    """build_ref_panel over files parsed and concatenated in order
+    (``load_packed``); counter_kw are build_ref_panel's -I arguments."""
+    return build_ref_panel(load_packed(ref_files), ks, sketch_size, device, **counter_kw)
 
 
 class PyPacked:
     """Parsed records as [N, L] codes + lengths + names, and the raw
-    sequences and qualities (None for FASTA) that filter re-emits."""
+    sequences and qualities (None for FASTA) that filter re-emits: the
+    interface of ``io.native.PackedReads`` over the Python parser's
+    records."""
 
     def __init__(self, records):
         self.codes, self.lens = encode_seqs([r.seq for r in records])
@@ -121,11 +128,33 @@ class PyPacked:
         return len(self.names)
 
 
-def load_packed(paths) -> PyPacked:
-    """Parse files, concatenated in order, into one PyPacked
-    (``rkmh_tpu/commands/common.py:237``; the padded width may differ from
-    the JAX package's per-file packing, which only moves padding)."""
-    return PyPacked(read_fastx(paths))
+def _is_path(p) -> bool:
+    """A file path the native parser reads (not ``-`` nor a file object)."""
+    return isinstance(p, (str, bytes, os.PathLike)) and p not in ("-", b"-")
+
+
+def load_packed(paths):
+    """Parse files, concatenated in order, into one packed set of records
+    (``rkmh_tpu/commands/common.py:237``): each path by the native parser
+    (a PackedReads), ``-`` and file objects by the Python parser (a
+    PyPacked).  Several files merge into one PyPacked whose rows are padded
+    to the widest file's width."""
+    parts = [native.read_fastx_packed(p) if _is_path(p) else PyPacked(read_fastx([p]))
+             for p in _as_list(paths)]
+    if len(parts) == 1:
+        return parts[0]
+    merged = PyPacked([])
+    merged.codes = np.full((sum(len(p) for p in parts), max(p.codes.shape[1] for p in parts)),
+                           PAD_CODE, dtype=np.uint8)
+    merged.lens = np.concatenate([p.lens for p in parts]).astype(np.int32)
+    at = 0
+    for p in parts:
+        merged.codes[at: at + len(p), : p.codes.shape[1]] = p.codes
+        merged.names += p.names
+        merged.seqs += p.seqs
+        merged.quals += p.quals
+        at += len(p)
+    return merged
 
 
 def resolve_chunk_reads(requested: int) -> int:
@@ -138,17 +167,77 @@ def _as_list(paths) -> list:
     return list(paths) if isinstance(paths, (list, tuple)) else [paths]
 
 
+def read_ahead(items, depth: int = READ_AHEAD):
+    """Yield what the iterable ``items`` yields, in order, while a thread
+    produces up to ``depth`` items ahead.  Worth it where producing an item
+    releases the interpreter lock (the native parser runs in C, outside
+    it), so the parse of the next chunk overlaps the work on this one.  An
+    exception of ``items`` is raised here, in order; closing this
+    generator stops the thread and closes ``items``."""
+    done = object()
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(entry) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(entry, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def produce():
+        try:
+            for item in items:
+                if not put((item, None)):
+                    return
+            put((done, None))
+        except Exception as e:  # raised by the consumer, after the items before it
+            put((done, e))
+        finally:
+            close = getattr(items, "close", None)
+            if close is not None:
+                close()
+
+    thread = threading.Thread(target=produce, name="rkmh-read-ahead", daemon=True)
+    thread.start()
+    try:
+        while True:
+            item, error = q.get()
+            if error is not None:
+                raise error
+            if item is done:
+                return
+            yield item
+    finally:
+        stop.set()
+        thread.join()
+
+
+def _native_chunks(path, chunk_reads: int):
+    with native.FastxStream(path) as stream:
+        while (chunk := stream.next_chunk(chunk_reads)) is not None:
+            yield chunk
+
+
 def iter_packed_chunks(paths, chunk_reads: int):
-    """Yield PyPacked chunks of <= chunk_reads records, files in order
-    (chunks never span files), so only one parsed chunk is resident.
-    ``paths`` holds paths, ``-`` (stdin) or binary file objects."""
+    """Yield chunks of <= chunk_reads records, files in order (chunks
+    never span files), so that one parsed chunk is in use and at most
+    READ_AHEAD more wait (``rkmh_tpu/commands/common.py:308``).  ``paths``
+    holds paths, read by the native parser into PackedReads on a reader
+    thread (``read_ahead``), or ``-`` (stdin) and binary file objects, read
+    by the Python parser into PyPacked."""
     for p in _as_list(paths):
-        for recs in iter_batches(p, chunk_reads):
-            yield PyPacked(recs)
+        if _is_path(p):
+            yield from read_ahead(_native_chunks(p, chunk_reads))
+        else:
+            for recs in iter_batches(p, chunk_reads):
+                yield PyPacked(recs)
 
 
 def _rereadable(p) -> bool:
-    if not isinstance(p, (str, bytes)) or p in ("-", b"-"):
+    if not _is_path(p):
         return False
     try:
         return not stat.S_ISFIFO(os.stat(p).st_mode)
@@ -157,7 +246,7 @@ def _rereadable(p) -> bool:
 
 
 def two_pass_chunks(paths, chunk_reads: int):
-    """(first-pass iterable, second-pass factory) over PyPacked chunks,
+    """(first-pass iterable, second-pass factory) over packed chunks,
     for the -M commands, which read their input twice (counter pass, then
     classify pass).  Plain files are read again from disk; stdin, FIFOs
     and file objects can be read once only, so their chunks are buffered

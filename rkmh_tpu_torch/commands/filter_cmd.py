@@ -7,9 +7,11 @@ to ``rkmh-tpu filter``:
 * file mode (``-f``): each read that passes the depth, match and diff
   filters is written again as a 4-line record with a ``>`` header over a
   FASTQ body, as rkmh writes it (rkmh.cpp:1298-1302); a FASTA read gets
-  ``I`` x its length as qualities;
-* ``-i`` mode: reads from stdin (or the file object given to ``run``) are
-  classified a batch at a time, each reported as ``Sample: <name>\\tResult:
+  ``I`` x its length as qualities.  The files are read by the native
+  parser, whose chunks give the records' sequences and qualities;
+* ``-i`` mode: reads from stdin (or the file object given to ``run``),
+  parsed by the Python parser as rkmh-tpu does, are classified a batch at
+  a time, each reported as ``Sample: <name>\\tResult:
   <ref>\\t<shared>\\t<union>\\t[FAIL:DEPTH]\\t[FAIL:MATCHES]\\t[FAIL:DIFF]``
   (rkmh.cpp:1397-1399); a reader thread fills a bounded queue;
 * with both ``-f`` and ``-i``, the files run first, then the stream;

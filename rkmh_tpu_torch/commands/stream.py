@@ -9,7 +9,11 @@ Counterpart of ``rkmh_tpu/commands/stream.py`` (plain file path,
 -I sketches the references from the k-mers counted at most max_samples
 times over the panel; -M first counts every read k-mer in one pass over
 the input, then classifies in a second pass with the k-mers counted
-below min_kmer_occ dropped.  Both counters live on the device.  -i with
+below min_kmer_occ dropped.  Both counters live on the device.  A batch
+whose reads are contiguous rows of a natively parsed chunk is formatted
+as one block by the native formatter (``rkmh_format_lines``), the rest
+line by line (``format_lines_host``), as rkmh-tpu does
+(rkmh_tpu/commands/stream.py:106-200, 612-630).  -i with
 -f files logs that it is ignored and classifies the files, as rkmh-tpu
 does (rkmh_tpu/commands/stream.py:481-488; rkmh's -i is dead).  Not
 ported yet: -i without -f (stdin streaming), --devices / --tp, --dist-*,
@@ -21,6 +25,7 @@ from __future__ import annotations
 import sys
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from rkmh_tpu_torch.classify import engine
@@ -39,6 +44,7 @@ from rkmh_tpu_torch.commands.common import (
     two_pass_chunks,
 )
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from rkmh_tpu_torch.io.native import format_lines_block
 
 
 @dataclass
@@ -84,19 +90,72 @@ def format_lines_host(ref_keys, names, arr, sketch_size) -> list[str]:
     ]
 
 
+class _NativeFormatCtx:
+    """The reference keys and the 8 line tails as blobs, made once a run
+    for the native block formatter."""
+
+    __slots__ = ("ref_blob", "ref_offs", "tails_blob", "tail_offs")
+
+    def __init__(self, ref_keys, sketch_size: int):
+        keys = [k.encode() for k in ref_keys]
+        self.ref_blob = b"".join(keys)
+        self.ref_offs = np.cumsum([0] + [len(k) for k in keys], dtype=np.int64)
+        tails = [t.encode() for t in _tail_table(sketch_size)]
+        self.tails_blob = b"".join(tails)
+        self.tail_offs = np.cumsum([0] + [len(t) for t in tails], dtype=np.int64)
+
+    def format_block(self, arr, rows, names) -> str:
+        """The lines of a fetched [3, n] result for the chunk rows ``rows``,
+        read from the name blob of ``names`` (a _NamesOnly with a blob)."""
+        return format_lines_block(arr, rows, names.blob, names.offs, self.ref_blob,
+                                  self.ref_offs, self.tails_blob, self.tail_offs).decode()
+
+
+class _NamesOnly:
+    """What the output needs of a parsed chunk: the native parser's name
+    blob and offsets, or the Python parser's names.  A chunk state holds
+    this and not the chunk, so that the chunk's codes and sequence blobs
+    are freed once its batches are dispatched."""
+
+    __slots__ = ("blob", "offs", "_names")
+
+    def __init__(self, chunk):
+        self.blob = getattr(chunk, "_names_blob", None)
+        self.offs = getattr(chunk, "_name_offs", None)
+        self._names = None if self.blob is not None else chunk.names
+
+    @property
+    def names(self) -> list[str]:
+        if self._names is None:
+            o = self.offs.tolist()
+            self._names = [self.blob[o[i]: o[i + 1]].decode() for i in range(len(o) - 1)]
+        return self._names
+
+
 class _ChunkState(ChunkState):
     """Per-input-chunk output buffer: batches land in length-bucket order
-    and the chunk is written in input order once every row has arrived."""
+    and the chunk is written in input order once every row has arrived.
+    Each part is (first row, block of lines) for a batch of contiguous rows
+    formatted natively, or (rows, lines) for one formatted line by line."""
 
-    __slots__ = ("names", "lines")
+    __slots__ = ("chunk", "parts")
 
     def __init__(self, chunk):
         super().__init__(len(chunk))
-        self.names = chunk.names  # only the names outlive the dispatch
-        self.lines = [None] * self.n
+        self.chunk = _NamesOnly(chunk)
+        self.parts = []
 
     def render(self) -> str:
-        return "".join(self.lines)
+        if all(isinstance(key, int) for key, _ in self.parts):
+            return "".join(text for _, text in sorted(self.parts, key=lambda p: p[0]))
+        lines = [None] * self.n
+        for key, payload in self.parts:
+            if isinstance(key, int):
+                payload = [line + "\n" for line in payload.split("\n")[:-1]]
+                key = range(key, key + len(payload))
+            for i, line in zip(key, payload):
+                lines[i] = line
+        return "".join(lines)
 
 
 def run(cfg: StreamConfig, out=None) -> int:
@@ -139,11 +198,14 @@ def _run(cfg: StreamConfig, out) -> int:
     def fetch(results):
         return [r.cpu().numpy() for r in results]
 
+    fmt = _NativeFormatCtx(panel.keys, cfg.sketch_size)
+
     def on_result(st, rows, arr):
-        lines = format_lines_host(panel.keys, [st.names[i] for i in rows], arr,
-                                  cfg.sketch_size)
-        for i, line in zip(rows.tolist(), lines):
-            st.lines[i] = line
+        if st.chunk.blob is not None and rows[-1] - rows[0] == len(rows) - 1:
+            st.parts.append((int(rows[0]), fmt.format_block(arr, rows, st.chunk)))
+        else:
+            st.parts.append((rows.tolist(), format_lines_host(
+                panel.keys, [st.chunk.names[i] for i in rows], arr, cfg.sketch_size)))
         st.filled += len(rows)
 
     pipeline = ChunkedPipeline(on_result=on_result,

@@ -30,10 +30,22 @@
 // loads in flight: 4-byte reads of a peer's shared memory at random run at
 // about one per 4 cycles an SM.  So it was removed (PERF.md §5).
 //
-// K5: one block per LUT row; the block stages row i (C ints, 512 B at
-// C = 128) in shared memory and gathers from it.  Random indices can
-// conflict on banks; a warp-shuffle variant (4 registers per lane) is left
-// for later.  What bounds it: 12 bytes per element (idx, out, LUT row).
+// K5: what bounds it is 12 bytes per element (idx, out, LUT row): at the
+// sweep's [512, 128] the call moves 786 KB, far less than the launch costs,
+// so the design cuts the round trips a block waits for.  Two routes
+// (lanes_variant in ops/gather.py picks one from the shape and alignment):
+// * reg (C = 128, M % 4 == 0, LUT, idx and out 16-byte aligned): one warp
+//   per row, LANES_WARPS rows a block, no shared memory and no barrier.
+//   Lane l loads row[4l .. 4l+3] into 4 registers (one 16-byte load) and,
+//   in the same breath, 4 indices (one 16-byte load); row[j] then sits in
+//   lane j >> 2, register j & 3, so each output is 4 __shfl_sync from lane
+//   j >> 2 and a select on j & 3, and a lane stores 16 bytes.  One global
+//   round trip in place of the staged route's two (the row, then the
+//   index), and no bank conflicts.  A pass covers 128 indices of the row;
+//   every lane runs every shuffle (the pass count is the warp's, not the
+//   lane's); loads and stores are predicated.
+// * smem (any other shape whose row fits a block): one block per row
+//   stages row i in shared memory, waits at a barrier and gathers from it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,6 +72,39 @@ __global__ void gather_rows_ldg(const int32_t* __restrict__ lut,
                                 int C, int64_t total) {
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e < total) out[e] = __ldg(lut + (int64_t)idx[e] * C + e % C);
+}
+
+constexpr int LANES_WARPS = 4;    // rows (one warp each) per block of the reg route
+constexpr int LANES_REG_C = 128;  // the reg route's row width: 4 ints a lane
+constexpr unsigned FULL = 0xffffffffu;
+
+// row[x] from the warp's registers: lane l holds row[4l .. 4l+3] in r
+__device__ __forceinline__ int32_t from_row(const int4& r, int32_t x) {
+  const int src = x >> 2;
+  const int32_t a = __shfl_sync(FULL, r.x, src);
+  const int32_t b = __shfl_sync(FULL, r.y, src);
+  const int32_t c = __shfl_sync(FULL, r.z, src);
+  const int32_t d = __shfl_sync(FULL, r.w, src);
+  const int k = x & 3;
+  return k == 0 ? a : k == 1 ? b : k == 2 ? c : d;
+}
+
+__global__ void gather_lanes_reg(const int32_t* __restrict__ lut,
+                                 const int32_t* __restrict__ idx, int32_t* __restrict__ out,
+                                 int N, int M) {
+  const int lane = threadIdx.x & 31;
+  const int64_t i = (int64_t)blockIdx.x * LANES_WARPS + (threadIdx.x >> 5);
+  if (i >= N) return;  // a whole warp: the shuffles below see all 32 lanes
+  const int4 r = __ldg(reinterpret_cast<const int4*>(lut + i * LANES_REG_C) + lane);
+  const int32_t* irow = idx + i * M;
+  int32_t* orow = out + i * M;
+  for (int base = 0; base < M; base += 4 * 32) {
+    const int j = base + 4 * lane;  // M % 4 == 0: a live vector is whole
+    const int4 x = j < M ? __ldg(reinterpret_cast<const int4*>(irow + j)) : make_int4(0, 0, 0, 0);
+    const int4 y = make_int4(from_row(r, x.x), from_row(r, x.y), from_row(r, x.z),
+                             from_row(r, x.w));
+    if (j < M) *reinterpret_cast<int4*>(orow + j) = y;
+  }
 }
 
 __global__ void gather_lanes(const int32_t* __restrict__ lut, const int32_t* __restrict__ idx,
@@ -96,9 +141,19 @@ extern "C" int rkmh_lut_gather_rows(const int32_t* lut, const int32_t* idx, int3
 }
 
 // lut [N, C] int32, idx [N, M] int32 with values in [0, C) -> out [N, M]
-// int32.  Requires N >= 1 and C * 4 bytes within the per-block limit.
+// int32.  reg != 0 takes the register route (C = 128, M % 4 == 0 and all
+// three pointers 16-byte aligned), else the staged route (C * 4 bytes
+// within the per-block limit).  Requires N >= 1.
 extern "C" int rkmh_lut_gather_lanes(const int32_t* lut, const int32_t* idx, int32_t* out,
-                                     int N, int C, int M, cudaStream_t stream) {
+                                     int N, int C, int M, int reg, cudaStream_t stream) {
+  if (reg) {
+    const bool aligned = ((reinterpret_cast<uintptr_t>(lut) | reinterpret_cast<uintptr_t>(idx) |
+                           reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+    if (C != LANES_REG_C || M % 4 != 0 || !aligned) return (int)cudaErrorInvalidValue;
+    const unsigned blocks = (unsigned)((N + LANES_WARPS - 1) / LANES_WARPS);
+    gather_lanes_reg<<<blocks, 32 * LANES_WARPS, 0, stream>>>(lut, idx, out, N, M);
+    return (int)cudaGetLastError();
+  }
   const size_t bytes = (size_t)C * sizeof(int32_t);
   if (bytes > 48 * 1024) {
     cudaFuncSetAttribute(gather_lanes, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -10,8 +10,9 @@ Records are (name, seq, qual) where name is the header token up to the
 first whitespace (kseq semantics) and sequences are uppercased at parse
 time exactly as rkmh's to_upper-at-parse does (rkmh.cpp:227).  Handles
 multi-line FASTA, 4-line FASTQ, gzip (by magic bytes, not extension), and
-streaming from stdin.  The port's only parser for now: the native C++
-parser of ``rkmh_tpu/io/native`` is not reused yet.
+streaming from stdin.  The port reads files with its native parser
+(``io/native``); this one reads stdin and file objects, and is the
+oracle the native parser is tested against.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ Nothing is built or loaded on import.
 Each C entry point returns ``cudaGetLastError()`` after its launch on the
 stream it is given (PyTorch's current stream); ``Kernel`` raises if that
 is not 0 and counts successful launches, in all and, for a kernel with
-several routes (K4), by the route the caller names.
+several routes (K4, K5), by the route the caller names.
 """
 
 from __future__ import annotations
@@ -153,8 +153,8 @@ SET_PROBE = Kernel("rkmh_set_probe", [_p, _i64, _p, _i, _i, _p, _p, _i, _i, _i, 
                                       _p, _p, _p])
 # rkmh_lut_gather_rows(lut, idx, out, N, C, M, smem, stream)
 LUT_GATHER_ROWS = Kernel("rkmh_lut_gather_rows", [_p, _p, _p, _i, _i, _i64, _i])
-# rkmh_lut_gather_lanes(lut, idx, out, N, C, M, stream)
-LUT_GATHER_LANES = Kernel("rkmh_lut_gather_lanes", [_p, _p, _p, _i, _i, _i])
+# rkmh_lut_gather_lanes(lut, idx, out, N, C, M, reg, stream)
+LUT_GATHER_LANES = Kernel("rkmh_lut_gather_lanes", [_p, _p, _p, _i, _i, _i, _i])
 # rkmh_counter_add(hashes, mask|NULL, lens|NULL, L, ks (host ints), nk, n, table, size,
 #                  magic, log2_ceil, cursor|NULL, bins|NULL, shift, nbins, cap, stats|NULL,
 #                  stream)

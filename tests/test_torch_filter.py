@@ -13,6 +13,7 @@ its plain path on the CPU.  Tolerance: none; outputs are text and must be
 equal.
 """
 
+import gzip
 import io
 import os
 import sys
@@ -48,7 +49,15 @@ def workload(tmp_path_factory):
             fh.write(f">m{i} some description\n{r[:n].tobytes().decode()}\n")
         for i, r in enumerate(strangers):  # reads from a genome outside the panel
             fh.write(f">stranger{i}\n{r.tobytes().decode()}\n")
-    return {"refs": refs, "short": short, "long": long, "mixed": mixed}
+    with open(short, "rb") as src, gzip.open(str(d / "short.fq.gz"), "wb") as dst:
+        dst.write(src.read())
+    return {"refs": refs, "short": short, "long": long, "mixed": mixed,
+            "short_gz": str(d / "short.fq.gz")}
+
+
+def _n_reads(path) -> int:
+    with (gzip.open if path.endswith(".gz") else open)(path, "rt") as fh:
+        return sum(1 for ln in fh if ln[0] in "@>")
 
 
 def _both(workload, reads, stdin=None, **kw):
@@ -73,10 +82,13 @@ def _both(workload, reads, stdin=None, **kw):
                      counter_size=16384, batch_size=16, chunk_reads=50)),
     (["long"], dict(ks=(12, 16), sketch_size=50, max_samples=4, counter_size=4096,
                     min_diff=10)),
-], ids=["default", "N-D", "M-I-prime", "mixed-lengths-M-pow2", "long-s50-I"])
+    (["short_gz", "mixed"], dict(ks=(12,), min_kmer_occ=2, counter_size=65521, min_matches=45,
+                                 chunk_reads=64)),
+], ids=["default", "N-D", "M-I-prime", "mixed-lengths-M-pow2", "long-s50-I",
+        "gzip-two-files-M"])
 def test_filter_output_byte_identical_to_jax(workload, reads, kw):
     want, got, stats = _both(workload, reads, **kw)
-    n_reads = sum(1 for r in reads for ln in open(workload[r]) if ln[0] in "@>")
+    n_reads = sum(_n_reads(workload[r]) for r in reads)
     records = want.split("\n")[:-1]
     kept = len(records) // 4
     assert len(records) % 4 == 0 and 0 < kept <= n_reads
@@ -121,7 +133,8 @@ def test_filter_stream_mode_byte_identical_to_jax(workload, reads, kw):
     (["mixed"], False, dict(ks=(12,), min_kmer_occ=2, counter_size=16384, batch_size=16)),
     (["short"], True, dict(ks=(12,), min_matches=10)),
     ([], True, dict(ks=(12,))),
-], ids=["files", "files-M", "f-and-i", "i"])
+    (["short_gz", "mixed"], False, dict(ks=(12,), min_matches=45)),
+], ids=["files", "files-M", "f-and-i", "i", "gzip-files"])
 def test_filter_progress_sidecar_byte_identical_to_jax(workload, tmp_path, monkeypatch,
                                                       reads, in_stream, kw, chunk_reads):
     """``filter -o FILE`` writes FILE and FILE.progress as rkmh-tpu does:
@@ -151,7 +164,7 @@ def test_filter_progress_sidecar_byte_identical_to_jax(workload, tmp_path, monke
                       for p in (out, out + ".progress")]
     assert outs["port"] == outs["jax"]
     assert saves["port"] == saves["jax"]
-    per_file = [sum(1 for ln in open(workload[r]) if ln[0] in "@>") for r in reads]
+    per_file = [_n_reads(workload[r]) for r in reads]
     if not reads:  # -i alone: no file-mode chunk, so no sidecar
         assert outs["port"][1] is None and saves["port"] == []
     else:  # a save per chunk; chunks never span files

@@ -12,6 +12,7 @@ and a decimal prime).  Hashes >= 2**63 appear throughout.  Tolerance: none; ever
 text and must be equal byte for byte.
 """
 
+import gzip
 import io
 import os
 
@@ -69,7 +70,8 @@ def _run_both(tmp_path, monkeypatch, refpath, reads, ks, batch_size=8, **kw):
         wd.mkdir()
         monkeypatch.chdir(wd)  # the .tst side file lands in the working directory
         buf = io.StringIO()
-        assert mod.run(mod.Hpv16Config(read_files=[reads], refpath=refpath, ks=ks,
+        files = reads if isinstance(reads, list) else [reads]
+        assert mod.run(mod.Hpv16Config(read_files=files, refpath=refpath, ks=ks,
                                        batch_size=batch_size, **kw, **extra), out=buf) == 0
         out[name] = buf.getvalue()
         tst[name] = (wd / f"lineage_specific_hashes.{ks[0]}.tst").read_text()
@@ -105,6 +107,19 @@ def test_hpv16_M_byte_identical_to_jax(data, tmp_path, monkeypatch, ks, kw):
                                         ks=ks, batch_size=8, tst_file=False, device="cpu"),
                   out=plain)
     assert plain.getvalue() != out["torch"]
+
+
+def test_hpv16_gzip_and_two_read_files_byte_identical_to_jax(data, tmp_path, monkeypatch):
+    gz = str(tmp_path / "mixed.fq.gz")
+    with open(data["mixed"], "rb") as src, gzip.open(gz, "wb") as dst:
+        dst.write(src.read())
+    for ks, kw in (((16,), {}), ((16,), dict(min_kmer_occ=2, counter_size=65536))):
+        run_dir = tmp_path / f"M{len(kw)}"
+        run_dir.mkdir()
+        out, tst = _run_both(run_dir, monkeypatch, data["full"], [gz, data["skew"]], ks, **kw)
+        assert len(out["jax"].splitlines()) == 80
+        assert out["torch"] == out["jax"]
+        assert tst["torch"] == tst["jax"]
 
 
 def test_cli_hpv16_matches_jax(data, tmp_path, monkeypatch, capsys):

@@ -390,6 +390,51 @@ def test_lut_gather_rows_every_route_matches_plain(cuda_device, N, C):
     assert torch.equal(gather.lut_gather_rows(lut, idx), want)  # the shape's own route
 
 
+K5_SHAPES = [(N, C, M) for N in (1, 7, 300, 512, 4097) for C, M in
+             ((128, 128), (128, 512), (128, 77), (128, 3), (128, 1000), (1, 5), (100, 64),
+              (256, 129))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,M", K5_SHAPES)
+def test_lut_gather_lanes_every_route_matches_plain(cuda_device, N, C, M):
+    """K5 by each route that takes the inputs (the register route at C =
+    128 with M % 4 == 0 on 16-byte aligned tensors, the staged route
+    everywhere), M != C and M % 4 != 0 included, and on a LUT and idx that
+    are not 16-byte aligned; each launch counted by its route, and the
+    register route refused where it does not apply."""
+    rng = np.random.default_rng(N * 7 + C + M)
+    lut = torch.from_numpy(rng.integers(-2**31, 2**31, (N, C)).astype(np.int32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, C, (N, M)).astype(np.int32)).to(cuda_device)
+    idx[0, 0], idx[-1, -1] = C - 1, 0
+    want = gather.lut_gather_lanes_plain(lut, idx)
+
+    def shifted(x):  # 4 bytes past an aligned allocation
+        flat = torch.empty(x.numel() + 1, dtype=torch.int32, device=cuda_device)
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    takes_reg = C == gather.LANES_REG_C and M % 4 == 0
+    inputs = ((lut, idx, takes_reg), (lut, shifted(idx), False), (shifted(lut), idx, False))
+    for route in gather.LANES_ROUTES:
+        before = kernels.LUT_GATHER_LANES.by_route.get(route, 0)
+        launched = 0
+        for lt, x, reg_ok in inputs:
+            assert gather.lanes_variant(lt, x) == ("reg" if reg_ok else "smem")
+            if route == "reg" and not reg_ok:
+                with pytest.raises(ValueError, match="no 'reg' route"):
+                    gather._lut_gather_lanes_cuda(lt, x, route)
+                continue
+            got = gather._lut_gather_lanes_cuda(lt, x, route)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), route
+            launched += 1
+        assert kernels.LUT_GATHER_LANES.by_route.get(route, 0) == before + launched
+        assert launched == (int(takes_reg) if route == "reg" else 3)
+    assert torch.equal(gather.lut_gather_lanes(lut, idx), want)  # the shape's own route
+
+
 def _hashes(seed, shape):
     """Random int64 hashes, a third >= 2**63 as uint64, with zeros and
     repeats; plus a random mask."""

@@ -12,6 +12,7 @@ is ignored and classifies the files, as rkmh-tpu does), and that the port
 never imports JAX.
 """
 
+import gzip
 import io
 import os
 import subprocess
@@ -47,7 +48,15 @@ def workload(tmp_path_factory):
     with open(mixed, "w") as fh:
         for i, (r, n) in enumerate(zip(mixed_reads, lens)):
             fh.write(f">m{i} some description\n{r[:n].tobytes().decode()}\n")
-    return {"refs": refs, "short": short, "long": long, "mixed": mixed}
+    with open(short, "rb") as src, gzip.open(str(d / "short.fq.gz"), "wb") as dst:
+        dst.write(src.read())
+    return {"refs": refs, "short": short, "long": long, "mixed": mixed,
+            "short_gz": str(d / "short.fq.gz")}
+
+
+def _n_reads(path) -> int:
+    with (gzip.open if path.endswith(".gz") else open)(path, "rt") as fh:
+        return sum(1 for ln in fh if ln[0] in "@>")
 
 
 def _both(workload, reads, **kw):
@@ -74,10 +83,13 @@ def _both(workload, reads, **kw):
     (["short", "long"], dict(ks=(12,), sketch_size=1000, max_samples=3, counter_size=4096)),
     (["mixed", "short"], dict(ks=(12, 16), sketch_size=50, min_kmer_occ=2, max_samples=4,
                               counter_size=16384, batch_size=16, chunk_reads=50)),
-], ids=["k12-s1000", "long-s50", "k12-k16", "N-D", "mixed-lengths", "M", "I", "M-I"])
+    (["short_gz", "mixed"], dict(ks=(12,), sketch_size=1000, min_kmer_occ=2,
+                                 counter_size=65521, chunk_reads=64)),
+], ids=["k12-s1000", "long-s50", "k12-k16", "N-D", "mixed-lengths", "M", "I", "M-I",
+        "gzip-two-files-M"])
 def test_stream_output_byte_identical_to_jax(workload, reads, kw):
     want, got = _both(workload, reads, **kw)
-    n_reads = sum(1 for r in reads for _ in open(workload[r]) if _[0] in "@>")
+    n_reads = sum(_n_reads(workload[r]) for r in reads)
     assert len(want.splitlines()) == n_reads
     assert got == want
     counted = {"min_kmer_occ", "max_samples", "counter_size"}
@@ -171,6 +183,8 @@ def test_port_never_imports_jax():
             "import rkmh_tpu_torch.convert, rkmh_tpu_torch.synth, rkmh_tpu_torch.ops.kernels\n"
             "import rkmh_tpu_torch.commands.hpv16_cmd, rkmh_tpu_torch.bench.bench_gather\n"
             "import rkmh_tpu_torch.commands.filter_cmd, rkmh_tpu_torch.ops.counter\n"
+            "import rkmh_tpu_torch.io.native, rkmh_tpu_torch.bench.timing\n"
+            "import rkmh_tpu_torch.bench.read_ahead_ab\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rkmh_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
