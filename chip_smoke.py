@@ -108,7 +108,33 @@ line) without CUDA or without the package beside it.  In order it:
 15. drives ``hpv16 -M 2`` over 12,800 reads with N bases (default
     8e8-slot counter; K1, K6, K7 and K3 must run); checks that a whole
     256-read input gives byte-identical stdout and .tst on the card and
-    the CPU; reports e2e Mbp/s.
+    the CPU; reports e2e Mbp/s;
+16. the sketch round trip: ``hash -r refs.fa -k 12 -s 1000 -o P`` writes
+    P.rkmh.json and, with ``--sourmash``, P.sig (K1 must run); then
+    ``stream --ref-sketches P.rkmh.json`` and ``stream -R P.sig`` (through
+    the CLI) over the slice's 2**20 reads (K1, K2) must equal the slice's
+    ``stream -r`` output byte for byte; reports their e2e reads/s and the
+    panel set-up seconds from the references and from the sketch file;
+17. ``hash`` over the first 2**18 reads into a file (the default dump of
+    2**20 reads would be ~2.9 GB of text): the default lines, ``-s 1000``
+    and ``-k 12 -k 16`` (K1), each with its bytes, seconds and e2e
+    reads/s, and its first 4,096 lines against the CPU plain path; one
+    default run under cProfile;
+18. ``count --counter-size 640000 -o T.npz --dump`` over the 2**20 reads
+    (K1, K6), the K6 route the counter took, and the table of the first
+    65,536 reads counted on the card and on the CPU plain path, equal;
+19. ``search`` of 50,000 distinct 12-mers drawn from the genomes (plus
+    lowercase tokens, tokens of other lengths and with N) over the 2**20
+    reads (K1, then the membership step: ``torch.searchsorted`` on
+    sign-flipped int64); its first 4,096 lines against the CPU plain path;
+    the membership step's device ms per 16,384-read batch; one run under
+    cProfile;
+20. ``stream -o`` and ``hash --out`` over the 2**18 reads: each output cut
+    mid-line at about 40% and run again with ``--resume`` (K1, and K2 for
+    stream) must equal the uninterrupted bytes; then times K1 at k=16 and
+    at -k 12 -k 16, hash -s's ``torch.sort``, and K6 at count's
+    640,000-slot table by either route, with the route a ``HashCounter``
+    takes there and its bound.
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record (per kernel: launches on the driven paths, in all and by
@@ -117,8 +143,9 @@ bound_by, bound_share = bound_ms / ms, and library_ms, one PyTorch call
 computing the same function where there is one: ``torch.gather`` for K4
 and K5, none for the others; K4 and K5 add their launches by route, K4
 its times at each timed N, K5 its staged route's time and the launch
-floor, K7 its times at the hpv16 -M shape) and ``{"ok": true,
-"device": {...}}``.  Any failure raises.
+floor, K7 its times at the hpv16 -M shape, K1 its times at hash's shapes,
+K6 its time and route at count's table) and ``{"ok": true, "device":
+{...}}``.  Any failure raises.
 """
 
 from __future__ import annotations
@@ -146,6 +173,11 @@ HPV16_COUNTER = 800_000_000  # hpv16 -M's default counter
 MIN_OCC, MAX_SAMPLES, FILTER_MIN_MATCHES = 2, 40, 10
 N_HPV16_M_CPU_READS = 256
 HPV16_N_RATE = 0.001
+N_HASH_READS = 1 << 18  # the default dump of 2**20 reads would be ~2.9 GB of text
+N_HASH_CPU_LINES = 4096
+COUNT_SLOTS = 640_000   # count's default table (rkmh.cpp:2322)
+N_COUNT_CPU_READS = 65536
+N_SEARCH_KMERS = 50_000
 
 
 def say(msg: str) -> None:
@@ -403,9 +435,11 @@ def driven(fn, path: str, kernels_needed) -> tuple[float, dict]:
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    rc = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    if rc not in (None, 0):
+        raise AssertionError(f"the {path} path exited {rc}")
     launches = kernels.launch_counts()
     say(f"{path} launches: {launches}")
     require_launches(launches, kernels_needed, path)
@@ -436,6 +470,7 @@ def check_native_io(zika: dict) -> dict:
     import numpy as np
 
     from rkmh_tpu_torch.commands import stream
+    from rkmh_tpu_torch.commands import common
     from rkmh_tpu_torch.commands.common import DEFAULT_CHUNK_READS, PyPacked, iter_packed_chunks
     from rkmh_tpu_torch.io.fastx import iter_batches
 
@@ -465,7 +500,7 @@ def check_native_io(zika: dict) -> dict:
                for c in native_chunks]
     fmt = stream._NativeFormatCtx(zika["names"], 1000)
     t0 = time.perf_counter()
-    blocks = [fmt.format_block(arr, np.arange(len(c)), stream._NamesOnly(c))
+    blocks = [fmt.format_block(arr, np.arange(len(c)), common.NamesOnly(c))
               for arr, c in zip(results, native_chunks)]
     native_fmt_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1325,6 +1360,385 @@ def run_hpv16_counter(dev, card: str) -> dict:
     return res
 
 
+def head_file(src: str, dst: str, n_reads: int) -> str:
+    """The first n_reads records of a FASTQ file into dst."""
+    with open(src) as src_fh, open(dst, "w") as out:
+        for _ in range(4 * n_reads):
+            out.write(src_fh.readline())
+    return dst
+
+
+def head_lines(path: str, n: int) -> str:
+    with open(path) as fh:
+        return "".join(fh.readline() for _ in range(n))
+
+
+def same_file(a: str, b: str, what: str) -> None:
+    import filecmp
+
+    if not filecmp.cmp(a, b, shallow=False):
+        raise AssertionError(f"{what}: {a} and {b} differ ({os.path.getsize(a)} and "
+                             f"{os.path.getsize(b)} bytes)")
+
+
+def report(path: str, card: str, reads: int, seconds: float, extra: str = "") -> dict:
+    say(f"{path} on {card}: e2e {reads / seconds:.1f} reads/s ({seconds:.3f} s for {reads} "
+        f"reads{extra})")
+    return {"e2e_s": seconds, "e2e_reads_per_s": reads / seconds}
+
+
+def run_ref_sketches(dev, card: str, zika: dict) -> dict:
+    """The sketch round trip: ``hash -r refs -k 12 -s 1000 -o P`` (and
+    ``--sourmash``), then ``stream --ref-sketches P.rkmh.json`` and ``stream
+    -R P.sig`` (through the CLI) over the slice's 2**20 reads, each
+    byte-identical to the slice's ``stream -r`` output; and the panel set-up
+    seconds from the references against from the sketch file."""
+    import torch
+
+    from rkmh_tpu_torch import cli
+    from rkmh_tpu_torch.commands import hash_cmd, stream
+    from rkmh_tpu_torch.commands.common import build_ref_panel_from_files, load_or_build_panel
+
+    tmp = zika["dir"]
+    prefix = os.path.join(tmp, "panel")
+    res = {}
+    for label, sourmash in (("hash -r -o", False), ("hash -r --sourmash", True)):
+        seconds, launches = driven(lambda: hash_cmd.run(hash_cmd.HashConfig(
+            read_files=[zika["refs"]], ks=(12,), sketch_size=1000, sourmash_out=sourmash,
+            out_prefix=prefix, device="cuda")), label, ("window_hash",))
+        res[label] = {"e2e_s": seconds, "launches": launches}
+        say(f"{label} on {card}: {seconds:.3f} s for the 60 references")
+    want = os.path.join(tmp, "gpu.tsv")  # the slice's stream -r output
+    out = os.path.join(tmp, "ref_sketches.tsv")
+    seconds, launches = driven(lambda: stream.run(stream.StreamConfig(
+        ref_sketches=prefix + ".rkmh.json", read_files=[zika["reads"]], ks=(12,),
+        sketch_size=1000, out_file=out, device="cuda")), "stream --ref-sketches",
+        ("window_hash", "panel_probe"))
+    same_file(out, want, "stream --ref-sketches P.rkmh.json against stream -r")
+    res["stream --ref-sketches"] = {**report("stream --ref-sketches", card, N_SLICE_READS,
+                                             seconds, ", sketch load included"),
+                                    "launches": launches}
+    out_r = os.path.join(tmp, "ref_sketches_R.tsv")
+    seconds, launches = driven(lambda: cli.main(
+        ["stream", "-R", prefix + ".sig", "-f", zika["reads"], "-k", "12", "-s", "1000",
+         "-o", out_r, "--device", "cuda"]), "stream -R", ("window_hash", "panel_probe"))
+    same_file(out_r, want, "stream -R P.sig against stream -r")
+    res["stream -R"] = {**report("stream -R (CLI)", card, N_SLICE_READS, seconds),
+                        "launches": launches}
+    say(f"sketch round trip: stream --ref-sketches P.rkmh.json and stream -R P.sig "
+        f"byte-identical to stream -r over {N_SLICE_READS} reads")
+    setup = {}
+    for label, fn in (("from -r refs.fa", lambda: build_ref_panel_from_files(
+            [zika["refs"]], (12,), 1000, dev)),
+                      ("from --ref-sketches", lambda: load_or_build_panel(
+            [], prefix + ".rkmh.json", (12,), 1000, dev))):
+        best = None
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best or 1e9, time.perf_counter() - t0)
+        setup[label] = best
+    say(f"panel set-up on {card}, best of 3: {setup['from -r refs.fa']:.4f} s from the 60 "
+        f"references, {setup['from --ref-sketches']:.4f} s from the sketch file")
+    res["setup_s"] = setup
+    os.remove(out_r)
+    return res
+
+
+def profile_run(fn, label: str, top: int = 10) -> dict:
+    """One run of fn under cProfile: wall seconds and the top functions by
+    own time (the main thread; the native parse runs on the reader thread)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof)
+    ranked = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    say(f"{label} under cProfile: {wall:.2f} s wall; top functions by own time: " + "; ".join(
+        f"{os.path.basename(f)}:{ln} {fn_} {v[2]:.3f} s ({v[1]} calls)"
+        for (f, ln, fn_), v in ranked))
+    return {"wall_s": wall, "top": [(f"{os.path.basename(f)}:{ln} {fn_}", v[2])
+                                    for (f, ln, fn_), v in ranked]}
+
+
+def run_hash_lines(dev, card: str, zika: dict) -> dict:
+    """``hash`` over N_HASH_READS reads into a file: the default lines, ``-s
+    1000`` and ``-k 12 -k 16``, each with its bytes and seconds, and its
+    first N_HASH_CPU_LINES lines against the CPU plain path on the same
+    reads; then one default run under cProfile.  The default output stays
+    for the resume phase."""
+    from rkmh_tpu_torch.commands import hash_cmd
+
+    tmp = zika["dir"]
+    reads = head_file(zika["reads"], os.path.join(tmp, "hash_reads.fq"), N_HASH_READS)
+    head = head_file(zika["reads"], os.path.join(tmp, "hash_head.fq"), N_HASH_CPU_LINES)
+    res = {"reads": reads}
+    for label, kw in (("hash", dict(ks=(12,))), ("hash -s 1000", dict(ks=(12,), sketch_size=1000)),
+                      ("hash -k 12 -k 16", dict(ks=(12, 16)))):
+        out = os.path.join(tmp, f"{label.replace(' ', '_')}.txt")
+        seconds, launches = driven(lambda: hash_cmd.run(hash_cmd.HashConfig(
+            read_files=[reads], out_file=out, device="cuda", **kw)), label, ("window_hash",))
+        nbytes = os.path.getsize(out)
+        cpu_out = os.path.join(tmp, "hash_cpu.txt")
+        hash_cmd.run(hash_cmd.HashConfig(read_files=[head], out_file=cpu_out, device="cpu", **kw))
+        require_same(head_lines(out, N_HASH_CPU_LINES), read_text(cpu_out), label)
+        res[label] = {**report(label, card, N_HASH_READS, seconds,
+                               f", {nbytes} bytes written"),
+                      "bytes": nbytes, "launches": launches}
+        say(f"{label}: first {N_HASH_CPU_LINES} lines byte-identical to the CPU plain path")
+        if label == "hash":
+            res["out"] = out
+        else:
+            os.remove(out)
+    prof_out = os.path.join(tmp, "hash_profiled.txt")
+    res["profile"] = profile_run(lambda: hash_cmd.run(hash_cmd.HashConfig(
+        read_files=[reads], ks=(12,), out_file=prof_out, device="cuda")), "hash (default lines)")
+    os.remove(prof_out)
+    return res
+
+
+def run_count(dev, card: str, zika: dict) -> dict:
+    """``count --counter-size 640000 -o T.npz --dump`` over the slice's
+    2**20 reads (K1 + K6), with the K6 route the counter took; then the
+    table of the first N_COUNT_CPU_READS reads, counted on the card and on
+    the CPU plain path with the same flags, must be equal."""
+    import numpy as np
+
+    from rkmh_tpu_torch import convert
+    from rkmh_tpu_torch.commands import count_cmd
+
+    tmp = zika["dir"]
+    npz, dump = os.path.join(tmp, "count.npz"), os.path.join(tmp, "count_dump.txt")
+    stats = {}
+    cfg = dict(ks=(12,), counter_size=COUNT_SLOTS, dump=True)
+    with open(dump, "w") as fh:
+        seconds, launches = driven(lambda: count_cmd.run(count_cmd.CountConfig(
+            read_files=[zika["reads"]], out_file=npz, device="cuda", **cfg), out=fh,
+            stats=stats), "count", ("window_hash", "counter_add"))
+    table = convert.counter_from_npz(npz, "cpu").to_numpy()
+    n_dump = read_text(dump).count("\n")
+    if n_dump != int((table > 0).sum()) or int(table.sum()) != N_SLICE_READS * 139:
+        raise AssertionError(f"count: {n_dump} dump lines, {int(table.sum())} windows counted")
+    head = head_file(zika["reads"], os.path.join(tmp, "count_head.fq"), N_COUNT_CPU_READS)
+    tables = {}
+    for device in ("cuda", "cpu"):
+        path = os.path.join(tmp, f"count_head.{device}.npz")
+        with open(os.devnull, "w") as sink:
+            count_cmd.run(count_cmd.CountConfig(read_files=[head], out_file=path,
+                                                device=device, **cfg), out=sink)
+        with np.load(path) as z:
+            tables[device] = {k: z[k] for k in z.files}
+    for key in ("table", "size", "ks"):
+        if not np.array_equal(tables["cuda"][key], tables["cpu"][key]):
+            raise AssertionError(f"count: the {key} of the first {N_COUNT_CPU_READS} reads "
+                                 "differs on the card and the CPU")
+    say(f"count: the table of the first {N_COUNT_CPU_READS} reads equal on the card and the CPU "
+        f"plain path; K6 route of the 2**20-read run: binned={stats['binned']}")
+    res = {**report("count --counter-size 640000 -o --dump", card, N_SLICE_READS, seconds,
+                    f", {n_dump} occupied slots dumped"), "launches": launches,
+           "k6_binned": stats["binned"]}
+    os.remove(dump)
+    return res
+
+
+def write_search_refs(tmp: str, n: int = N_SEARCH_KMERS) -> str:
+    """n distinct 12-mers drawn with a fixed seed from the slice's genomes,
+    one per line, plus lowercase tokens, tokens of other lengths and
+    tokens with N."""
+    import numpy as np
+
+    from rkmh_tpu_torch import synth
+
+    _, genomes = synth.make_panel()
+    ascii_g = synth._ACGTN[genomes]
+    rng = np.random.default_rng(31)
+    mers = set()
+    while len(mers) < n:
+        r = rng.integers(0, genomes.shape[0], n)
+        p = rng.integers(0, genomes.shape[1] - 12, n)
+        for a, b in zip(r.tolist(), p.tolist()):
+            mers.add(ascii_g[a, b: b + 12].tobytes().decode())
+            if len(mers) == n:
+                break
+    mers = sorted(mers)
+    path = os.path.join(tmp, "search_kmers.txt")
+    with open(path, "w") as fh:
+        fh.write("".join(f"{m}\n" for m in mers))
+        fh.write("".join(f"{m.lower()}\n{m[:11]}\n{m}A\n{m[:6]}N{m[7:]}\n"
+                         for m in rng.choice(mers, 20)))
+    return path
+
+
+def run_search(dev, card: str, zika: dict, hashes) -> dict:
+    """``search`` of N_SEARCH_KMERS reference 12-mers over the slice's 2**20
+    reads; the first N_HASH_CPU_LINES lines against the CPU plain path;
+    the membership step's device ms on one 16,384-read batch (``hashes``);
+    one run under cProfile."""
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms
+    from rkmh_tpu_torch.commands import search_cmd
+
+    tmp = zika["dir"]
+    refs = write_search_refs(tmp)
+    out = os.path.join(tmp, "search.txt")
+    seconds, launches = driven(lambda: search_cmd.run(search_cmd.SearchConfig(
+        ref_files=[refs], read_files=[zika["reads"]], ks=(12,), out_file=out, device="cuda")),
+        "search", ("window_hash",))
+    head = head_file(zika["reads"], os.path.join(tmp, "search_head.fq"), N_HASH_CPU_LINES)
+    cpu_out = os.path.join(tmp, "search_cpu.txt")
+    search_cmd.run(search_cmd.SearchConfig(ref_files=[refs], read_files=[head], ks=(12,),
+                                           out_file=cpu_out, device="cpu"))
+    require_same(head_lines(out, N_HASH_CPU_LINES), read_text(cpu_out), "search")
+    n_lines = n_commas = n_empty = 0
+    with open(out, "rb") as fh:
+        last = b""
+        while block := fh.read(1 << 26):
+            n_lines += block.count(b"\n")
+            n_commas += block.count(b",")
+            n_empty += (last + block).count(b"\t\n")  # a line without a k-mer
+            last = block[-1:]
+    n_hits = n_commas + n_lines - n_empty
+    if n_lines != N_SLICE_READS:
+        raise AssertionError(f"search: {n_lines} lines for {N_SLICE_READS} reads")
+    keys = search_cmd.sorted_keys(search_cmd.load_ref_kmers([refs]), dev)
+    member_ms = cuda_graph_time_ms(lambda: search_cmd.member_mask(hashes, keys), 20)
+    say(f"search: first {N_HASH_CPU_LINES} lines byte-identical to the CPU plain path; "
+        f"{n_hits} reference k-mers found in {N_SLICE_READS} reads; membership step "
+        f"(searchsorted + gather + compare, {keys.numel()} keys) {member_ms:.4f} ms per "
+        f"{tuple(hashes.shape)} batch")
+    res = {**report("search", card, N_SLICE_READS, seconds,
+                    f", {keys.numel()} reference hashes"), "launches": launches,
+           "membership_ms": member_ms, "hits": n_hits}
+    prof_out = os.path.join(tmp, "search_profiled.txt")
+    res["profile"] = profile_run(lambda: search_cmd.run(search_cmd.SearchConfig(
+        ref_files=[refs], read_files=[zika["reads"]], ks=(12,), out_file=prof_out,
+        device="cuda")), "search")
+    os.remove(prof_out)
+    os.remove(out)
+    return res
+
+
+def cut_mid_line(path: str, share: float = 0.4) -> None:
+    """Truncate a file of non-empty lines inside the line at ``share`` of
+    its bytes: the line keeps about half of what followed that byte and
+    loses its newline."""
+    at = int(os.path.getsize(path) * share)
+    with open(path, "rb") as fh:
+        fh.seek(at)
+        at += fh.read(1 << 16).index(b"\n") // 2
+    with open(path, "r+b") as fh:
+        fh.truncate(at)
+
+
+def run_resume(dev, card: str, zika: dict, hash_res: dict) -> dict:
+    """``stream -o`` and ``hash --out`` over N_HASH_READS reads: each output
+    cut mid-line at about 40%, then run again with --resume, must equal the
+    uninterrupted bytes."""
+    import shutil
+
+    from rkmh_tpu_torch.commands import hash_cmd, stream
+
+    tmp = zika["dir"]
+    reads = hash_res["reads"]
+    full = os.path.join(tmp, "resume_full.tsv")
+    scfg = dict(ref_files=[zika["refs"]], read_files=[reads], ks=(12,), sketch_size=1000,
+                device="cuda")
+    stream.run(stream.StreamConfig(out_file=full, **scfg))
+    res = {}
+    for label, want, fn in (
+            ("stream --resume", full,
+             lambda out: stream.run(stream.StreamConfig(out_file=out, resume=True, **scfg))),
+            ("hash --resume", hash_res["out"],
+             lambda out: hash_cmd.run(hash_cmd.HashConfig(read_files=[reads], ks=(12,),
+                                                          out_file=out, resume=True,
+                                                          device="cuda")))):
+        part = os.path.join(tmp, "resumed.txt")
+        shutil.copyfile(want, part)
+        cut_mid_line(part)
+        kept = os.path.getsize(part)
+        with open(part, "rb") as fh:
+            done = sum(block.count(b"\n") for block in iter(lambda: fh.read(1 << 26), b""))
+        seconds, launches = driven(lambda: fn(part), label, (
+            ("window_hash", "panel_probe") if label.startswith("stream") else ("window_hash",)))
+        same_file(part, want, label)
+        say(f"{label}: an output cut mid-line at byte {kept} of {os.path.getsize(want)} "
+            f"({done} reads done), resumed, equals the uninterrupted bytes")
+        res[label] = {**report(label, card, N_HASH_READS - done, seconds,
+                               ", the reads after the cut"), "launches": launches}
+        os.remove(part)
+    os.remove(full)
+    return res
+
+
+def time_slice_library_calls(codes, hashes, card: str) -> dict:
+    """K1 at k=16 and at -k 12 -k 16 on a 16,384-read batch (hash's
+    default k and multi-k), and ``torch.sort`` of hash -s (``bottom_s_sketch``
+    at s = 1000), by graph replay."""
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms
+    from rkmh_tpu_torch.ops.hashing import _window_hashes_cuda
+    from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+
+    res = {}
+    for label, ks in (("k=16", [16]), ("k=12,16", [12, 16])):
+        out = _window_hashes_cuda(codes, ks, 42)
+        res[label] = {"ms": cuda_graph_time_ms(lambda: _window_hashes_cuda(codes, ks, 42), 20),
+                      "bound_ms": bounds.bound_ms(bounds.tensor_bytes(codes, out)),
+                      "shape": list(out.shape)}
+    res["sort_s1000_ms"] = cuda_graph_time_ms(lambda: bottom_s_sketch(hashes, 1000), 20)
+    say(f"time K1 on {card}: k=16 {res['k=16']['ms']:.4f} ms (bound "
+        f"{res['k=16']['bound_ms']:.4f}), -k 12 -k 16 {res['k=12,16']['ms']:.4f} ms (bound "
+        f"{res['k=12,16']['bound_ms']:.4f}) per {tuple(codes.shape)} batch; hash -s 1000's "
+        f"torch.sort (bottom_s_sketch) {res['sort_s1000_ms']:.4f} ms per {tuple(hashes.shape)}")
+    return res
+
+
+def time_k6_count_shape(dev, hashes, card: str) -> dict:
+    """K6 at count's shape: the stream batch's windows (the counter pass's
+    mask derived in the kernel) into count's 640,000-slot table, through
+    the bins and as one atomic per element; the route a HashCounter takes
+    there; the bound from the sectors the slots reach."""
+    import torch
+
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
+    from rkmh_tpu_torch.ops import counter
+    from rkmh_tpu_torch.ops.hashing import window_mask
+
+    lens150 = torch.full((hashes.shape[0],), 150, dtype=torch.int32, device=dev)
+    windows = (lens150, 160, [12])
+    table = torch.zeros(COUNT_SLOTS, dtype=torch.int32, device=dev)
+    binned_ms = cuda_graph_time_ms(
+        lambda: counter._counter_add_cuda(table, hashes, None, windows, binned=True), 20)
+    direct_ms = cuda_graph_time_ms(
+        lambda: counter._counter_add_cuda(table, hashes, None, windows, binned=False), 20)
+    c = counter.HashCounter(COUNT_SLOTS, dev)
+    want = torch.zeros_like(c.table)
+    mask = window_mask(lens150, 160, [12])
+    for _ in range(2):
+        c.add_windows(hashes, lens150, 160, 12)
+        counter.counter_add_plain(want, hashes, mask)
+    if not torch.equal(c.table, want):
+        raise AssertionError("HashCounter at count's table size disagrees with the plain version")
+    plain_ms = cuda_time_ms(lambda: counter.counter_add_plain(table, hashes, mask), 5)
+    added = counter.slots(hashes[mask], COUNT_SLOTS)
+    bound = bounds.bound_ms(bounds.tensor_bytes(hashes, lens150)
+                            + 2 * bounds.sector_bytes(torch.unique(added) * 4))
+    ms = binned_ms if c.binned else direct_ms
+    res = {"counter_slots": COUNT_SLOTS, "route": "binned" if c.binned else "direct",
+           "ms": ms, "binned_ms": binned_ms, "direct_ms": direct_ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_share": bound / ms}
+    say(f"time counter_add at count's shape on {card}: {tuple(hashes.shape)} into "
+        f"{COUNT_SLOTS} slots: through the bins {binned_ms:.4f} ms, one atomic per element "
+        f"{direct_ms:.4f} ms, plain {plain_ms:.4f} ms; a HashCounter takes route "
+        f"{res['route']} (exact=True); bound {bound:.4f} ms")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1375,15 +1789,26 @@ def main() -> int:
         filt = check_k2_filter(dev, panel, hashes)
         st_mi = run_stream_counters(dev, card_smi, zika)
         fl = run_filter(dev, card_smi, zika)
+        sketches = run_ref_sketches(dev, card_smi, zika)
+        hashed = run_hash_lines(dev, card_smi, zika)
+        counted = run_count(dev, card_smi, zika)
+        searched = run_search(dev, card_smi, zika, hashes)
+        resumed = run_resume(dev, card_smi, zika, hashed)
+        k1_hash = time_slice_library_calls(codes, hashes, card_smi)
+        k6_count = time_k6_count_shape(dev, hashes, card_smi)
     hpm = run_hpv16_counter(dev, card_smi)
-    paths = {"stream": sl, "hpv16": hp, "stream -M -I": st_mi, "filter": fl, "hpv16 -M": hpm}
+    paths = {"stream": sl, "hpv16": hp, "stream -M -I": st_mi, "filter": fl, "hpv16 -M": hpm,
+             **{k: v for k, v in sketches.items() if k != "setup_s"},
+             **{k: v for k, v in hashed.items() if k.startswith("hash")},
+             "count": counted, "search": searched, **resumed}
 
     def launched(name):
-        return sum(r["launches"][name] for r in paths.values())
+        return sum(r["launches"].get(name, 0) for r in paths.values())
 
     def entry(name, source, replaces, err, ms, eager_ms, plain_ms, bound_ms, library_ms=None,
               launches=None):
-        by_path = {p: r["launches"][name] for p, r in paths.items() if r["launches"][name]}
+        by_path = {p: r["launches"][name] for p, r in paths.items()
+                   if r["launches"].get(name, 0)}
         return {"name": name, "route": "cuda", "source": f"rkmh_tpu_torch/csrc/{source}",
                 "replaces": replaces,
                 "launches": launched(name) if launches is None else launches,
@@ -1403,9 +1828,9 @@ def main() -> int:
                         eager_ms, plain_ms, bound_ms), **extra}
 
     record = {"kernels": [
-        entry("window_hash", "window_hash.cu", "rkmh_tpu/ops/pallas_hash.py:39", err_k1,
-              times["window_hash"], times["window_hash_eager"], times["window_hash_plain"],
-              bound["window_hash"]),
+        {**entry("window_hash", "window_hash.cu", "rkmh_tpu/ops/pallas_hash.py:39", err_k1,
+                 times["window_hash"], times["window_hash_eager"], times["window_hash_plain"],
+                 bound["window_hash"]), "hash_shapes": k1_hash},
         entry("panel_probe", "panel_probe.cu", "rkmh_tpu/ops/lookup.py:321", err_k2,
               times["panel_probe"], times["panel_probe_eager"], times["panel_probe_plain"],
               bound["panel_probe"]),
@@ -1418,7 +1843,7 @@ def main() -> int:
             "lut_gather_rows_by_route"], by_n=gathers_by_n),
         gather_entry("lut_gather_lanes", 140, launches_by_route=gather_launches[
             "lut_gather_lanes_by_route"], **k5_extra),
-        counter_entry("counter_add", 37),
+        counter_entry("counter_add", 37, count_shape=k6_count),
         counter_entry("counter_mask", 46, hpv16_m_shape=k7_hpv16),
     ]}
     say(smi)

@@ -1,20 +1,27 @@
-"""Command line: ``rkmh-tpu-torch {stream|classify|filter|hpv16}``.
+"""Command line: ``rkmh-tpu-torch {stream|classify|filter|hpv16|hash|count|search}``.
 
-The flags are those of ``rkmh-tpu`` (``rkmh_tpu/cli.py``), plus
-``--device`` (``cuda`` by default, ``cpu`` for the plain path).  Ported:
-``stream``'s ``-r -f -k -s -M -N -D -I -t --counter-size --batch-size
---chunk-reads -o``, ``filter``'s ``-r -f -k -s -M -N -D -I -i -t
---counter-size --batch-size --chunk-reads -o`` and ``hpv16``'s ``-f -R
--k -s -M -t -N -D --counter-size --batch-size --chunk-reads -o``.
-``stream -i`` (and ``classify -i``) with ``-f`` runs as in rkmh-tpu: it
-logs that -i is ignored and classifies the files.  rkmh's dead parity
-flags (``-S -F -p -q -d``, and ``-z -m`` for stream) are accepted with
-rkmh-tpu's warnings.  Every other flag (``--ref-sketches``, ``-R`` of
-stream and filter, ``--resume``, ``--devices``, ``--tp``, ``--dist-*``,
-``--metrics``, and ``-i`` of stream without ``-f``) is parsed and
-rejected with an error naming it (for ``hpv16``: when it would change
-what runs, ``commands.hpv16_cmd.not_ported``), so an rkmh-tpu command
-line never runs with a flag silently dropped.
+The flags are those of ``rkmh-tpu`` (``rkmh_tpu/cli.py``), with its
+defaults, plus ``--device`` (``cuda`` by default, ``cpu`` for the plain
+path).  Ported: ``stream``'s ``-r -f -k -s -M -N -D -I -t --counter-size
+--batch-size --chunk-reads --ref-sketches -R -o --resume``, ``filter``'s
+``-r -f -k -s -M -N -D -I -i -t --counter-size --batch-size --chunk-reads
+--ref-sketches -R -o --resume``, ``hpv16``'s ``-f -R -k -s -M -t -N -D
+--counter-size --batch-size --chunk-reads -o --resume``, ``hash``'s ``-f
+-r -k -s -t -K -w -c -o --json --sourmash --batch-size --chunk-reads --out
+--resume`` (``-M -I -m -T`` accepted with rkmh-tpu's warnings),
+``count``'s ``-f -k -t --counter-size --batch-size -o --dump
+--chunk-reads`` and ``search``'s ``-f -r -k -t --batch-size --chunk-reads
+-o --resume``.  ``-R`` of stream and filter is an alias of
+``--ref-sketches`` (rkmh's own -R is dead), with rkmh-tpu's warning when
+both are given.  ``stream -i`` (and ``classify -i``) with ``-f`` runs as in
+rkmh-tpu: it logs that -i is ignored and classifies the files.  rkmh's
+dead parity flags (``-S -F -p -q -d``, and ``-z -m`` for stream) are
+accepted with rkmh-tpu's warnings.  Every other flag of rkmh-tpu
+(``--devices``, ``--tp``, ``--dist-*``, ``--metrics``, and ``-i`` of
+stream without ``-f``) is parsed and rejected with an error naming it
+(for ``hpv16``: when it would change what runs,
+``commands.hpv16_cmd.not_ported``), so an rkmh-tpu command line never runs
+with a flag silently dropped.  ``call`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,12 +31,10 @@ import sys
 
 from rkmh_tpu_torch.device import DEFAULT_DEVICE
 
-# (flags, dest, argparse keywords) of rkmh-tpu stream/filter flags the
-# port does not run yet (stream -i: only without -f, checked in main)
+# (flags, dest, argparse keywords) of rkmh-tpu flags the port does not
+# run yet (stream -i: only without -f, checked in main); hash, count and
+# search have no --tp
 _NOT_PORTED = (
-    (("--ref-sketches",), "ref_sketches", {}),
-    (("-R", "--pre-references"), "pre_references", {}),
-    (("--resume",), "resume", {"action": "store_true", "default": None}),
     (("--devices",), "devices", {"type": int}),
     (("--tp",), "tp", {"type": int}),
     (("--dist-coordinator",), "dist_coordinator", {}),
@@ -56,17 +61,41 @@ def _add_dead_flags(p, stream: bool) -> None:
         p.add_argument("-m", "--merge-sketch", action="store_true", help=hidden)
 
 
+def _add_not_ported(p, tp: bool = True) -> None:
+    for flags, dest, kw in _NOT_PORTED:
+        if tp or dest != "tp":
+            p.add_argument(*flags, dest=dest, help=argparse.SUPPRESS,
+                           **{"default": None, **kw})
+
+
 def _warn_dead_flags(args) -> None:
-    """The warnings of rkmh_tpu/cli.py:291-319, in its order."""
+    """The warnings of rkmh_tpu/cli.py:291-319, in its order; -R becomes
+    --ref-sketches (rkmh_tpu/cli.py:262-269)."""
     for flag, name in (("output_reads", "-z"), ("merge_sketch", "-m")):
         if getattr(args, flag, False):
             print(f"warning: stream {name} is parsed but dead in rkmh too "
                   f"(rkmh.cpp:608-714); ignored.", file=sys.stderr)
+    if args.pre_references:
+        if args.ref_sketches:
+            print("warning: both -R and --ref-sketches given; using "
+                  "--ref-sketches.", file=sys.stderr)
+        else:
+            args.ref_sketches = args.pre_references
     for val, name in ((args.pre_reads, "-F"), (args.read_kmer_map_file, "-p"),
                       (args.ref_kmer_map_file, "-q")):
         if val:
             print(f"warning: {name} is parsed but dead in rkmh too "
                   f"(rkmh.cpp:744-769 commented out); ignored.", file=sys.stderr)
+
+
+def _add_run_flags(p) -> None:
+    """--batch-size, --chunk-reads and --device, which every command takes."""
+    p.add_argument("--batch-size", type=int, default=0,
+                   help="reads per device step; 0 = auto (16384 on cuda, 2048 on cpu)")
+    p.add_argument("--chunk-reads", type=int, default=0,
+                   help="reads parsed per streaming window; 0 = auto (65536)")
+    p.add_argument("--device", default=DEFAULT_DEVICE,
+                   help="cuda (default; an error without a GPU) or cpu")
 
 
 def _add_classify_parser(sub, name: str):
@@ -88,20 +117,22 @@ def _add_classify_parser(sub, name: str):
     p.add_argument("--counter-size", type=int,
                    default=10_000_000 if name == "filter" else 200_000_000,
                    help="slots of each -M/-I k-mer counter (rkmh's HASHTCounter size)")
-    p.add_argument("--batch-size", type=int, default=0,
-                   help="reads per device step; 0 = auto (16384 on cuda, 2048 on cpu)")
-    p.add_argument("--chunk-reads", type=int, default=0,
-                   help="reads parsed per streaming window; 0 = auto (65536)")
+    _add_run_flags(p)
+    p.add_argument("--ref-sketches", default="",
+                   help="take the panel from a JSON sketch file (hash -o, sourmash, "
+                        "mash info -d) in place of hashing -r files")
+    p.add_argument("-R", "--pre-references", default="", dest="pre_references",
+                   help="alias of --ref-sketches (rkmh's -R is parsed but dead)")
     p.add_argument("-o", "--output", default="", dest="out_file",
                    help="write the output here instead of stdout")
-    p.add_argument("--device", default=DEFAULT_DEVICE,
-                   help="cuda (default; an error without a GPU) or cpu")
+    p.add_argument("--resume", action="store_true",
+                   help="go on with an interrupted -o run: skip the reads already "
+                        "written, append the rest")
     _add_dead_flags(p, stream=name != "filter")
     p.add_argument("-i", "--in-stream", action="store_true", dest="in_stream",
                    help="classify reads from stdin" if name == "filter" else
                    "ignored with -f, as in rkmh (stdin streaming is not ported yet)")
-    for flags, dest, kw in _NOT_PORTED:
-        p.add_argument(*flags, dest=dest, help=argparse.SUPPRESS, **{"default": None, **kw})
+    _add_not_ported(p)
 
 
 def _add_hpv16_parser(sub):
@@ -114,27 +145,80 @@ def _add_hpv16_parser(sub):
                    help="accepted for rkmh parity; no effect")
     p.add_argument("-N", "--min-matches", type=int, default=-1, dest="min_matches")
     p.add_argument("-D", "--min-diff", type=int, default=0, dest="min_diff")
-    p.add_argument("--batch-size", type=int, default=0,
-                   help="reads per device step; 0 = auto (16384 on cuda, 2048 on cpu)")
-    p.add_argument("--chunk-reads", type=int, default=0,
-                   help="reads parsed per streaming window; 0 = auto (65536)")
+    _add_run_flags(p)
     p.add_argument("-o", "--output", default="", dest="out_file",
                    help="write classification lines here instead of stdout")
     p.add_argument("-M", "--min-kmer-occurence", type=int, default=0, dest="min_kmer_occ",
                    help="drop read k-mers seen fewer times than this over all reads")
     p.add_argument("--counter-size", type=int, default=800_000_000,
                    help="slots of -M's k-mer counter (rkmh's HASHTCounter size)")
-    p.add_argument("--device", default=DEFAULT_DEVICE,
-                   help="cuda (default; an error without a GPU) or cpu")
+    p.add_argument("--resume", action="store_true",
+                   help="go on with an interrupted -o run: skip the reads already "
+                        "written, append the rest")
     # rkmh-tpu hpv16 flags with rkmh-tpu's defaults, not run by the port yet
     hidden = argparse.SUPPRESS
-    p.add_argument("--resume", action="store_true", help=hidden)
     p.add_argument("--devices", type=int, default=0, help=hidden)
     p.add_argument("--tp", type=int, default=1, help=hidden)
     p.add_argument("--dist-coordinator", default="", help=hidden)
     p.add_argument("--dist-procs", type=int, default=0, help=hidden)
     p.add_argument("--dist-rank", type=int, default=-1, help=hidden)
     p.add_argument("--metrics", action="store_true", help=hidden)
+
+
+def _add_hash_parsers(sub) -> None:
+    """hash, count and search: rkmh-tpu's flags and defaults
+    (rkmh_tpu/cli.py:130-214)."""
+    p = sub.add_parser("hash")
+    p.add_argument("-f", "--fasta", action="append", default=[], dest="reads")
+    p.add_argument("-r", "--reference", action="append", default=[], dest="refs")
+    p.add_argument("-k", "--kmer", action="append", type=int, default=[], dest="ks")
+    p.add_argument("-s", "--sketch-size", type=int, default=0)
+    p.add_argument("-t", "--threads", type=int, default=1,
+                   help="accepted for rkmh parity; no effect")
+    p.add_argument("-K", "--output-kmers", action="store_true")
+    p.add_argument("-w", "--wabbitize", action="store_true")
+    p.add_argument("-c", "--count", action="store_true", dest="output_counts")
+    p.add_argument("-M", "--min-kmer-occurence", type=int, default=0, dest="min_kmer_occ",
+                   help=argparse.SUPPRESS)  # dead in rkmh (rkmh.cpp:2109-2111)
+    p.add_argument("-I", "--max-samples", type=int, default=None, dest="max_samples",
+                   help=argparse.SUPPRESS)
+    p.add_argument("-m", "--merge-sample", action="store_true", dest="merge_sample",
+                   help=argparse.SUPPRESS)
+    p.add_argument("-T", action="store_true", dest="traditional_minhash",
+                   help=argparse.SUPPRESS)
+    p.add_argument("-o", "--out-prefix", default="",
+                   help="write the sketches to PREFIX.rkmh.json (PREFIX.sig with --sourmash)")
+    p.add_argument("--json", action="store_true", help="emit Mash/sourmash-style JSON sketches")
+    p.add_argument("--sourmash", action="store_true",
+                   help="emit sourmash_signature JSON (single -k sketches only)")
+    _add_run_flags(p)
+    p.add_argument("--out", default="", dest="out_file", help="write the lines here")
+    p.add_argument("--resume", action="store_true",
+                   help="go on with an interrupted --out run")
+    _add_not_ported(p, tp=False)
+
+    p = sub.add_parser("count")
+    p.add_argument("-f", "--fasta", action="append", default=[], dest="reads")
+    p.add_argument("-k", "--kmer", action="append", type=int, default=[], dest="ks")
+    p.add_argument("-t", "--threads", type=int, default=1,
+                   help="accepted for rkmh parity; no effect")
+    p.add_argument("--counter-size", type=int, default=640_000)  # rkmh.cpp:2322
+    p.add_argument("-o", "--out-file", default="", help="save the counter table (npz)")
+    p.add_argument("--dump", action="store_true", help="print the occupied slots")
+    _add_run_flags(p)
+    _add_not_ported(p, tp=False)
+
+    p = sub.add_parser("search")
+    p.add_argument("-f", "--fasta", action="append", default=[], dest="reads")
+    p.add_argument("-r", "--reference", action="append", default=[], dest="refs")
+    p.add_argument("-k", "--kmer", action="append", type=int, default=[], dest="ks")
+    p.add_argument("-t", "--threads", type=int, default=1,
+                   help="accepted for rkmh parity; no effect")
+    _add_run_flags(p)
+    p.add_argument("-o", "--output", default="", dest="out_file",
+                   help="write the match lines here")
+    p.add_argument("--resume", action="store_true", help="go on with an interrupted -o run")
+    _add_not_ported(p, tp=False)
 
 
 def build_parser():
@@ -146,6 +230,7 @@ def build_parser():
     for name in ("classify", "stream", "filter"):
         _add_classify_parser(sub, name)
     _add_hpv16_parser(sub)
+    _add_hash_parsers(sub)
     return ap
 
 
@@ -161,7 +246,8 @@ def _run_stream(args):
         min_matches=args.min_matches, min_diff=args.min_diff,
         max_samples=args.max_samples, counter_size=args.counter_size,
         batch_size=args.batch_size, chunk_reads=args.chunk_reads,
-        out_file=args.out_file, in_stream=args.in_stream, device=args.device,
+        ref_sketches=args.ref_sketches, out_file=args.out_file, resume=args.resume,
+        in_stream=args.in_stream, device=args.device,
     ))
 
 
@@ -175,7 +261,8 @@ def _run_filter(args):
         min_matches=args.min_matches, min_diff=args.min_diff,
         max_samples=args.max_samples, in_stream=args.in_stream,
         counter_size=args.counter_size, batch_size=args.batch_size,
-        chunk_reads=args.chunk_reads, out_file=args.out_file, device=args.device,
+        chunk_reads=args.chunk_reads, ref_sketches=args.ref_sketches,
+        out_file=args.out_file, resume=args.resume, device=args.device,
     ))
 
 
@@ -202,6 +289,45 @@ def _run_hpv16(cfg):
     return run(cfg)
 
 
+def _run_hash(args):
+    if args.min_kmer_occ or args.max_samples is not None:
+        print("warning: hash -M/-I are dead in rkmh (empty branch, "
+              "rkmh.cpp:2109-2111); use stream/filter for depth filters.", file=sys.stderr)
+    for flag, name in (("merge_sample", "-m"), ("traditional_minhash", "-T")):
+        if getattr(args, flag):
+            print(f"warning: hash {name} is parsed but dead in rkmh too "
+                  f"(rkmh.cpp:2040-2111); ignored.", file=sys.stderr)
+    from rkmh_tpu_torch.commands.hash_cmd import HashConfig, run
+
+    return run(HashConfig(
+        read_files=args.reads + args.refs, ks=tuple(args.ks), sketch_size=args.sketch_size,
+        output_kmers=args.output_kmers, wabbitize=args.wabbitize,
+        output_counts=args.output_counts, json_out=args.json, sourmash_out=args.sourmash,
+        out_prefix=args.out_prefix, batch_size=args.batch_size, chunk_reads=args.chunk_reads,
+        out_file=args.out_file, resume=args.resume, device=args.device,
+    ))
+
+
+def _run_count(args):
+    from rkmh_tpu_torch.commands.count_cmd import CountConfig, run
+
+    return run(CountConfig(
+        read_files=args.reads, ks=tuple(args.ks), counter_size=args.counter_size,
+        batch_size=args.batch_size, out_file=args.out_file, dump=args.dump,
+        chunk_reads=args.chunk_reads, device=args.device,
+    ))
+
+
+def _run_search(args):
+    from rkmh_tpu_torch.commands.search_cmd import SearchConfig, run
+
+    return run(SearchConfig(
+        ref_files=args.refs, read_files=args.reads, ks=tuple(args.ks),
+        batch_size=args.batch_size, chunk_reads=args.chunk_reads, out_file=args.out_file,
+        resume=args.resume, device=args.device,
+    ))
+
+
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -212,13 +338,14 @@ def main(argv=None) -> int:
         given = not_ported(cfg) + (["--metrics"] if args.metrics else [])
     else:
         given = [flags[0] for flags, dest, _ in _NOT_PORTED
-                 if getattr(args, dest) is not None]  # given (--dist-rank 0 too)
-        if args.command != "filter" and args.in_stream and not args.reads:
+                 if getattr(args, dest, None) is not None]  # given (--dist-rank 0 too)
+        if args.command in ("stream", "classify") and args.in_stream and not args.reads:
             given.append("-i")  # stdin streaming (rkmh_tpu/commands/stream.py:315)
     if given:
         ap.error(f"{args.command}: {', '.join(given)} not yet ported to rkmh-tpu-torch")
-    run = {"hpv16": lambda: _run_hpv16(cfg), "filter": lambda: _run_filter(args)}.get(
-        args.command, lambda: _run_stream(args))
+    run = {"hpv16": lambda: _run_hpv16(cfg), "filter": lambda: _run_filter(args),
+           "hash": lambda: _run_hash(args), "count": lambda: _run_count(args),
+           "search": lambda: _run_search(args)}.get(args.command, lambda: _run_stream(args))
     try:
         return run()
     except (FileNotFoundError, IsADirectoryError, PermissionError) as e:

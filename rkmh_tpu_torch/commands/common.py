@@ -112,6 +112,20 @@ def build_ref_panel_from_files(ref_files, ks, sketch_size: int, device: torch.de
     return build_ref_panel(load_packed(ref_files), ks, sketch_size, device, **counter_kw)
 
 
+def load_or_build_panel(ref_files, ref_sketches: str, ks, sketch_size: int,
+                        device: torch.device, **counter_kw) -> RefPanel:
+    """stream and filter's panel: with ``ref_sketches`` (--ref-sketches /
+    -R) the sketches of that JSON file (``io.sketch_json``), neither hashing
+    the references nor counting them for -I; otherwise
+    ``build_ref_panel_from_files``."""
+    if ref_sketches:
+        from rkmh_tpu_torch.io.sketch_json import load_sketches, panel_from_sketches
+
+        with open(ref_sketches) as fh:
+            return panel_from_sketches(load_sketches(fh), sketch_size, device)
+    return build_ref_panel_from_files(ref_files, ks, sketch_size, device, **counter_kw)
+
+
 class PyPacked:
     """Parsed records as [N, L] codes + lengths + names, and the raw
     sequences and qualities (None for FASTA) that filter re-emits: the
@@ -126,6 +140,14 @@ class PyPacked:
 
     def __len__(self):
         return len(self.names)
+
+    def tail(self, start: int) -> PyPacked:
+        """The records from ``start`` on (a resumed run's first chunk)."""
+        out = PyPacked([])
+        out.codes, out.lens = self.codes[start:], self.lens[start:]
+        out.names, out.seqs, out.quals = (self.names[start:], self.seqs[start:],
+                                          self.quals[start:])
+        return out
 
 
 def _is_path(p) -> bool:
@@ -302,6 +324,53 @@ class ChunkState:
     @property
     def complete(self) -> bool:
         return self.dispatched and self.filled == self.n
+
+
+class NamesOnly:
+    """What the output needs of a parsed chunk: the native parser's name
+    blob and offsets, or the Python parser's names.  A chunk state holds
+    this and not the chunk, so that the chunk's codes and sequence blobs
+    are freed once its batches are dispatched."""
+
+    __slots__ = ("blob", "offs", "_names")
+
+    def __init__(self, chunk):
+        self.blob = getattr(chunk, "_names_blob", None)
+        self.offs = getattr(chunk, "_name_offs", None)
+        self._names = None if self.blob is not None else chunk.names
+
+    @property
+    def names(self) -> list[str]:
+        if self._names is None:
+            o = self.offs.tolist()
+            self._names = [self.blob[o[i]: o[i + 1]].decode() for i in range(len(o) - 1)]
+        return self._names
+
+
+class LinesChunk(ChunkState):
+    """Per-input-chunk output buffer: batches land in length-bucket order
+    and the chunk is written in input order once every row has arrived.
+    Each part is (first row, block of lines) for a batch of contiguous rows
+    formatted natively, or (rows, lines) for one formatted line by line."""
+
+    __slots__ = ("chunk", "parts")
+
+    def __init__(self, chunk):
+        super().__init__(len(chunk))
+        self.chunk = NamesOnly(chunk)
+        self.parts = []
+
+    def render(self) -> str:
+        if all(isinstance(key, int) for key, _ in self.parts):
+            return "".join(text for _, text in sorted(self.parts, key=lambda p: p[0]))
+        lines = [None] * self.n
+        for key, payload in self.parts:
+            if isinstance(key, int):
+                payload = [line + "\n" for line in payload.split("\n")[:-1]]
+                key = range(key, key + len(payload))
+            for i, line in zip(key, payload):
+                lines[i] = line
+        return "".join(lines)
 
 
 class ChunkedPipeline:

@@ -18,15 +18,20 @@ to ``rkmh-tpu filter``:
 * with ``-o FILE``, ``FILE.progress`` holds (reads done, output bytes),
   saved after each file-mode chunk's records are flushed
   (``commands/recovery.Progress``, rkmh_tpu/commands/filter_cmd.py:275-281),
-  byte-identical to rkmh-tpu's, so ``rkmh-tpu filter --resume`` can go on
-  from a run of this port.
+  byte-identical to rkmh-tpu's; ``--resume`` (of either package) truncates
+  FILE to the sidecar's bytes, skips its reads after the -M counter pass,
+  which still counts every read, and appends the rest (refused, as
+  rkmh-tpu refuses, without a readable sidecar or with FILE shorter than
+  it says);
+* ``--ref-sketches FILE`` (``-R``) takes the panel from a sketch file in
+  place of hashing the -r files (rkmh_tpu/commands/filter_cmd.py:137-141).
 
 Classification uses the filter argmax (``engine.argmax_filter``: a read
 that matches nothing gets reference "" and fails the diff filter).  -I
 counts each k-mer once per reference (unlike stream -I); -M counts every
 read k-mer of the ``-f`` files in a first pass, so with -M and no ``-f``
 the counter stays empty and every streamed read fails, as in rkmh.  Not
-ported yet: --ref-sketches, --resume, --devices / --tp and --dist-*.
+ported yet: --devices / --tp and --dist-*.
 """
 
 from __future__ import annotations
@@ -47,15 +52,15 @@ from rkmh_tpu_torch.commands.common import (
     DEFAULT_SKETCH,
     ChunkState,
     ChunkedPipeline,
-    build_ref_panel_from_files,
     count_read_kmers,
     iter_packed_chunks,
+    load_or_build_panel,
     log,
     resolve_batch_size,
     resolve_chunk_reads,
     two_pass_chunks,
 )
-from rkmh_tpu_torch.commands.recovery import Progress
+from rkmh_tpu_torch.commands.recovery import Progress, skip_reads
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.io.fastx import iter_batches
 from rkmh_tpu_torch.io.packing import encode_seqs
@@ -83,17 +88,48 @@ class FilterConfig:
     counter_size: int = DEFAULT_COUNTER_SIZE
     batch_size: int = 0             # 0 = auto (16384 on cuda, 2048 on cpu)
     chunk_reads: int = 0            # streaming window; 0 = default (65536)
+    ref_sketches: str = ""          # --ref-sketches / -R: panel from a sketch file
     out_file: str = ""              # -o: write here instead of stdout
+    resume: bool = False            # --resume: go on with a partial -o file
     device: str = DEFAULT_DEVICE
 
 
 def run(cfg: FilterConfig, out=None, stdin=None, stats: dict | None = None) -> int:
     """Run filter; ``stdin`` is the -i source (a binary file object; the
     process's stdin when None).  ``stats``, when given, receives the
-    number of file-mode reads (``reads``) and of those kept (``kept``)."""
+    number of file-mode reads run (``reads``) and of those kept (``kept``)."""
+    if cfg.resume and not cfg.out_file:
+        log("filter --resume requires -o <file>; refusing to re-filter "
+            "to stdout")
+        return 1
+    if cfg.resume and cfg.in_stream:
+        log("filter --resume cannot combine with -i: a stream is not "
+            "re-readable, so skipped reads cannot be matched up")
+        return 1
     if out is None and cfg.out_file:
-        with open(cfg.out_file, "w") as fh:
-            return _run(cfg, fh, stdin, stats, Progress(cfg.out_file))
+        progress = Progress(cfg.out_file)
+        resume_skip, mode = 0, "w"
+        if cfg.resume and os.path.exists(cfg.out_file):
+            state = progress.load()
+            if state is None:
+                log(f"filter --resume: no readable progress sidecar at "
+                    f"{progress.path}; cannot infer how many reads the "
+                    f"partial output covers — rerun without --resume")
+                return 1
+            resume_skip, out_bytes = state
+            if os.path.getsize(cfg.out_file) < out_bytes:
+                log(f"filter --resume: {cfg.out_file} is shorter than the "
+                    f"{out_bytes} bytes its progress sidecar covers — the "
+                    f"output was modified since the run; rerun without "
+                    f"--resume")
+                return 1
+            with open(cfg.out_file, "r+b") as fh:
+                fh.truncate(out_bytes)  # drop the interrupted chunk's tail
+            log(f"Resuming: {resume_skip} reads already filtered into "
+                f"{cfg.out_file}")
+            mode = "a"
+        with open(cfg.out_file, mode) as fh:
+            return _run(cfg, fh, stdin, stats, progress, resume_skip)
     return _run(cfg, out or sys.stdout, stdin, stats)
 
 
@@ -117,7 +153,8 @@ class _Chunk(ChunkState):
         self.keep = np.zeros(len(chunk), dtype=bool)
 
 
-def _run(cfg: FilterConfig, out, stdin, stats, progress: Progress | None = None) -> int:
+def _run(cfg: FilterConfig, out, stdin, stats, progress: Progress | None = None,
+         resume_skip: int = 0) -> int:
     device = resolve_device(cfg.device)
     batch_size = resolve_batch_size(cfg.batch_size, device)
     chunk_reads = resolve_chunk_reads(cfg.chunk_reads)
@@ -125,9 +162,9 @@ def _run(cfg: FilterConfig, out, stdin, stats, progress: Progress | None = None)
     if not cfg.ks:
         log("No kmer size(s) provided. Will use a default kmer size of 16.")
 
-    panel = build_ref_panel_from_files(cfg.ref_files, ks, cfg.sketch_size, device,
-                                       max_samples=cfg.max_samples,
-                                       counter_size=cfg.counter_size, distinct_counter=True)
+    panel = load_or_build_panel(cfg.ref_files, cfg.ref_sketches, ks, cfg.sketch_size, device,
+                                max_samples=cfg.max_samples, counter_size=cfg.counter_size,
+                                distinct_counter=True)
     counter = None
     chunks = None
     if cfg.min_kmer_occ >= 0:
@@ -157,7 +194,7 @@ def _run(cfg: FilterConfig, out, stdin, stats, progress: Progress | None = None)
             if progress is not None:
                 # flush first: everything the sidecar points at is in the file
                 out.flush()
-                progress.save(n_reads, os.fstat(out.fileno()).st_size)
+                progress.save(resume_skip + n_reads, os.fstat(out.fileno()).st_size)
 
         def on_result(st, rows, arr):
             st.keep[rows] = arr[3].astype(bool)
@@ -165,9 +202,11 @@ def _run(cfg: FilterConfig, out, stdin, stats, progress: Progress | None = None)
 
         pipeline = ChunkedPipeline(on_result=on_result, emit=emit, fetch=fetch,
                                    group=FETCH_GROUP)
-        pipeline.run(chunks if chunks is not None else
-                     iter_packed_chunks(cfg.read_files, chunk_reads),
-                     make_state=_Chunk, dispatch=lambda st, rows, codes, lens:
+        if chunks is None:
+            chunks = iter_packed_chunks(cfg.read_files, chunk_reads)
+        if resume_skip:  # the -M counter pass above counted every read
+            chunks = skip_reads(chunks, resume_skip)
+        pipeline.run(chunks, make_state=_Chunk, dispatch=lambda st, rows, codes, lens:
                      (rows, classify(codes)), batch_size=batch_size)
         if stats is not None:
             stats.update(reads=n_reads, kept=n_kept)

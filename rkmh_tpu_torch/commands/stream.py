@@ -15,13 +15,19 @@ as one block by the native formatter (``rkmh_format_lines``), the rest
 line by line (``format_lines_host``), as rkmh-tpu does
 (rkmh_tpu/commands/stream.py:106-200, 612-630).  -i with
 -f files logs that it is ignored and classifies the files, as rkmh-tpu
-does (rkmh_tpu/commands/stream.py:481-488; rkmh's -i is dead).  Not
-ported yet: -i without -f (stdin streaming), --devices / --tp, --dist-*,
---resume and --ref-sketches.
+does (rkmh_tpu/commands/stream.py:481-488; rkmh's -i is dead).
+--ref-sketches FILE (-R) takes the panel from a sketch file (``hash -o``,
+sourmash or ``mash info -d``) in place of hashing -r files
+(:500-504).  With -o FILE --resume, FILE's complete lines count the reads
+already classified; a torn last line is cut, those reads are skipped after
+the -M counter pass, which still counts every read, and the rest is
+appended (:441-470, ``commands/recovery``).  Not ported yet: -i without -f
+(stdin streaming), --devices / --tp and --dist-*.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from dataclasses import dataclass, field
 
@@ -33,16 +39,17 @@ from rkmh_tpu_torch.commands.common import (
     DEFAULT_KMER,
     DEFAULT_SKETCH,
     DEFAULT_COUNTER_SIZE,
-    ChunkState,
     ChunkedPipeline,
-    build_ref_panel_from_files,
+    LinesChunk,
     count_read_kmers,
     iter_packed_chunks,
+    load_or_build_panel,
     log,
     resolve_batch_size,
     resolve_chunk_reads,
     two_pass_chunks,
 )
+from rkmh_tpu_torch.commands.recovery import count_complete_lines, skip_reads
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.io.native import format_lines_block
 
@@ -60,7 +67,9 @@ class StreamConfig:
     counter_size: int = DEFAULT_COUNTER_SIZE  # slots of each -M/-I counter
     batch_size: int = 0          # 0 = auto (16384 on cuda, 2048 on cpu)
     chunk_reads: int = 0         # streaming window; 0 = default (65536)
+    ref_sketches: str = ""       # --ref-sketches / -R: panel from a sketch file
     out_file: str = ""           # -o: write here instead of stdout
+    resume: bool = False         # --resume: go on with a partial -o file
     in_stream: bool = False      # -i: ignored with -f; stdin alone is not ported
     device: str = DEFAULT_DEVICE
 
@@ -106,66 +115,31 @@ class _NativeFormatCtx:
 
     def format_block(self, arr, rows, names) -> str:
         """The lines of a fetched [3, n] result for the chunk rows ``rows``,
-        read from the name blob of ``names`` (a _NamesOnly with a blob)."""
+        read from the name blob of ``names`` (a NamesOnly with a blob)."""
         return format_lines_block(arr, rows, names.blob, names.offs, self.ref_blob,
                                   self.ref_offs, self.tails_blob, self.tail_offs).decode()
 
 
-class _NamesOnly:
-    """What the output needs of a parsed chunk: the native parser's name
-    blob and offsets, or the Python parser's names.  A chunk state holds
-    this and not the chunk, so that the chunk's codes and sequence blobs
-    are freed once its batches are dispatched."""
-
-    __slots__ = ("blob", "offs", "_names")
-
-    def __init__(self, chunk):
-        self.blob = getattr(chunk, "_names_blob", None)
-        self.offs = getattr(chunk, "_name_offs", None)
-        self._names = None if self.blob is not None else chunk.names
-
-    @property
-    def names(self) -> list[str]:
-        if self._names is None:
-            o = self.offs.tolist()
-            self._names = [self.blob[o[i]: o[i + 1]].decode() for i in range(len(o) - 1)]
-        return self._names
-
-
-class _ChunkState(ChunkState):
-    """Per-input-chunk output buffer: batches land in length-bucket order
-    and the chunk is written in input order once every row has arrived.
-    Each part is (first row, block of lines) for a batch of contiguous rows
-    formatted natively, or (rows, lines) for one formatted line by line."""
-
-    __slots__ = ("chunk", "parts")
-
-    def __init__(self, chunk):
-        super().__init__(len(chunk))
-        self.chunk = _NamesOnly(chunk)
-        self.parts = []
-
-    def render(self) -> str:
-        if all(isinstance(key, int) for key, _ in self.parts):
-            return "".join(text for _, text in sorted(self.parts, key=lambda p: p[0]))
-        lines = [None] * self.n
-        for key, payload in self.parts:
-            if isinstance(key, int):
-                payload = [line + "\n" for line in payload.split("\n")[:-1]]
-                key = range(key, key + len(payload))
-            for i, line in zip(key, payload):
-                lines[i] = line
-        return "".join(lines)
-
-
 def run(cfg: StreamConfig, out=None) -> int:
+    if cfg.resume and not cfg.out_file:
+        log("stream --resume requires -o <file> (resume state is the "
+            "partial output itself); refusing to reclassify to stdout")
+        return 1
+    if cfg.resume and cfg.in_stream:
+        log("stream --resume cannot combine with -i: a stream is not "
+            "re-readable, so skipped reads cannot be matched up")
+        return 1
     if out is None and cfg.out_file:
-        with open(cfg.out_file, "w") as fh:
-            return _run(cfg, fh)
+        resume_skip, mode = 0, "w"
+        if cfg.resume and os.path.exists(cfg.out_file):
+            resume_skip, mode = count_complete_lines(cfg.out_file), "a"
+            log(f"Resuming: {resume_skip} reads already classified in {cfg.out_file}")
+        with open(cfg.out_file, mode) as fh:
+            return _run(cfg, fh, resume_skip)
     return _run(cfg, out or sys.stdout)
 
 
-def _run(cfg: StreamConfig, out) -> int:
+def _run(cfg: StreamConfig, out, resume_skip: int = 0) -> int:
     if cfg.in_stream and not cfg.read_files:
         raise ValueError("stream -i without -f (stdin streaming) is not yet ported")
     device = resolve_device(cfg.device)
@@ -178,9 +152,8 @@ def _run(cfg: StreamConfig, out) -> int:
         log("stream -i ignored: -f inputs were given (rkmh classified the "
             "files here too — its -i is dead); classifying the files")
 
-    panel = build_ref_panel_from_files(cfg.ref_files, ks, cfg.sketch_size, device,
-                                       max_samples=cfg.max_samples,
-                                       counter_size=cfg.counter_size)
+    panel = load_or_build_panel(cfg.ref_files, cfg.ref_sketches, ks, cfg.sketch_size, device,
+                                max_samples=cfg.max_samples, counter_size=cfg.counter_size)
     counter = None
     if cfg.min_kmer_occ >= 0:
         pass1, pass2 = two_pass_chunks(cfg.read_files, chunk_reads)
@@ -188,6 +161,8 @@ def _run(cfg: StreamConfig, out) -> int:
         chunks = pass2()
     else:
         chunks = iter_packed_chunks(cfg.read_files, chunk_reads)
+    if resume_skip:  # the -M counter pass above counted every read
+        chunks = skip_reads(chunks, resume_skip)
 
     def dispatch(st, rows, codes, lens):
         batch = torch.from_numpy(codes).to(device, non_blocking=True)
@@ -210,5 +185,5 @@ def _run(cfg: StreamConfig, out) -> int:
 
     pipeline = ChunkedPipeline(on_result=on_result,
                                emit=lambda st: out.write(st.render()), fetch=fetch)
-    pipeline.run(chunks, make_state=_ChunkState, dispatch=dispatch, batch_size=batch_size)
+    pipeline.run(chunks, make_state=LinesChunk, dispatch=dispatch, batch_size=batch_size)
     return 0

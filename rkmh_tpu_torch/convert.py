@@ -4,7 +4,7 @@
 table, and its ``Hpv16Tables.comb_table`` is a uint32 set table; as numpy
 arrays they become the port's tensors by reinterpreting the bits as int64
 and int32.  A ``HashCounter``'s int32 table (``.to_numpy()``) carries over
-as it is.
+as it is, and so does the table ``count -o`` saves (either package's npz).
 """
 
 from __future__ import annotations
@@ -50,3 +50,14 @@ def counter_from_numpy(table_i32, device) -> HashCounter:
     counter = HashCounter(table.shape[0], device)
     counter.table.copy_(torch.from_numpy(table))
     return counter
+
+
+def counter_from_npz(path, device) -> HashCounter:
+    """The table a ``count -o`` run saved (``rkmh-tpu`` or this port: npz
+    with ``table``, ``size`` and ``ks``) -> a HashCounter on ``device``,
+    bit for bit."""
+    with np.load(path) as z:
+        table, size = z["table"], int(z["size"])
+    if table.shape != (size,):
+        raise ValueError(f"{path}: a table of shape {table.shape} for a counter size of {size}")
+    return counter_from_numpy(table, device)

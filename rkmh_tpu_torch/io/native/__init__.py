@@ -112,6 +112,10 @@ def _load() -> ctypes.CDLL:
         ("rkmh_format_lines", [_i64p, _i64p, _i64p, ctypes.c_int64, _i64p, ctypes.c_char_p,
                                _i64p, ctypes.c_char_p, _i64p, ctypes.c_int64, ctypes.c_char_p,
                                _i64p, _out], ctypes.c_int64),
+        ("rkmh_format_hash_lines", [ctypes.POINTER(ctypes.c_uint64),
+                                    ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                                    ctypes.c_int64, ctypes.c_char_p, _i64p, _out],
+         ctypes.c_int64),
         ("rkmh_buf_free", [ctypes.POINTER(ctypes.c_char)], None),
     ):
         fn = getattr(lib, name)
@@ -162,6 +166,40 @@ def format_lines_block(arr, row_ids, names_blob: bytes, name_offs,
         lib.rkmh_buf_free(out)
 
 
+def format_hash_lines_block(vals, mask, names_blob: bytes, name_offs) -> bytes:
+    """A hash-dump batch as one block of output bytes
+    (``rkmh_format_hash_lines``; the JAX package's binding is
+    ``rkmh_tpu/io/native/__init__.py:117``): line i is name i, a tab, and
+    the masked-in values of row i as unsigned decimals joined by spaces.
+    ``vals`` [n, W] holds uint64 bit patterns (int64 or uint64), ``mask``
+    [n, W] bool; name i is names_blob[name_offs[i]:name_offs[i + 1]]
+    (absolute offsets, n + 1 of them)."""
+    lib = load()
+    vals = np.ascontiguousarray(vals).view(np.uint64)
+    mask = np.ascontiguousarray(mask, dtype=np.bool_).view(np.uint8)
+    name_offs = np.ascontiguousarray(name_offs, dtype=np.int64)
+    if vals.ndim != 2 or mask.shape != vals.shape:
+        raise ValueError(f"format_hash_lines_block: values {vals.shape} and mask "
+                         f"{mask.shape} are not one [n, W] shape")
+    n, W = vals.shape
+    if len(name_offs) != n + 1 or (n and (name_offs[0] < 0 or name_offs[-1] > len(names_blob)
+                                          or np.any(np.diff(name_offs) < 0))):
+        raise ValueError(f"format_hash_lines_block: {len(name_offs)} name offsets for {n} "
+                         f"rows in a {len(names_blob)}-byte blob")
+    out = ctypes.POINTER(ctypes.c_char)()
+    ln = lib.rkmh_format_hash_lines(
+        vals.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n, W, names_blob,
+        _i64_ptr(name_offs), ctypes.byref(out))
+    if ln < 0:
+        raise MemoryError("format_hash_lines_block: the native formatter could not allocate "
+                          "its buffer")
+    try:
+        return ctypes.string_at(out, ln)
+    finally:
+        lib.rkmh_buf_free(out)
+
+
 class PackedReads:
     """A parsed chunk as the device steps take it: codes [n, L] uint8 and
     lens [n] int32, each record's start offset (``rec_offs``), and the raw
@@ -190,6 +228,13 @@ class PackedReads:
 
     def __len__(self):
         return len(self.lens)
+
+    def tail(self, start: int) -> PackedReads:
+        """The records from ``start`` on (a resumed run's first chunk).  The
+        blobs are shared; their offsets stay absolute."""
+        return PackedReads(self.codes[start:], self.lens[start:], self._names_blob,
+                           self._name_offs[start:], self._seqs_blob, self._seq_offs[start:],
+                           self._quals_blob, self._qual_offs[start:], self.rec_offs[start:])
 
     @staticmethod
     def _split(blob: bytes, offs) -> list[bytes]:

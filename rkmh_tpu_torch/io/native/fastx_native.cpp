@@ -28,8 +28,8 @@
 // FASTA is concatenated, FASTQ is name/seq/+/qual.
 //
 // `rkmh_format_lines` writes a block of stream output lines in one call;
-// `rkmh_format_hash_lines` a block of hash-dump lines (for the `hash`
-// command, not ported yet).
+// `rkmh_format_hash_lines` a block of hash-dump lines (the `hash`
+// command's default output).
 //
 // Build (the loader does it at first use, into rkmh_tpu_torch/_build/):
 //   g++ -O3 -std=c++17 -shared -fPIC fastx_native.cpp -o librkmh_torch_io.so -lz

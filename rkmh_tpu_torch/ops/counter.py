@@ -226,7 +226,7 @@ class HashCounter(nn.Module):
     """A ``hash % size`` depth counter whose int32 table is a buffer,
     allocated zeroed on ``device`` (never on the host for a GPU)."""
 
-    def __init__(self, size: int, device: torch.device | str = "cpu"):
+    def __init__(self, size: int, device: torch.device | str):
         super().__init__()
         self.register_buffer("table", torch.zeros(_check_size(size), dtype=torch.int32,
                                                   device=device))
@@ -235,6 +235,14 @@ class HashCounter(nn.Module):
     def add(self, hashes: torch.Tensor, mask: torch.Tensor | None = None) -> HashCounter:
         counter_add(self.table, hashes, mask)
         return self
+
+    def get(self, hashes: torch.Tensor) -> torch.Tensor:
+        """The (collision-lossy) count of each hash."""
+        return self.table[slots(hashes, self.table.shape[0])]
+
+    def to_numpy(self):
+        """The int32 table on the host (one device-to-host copy)."""
+        return self.table.cpu().numpy()
 
     def add_windows(self, hashes: torch.Tensor, lengths: torch.Tensor, L: int,
                     ks) -> HashCounter:

@@ -72,7 +72,7 @@ def test_counter_table_matches_jax(size):
     h, mask = _hashes(size)
     jc = jcounter.HashCounter(size).add(jnp.asarray(h), jnp.asarray(mask))
     jc.add(jnp.asarray(h[:5]))  # no mask: every element
-    hc = counter.HashCounter(size).add(_t(h), torch.from_numpy(mask)).add(_t(h[:5]))
+    hc = counter.HashCounter(size, "cpu").add(_t(h), torch.from_numpy(mask)).add(_t(h[:5]))
     assert hc.table.shape == (size,) and hc.table.dtype == torch.int32
     assert np.array_equal(hc.table.numpy(), jc.to_numpy())
     assert hc.table[0] >= int((mask & (h == 0)).sum())  # hash 0 counts in slot 0
@@ -270,7 +270,7 @@ def test_informative_panel_matches_jax(small_panel, distinct):
 
 def test_counter_rejects_what_it_cannot_take():
     with pytest.raises(ValueError, match="counter size"):
-        counter.HashCounter(0)
+        counter.HashCounter(0, "cpu")
     with pytest.raises(ValueError, match="counter size"):
         counter.slots(torch.zeros(3, dtype=torch.int64), 2**31)
     table = torch.zeros(8, dtype=torch.int32)

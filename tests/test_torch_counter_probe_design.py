@@ -299,9 +299,9 @@ def test_counter_add_windows_on_the_cpu_is_the_plain_add_of_the_window_mask():
     lens = torch.tensor([0, 3, 12, 30, 32, 40])
     want = counter.counter_add_plain(torch.zeros(1009, dtype=torch.int32), hashes,
                                      window_mask(lens, 32, (12, 5)))
-    got = counter.HashCounter(1009).add_windows(hashes, lens, 32, (12, 5)).table
+    got = counter.HashCounter(1009, "cpu").add_windows(hashes, lens, 32, (12, 5)).table
     assert torch.equal(got, want) and int(got.sum()) == int(window_mask(lens, 32, (12, 5)).sum())
-    assert counter.HashCounter(1009).add_windows(hashes, lens, 32, (12, 5)).binned is None
+    assert counter.HashCounter(1009, "cpu").add_windows(hashes, lens, 32, (12, 5)).binned is None
 
 
 def test_counter_add_kernel_wrapper_rejects_what_it_cannot_take():

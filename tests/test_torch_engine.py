@@ -89,6 +89,26 @@ def test_classify_step_matches_jax(small_panel, ks, s, read_len, L):
         assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("ks,s", [((12,), 40), ((12, 16), 1000), ((16, 5, 33), 70)])
+def test_hash_steps_match_jax_at_multi_k(small_panel, ks, s):
+    """``sketch_batch`` and ``hash_batch_with_mask``, the steps of hash
+    (-s and the default lines) and count, against the JAX functions."""
+    _, genomes, _ = small_panel
+    codes = _reads_codes(genomes, 48, 150, 160, seed=len(ks) * s)
+    lens = np.random.default_rng(s).integers(0, 151, 48).astype(np.int32)
+    lens[:3] = (0, 4, 150)
+    for i, n in enumerate(lens):
+        codes[i, n:] = 255
+    jsk, jlens = jengine.sketch_batch(codes, ks, s)
+    sk, sk_lens = engine.sketch_batch(torch.from_numpy(codes), ks, s)
+    assert np.array_equal(sk.numpy().view(np.uint64), np.asarray(jsk))
+    assert np.array_equal(sk_lens.numpy(), np.asarray(jlens))
+    jh, jm = jengine.hash_batch_with_mask(codes, lens, ks)
+    h, m = engine.hash_batch_with_mask(torch.from_numpy(codes), torch.from_numpy(lens), ks)
+    assert np.array_equal(h.numpy().view(np.uint64), np.asarray(jh))
+    assert np.array_equal(m.numpy(), np.asarray(jm)) and not m[0].any()
+
+
 def test_port_runs_on_a_jax_built_panel(tmp_path):
     refs, reads, names, src = synth.write_workload(
         str(tmp_path), 96, num_refs=5, genome_len=1200, seed=4)

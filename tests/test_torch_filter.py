@@ -201,7 +201,7 @@ def test_cli_filter_matches_jax(workload, tmp_path, capsys, monkeypatch):
     assert got == want
 
 
-@pytest.mark.parametrize("flag", [["--ref-sketches", "x.json"], ["-R", "x.json"], ["--resume"],
+@pytest.mark.parametrize("flag", [["--devices", "4"], ["--tp", "4"], ["--dist-procs", "4"],
                                   ["--devices", "2"], ["--tp", "2"],
                                   ["--dist-coordinator", "h:1"], ["--dist-procs", "2"],
                                   ["--dist-rank", "0"], ["--metrics"]])

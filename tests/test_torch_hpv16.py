@@ -137,7 +137,7 @@ def test_cli_hpv16_matches_jax(data, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--dist-coordinator", "h:1"], ["--devices", "2"],
-                                  ["--resume"], ["--tp", "2"], ["--dist-procs", "2"],
+                                  ["--devices", "4"], ["--tp", "2"], ["--dist-procs", "2"],
                                   ["--metrics"]])
 def test_cli_rejects_flags_not_yet_ported(flag, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -147,8 +147,8 @@ def test_cli_rejects_flags_not_yet_ported(flag, capsys):
 
 
 def test_run_rejects_config_not_yet_ported():
-    with pytest.raises(ValueError, match="--resume, --tp not yet ported"):
-        hpv16_cmd.run(hpv16_cmd.Hpv16Config(min_kmer_occ=2, resume=True, tp=2, device="cpu"))
+    with pytest.raises(ValueError, match="--devices, --tp not yet ported"):
+        hpv16_cmd.run(hpv16_cmd.Hpv16Config(min_kmer_occ=2, devices=2, tp=2, device="cpu"))
 
 
 def test_table_past_the_cap_names_the_missing_fallback(data, tmp_path, monkeypatch):

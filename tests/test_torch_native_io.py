@@ -281,7 +281,7 @@ def test_block_formatter_matches_the_line_formatters(sketch_size):
     blob = "".join(names).encode()
     offs = np.cumsum([0] + [len(n) for n in names])
     fmt = stream._NativeFormatCtx(ref_keys, sketch_size)
-    chunk = stream._NamesOnly(type("Chunk", (), {"_names_blob": blob, "_name_offs": offs})())
+    chunk = common.NamesOnly(type("Chunk", (), {"_names_blob": blob, "_name_offs": offs})())
     got = fmt.format_block(arr, rows, chunk)
     picked = [names[i] for i in rows]
     assert got == "".join(stream.format_lines_host(ref_keys, picked, arr, sketch_size))
@@ -296,7 +296,7 @@ def test_block_formatter_matches_the_line_formatters(sketch_size):
 def test_chunk_state_renders_input_order_from_mixed_parts():
     names, ref_keys, arr = _format_inputs(1, 12, 12)
     lines = stream.format_lines_host(ref_keys, names, arr, 1000)
-    st = stream._ChunkState(common.PyPacked([]))
+    st = common.LinesChunk(common.PyPacked([]))
     st.n = 12
     st.parts = [(6, "".join(lines[6:12])), ([1, 3, 5], [lines[i] for i in (1, 3, 5)]),
                 (0, lines[0]), ([2, 4], [lines[2], lines[4]])]

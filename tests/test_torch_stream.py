@@ -128,8 +128,8 @@ def test_cli_accepts_dead_parity_flags_as_jax_does(workload, tmp_path, capsys):
         assert a.read() == b.read()
 
 
-@pytest.mark.parametrize("flag", [["-R", "x.json"], ["--metrics"], ["-i"], ["--devices", "2"],
-                                  ["--resume"], ["--ref-sketches", "x.json"]])
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--metrics"], ["-i"], ["--devices", "2"],
+                                  ["--dist-rank", "0"], ["--dist-procs", "2"]])
 def test_cli_rejects_flags_not_yet_ported(flag, capsys):
     # -i is stdin streaming only without -f (with -f it is ignored, below)
     files = [] if flag == ["-i"] else ["-f", "reads.fq"]
@@ -184,7 +184,10 @@ def test_port_never_imports_jax():
             "import rkmh_tpu_torch.commands.hpv16_cmd, rkmh_tpu_torch.bench.bench_gather\n"
             "import rkmh_tpu_torch.commands.filter_cmd, rkmh_tpu_torch.ops.counter\n"
             "import rkmh_tpu_torch.io.native, rkmh_tpu_torch.bench.timing\n"
-            "import rkmh_tpu_torch.bench.read_ahead_ab\n"
+            "import rkmh_tpu_torch.bench.read_ahead_ab, rkmh_tpu_torch.oracle\n"
+            "import rkmh_tpu_torch.commands.hash_cmd, rkmh_tpu_torch.commands.count_cmd\n"
+            "import rkmh_tpu_torch.commands.search_cmd, rkmh_tpu_torch.commands.recovery\n"
+            "import rkmh_tpu_torch.io.sketch_json\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rkmh_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
