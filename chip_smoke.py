@@ -134,7 +134,38 @@ line) without CUDA or without the package beside it.  In order it:
     stream) must equal the uninterrupted bytes; then times K1 at k=16 and
     at -k 12 -k 16, hash -s's ``torch.sort``, and K6 at count's
     640,000-slot table by either route, with the route a ``HashCounter``
-    takes there and its bound.
+    takes there and its bound;
+21. ``stream -i`` in a child process (``python3 -m rkmh_tpu_torch.cli stream
+    -r refs.fa -i -k 12 -s 1000``): the 2**20 reads piped in must give the
+    slice's file-mode output byte for byte (reads/s, the child's start-up
+    included); then on a pipe held open, the seconds until the lines of
+    100 reads arrive, twice (the second shows the idle flush);
+22. the call workload (``bench/call_inputs``: HPV16REF, ~7.9 kb, with 40
+    planted substitutions and 10 deletions in the sample, 1,100
+    nanopore-like reads, k=16): the depth map built as ``call`` builds it
+    (K1, the host cuckoo build, the copy to the card), and a 1 Mbp
+    reference made from a seed; checks K8 (``csrc/hashmap.cu``) exactly
+    against its plain version on a map holding key 0, keys >= 2**63 and
+    misses, and on the workload map; K9 (``csrc/call_scan.cu``, through
+    ``call_scan_ref``) against ``call_scan_plain`` on a reference with runs
+    of N at k in {1, 12, 16, 21, 31, 32, 33, 40} and window lengths 1,
+    100 and more than P, and on the workload;
+23. times K8 at the scan's shape (~7,900 positional hashes) and at 2**20
+    read hashes beside ``torch.searchsorted`` over the map's sorted keys
+    (its library yardstick), and K9 on the workload reference and on the
+    1 Mbp reference (64M mutated k-mers), in mutated k-mers per second
+    beside K1's windows per second, each with its bound (bytes: outputs,
+    codes and the distinct 32-byte map sectors reached) and its plain
+    version's time;
+24. drives ``call`` (``commands.call_cmd.run``, k=16, w=100, device cuda),
+    counters zeroed just before and read just after (K1, K8, K9 must
+    run): its VCF and a ``-d`` run byte-identical to the CPU plain path's,
+    and, on three slices of the reference, a ``--resume`` from a
+    ``.progress`` sidecar cut inside its second section equal to the
+    uninterrupted VCF; reports the e2e seconds and the seconds by phase
+    (parse, read hashing, host map build, scan, record extraction, write),
+    the map's keys, slots and bytes on the card, and the share of planted
+    variants called.
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record (per kernel: launches on the driven paths, in all and by
@@ -144,7 +175,9 @@ computing the same function where there is one: ``torch.gather`` for K4
 and K5, none for the others; K4 and K5 add their launches by route, K4
 its times at each timed N, K5 its staged route's time and the launch
 floor, K7 its times at the hpv16 -M shape, K1 its times at hash's shapes,
-K6 its time and route at count's table) and ``{"ok": true, "device":
+K6 its time and route at count's table, K8 its time at 2**20 queries with
+``torch.searchsorted`` as its library_ms, K9 its mutated k-mers per second
+and its times on the 1 Mbp reference) and ``{"ok": true, "device":
 {...}}``.  Any failure raises.
 """
 
@@ -1739,6 +1772,277 @@ def time_k6_count_shape(dev, hashes, card: str) -> dict:
     return res
 
 
+KS_CALL = (1, 12, 16, 21, 31, 32, 33, 40)  # K9: around K1's packed / byte-wise boundary
+
+
+def check_k8(dev, cw: dict) -> int:
+    """K8 exactly against its plain version on the card: a map holding key
+    0, keys >= 2**63 and random keys, queried by every key and as many
+    misses; the call workload's map queried by 2**20 read hashes and by
+    the reference's positional hashes."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch import call_engine
+    from rkmh_tpu_torch.ops import hashmap
+
+    rng = np.random.default_rng(17)
+    keys = np.unique(np.concatenate([
+        np.array([0, 2**63, 2**64 - 1, 0x80000001_7FFFFFFF], dtype=np.uint64),
+        rng.integers(0, 2**64 - 1, size=200_000, dtype=np.uint64, endpoint=True)]))
+    vals = rng.integers(1, 2**31 - 1, size=len(keys)).astype(np.int32)
+    table = hashmap.map_table(hashmap.build_hash_map(keys, vals), dev)
+    miss = rng.integers(0, 2**64 - 1, size=len(keys), dtype=np.uint64, endpoint=True)
+    q = torch.from_numpy(np.concatenate([keys, miss]).view(np.int64)).to(dev)
+    cases = [("random map, key 0, keys >= 2**63, misses", table, q),
+             ("workload map, 2**20 read hashes", cw["table"], cw["read_hashes"]),
+             ("workload map, positional hashes", cw["table"],
+              call_engine.positional_hashes(cw["codes"], 16))]
+    worst = 0
+    for label, t, h in cases:
+        got = hashmap._hashmap_get_cuda(t, h)
+        want = hashmap.hashmap_get_plain(t, h)
+        err = max_abs_err(got, want)
+        say(f"K8 {label}: {h.numel()} queries, {int((want != 0).sum())} found, exact={err == 0}")
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"hash-map kernel disagrees with the plain version: {label}")
+        worst = max(worst, err)
+    if int(hashmap.hashmap_get(table, torch.zeros(1, dtype=torch.int64, device=dev))) == 0:
+        raise AssertionError("key 0 of the random map was not found")
+    return worst
+
+
+def check_k9(dev, cw: dict) -> int:
+    """K9 (through call_scan_ref: K1, K8, the glue, K9) exactly against
+    call_scan_plain on the card: a 1,500 bp reference with runs of N and
+    the map of reads of a mutated sample, at each k of KS_CALL and window
+    lengths 1, 100 and more than P; then the call workload's reference
+    against its own map (k=16, w=100)."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch import call_engine
+    from rkmh_tpu_torch.ops import hashmap
+    from rkmh_tpu_torch.ops.hashing import kmer_window_hashes_plain
+
+    worst = 0
+
+    def compare(label, codes, table, k, w):
+        nonlocal worst
+        got = call_engine.call_scan_ref(codes, table, k, w)
+        want = call_engine.call_scan_plain(codes, table, k, w)
+        err = max(max_abs_err(got[n].to(torch.int64), want[n].to(torch.int64)) for n in want)
+        if err or not all(torch.equal(got[n], want[n]) for n in want):
+            raise AssertionError(f"call-scan kernel disagrees with the plain version: {label}")
+        worst = max(worst, err)
+        return want
+
+    rng = np.random.default_rng(19)
+    ref = rng.integers(0, 4, 1500).astype(np.uint8)
+    ref[200:230] = 4
+    ref[900] = 4
+    sample = ref.copy()
+    sample[600] = (sample[600] + 1) % 4
+    sample = np.delete(sample, 1100)
+    reads = sample[rng.integers(0, len(sample) - 150, 300)[:, None] + np.arange(150)]
+    reads[rng.random(reads.shape) < 0.005] = 4
+    codes = torch.from_numpy(ref).to(dev)
+    for k in KS_CALL:
+        h = kmer_window_hashes_plain(torch.from_numpy(reads), k)
+        table = hashmap.map_table(hashmap.depth_map_from_hashes(h.numpy()), dev)
+        for w in (1, 100, 5000):
+            want = compare(f"k={k} w={w}", codes, table, k, w)
+        say(f"K9 k={k}, w in (1, 100, 5000): exact=True; at w=5000 "
+            f"{int(want['site'].sum())} sites, {int(want['snp_call'].sum())} SNP and "
+            f"{int(want['del_call'].sum())} DEL calls")
+    want = compare("the call workload", cw["codes"], cw["table"], 16, 100)
+    say(f"K9 call workload (k=16, w=100, P={cw['codes'].numel() - 15}): exact=True, "
+        f"{int(want['site'].sum())} sites, {int(want['snp_call'].sum())} SNP and "
+        f"{int(want['del_call'].sum())} DEL calls")
+    return worst
+
+
+def time_call_kernels(cw: dict, card: str, k1_windows_per_s: float) -> dict:
+    """K8 at the scan's shape (the positional hashes, P ~ 7,900) and at
+    2**20 read hashes, beside the library yardstick (torch.searchsorted
+    over the sorted sign-flipped keys, a gather, a compare); K9 on the
+    workload reference and on a 1 Mbp reference against the same map, in
+    mutated k-mers per second beside K1's windows per second; each by
+    graph replay (eager beside it), with its plain version's time and its
+    bound (bench/bounds.py)."""
+    from rkmh_tpu_torch import call_engine
+    from rkmh_tpu_torch.bench import bounds, call_inputs
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
+    from rkmh_tpu_torch.ops import hashmap
+
+    table, k = cw["table"], call_inputs.CALL_K
+    flipped, values = call_inputs.sorted_map(table)
+    res = {}
+    for label, h in (("scan", call_engine.positional_hashes(cw["codes"], k)),
+                     ("2e20", cw["read_hashes"])):
+        if not hashmap.hashmap_get(table, h).equal(call_inputs.searchsorted_get(flipped, values,
+                                                                                h)):
+            raise AssertionError("the searchsorted yardstick disagrees with K8")
+        res[f"k8_{label}"] = {
+            "queries": h.numel(),
+            "ms": cuda_graph_time_ms(lambda: hashmap._hashmap_get_cuda(table, h), 20),
+            "eager_ms": cuda_time_ms(lambda: hashmap._hashmap_get_cuda(table, h), 50),
+            "plain_ms": cuda_time_ms(lambda: hashmap.hashmap_get_plain(table, h), 5),
+            "library_ms": cuda_graph_time_ms(
+                lambda: call_inputs.searchsorted_get(flipped, values, h), 20),
+            "bound_ms": bounds.bound_ms(bounds.hashmap_get_bytes(table, h))}
+    for label, codes in (("call", cw["codes"]), ("1mbp", cw["big"])):
+        depth, avg, site = call_inputs.scan_inputs(codes, table)
+        P = codes.numel() - k + 1
+        r = {"positions": P, "mutated_kmers": 4 * k * P,
+             "ms": cuda_graph_time_ms(lambda: call_engine._call_scan_cuda(
+                 codes, table, k, depth, avg, site), 5 if P > 100_000 else 20),
+             "eager_ms": cuda_time_ms(lambda: call_engine._call_scan_cuda(
+                 codes, table, k, depth, avg, site), 5 if P > 100_000 else 50),
+             "bound_ms": bounds.bound_ms(bounds.call_scan_bytes(codes, table, k))}
+        if P < 100_000:  # the plain version of 64M mutated k-mers is not timed
+            r["plain_ms"] = cuda_time_ms(
+                lambda: call_engine.call_scan_plain(codes, table, k, call_inputs.CALL_W), 2)
+        r["mutated_kmers_per_s"] = r["mutated_kmers"] / (r["ms"] / 1e3)
+        r["k1_windows_per_s"] = k1_windows_per_s
+        res[f"k9_{label}"] = r
+    for name, r in res.items():
+        say(f"time {name} on {card}: " + ", ".join(
+            f"{key} {val:.5g}" if isinstance(val, float) else f"{key} {val}"
+            for key, val in r.items()))
+    return res
+
+
+def run_call(dev, card: str, cw: dict) -> dict:
+    """``commands.call_cmd.run`` on the call workload (k=16, w=100, device
+    cuda), the counters zeroed just before and read just after (K1, K8
+    and K9 must run); its VCF and a ``-d`` run against the CPU plain
+    path's, byte for byte; on three slices of the reference, a ``--resume``
+    from the .progress sidecar cut in the middle of its second section
+    against the uninterrupted VCF; the seconds by phase, the map and the
+    share of planted variants called."""
+    import io
+
+    from rkmh_tpu_torch.commands import call_cmd
+
+    tmp = os.path.dirname(cw["ref"])
+    kw = dict(ref_files=[cw["ref"]], read_files=[cw["reads"]], ks=(16,), window_len=100)
+    vcf = os.path.join(tmp, "gpu.vcf")
+    stats: dict = {}
+    seconds, launches = driven(lambda: call_cmd.run(call_cmd.CallConfig(
+        out_file=vcf, device="cuda", **kw), stats=stats), "call",
+        ("window_hash", "hashmap_get", "call_scan"))
+    gpu = read_text(vcf)
+    cpu_vcf = os.path.join(tmp, "cpu.vcf")
+    t0 = time.perf_counter()
+    call_cmd.run(call_cmd.CallConfig(out_file=cpu_vcf, device="cpu", **kw))
+    cpu_s = time.perf_counter() - t0
+    require_same(gpu, read_text(cpu_vcf), "call VCF")
+    depth_gpu, depth_cpu = io.StringIO(), io.StringIO()
+    d_seconds, d_launches = driven(lambda: call_cmd.run(call_cmd.CallConfig(
+        show_depth=True, device="cuda", **kw), out=depth_gpu), "call -d",
+        ("window_hash", "hashmap_get", "call_scan"))
+    call_cmd.run(call_cmd.CallConfig(show_depth=True, device="cpu", **kw), out=depth_cpu)
+    require_same(depth_gpu.getvalue(), depth_cpu.getvalue(), "call -d")
+
+    keys = {"\t".join(ln.split("\t")[:5]) for ln in gpu.splitlines() if ln[:2] != "##"}
+    name = "HPV16REF"
+    called = sum(f"{name}\t{pos}\t.\t{r}\t{a}" in keys for pos, r, a, _ in cw["variants"])
+
+    seq = "".join(read_text(cw["ref"]).split("\n")[1:])
+    multi = os.path.join(tmp, "multi.fa")
+    with open(multi, "w") as fh:
+        fh.write(f">partA\n{seq[:2600]}\n>partB\n{seq[2500:5100]}\n>partC\n{seq[5000:]}\n")
+    mkw = {**kw, "ref_files": [multi]}
+    full = os.path.join(tmp, "multi.vcf")
+    call_cmd.run(call_cmd.CallConfig(out_file=full, device="cuda", **mkw))
+    with open(full + ".progress", "rb") as fh:
+        lines = fh.read().splitlines(keepends=True)
+    done = [i for i, ln in enumerate(lines) if b"ref_done" in ln]
+    with open(full + ".progress", "wb") as fh:
+        fh.write(b"".join(lines[: done[0] + 1 + (done[1] - done[0]) // 2]))
+    want = read_text(full)
+    os.remove(full)
+    r_seconds, r_launches = driven(lambda: call_cmd.run(call_cmd.CallConfig(
+        out_file=full, resume=True, device="cuda", **mkw)), "call --resume",
+        ("window_hash", "hashmap_get", "call_scan"))
+    require_same(read_text(full), want, "call --resume")
+    res = {"e2e_s": seconds, "phase_s": {key: v for key, v in stats.items() if key.endswith("_s")},
+           "map": {key: v for key, v in stats.items() if not key.endswith("_s")},
+           "planted": len(cw["variants"]), "planted_called": called,
+           "planted_called_share": called / len(cw["variants"]), "records": len(keys),
+           "cpu_s": cpu_s, "launches": launches}
+    say(f"call on {card}: {seconds:.3f} s e2e for 1,100 reads and a {len(seq)} bp reference "
+        f"(CPU plain path {cpu_s:.2f} s, VCF byte-identical); by phase {res['phase_s']}; "
+        f"map {res['map']}; {len(keys)} VCF records, {called} of {len(cw['variants'])} planted "
+        f"variants called; -d {d_seconds:.3f} s, byte-identical; --resume from a sidecar cut "
+        f"mid-section {r_seconds:.3f} s, equal to the uninterrupted VCF")
+    return {"call": res, "call -d": {"e2e_s": d_seconds, "launches": d_launches},
+            "call --resume": {"e2e_s": r_seconds, "launches": r_launches}}
+
+
+def run_stream_stdin(card: str, zika: dict) -> dict:
+    """``stream -i`` in a child process (``python3 -m rkmh_tpu_torch.cli``,
+    device cuda): the slice's 2**20 reads piped in must give the file-mode
+    run's stdout; then, on a pipe held open, the seconds until the lines
+    of 100 reads arrive (the first 100 include the start-up, the next 100
+    show the idle flush; the last record written waits for the next
+    header, as the parser reads one line ahead)."""
+    import queue
+    import subprocess
+    import threading
+
+    argv = [sys.executable, "-m", "rkmh_tpu_torch.cli", "stream", "-r", zika["refs"], "-i",
+            "-k", "12", "-s", "1000"]
+    want = os.path.join(zika["dir"], "gpu.tsv")  # the slice's file-mode output
+    out = os.path.join(zika["dir"], "stdin.tsv")
+    t0 = time.perf_counter()
+    with open(zika["reads"], "rb") as src, open(out, "wb") as dst:
+        rc = subprocess.run(argv, stdin=src, stdout=dst, cwd=REPO, timeout=600).returncode
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"stream -i exited {rc}")
+    same_file(out, want, "stream -i against file mode")
+    os.remove(out)
+
+    with open(zika["reads"], "rb") as fh:
+        records = [b"".join(fh.readline() for _ in range(4)) for _ in range(200)]
+    proc = subprocess.Popen(argv, stdin=subprocess.PIPE, stdout=subprocess.PIPE, cwd=REPO)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True)
+    reader.start()
+    # the parser reads one line past a FASTQ record before it yields the
+    # record, so the last record written waits for the next header (or EOF)
+    got, waits = [], []
+    try:
+        for part, expect in ((records[:100], 99), (records[100:], 100)):
+            t0 = time.perf_counter()
+            proc.stdin.write(b"".join(part))
+            proc.stdin.flush()
+            for _ in range(expect):
+                got.append(lines.get(timeout=300))
+            waits.append(time.perf_counter() - t0)
+        proc.stdin.close()
+        got.append(lines.get(timeout=120))
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(10)
+    if rc != 0:
+        raise AssertionError(f"stream -i on an open pipe exited {rc}")
+    require_same(b"".join(got).decode(), head_lines(want, 200), "stream -i on an open pipe")
+    res = {"e2e_s": seconds, "e2e_reads_per_s": N_SLICE_READS / seconds,
+           "first_100_lines_s": waits[0], "next_100_lines_s": waits[1]}
+    say(f"stream -i on {card}: {N_SLICE_READS} reads piped in, {res['e2e_reads_per_s']:.1f} "
+        f"reads/s ({seconds:.3f} s, the child's start-up included), stdout equal to file mode; "
+        f"on an open pipe the lines of the first 100 reads (99: the last waits for the next "
+        f"header) arrived after {waits[0]:.3f} s (start-up included), of the next 100 after "
+        f"{waits[1]:.3f} s")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1796,11 +2100,24 @@ def main() -> int:
         resumed = run_resume(dev, card_smi, zika, hashed)
         k1_hash = time_slice_library_calls(codes, hashes, card_smi)
         k6_count = time_k6_count_shape(dev, hashes, card_smi)
+        run_stream_stdin(card_smi, zika)
     hpm = run_hpv16_counter(dev, card_smi)
+    with tempfile.TemporaryDirectory() as work:
+        from rkmh_tpu_torch.bench import call_inputs
+
+        t0 = time.perf_counter()
+        cw = call_inputs.call_workload(dev, work)
+        say(f"call input: 1,100 reads, map {cw['map_stats']}, a 1 Mbp reference; made in "
+            f"{time.perf_counter() - t0:.2f} s")
+        err_k8 = check_k8(dev, cw)
+        err_k9 = check_k9(dev, cw)
+        call_times = time_call_kernels(
+            cw, card_smi, codes.shape[0] * (codes.shape[1] - 11) / (times["window_hash"] / 1e3))
+        called = run_call(dev, card_smi, cw)
     paths = {"stream": sl, "hpv16": hp, "stream -M -I": st_mi, "filter": fl, "hpv16 -M": hpm,
              **{k: v for k, v in sketches.items() if k != "setup_s"},
              **{k: v for k, v in hashed.items() if k.startswith("hash")},
-             "count": counted, "search": searched, **resumed}
+             "count": counted, "search": searched, **resumed, **called}
 
     def launched(name):
         return sum(r["launches"].get(name, 0) for r in paths.values())
@@ -1845,6 +2162,15 @@ def main() -> int:
             "lut_gather_lanes_by_route"], **k5_extra),
         counter_entry("counter_add", 37, count_shape=k6_count),
         counter_entry("counter_mask", 46, hpv16_m_shape=k7_hpv16),
+        {**entry("hashmap_get", "hashmap.cu", "rkmh_tpu/ops/hashmap.py:159", err_k8,
+                 call_times["k8_scan"]["ms"], call_times["k8_scan"]["eager_ms"],
+                 call_times["k8_scan"]["plain_ms"], call_times["k8_scan"]["bound_ms"],
+                 call_times["k8_scan"]["library_ms"]), "at_2e20": call_times["k8_2e20"]},
+        {**entry("call_scan", "call_scan.cu", "rkmh_tpu/call_engine.py:54", err_k9,
+                 call_times["k9_call"]["ms"], call_times["k9_call"]["eager_ms"],
+                 call_times["k9_call"]["plain_ms"], call_times["k9_call"]["bound_ms"]),
+         "mutated_kmers_per_s": call_times["k9_call"]["mutated_kmers_per_s"],
+         "at_1mbp": call_times["k9_1mbp"]},
     ]}
     say(smi)
     say(json.dumps(record))

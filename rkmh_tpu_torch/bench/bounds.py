@@ -10,7 +10,11 @@ among its published peaks, so every bound here is by bytes.
 
 The probe statistics come from the plain pieces (``ops/lookup``), on the
 tensors' device: which bucket rows the valid elements probe, which slots
-they hit, and how many reference bits each hit's mask holds.
+they hit, and how many reference bits each hit's mask holds.  For the
+exact map of ``call`` (K8, K9) a lookup needs the 16-byte slot of its
+first probe and, where the key is not there, of its second
+(``hashmap_sector_ids``); K9's queries are its mutated k-mers, hashed by
+the plain pieces (``call_engine.mutation_hashes``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
+from rkmh_tpu_torch.ops.hashmap import slots as map_slots
 from rkmh_tpu_torch.ops.intersect import occ_ranks, prefix_eq_ranks
 from rkmh_tpu_torch.ops.lookup import M32, bucket_indices, table_slots
 from rkmh_tpu_torch.ops.sketch import SENTINEL
@@ -125,3 +130,39 @@ def read_row_bytes(rows: torch.Tensor, lens: torch.Tensor | None) -> int:
     if lens is None:
         return tensor_bytes(rows)
     return int(lens.clamp(max=rows.shape[-1]).sum()) * rows.element_size()
+
+
+def hashmap_sector_ids(table: torch.Tensor, hashes: torch.Tensor) -> torch.Tensor:
+    """The distinct 32-byte sectors of a [T, 4] int32 map table that
+    lookups of ``hashes`` need: each key's first slot, and its second
+    where the first does not hold it."""
+    h = hashes.reshape(-1)
+    s1, s2 = map_slots(h, table.shape[0])
+    e = table[s1].to(torch.int64)
+    at_first = ((e[:, 3] != 0) & ((e[:, 0] & M32) == ((h >> 32) & M32))
+                & ((e[:, 1] & M32) == (h & M32)))
+    return torch.unique(torch.cat([s1, s2[~at_first]]) * 16 // SECTOR)
+
+
+def hashmap_get_bytes(table: torch.Tensor, hashes: torch.Tensor) -> int:
+    """K8: the keys in, the values out, the table sectors reached."""
+    return (12 * hashes.numel()
+            + int(hashmap_sector_ids(table, hashes).numel()) * SECTOR)
+
+
+def call_scan_bytes(ref_codes: torch.Tensor, table: torch.Tensor, k: int,
+                    chunk: int = 16384) -> int:
+    """K9 on one reference row: the codes (and the pad code) and depth,
+    avg and site in; snp_depth, snp_call, max_rescue, del_depth and
+    del_call out; the table sectors its 4k mutated k-mers a position
+    reach (hashed chunk by chunk of positions)."""
+    from rkmh_tpu_torch.call_engine import mutation_hashes
+
+    P = ref_codes.shape[0] - k + 1
+    ids = []
+    for j0 in range(0, P, chunk):
+        _, snp, dels = mutation_hashes(ref_codes, k, j0, min(j0 + chunk, P))
+        ids.append(hashmap_sector_ids(table, torch.cat([snp.reshape(-1), dels.reshape(-1)])))
+    sectors = int(torch.unique(torch.cat(ids)).numel()) if ids else 0
+    return (ref_codes.numel() + 1 + 9 * P + 4 * P * k * 5 + 4 * P
+            + sectors * SECTOR)

@@ -5,7 +5,9 @@ turns, in one process on one card.
                                              [--only PREFIX ...]
 
 ``--old-csrc`` DIR holds earlier versions of some of ``window_hash.cu``,
-``panel_probe.cu``, ``counter.cu``, ``set_probe.cu`` and ``lut_gather.cu``,
+``panel_probe.cu``, ``counter.cu``, ``set_probe.cu``, ``lut_gather.cu``,
+``hashmap.cu`` and ``call_scan.cu`` (headers they include that DIR lacks
+come from this checkout's ``csrc/``),
 for example an earlier commit's (``git show REV:rkmh_tpu_torch/csrc/counter.cu
 > DIR/counter.cu``), whose entry points have this checkout's parameter
 lists (read from both sources; the script refuses a directory whose
@@ -41,7 +43,12 @@ measures the Python launch path), at:
   with M = 77 (``k5_300x77``, the staged route's: M % 4 != 0),
   beside the launch floor: an empty kernel (``bench/diag_launch.cu``) on
   the grids of either K5 route and on one block, in graph replay
-  (``launch_floor_ms``).
+  (``launch_floor_ms``);
+* call's workload (``bench/call_inputs``: HPV16REF and the depth map of
+  1,100 nanopore-like reads, k=16, w=100): K8 on the reference's
+  positional hashes (``k8_scan``) and on 2**20 read hashes (``k8_2e20``),
+  K9 on the reference (``k9_call``) and on a 1 Mbp reference against the
+  same map (``k9_1mbp``, checked on its first 20,000 positions).
 
 K6's diagnostics (printed, and under ``k6_diagnostics`` in the JSON):
 one atomicAdd per slot computed beforehand (``bench/diag_atomics.cu``),
@@ -77,8 +84,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rkmh_tpu_torch import synth
-from rkmh_tpu_torch.bench import bounds
+from rkmh_tpu_torch import call_engine, synth
+from rkmh_tpu_torch.bench import bounds, call_inputs
 from rkmh_tpu_torch.bench.timing import (
     card_name_and_power_limit,
     cuda_graph_time_ms,
@@ -87,7 +94,7 @@ from rkmh_tpu_torch.bench.timing import (
 )
 from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.io.packing import CODE_LUT, encode_seqs
-from rkmh_tpu_torch.ops import counter, gather, kernels
+from rkmh_tpu_torch.ops import counter, gather, hashmap, kernels
 from rkmh_tpu_torch.ops.hashing import (
     _window_hashes_cuda,
     kmer_window_hashes_plain,
@@ -102,10 +109,12 @@ from rkmh_tpu_torch.ops.probe import (
 from rkmh_tpu_torch.ops.set_probe import _set_probe_cuda, set_probe_plain
 from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
 
-SOURCES = ("window_hash.cu", "panel_probe.cu", "counter.cu", "set_probe.cu", "lut_gather.cu")
+SOURCES = ("window_hash.cu", "panel_probe.cu", "counter.cu", "set_probe.cu", "lut_gather.cu",
+           "hashmap.cu", "call_scan.cu")
 SWAPPED = (kernels.WINDOW_HASH, kernels.PANEL_PROBE, kernels.PANEL_PROBE_FILTER,
            kernels.COUNTER_ADD, kernels.COUNTER_MASK, kernels.SET_PROBE,
-           kernels.LUT_GATHER_ROWS, kernels.LUT_GATHER_LANES)
+           kernels.LUT_GATHER_ROWS, kernels.LUT_GATHER_LANES, kernels.HASHMAP_GET,
+           kernels.CALL_SCAN)
 _p, _i64 = ctypes.c_void_p, ctypes.c_int64
 DIAG_ADD_SLOTS = kernels.Kernel("rkmh_diag_add_slots", [_p, _i64, _p])
 DIAG_SOURCE = Path(__file__).resolve().parent / "diag_atomics.cu"
@@ -122,6 +131,7 @@ K5_SHAPES = {"512": (512, 128), "512x512": (512, 512), "300x77": (300, 77)}
 # grids (blocks, threads) of the launch floor: K5's reg route and staged route at
 # N = 512, and one block
 FLOOR_GRIDS = ((128, 128), (512, 128), (1, 32))
+K9_CHECKED = 20_000  # positions of the 1 Mbp scan held against the plain version
 ITERS = 50        # eager calls per timing
 GRAPH_CALLS = 20  # calls per CUDA graph, replayed 5 times
 
@@ -276,13 +286,17 @@ class Case:
 
 
 def equals(plain):
-    """A check for a call that returns its result: equal to plain()."""
+    """A check for a call that returns its result (a tensor or a tuple of
+    them): equal to plain()."""
     want = []
 
     def check(fn):
         if not want:
             want.append(plain())
-        return torch.equal(fn(), want[0])
+        got, ref = fn(), want[0]
+        if isinstance(ref, tuple):
+            return all(torch.equal(a, b) for a, b in zip(got, ref, strict=True))
+        return torch.equal(got, ref)
     return check
 
 
@@ -485,6 +499,35 @@ def main(argv=None) -> int:
     K1, K2, K2F = (kernels.WINDOW_HASH,), (kernels.PANEL_PROBE,), (kernels.PANEL_PROBE_FILTER,)
     K6, K3 = (kernels.COUNTER_ADD,), (kernels.SET_PROBE,)
     K7, K4, K5 = (kernels.COUNTER_MASK,), (kernels.LUT_GATHER_ROWS,), (kernels.LUT_GATHER_LANES,)
+    K8, K9 = (kernels.HASHMAP_GET,), (kernels.CALL_SCAN,)
+    ck = call_inputs.CALL_K
+    with tempfile.TemporaryDirectory() as tmp:
+        cw = call_inputs.call_workload(dev, tmp)
+    ctable = cw["table"]
+    pos_hashes = call_engine.positional_hashes(cw["codes"], ck)
+    scans = {key: (codes_, *call_inputs.scan_inputs(codes_, ctable))
+             for key, codes_ in (("k9_call", cw["codes"]), ("k9_1mbp", cw["big"]))}
+    say(f"call workload: map {cw['map_stats']}, reference {cw['codes'].numel()} codes, "
+        f"1 Mbp reference {cw['big'].numel()} codes")
+
+    def k8_case(h):
+        return Case(K8, lambda: hashmap._hashmap_get_cuda(ctable, h),
+                    check=equals(lambda: hashmap.hashmap_get_plain(ctable, h)))
+
+    def k9_case(key, positions=None):
+        codes_, depth, avg, site = scans[key]
+        n = positions or codes_.numel() - ck + 1
+
+        def plain():
+            return call_engine._enumerate_plain(codes_, ctable, ck, depth, avg, site, 0, n)
+
+        def first(fn):  # the kernel's outputs at the plain version's positions
+            return lambda: tuple(t[:n] for t in fn())
+
+        check = equals(plain)
+        return Case(K9, lambda: call_engine._call_scan_cuda(codes_, ctable, ck, depth, avg,
+                                                            site),
+                    check=lambda fn: check(first(fn)))
 
     def k6_case(table, h, win, msk, **kw):
         return Case(K6, lambda: counter._counter_add_cuda(table, h, None, win, **kw),
@@ -547,6 +590,10 @@ def main(argv=None) -> int:
         "k5_512_smem": k5_case("512", "smem"),
         "k5_512x512": k5_case("512x512"),
         "k5_300x77": k5_case("300x77"),
+        "k8_scan": k8_case(pos_hashes),
+        "k8_2e20": k8_case(cw["read_hashes"]),
+        "k9_call": k9_case("k9_call"),
+        "k9_1mbp": k9_case("k9_1mbp", K9_CHECKED),
     }
     if args.only:
         cases = {c: v for c, v in cases.items() if c.startswith(tuple(args.only))}
@@ -584,6 +631,12 @@ def main(argv=None) -> int:
              **{f"k5_{key}": bounds.bound_ms(bounds.tensor_bytes(lut, idx, idx))  # out = idx
                 for key, (lut, idx) in k5_luts.items()}}
     bound["k5_512_smem"] = bound["k5_512"]
+    if any(c.startswith(("k8", "k9")) for c in cases):
+        bound.update({"k8_scan": bounds.bound_ms(bounds.hashmap_get_bytes(ctable, pos_hashes)),
+                      "k8_2e20": bounds.bound_ms(bounds.hashmap_get_bytes(ctable,
+                                                                          cw["read_hashes"])),
+                      **{key: bounds.bound_ms(bounds.call_scan_bytes(scans[key][0], ctable, ck))
+                         for key in scans}})
     say(f"K2 raw rows: {raw_stats.probes / B:.2f} probes, {raw_stats.hits / B:.2f} hits per "
         f"read, {raw_stats.mask_bits / max(raw_stats.hits, 1):.2f} of {R} mask bits set per "
         f"hit, {raw_stats.table_bytes} table bytes reached; K3: {vars(k3_stats)}; "

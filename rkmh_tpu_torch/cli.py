@@ -1,8 +1,8 @@
-"""Command line: ``rkmh-tpu-torch {stream|classify|filter|hpv16|hash|count|search}``.
+"""Command line: ``rkmh-tpu-torch {stream|classify|filter|hpv16|hash|count|search|call}``.
 
 The flags are those of ``rkmh-tpu`` (``rkmh_tpu/cli.py``), with its
 defaults, plus ``--device`` (``cuda`` by default, ``cpu`` for the plain
-path).  Ported: ``stream``'s ``-r -f -k -s -M -N -D -I -t --counter-size
+path).  Ported: ``stream``'s ``-r -f -k -s -M -N -D -I -i -t --counter-size
 --batch-size --chunk-reads --ref-sketches -R -o --resume``, ``filter``'s
 ``-r -f -k -s -M -N -D -I -i -t --counter-size --batch-size --chunk-reads
 --ref-sketches -R -o --resume``, ``hpv16``'s ``-f -R -k -s -M -t -N -D
@@ -10,18 +10,19 @@ path).  Ported: ``stream``'s ``-r -f -k -s -M -N -D -I -t --counter-size
 -r -k -s -t -K -w -c -o --json --sourmash --batch-size --chunk-reads --out
 --resume`` (``-M -I -m -T`` accepted with rkmh-tpu's warnings),
 ``count``'s ``-f -k -t --counter-size --batch-size -o --dump
---chunk-reads`` and ``search``'s ``-f -r -k -t --batch-size --chunk-reads
--o --resume``.  ``-R`` of stream and filter is an alias of
-``--ref-sketches`` (rkmh's own -R is dead), with rkmh-tpu's warning when
-both are given.  ``stream -i`` (and ``classify -i``) with ``-f`` runs as in
-rkmh-tpu: it logs that -i is ignored and classifies the files.  rkmh's
-dead parity flags (``-S -F -p -q -d``, and ``-z -m`` for stream) are
-accepted with rkmh-tpu's warnings.  Every other flag of rkmh-tpu
-(``--devices``, ``--tp``, ``--dist-*``, ``--metrics``, and ``-i`` of
-stream without ``-f``) is parsed and rejected with an error naming it
-(for ``hpv16``: when it would change what runs,
-``commands.hpv16_cmd.not_ported``), so an rkmh-tpu command line never runs
-with a flag silently dropped.  ``call`` is not ported yet.
+--chunk-reads``, ``search``'s ``-f -r -k -t --batch-size --chunk-reads
+-o --resume`` and ``call``'s ``-r -f -k -s -t -w -d -o --resume`` (``-s``
+and ``-t`` accepted and unused, as in rkmh-tpu).  ``-R`` of stream and
+filter is an alias of ``--ref-sketches`` (rkmh's own -R is dead), with
+rkmh-tpu's warning when both are given.  ``stream -i`` (and ``classify
+-i``) classifies stdin, flushed batch by batch; with ``-f`` it logs that
+-i is ignored and classifies the files, as rkmh-tpu does.  rkmh's dead
+parity flags (``-S -F -p -q -d``, and ``-z -m`` for stream) are accepted
+with rkmh-tpu's warnings.  Every other flag of rkmh-tpu (``--devices``,
+``--tp``, ``--dist-*``, ``--metrics``) is parsed and rejected with an
+error naming it (for ``hpv16``: when it would change what runs,
+``commands.hpv16_cmd.not_ported``), so an rkmh-tpu command line never
+runs with a flag silently dropped.
 """
 
 from __future__ import annotations
@@ -32,8 +33,7 @@ import sys
 from rkmh_tpu_torch.device import DEFAULT_DEVICE
 
 # (flags, dest, argparse keywords) of rkmh-tpu flags the port does not
-# run yet (stream -i: only without -f, checked in main); hash, count and
-# search have no --tp
+# run yet; hash, count, search and call have no --tp
 _NOT_PORTED = (
     (("--devices",), "devices", {"type": int}),
     (("--tp",), "tp", {"type": int}),
@@ -130,8 +130,7 @@ def _add_classify_parser(sub, name: str):
                         "written, append the rest")
     _add_dead_flags(p, stream=name != "filter")
     p.add_argument("-i", "--in-stream", action="store_true", dest="in_stream",
-                   help="classify reads from stdin" if name == "filter" else
-                   "ignored with -f, as in rkmh (stdin streaming is not ported yet)")
+                   help="classify reads from stdin (ignored with -f, as in rkmh)")
     _add_not_ported(p)
 
 
@@ -221,6 +220,28 @@ def _add_hash_parsers(sub) -> None:
     _add_not_ported(p, tp=False)
 
 
+def _add_call_parser(sub):
+    """call: rkmh-tpu's flags and defaults (rkmh_tpu/cli.py:216-235)."""
+    p = sub.add_parser("call")
+    p.add_argument("-r", "--reference", action="append", default=[], dest="refs")
+    p.add_argument("-f", "--fasta", action="append", default=[], dest="reads")
+    p.add_argument("-k", "--kmer", action="append", type=int, default=[], dest="ks")
+    p.add_argument("-s", "--sketch", type=int, default=1000,
+                   help="accepted for rkmh parity; no effect")
+    p.add_argument("-t", "--threads", type=int, default=1,
+                   help="accepted for rkmh parity; no effect")
+    p.add_argument("-w", "--window-len", type=int, default=100)
+    p.add_argument("-d", "--show-depth", action="store_true")
+    p.add_argument("-o", "--output", default="", dest="out_file",
+                   help="write the VCF here (required for --resume)")
+    p.add_argument("--resume", action="store_true",
+                   help="skip references whose partial aggregates are already "
+                        "checkpointed in <out>.progress")
+    p.add_argument("--device", default=DEFAULT_DEVICE,
+                   help="cuda (default; an error without a GPU) or cpu")
+    _add_not_ported(p, tp=False)
+
+
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="rkmh-tpu-torch",
@@ -231,6 +252,7 @@ def build_parser():
         _add_classify_parser(sub, name)
     _add_hpv16_parser(sub)
     _add_hash_parsers(sub)
+    _add_call_parser(sub)
     return ap
 
 
@@ -328,6 +350,16 @@ def _run_search(args):
     ))
 
 
+def _run_call(args):
+    from rkmh_tpu_torch.commands.call_cmd import CallConfig, run
+
+    return run(CallConfig(
+        ref_files=args.refs, read_files=args.reads, ks=tuple(args.ks),
+        window_len=args.window_len, show_depth=args.show_depth, out_file=args.out_file,
+        resume=args.resume, device=args.device,
+    ))
+
+
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -339,13 +371,12 @@ def main(argv=None) -> int:
     else:
         given = [flags[0] for flags, dest, _ in _NOT_PORTED
                  if getattr(args, dest, None) is not None]  # given (--dist-rank 0 too)
-        if args.command in ("stream", "classify") and args.in_stream and not args.reads:
-            given.append("-i")  # stdin streaming (rkmh_tpu/commands/stream.py:315)
     if given:
         ap.error(f"{args.command}: {', '.join(given)} not yet ported to rkmh-tpu-torch")
     run = {"hpv16": lambda: _run_hpv16(cfg), "filter": lambda: _run_filter(args),
            "hash": lambda: _run_hash(args), "count": lambda: _run_count(args),
-           "search": lambda: _run_search(args)}.get(args.command, lambda: _run_stream(args))
+           "search": lambda: _run_search(args),
+           "call": lambda: _run_call(args)}.get(args.command, lambda: _run_stream(args))
     try:
         return run()
     except (FileNotFoundError, IsADirectoryError, PermissionError) as e:

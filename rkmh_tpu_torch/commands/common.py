@@ -179,6 +179,13 @@ def load_packed(paths):
     return merged
 
 
+def load_records(paths) -> list:
+    """Parse files, concatenated in order, into SeqRecords by the Python
+    parser (``rkmh_tpu/commands/common.py:216``; ``call`` reads its
+    references so)."""
+    return read_fastx(paths)
+
+
 def resolve_chunk_reads(requested: int) -> int:
     """Reads per parsed chunk; 0 = the default (65536)."""
     return requested if requested and requested > 0 else DEFAULT_CHUNK_READS

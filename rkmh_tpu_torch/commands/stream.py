@@ -21,14 +21,21 @@ sourmash or ``mash info -d``) in place of hashing -r files
 (:500-504).  With -o FILE --resume, FILE's complete lines count the reads
 already classified; a torn last line is cut, those reads are skipped after
 the -M counter pass, which still counts every read, and the rest is
-appended (:441-470, ``commands/recovery``).  Not ported yet: -i without -f
-(stdin streaming), --devices / --tp and --dist-*.
+appended (:441-470, ``commands/recovery``).  -i without -f classifies
+stdin as it arrives (``_run_stdin``, :315-425): a reader thread parses
+records into a bounded queue, batches go to the device as they fill (or,
+when the input stalls, as they are), and each batch's lines are written
+and flushed once its result lands; with -M the stream is buffered and run
+in two passes (:489-498).  Not ported yet: --devices / --tp and --dist-*.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import sys
+import threading
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -51,7 +58,13 @@ from rkmh_tpu_torch.commands.common import (
 )
 from rkmh_tpu_torch.commands.recovery import count_complete_lines, skip_reads
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from rkmh_tpu_torch.io.fastx import iter_fastx
 from rkmh_tpu_torch.io.native import format_lines_block
+from rkmh_tpu_torch.io.packing import encode_seqs
+
+# the most lines dispatched but not yet written at once in the last -i run
+# (at most 3 batches: the bound on what a live stream holds back)
+last_peak_buffered_lines = 0
 
 
 @dataclass
@@ -70,7 +83,7 @@ class StreamConfig:
     ref_sketches: str = ""       # --ref-sketches / -R: panel from a sketch file
     out_file: str = ""           # -o: write here instead of stdout
     resume: bool = False         # --resume: go on with a partial -o file
-    in_stream: bool = False      # -i: ignored with -f; stdin alone is not ported
+    in_stream: bool = False      # -i: classify stdin (ignored with -f)
     device: str = DEFAULT_DEVICE
 
 
@@ -120,7 +133,98 @@ class _NativeFormatCtx:
                                   self.ref_offs, self.tails_blob, self.tail_offs).decode()
 
 
-def run(cfg: StreamConfig, out=None) -> int:
+# -i liveness: how long the consumer waits for input before it (a) writes
+# the lines of a batch already dispatched, (b) dispatches a partial batch
+_STDIN_DRAIN_IDLE_S = 0.05
+_STDIN_FLUSH_IDLE_S = 0.25
+_IDLE = object()
+_EOF = object()
+
+
+def _run_stdin(cfg: StreamConfig, out, panel, ks, batch_size: int, device, stdin) -> int:
+    """stream -i: classify a stream (``stdin``, or the process's stdin)
+    with low latency, byte-identical to file mode.  A reader thread parses
+    records into a queue of at most 4 batches; the consumer fills batches,
+    keeps up to 3 in flight on the device and writes and flushes each
+    batch's lines as its result is fetched.  On a source that stalls
+    (``tail -f``) it first writes the results of dispatched batches, then
+    dispatches the partial batch, rather than wait for more input.  A
+    parse error in the reader thread is raised here, after the lines of
+    the whole batches before it (as in rkmh-tpu, the partial batch is
+    dropped)."""
+    global last_peak_buffered_lines
+    last_peak_buffered_lines = 0
+    src = stdin if stdin is not None else "-"
+    q: queue.Queue = queue.Queue(maxsize=4 * batch_size)
+
+    def read():
+        try:
+            for rec in iter_fastx(src):
+                q.put(rec)
+            q.put(_EOF)
+        except BaseException as e:  # raised by the consumer, not taken for EOF
+            q.put(e)
+
+    threading.Thread(target=read, name="rkmh-stdin", daemon=True).start()
+    pending: deque = deque()  # (records, device result) in input order
+
+    def emit():
+        recs, res = pending.popleft()
+        out.write("".join(format_lines_host(panel.keys, [r.name for r in recs],
+                                            res.cpu().numpy(), cfg.sketch_size)))
+        out.flush()
+
+    def dispatch(recs):
+        global last_peak_buffered_lines
+        codes, _ = encode_seqs([r.seq for r in recs])
+        batch = torch.from_numpy(codes).to(device, non_blocking=True)
+        pending.append((recs, engine.classify_codes_table(
+            batch, panel, ks, cfg.sketch_size, cfg.min_diff, cfg.min_matches)))
+        last_peak_buffered_lines = max(last_peak_buffered_lines,
+                                       sum(len(r) for r, _ in pending))
+
+    def get(timeout):
+        try:
+            return q.get(timeout=timeout)
+        except queue.Empty:
+            return _IDLE
+
+    batch: list = []
+    err = None
+    while True:
+        rec = get(_STDIN_DRAIN_IDLE_S) if (pending or batch) else q.get()
+        if rec is _IDLE:
+            if pending:  # input idle: first write what has been classified
+                emit()
+                continue
+            rec = get(_STDIN_FLUSH_IDLE_S)  # then, still idle, the partial batch
+            if rec is _IDLE:
+                dispatch(batch)
+                batch = []
+                continue
+        if rec is _EOF:
+            break
+        if isinstance(rec, BaseException):
+            err = rec
+            break
+        batch.append(rec)
+        if len(batch) >= batch_size:
+            dispatch(batch)
+            batch = []
+            if len(pending) > 2:
+                emit()
+    if batch and err is None:
+        dispatch(batch)
+    while pending:
+        emit()
+    if err is not None:
+        raise err
+    return 0
+
+
+def run(cfg: StreamConfig, out=None, stdin=None) -> int:
+    """``stdin``: the stream -i reads (a binary file object; default the
+    process's stdin)."""
     if cfg.resume and not cfg.out_file:
         log("stream --resume requires -o <file> (resume state is the "
             "partial output itself); refusing to reclassify to stdout")
@@ -135,32 +239,40 @@ def run(cfg: StreamConfig, out=None) -> int:
             resume_skip, mode = count_complete_lines(cfg.out_file), "a"
             log(f"Resuming: {resume_skip} reads already classified in {cfg.out_file}")
         with open(cfg.out_file, mode) as fh:
-            return _run(cfg, fh, resume_skip)
-    return _run(cfg, out or sys.stdout)
+            return _run(cfg, fh, resume_skip, stdin)
+    return _run(cfg, out or sys.stdout, stdin=stdin)
 
 
-def _run(cfg: StreamConfig, out, resume_skip: int = 0) -> int:
-    if cfg.in_stream and not cfg.read_files:
-        raise ValueError("stream -i without -f (stdin streaming) is not yet ported")
+def _run(cfg: StreamConfig, out, resume_skip: int = 0, stdin=None) -> int:
     device = resolve_device(cfg.device)
     batch_size = resolve_batch_size(cfg.batch_size, device)
     chunk_reads = resolve_chunk_reads(cfg.chunk_reads)
     ks = tuple(cfg.ks) if cfg.ks else (DEFAULT_KMER,)
     if not cfg.ks:
         log("No kmer size(s) provided. Will use a default kmer size of 16.")
-    if cfg.in_stream:
+    read_files, in_stream = cfg.read_files, cfg.in_stream
+    if in_stream and read_files:
         log("stream -i ignored: -f inputs were given (rkmh classified the "
             "files here too — its -i is dead); classifying the files")
+        in_stream = False
+    if in_stream and cfg.min_kmer_occ >= 0:
+        # -M counts every read before any is classified: the stream is
+        # buffered and read twice (two_pass_chunks), its lines written at EOF
+        log("stream -i with -M: global depth counting buffers the stream "
+            "(two passes); output is emitted after EOF.")
+        read_files, in_stream = [stdin if stdin is not None else "-"], False
 
     panel = load_or_build_panel(cfg.ref_files, cfg.ref_sketches, ks, cfg.sketch_size, device,
                                 max_samples=cfg.max_samples, counter_size=cfg.counter_size)
+    if in_stream:
+        return _run_stdin(cfg, out, panel, ks, batch_size, device, stdin)
     counter = None
     if cfg.min_kmer_occ >= 0:
-        pass1, pass2 = two_pass_chunks(cfg.read_files, chunk_reads)
+        pass1, pass2 = two_pass_chunks(read_files, chunk_reads)
         counter = count_read_kmers(pass1, ks, cfg.counter_size, batch_size, device).table
         chunks = pass2()
     else:
-        chunks = iter_packed_chunks(cfg.read_files, chunk_reads)
+        chunks = iter_packed_chunks(read_files, chunk_reads)
     if resume_skip:  # the -M counter pass above counted every read
         chunks = skip_reads(chunks, resume_skip)
 

@@ -5,6 +5,8 @@ table, and its ``Hpv16Tables.comb_table`` is a uint32 set table; as numpy
 arrays they become the port's tensors by reinterpreting the bits as int64
 and int32.  A ``HashCounter``'s int32 table (``.to_numpy()``) carries over
 as it is, and so does the table ``count -o`` saves (either package's npz).
+A ``HashMap``'s four arrays (``call``'s depth map) become the port's one
+[T, 4] table.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from rkmh_tpu_torch.commands.common import RefPanel
 from rkmh_tpu_torch.ops.counter import HashCounter
+from rkmh_tpu_torch.ops.hashmap import HashMap, map_table
 from rkmh_tpu_torch.ops.lookup import table_slots
 
 
@@ -61,3 +64,16 @@ def counter_from_npz(path, device) -> HashCounter:
     if table.shape != (size,):
         raise ValueError(f"{path}: a table of shape {table.shape} for a counter size of {size}")
     return counter_from_numpy(table, device)
+
+
+def hashmap_from_numpy(hash_hi, hash_lo, used, values, device) -> torch.Tensor:
+    """The four [T] arrays of a ``HashMap`` (the JAX package's, or this
+    port's numpy build: uint32 hi and lo halves, bool used flags, int32
+    values) -> the [T, 4] int32 (hi, lo, value, used) table on ``device``
+    that ``ops.hashmap.hashmap_get`` and the call scan read, bit for bit."""
+    hm = HashMap(np.asarray(hash_hi), np.asarray(hash_lo), np.asarray(used),
+                 np.asarray(values))
+    T = hm.used.shape[0]
+    if T & (T - 1) or any(a.shape != (T,) for a in (hm.hash_hi, hm.hash_lo, hm.values)):
+        raise ValueError("a hash map is four [T] arrays, T a power of two")
+    return map_table(hm, device)

@@ -39,8 +39,8 @@
 // k > 32, the byte-wise variant (any k).  A block stages the codes of its
 // tile of TILE windows of one row (TILE + k - 1 bytes) in shared memory
 // and each thread decides the strand by a byte-wise compare from the
-// outside in.  Multi-k runs one launch per k into its column block of one
-// [B, sum W] output.
+// outside in (murmur3.cuh, shared with K9's mutated k-mers).  Multi-k
+// runs one launch per k into its column block of one [B, sum W] output.
 
 #include <algorithm>
 #include <array>
@@ -48,7 +48,12 @@
 #include <utility>
 #include <cuda_runtime.h>
 
+#include "murmur3.cuh"
+
 namespace {
+
+using rkmh::murmur_block;
+using rkmh::murmur_finish;
 
 constexpr int PT = 256;            // packed variant: threads per block
 constexpr int WPT = 4;             // windows per thread
@@ -59,56 +64,6 @@ constexpr int MAX_PACKED_K = 32;
 constexpr int SPAN_WORDS = BW * MAX_PACKED_K / 32 + 1;
 constexpr int TILE = 128;        // byte-wise variant: windows (= threads) per block
 constexpr unsigned FULL = 0xFFFFFFFFu;
-
-constexpr uint64_t C1 = 0x87C37B91114253D5ULL;
-constexpr uint64_t C2 = 0x4CF5AD432745937FULL;
-
-__device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
-  return (x << r) | (x >> (64 - r));
-}
-
-__device__ __forceinline__ uint64_t fmix64(uint64_t k) {
-  k ^= k >> 33;
-  k *= 0xFF51AFD7ED558CCDULL;
-  k ^= k >> 33;
-  k *= 0xC4CEB9FE1A85EC53ULL;
-  k ^= k >> 33;
-  return k;
-}
-
-// One 16-byte block of the murmur body.
-__device__ __forceinline__ void murmur_block(uint64_t& h1, uint64_t& h2, uint64_t k1,
-                                             uint64_t k2) {
-  k1 *= C1; k1 = rotl64(k1, 31); k1 *= C2;
-  h1 ^= k1;
-  h1 = rotl64(h1, 27); h1 += h2;
-  h1 = h1 * 5 + 0x52DCEFB5ULL;
-  k2 *= C2; k2 = rotl64(k2, 33); k2 *= C1;
-  h2 ^= k2;
-  h2 = rotl64(h2, 31); h2 += h1;
-  h2 = h2 * 5 + 0x38495AB5ULL;
-}
-
-// The tail (tl = k % 16 bytes in words t1, t2) and the finaliser -> h1.
-__device__ __forceinline__ uint64_t murmur_finish(uint64_t h1, uint64_t h2, int k,
-                                                  uint64_t t1, uint64_t t2) {
-  const int tl = k & 15;
-  if (tl >= 9) {
-    t2 *= C2; t2 = rotl64(t2, 33); t2 *= C1;
-    h2 ^= t2;
-  }
-  if (tl >= 1) {
-    t1 *= C1; t1 = rotl64(t1, 31); t1 *= C2;
-    h1 ^= t1;
-  }
-  h1 ^= (uint64_t)k;
-  h2 ^= (uint64_t)k;
-  h1 += h2;
-  h2 += h1;
-  h1 = fmix64(h1);
-  h2 = fmix64(h2);
-  return h1 + h2;
-}
 
 // 32-bit x -> 64 bits with bit j of x at bit 2j.
 __device__ __forceinline__ uint64_t spread_bits(uint32_t v) {
@@ -247,20 +202,6 @@ std::array<PackedKernel, sizeof...(K)> packed_kernels(
 const std::array<PackedKernel, MAX_PACKED_K> PACKED_KERNELS =
     packed_kernels(std::make_integer_sequence<int, MAX_PACKED_K>());
 
-// Byte p of the canonical k-mer of the window starting at c.
-__device__ __forceinline__ uint64_t canon_byte(const uint8_t* c, int k, bool fwd, int p) {
-  const uint8_t code = fwd ? c[p] : (uint8_t)(3 - c[k - 1 - p]);
-  return code == 0 ? 65 : code == 1 ? 67 : code == 2 ? 71 : 84;  // A C G T
-}
-
-// Little-endian word of canonical bytes [p0, min(p0 + 8, k)).
-__device__ __forceinline__ uint64_t canon_word(const uint8_t* c, int k, bool fwd, int p0) {
-  uint64_t w = 0;
-  const int n = min(8, k - p0);
-  for (int j = 0; j < n; ++j) w |= canon_byte(c, k, fwd, p0 + j) << (8 * j);
-  return w;
-}
-
 __global__ void window_hash_bytewise_kernel(const uint8_t* __restrict__ codes, int L, int k,
                                             uint64_t seed, int W, uint64_t* __restrict__ out,
                                             int64_t out_cols, int64_t col0) {
@@ -274,34 +215,8 @@ __global__ void window_hash_bytewise_kernel(const uint8_t* __restrict__ codes, i
 
   const int w = w0 + threadIdx.x;
   if (w >= W) return;
-  const uint8_t* c = tile + threadIdx.x;
-  uint64_t* dst = out + (int64_t)row * out_cols + col0 + w;
-
-  for (int p = 0; p < k; ++p) {
-    if (c[p] >= 4) {
-      *dst = 0;
-      return;
-    }
-  }
-  // forward <= reverse complement, decided at the first position (from
-  // the outside in) where the two strands differ
-  bool fwd = true;
-  for (int p = 0; p < k; ++p) {
-    const uint8_t a = c[p];
-    const uint8_t b = 3 - c[k - 1 - p];
-    if (a != b) {
-      fwd = a < b;
-      break;
-    }
-  }
-
-  uint64_t h1 = seed, h2 = seed;
-  const int nblocks = k / 16;
-  for (int i = 0; i < nblocks; ++i)
-    murmur_block(h1, h2, canon_word(c, k, fwd, 16 * i), canon_word(c, k, fwd, 16 * i + 8));
-  const int tl = k - 16 * nblocks;
-  *dst = murmur_finish(h1, h2, k, tl >= 1 ? canon_word(c, k, fwd, 16 * nblocks) : 0,
-                       tl >= 9 ? canon_word(c, k, fwd, 16 * nblocks + 8) : 0);
+  out[(int64_t)row * out_cols + col0 + w] =
+      rkmh::hash_window_bytewise(tile + threadIdx.x, k, seed);
 }
 
 }  // namespace

@@ -1,12 +1,14 @@
 """Build, load and launch the port's CUDA kernels.
 
-The sources are ``rkmh_tpu_torch/csrc/*.cu``.  Each compiles with its own
+The sources are ``rkmh_tpu_torch/csrc/*.cu``, with the device code they
+share in ``csrc/*.cuh`` headers.  Each source compiles with its own
 ``nvcc`` process for ``sm_90a``, all started together, and the objects
 link into one shared library with a plain C interface, loaded with
 ctypes.  The library goes to ``rkmh_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name keyed by a hash of the sources and flags, so
-the first use in a fresh checkout builds it and later uses load it.
-Nothing is built or loaded on import.
+``.gitignore``) under a name keyed by a hash of the flags and of every
+source and header, so the first use in a fresh checkout builds it, later
+uses load it, and a changed header builds it anew.  Nothing is built or
+loaded on import.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch on the
 stream it is given (PyTorch's current stream); ``Kernel`` raises if that
@@ -34,13 +36,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lib = None  # the loaded library, shared by every Kernel of this process
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def library_path() -> Path:
+def headers(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cuh"))
+
+
+def library_path(csrc: Path = CSRC) -> Path:
+    """The library's path, keyed by the flags and by every source and
+    header under ``csrc``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(sources(csrc) + headers(csrc)):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librkmh_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -70,7 +78,8 @@ def _run_all(cmds: list[list[str]]) -> None:
 def build(srcs: list[Path] | None = None, path: Path | None = None) -> Path:
     """Compile the sources (default: every source; one nvcc each, in
     parallel) and link them into the library at ``path`` (default:
-    ``library_path()``); returns its path."""
+    ``library_path()``); returns its path.  A source's own directory is
+    searched for its headers first, then ``csrc/``."""
     nvcc = _nvcc()
     srcs = sources() if srcs is None else srcs
     path = library_path() if path is None else path
@@ -79,7 +88,7 @@ def build(srcs: list[Path] | None = None, path: Path | None = None) -> Path:
     objs = [path.parent / f"{stem}.{src.stem}.o" for src in srcs]
     tmp = path.parent / f"{stem}.tmp.so"
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
                   for src, obj in zip(srcs, objs)])
         _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
@@ -163,10 +172,17 @@ COUNTER_ADD = Kernel("rkmh_counter_add", [_p, _p, _p, _i, _p, _i, _i64, _p, _i64
 # rkmh_counter_mask(hashes, n, table, size, magic, log2_ceil, lo, hi, out, stream)
 COUNTER_MASK = Kernel("rkmh_counter_mask", [_p, _i64, _p, _i64, _u64, _i, _i, _i, _p])
 
+# rkmh_hashmap_get(keys, n, table, T, out, stream)
+HASHMAP_GET = Kernel("rkmh_hashmap_get", [_p, _i64, _p, _i64, _p])
+# rkmh_call_scan(pref, P, k, depth, avg, site, table, T, snp_depth, snp_call,
+#                max_rescue, del_depth, del_call, stream)
+CALL_SCAN = Kernel("rkmh_call_scan", [_p, _i64, _i, _p, _p, _p, _p, _i64, _p, _p, _p, _p, _p])
+
 KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE,
            "panel_probe_filter": PANEL_PROBE_FILTER, "set_probe": SET_PROBE,
            "lut_gather_rows": LUT_GATHER_ROWS, "lut_gather_lanes": LUT_GATHER_LANES,
-           "counter_add": COUNTER_ADD, "counter_mask": COUNTER_MASK}
+           "counter_add": COUNTER_ADD, "counter_mask": COUNTER_MASK,
+           "hashmap_get": HASHMAP_GET, "call_scan": CALL_SCAN}
 
 
 def reset_launch_counts() -> None:

@@ -18,15 +18,26 @@ The tests and ``chip_smoke.py`` use them in place of real reference data.
   around) with ~8% substitutions.  The noise is substitutions only: real
   nanopore reads also carry indels, which this model leaves out.
 
+* call: the HPV16 type genome of the hpv16 panel (HPV16REF, ~7.9 kb) as
+  the reference, a sample genome made from it by planting 1-bp
+  substitutions (40 by default) and 1-bp deletions (10), each at least
+  ~150 bp from the next and each deletion outside a run of equal bases
+  (so its call has one position), and rkmh's load for ``call``: 1,100
+  nanopore-like reads of the sample (the hpv16 length and noise model),
+  with a truth file of the planted variants.
+
 ``n_rate`` (``--n-rate``) sets the share of bases turned to ``N`` (stream
-reads: 0.001 by default; hpv16 reads: none by default), so that reads
-hold invalid k-mers, whose hash is 0.
+reads: 0.001 by default; hpv16 and call reads: none by default), so that
+reads hold invalid k-mers, whose hash is 0.
 
     python -m rkmh_tpu_torch.synth --out-dir DIR [--reads N] [--seed S] [--n-rate F]
     python -m rkmh_tpu_torch.synth --hpv16 --out-dir DIR [--reads N] [--seed S] [--n-rate F]
+    python -m rkmh_tpu_torch.synth --call --out-dir DIR [--reads N] [--seed S] [--n-rate F]
 
-write DIR/refs.fa and DIR/reads.fq, or the refpath DIR/all_pave_ref.fa,
-DIR/new_refs.fa and the reads DIR/reads.fq.
+write DIR/refs.fa and DIR/reads.fq; or the refpath DIR/all_pave_ref.fa,
+DIR/new_refs.fa and the reads DIR/reads.fq; or DIR/ref.fa, DIR/reads.fq
+and DIR/truth.tsv (one planted variant a line: name, the position and
+alleles as rkmh's VCF prints them, the 0-based index of the changed base).
 """
 
 from __future__ import annotations
@@ -175,12 +186,9 @@ def make_nanopore_reads(n: int, seed: int, panel: Hpv16Panel,
     bases becomes N (drawn only when n_rate > 0, so the reads of a seed
     stay the same without it)."""
     rng = np.random.default_rng(seed)
-    sigma = NANOPORE_LEN_SIGMA
-    lens = np.clip(rng.lognormal(np.log(mean_len) - sigma**2 / 2, sigma, n),
-                   min_len, max_len).astype(np.int64)
     others = [i for i in range(len(panel.types)) if i != panel.hpv16] or [panel.hpv16]
     reads, truth = [], []
-    for length in lens:
+    for length in _read_lengths(n, rng, mean_len, min_len, max_len):
         if rng.random() < FROM_SUBLINEAGE:
             genome = panel.subs[rng.integers(len(panel.subs))]
             truth.append(panel.type_names[panel.hpv16])
@@ -188,14 +196,28 @@ def make_nanopore_reads(n: int, seed: int, panel: Hpv16Panel,
             t = others[rng.integers(len(others))]
             genome = panel.types[t]
             truth.append(panel.type_names[t])
-        codes = genome[(rng.integers(len(genome)) + np.arange(length)) % len(genome)]
-        if rng.random() < 0.5:
-            codes = 3 - codes[::-1]  # the other strand
-        codes = _substitute(codes, sub_rate, rng)
-        if n_rate > 0:
-            codes[rng.random(codes.shape) < n_rate] = 4  # N
-        reads.append(_ACGTN[codes])
+        reads.append(_nanopore_read(genome, length, rng, sub_rate, n_rate))
     return reads, truth
+
+
+def _read_lengths(n: int, rng, mean_len: int, min_len: int, max_len: int) -> np.ndarray:
+    """Log-normal read lengths of the given mean, clipped."""
+    sigma = NANOPORE_LEN_SIGMA
+    return np.clip(rng.lognormal(np.log(mean_len) - sigma**2 / 2, sigma, n),
+                   min_len, max_len).astype(np.int64)
+
+
+def _nanopore_read(genome: np.ndarray, length: int, rng, sub_rate: float,
+                   n_rate: float) -> np.ndarray:
+    """One ASCII read of a circular genome: a random start, either strand,
+    substitutions at sub_rate and N at n_rate (drawn only when > 0)."""
+    codes = genome[(rng.integers(len(genome)) + np.arange(length)) % len(genome)]
+    if rng.random() < 0.5:
+        codes = 3 - codes[::-1]  # the other strand
+    codes = _substitute(codes, sub_rate, rng)
+    if n_rate > 0:
+        codes[rng.random(codes.shape) < n_rate] = 4  # N
+    return _ACGTN[codes]
 
 
 def write_fastq_records(path: str, seqs, first: int = 0):
@@ -231,27 +253,91 @@ def write_hpv16_workload(out_dir: str, n_reads: int, seed: int = 0, n_rate: floa
     return path, truth
 
 
+CALL_READS = 1100  # rkmh's load for call (README: ~10 s for 1,100 reads)
+CALL_SNPS = 40
+CALL_DELS = 10
+
+
+def plant_variants(ref: np.ndarray, n_snps: int, n_dels: int, seed: int):
+    """-> (the sample genome, its variants sorted by position as (VCF pos,
+    REF, ALT, 0-based index)).  The reference is cut into n_snps + n_dels
+    equal slots and each slot gets one variant at a random offset; a
+    deletion moves right to the first base that differs from both
+    neighbours.  rkmh's VCF prints a substitution at index + 1 and a
+    deletion at index + 2 (pos = j + alt_pos + 1 for both)."""
+    rng = np.random.default_rng(seed)
+    n = n_snps + n_dels
+    slot = (len(ref) - 200) // max(n, 1)
+    if n and slot < 60:
+        raise ValueError(f"{n} variants do not fit a {len(ref)} bp reference")
+    kinds = rng.permutation(np.array([True] * n_snps + [False] * n_dels, dtype=bool))
+    sample = ref.copy()
+    variants, dels = [], []
+    for i, is_snp in enumerate(kinds):
+        p = 100 + i * slot + int(rng.integers(10, slot - 40))
+        ref_base = "ACGT"[ref[p]]
+        if is_snp:
+            sample[p] = (ref[p] + rng.integers(1, 4)) % 4
+            variants.append((p + 1, ref_base, "ACGT"[sample[p]], p))
+        else:
+            while ref[p] == ref[p - 1] or ref[p] == ref[p + 1]:
+                p += 1
+            dels.append(p)
+            variants.append((p + 2, "ACGT"[ref[p]], "-", p))
+    return np.delete(sample, dels), variants
+
+
+def write_call_workload(out_dir: str, n_reads: int = CALL_READS, seed: int = 0,
+                        n_snps: int = CALL_SNPS, n_dels: int = CALL_DELS,
+                        n_rate: float = 0.0):
+    """Write out_dir/ref.fa (HPV16REF of the hpv16 panel of ``seed``),
+    out_dir/reads.fq (nanopore-like reads of the planted sample) and
+    out_dir/truth.tsv; returns (ref path, reads path, truth path, variants)."""
+    os.makedirs(out_dir, exist_ok=True)
+    panel = make_hpv16_panel(seed)
+    ref = panel.types[panel.hpv16]
+    name = panel.type_names[panel.hpv16]
+    sample, variants = plant_variants(ref, n_snps, n_dels, seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    reads = [_nanopore_read(sample, length, rng, NANOPORE_SUB_RATE, n_rate)
+             for length in _read_lengths(n_reads, rng, NANOPORE_MEAN_LEN, NANOPORE_MIN_LEN,
+                                         NANOPORE_MAX_LEN)]
+    paths = [os.path.join(out_dir, f) for f in ("ref.fa", "reads.fq", "truth.tsv")]
+    write_fasta(paths[0], [name], [_ACGTN[ref]])
+    write_fastq_records(paths[1], reads)
+    with open(paths[2], "w") as fh:
+        fh.write("#name\tpos\tref\talt\tindex0\n")
+        fh.writelines(f"{name}\t{pos}\t{r}\t{a}\t{i}\n" for pos, r, a, i in variants)
+    return (*paths, variants)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", required=True)
-    ap.add_argument("--reads", type=int, default=1000)
+    ap.add_argument("--reads", type=int, default=None,
+                    help=f"reads to write (default 1000; {CALL_READS} with --call)")
     ap.add_argument("--read-len", type=int, default=READ_LEN)
     ap.add_argument("--refs", type=int, default=NUM_REFS)
     ap.add_argument("--genome-len", type=int, default=GENOME_LEN)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-rate", type=float, default=None,
                     help=f"share of bases turned to N (default {N_RATE} for stream "
-                         "reads, 0 for hpv16 reads)")
+                         "reads, 0 for hpv16 and call reads)")
     ap.add_argument("--hpv16", action="store_true",
                     help="write an hpv16 refpath and nanopore-like reads instead "
                          "(--read-len, --refs and --genome-len do not apply)")
+    ap.add_argument("--call", action="store_true",
+                    help=f"write call's reference, reads of a sample with planted "
+                         f"variants and the truth file instead (--reads defaults to "
+                         f"{CALL_READS}; --read-len, --refs and --genome-len do not apply)")
     args = ap.parse_args(argv)
-    if args.hpv16:
-        write_hpv16_workload(args.out_dir, args.reads, args.seed,
-                             n_rate=args.n_rate or 0.0)
+    reads = args.reads if args.reads is not None else CALL_READS if args.call else 1000
+    if args.call:
+        write_call_workload(args.out_dir, reads, args.seed, n_rate=args.n_rate or 0.0)
+    elif args.hpv16:
+        write_hpv16_workload(args.out_dir, reads, args.seed, n_rate=args.n_rate or 0.0)
     else:
-        write_workload(args.out_dir, args.reads, args.read_len, args.refs,
-                       args.genome_len, args.seed,
+        write_workload(args.out_dir, reads, args.read_len, args.refs, args.genome_len, args.seed,
                        n_rate=N_RATE if args.n_rate is None else args.n_rate)
     return 0
 

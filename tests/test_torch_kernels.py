@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from rkmh_tpu_torch.ops import counter, gather, kernels, lookup
+from rkmh_tpu_torch import call_engine
+from rkmh_tpu_torch.ops import counter, gather, hashmap, kernels, lookup
 from rkmh_tpu_torch.ops.hashing import (
     kmer_window_hashes_plain,
     multi_k_window_hashes,
@@ -609,12 +610,87 @@ def test_counter_kernels_skip_empty_inputs(cuda_device):
     assert kernels.launch_counts() == before and int(table.sum()) == 0
 
 
+def _map_and_queries(seed: int, n_keys: int):
+    """A depth-map table holding key 0, keys >= 2**63 and random keys, and
+    queries: every key, and as many misses."""
+    rng = np.random.default_rng(seed)
+    keys = np.unique(np.concatenate([
+        np.array([0, 2**63, 2**64 - 1, 0x80000001_7FFFFFFF], dtype=np.uint64),
+        rng.integers(0, 2**64 - 1, size=n_keys, dtype=np.uint64, endpoint=True)]))
+    vals = rng.integers(1, 2**31 - 1, size=len(keys)).astype(np.int32)
+    table = hashmap.map_table(hashmap.build_hash_map(keys, vals), "cpu")
+    miss = rng.integers(0, 2**64 - 1, size=len(keys), dtype=np.uint64, endpoint=True)
+    q = np.concatenate([keys, miss])[rng.permutation(2 * len(keys))]
+    return table, torch.from_numpy(q.view(np.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys", [1, 1000, 300_000])
+def test_hashmap_kernel_matches_plain(cuda_device, n_keys):
+    table, q = _map_and_queries(n_keys, n_keys)
+    want = hashmap.hashmap_get_plain(table, q)
+    t, qd = table.to(cuda_device), q.to(cuda_device)
+    before = kernels.HASHMAP_GET.launches
+    got = hashmap.hashmap_get(t, qd)
+    torch.cuda.synchronize()
+    assert kernels.HASHMAP_GET.launches == before + 1
+    assert torch.equal(got.cpu(), want) and int((want != 0).sum()) >= n_keys
+    grid = qd[: (qd.numel() // 7) * 7].reshape(7, -1)  # shapes pass through
+    assert torch.equal(hashmap.hashmap_get(t, grid).cpu(), want[: grid.numel()].reshape(7, -1))
+    assert hashmap.hashmap_get(t, qd[:0]).shape == (0,)
+    assert kernels.HASHMAP_GET.launches == before + 2  # no launch for no keys
+
+
+def _call_case(k: int, seed: int = 5):
+    """A reference with runs of N, and the depth map of reads of a sample
+    with a substitution and a deletion, some reads with N."""
+    rng = np.random.default_rng(seed + k)
+    ref = rng.integers(0, 4, 1500).astype(np.uint8)
+    ref[200:230] = 4
+    ref[900] = 4
+    sample = ref.copy()
+    sample[600] = (sample[600] + 1) % 4
+    sample = np.delete(sample, 1100)
+    starts = rng.integers(0, len(sample) - 150, 300)
+    reads = sample[starts[:, None] + np.arange(150)]
+    reads[rng.random(reads.shape) < 0.005] = 4
+    h = kmer_window_hashes_plain(torch.from_numpy(reads), k)
+    table = hashmap.map_table(hashmap.depth_map_from_hashes(h.numpy()), "cpu")
+    return torch.from_numpy(ref), table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 12, 16, 21, 31, 32, 33, 40])
+@pytest.mark.parametrize("w", [1, 100, 5000])
+def test_call_scan_kernel_matches_plain(cuda_device, k, w):
+    ref, table = _call_case(k)
+    want = call_engine.call_scan_plain(ref, table, k, w)
+    before = kernels.launch_counts()
+    got = call_engine.call_scan_ref(ref.to(cuda_device), table.to(cuda_device), k, w)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert [after[n] - before[n] for n in ("window_hash", "hashmap_get", "call_scan")] == [1, 1, 1]
+    for name, v in want.items():
+        assert got[name].dtype == v.dtype and torch.equal(got[name].cpu(), v), name
+    if w == 100 and k >= 12:
+        assert bool(want["site"].any()) and bool(want["snp_call"].any())
+
+
+@pytest.mark.cuda
+def test_call_scan_kernel_on_split_positional_rows(cuda_device):
+    ref, table = _call_case(16)
+    row = ref.to(cuda_device)
+    assert torch.equal(call_engine.positional_hashes(row, 16, row_windows=128).cpu(),
+                       kmer_window_hashes_plain(ref[None], 16)[0])
+
+
 def test_library_is_keyed_by_sources_and_flags(monkeypatch):
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR and path == kernels.library_path()
     assert {p.name for p in kernels.sources()} == {"window_hash.cu", "panel_probe.cu",
                                                    "set_probe.cu", "lut_gather.cu",
-                                                   "counter.cu"}
+                                                   "counter.cu", "hashmap.cu", "call_scan.cu"}
+    assert {p.name for p in kernels.headers()} == {"murmur3.cuh", "hashmap.cuh"}
     monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-lineinfo",))
     assert kernels.library_path() != path
 
@@ -632,4 +708,5 @@ def test_launch_counts_reset():
     assert kernels.launch_counts() == {"window_hash": 0, "panel_probe": 0,
                                        "panel_probe_filter": 0, "set_probe": 0,
                                        "lut_gather_rows": 0, "lut_gather_lanes": 0,
-                                       "counter_add": 0, "counter_mask": 0}
+                                       "counter_add": 0, "counter_mask": 0,
+                                       "hashmap_get": 0, "call_scan": 0}

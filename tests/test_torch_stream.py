@@ -8,8 +8,9 @@ chunks and batches; -M, -I and both, on small counters that force
 collisions (a decimal prime and a power of two), reads with N bases.  The
 port runs its plain path on the CPU.  Also: the CLI surface (rkmh's dead
 parity flags accepted with rkmh-tpu's warnings; ``-f ... -i`` logs that -i
-is ignored and classifies the files, as rkmh-tpu does), and that the port
-never imports JAX.
+is ignored and classifies the files, as rkmh-tpu does, and ``-i`` alone
+classifies stdin; the stdin path itself is in test_torch_stream_stdin.py),
+and that the port never imports JAX.
 """
 
 import gzip
@@ -128,13 +129,12 @@ def test_cli_accepts_dead_parity_flags_as_jax_does(workload, tmp_path, capsys):
         assert a.read() == b.read()
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--metrics"], ["-i"], ["--devices", "2"],
-                                  ["--dist-rank", "0"], ["--dist-procs", "2"]])
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--metrics"], ["--dist-coordinator", "h:1"],
+                                  ["--devices", "2"], ["--dist-rank", "0"],
+                                  ["--dist-procs", "2"]])
 def test_cli_rejects_flags_not_yet_ported(flag, capsys):
-    # -i is stdin streaming only without -f (with -f it is ignored, below)
-    files = [] if flag == ["-i"] else ["-f", "reads.fq"]
     with pytest.raises(SystemExit) as exc:
-        cli.main(["stream", "-r", "refs.fa", *files, *flag])
+        cli.main(["stream", "-r", "refs.fa", "-f", "reads.fq", *flag])
     assert exc.value.code == 2
     assert f"{flag[0]} not yet ported" in capsys.readouterr().err
 
@@ -144,9 +144,10 @@ IGNORED_I = ("stream -i ignored: -f inputs were given (rkmh classified the files
 
 
 @pytest.mark.parametrize("command", ["stream", "classify"])
-def test_cli_stream_files_with_i_match_jax(workload, capsys, command):
+def test_cli_stream_files_with_i_match_jax(workload, capsys, monkeypatch, command):
     """``-f reads -i``: rkmh-tpu logs that -i is ignored and classifies the
-    files; so does the port, with the same stdout and exit 0."""
+    files; so does the port, with the same stdout and exit 0.  ``-i`` alone
+    classifies stdin."""
     from rkmh_tpu.cli import main as jax_main
 
     argv = [command, "-r", workload["refs"], "-f", workload["short"], "-k", "12", "-i"]
@@ -156,14 +157,23 @@ def test_cli_stream_files_with_i_match_jax(workload, capsys, command):
     got = capsys.readouterr()
     assert got.out == want.out and len(got.out.splitlines()) == 200
     assert IGNORED_I in want.err.splitlines() and IGNORED_I in got.err.splitlines()
-    with pytest.raises(SystemExit) as exc:  # -i alone is still stdin streaming
-        cli.main([command, "-r", workload["refs"], "-i", "--device", "cpu"])
-    assert exc.value.code == 2 and "-i not yet ported" in capsys.readouterr().err
+    with open(workload["short"], "rb") as fh:  # -i alone: the same reads on stdin
+        monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(io.BytesIO(fh.read())))
+    assert cli.main([command, "-r", workload["refs"], "-k", "12", "-i", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == got.out
 
 
-def test_stream_i_without_files_is_not_ported():
-    with pytest.raises(ValueError, match="not yet ported"):
-        run(StreamConfig(ref_files=["refs.fa"], in_stream=True, device="cpu"), out=io.StringIO())
+def test_stream_i_without_files_is_not_ported(workload):
+    """Ported since: ``-i`` without ``-f`` classifies the stream it is
+    given, as file mode classifies the file."""
+    with open(workload["mixed"], "rb") as fh:
+        raw = fh.read()
+    got = io.StringIO()
+    assert run(StreamConfig(ref_files=[workload["refs"]], in_stream=True, ks=(12,),
+                            sketch_size=200, batch_size=16, device="cpu"), out=got,
+               stdin=io.BytesIO(raw)) == 0
+    want = _both(workload, ["mixed"], ks=(12,), sketch_size=200, batch_size=16)[0]
+    assert got.getvalue() == want and len(want.splitlines()) == 120
 
 
 def test_cli_cuda_without_gpu_fails(workload, monkeypatch):
@@ -187,7 +197,8 @@ def test_port_never_imports_jax():
             "import rkmh_tpu_torch.bench.read_ahead_ab, rkmh_tpu_torch.oracle\n"
             "import rkmh_tpu_torch.commands.hash_cmd, rkmh_tpu_torch.commands.count_cmd\n"
             "import rkmh_tpu_torch.commands.search_cmd, rkmh_tpu_torch.commands.recovery\n"
-            "import rkmh_tpu_torch.io.sketch_json\n"
+            "import rkmh_tpu_torch.io.sketch_json, rkmh_tpu_torch.call_engine\n"
+            "import rkmh_tpu_torch.commands.call_cmd, rkmh_tpu_torch.ops.hashmap\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rkmh_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
