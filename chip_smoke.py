@@ -143,29 +143,32 @@ line) without CUDA or without the package beside it.  In order it:
 22. the call workload (``bench/call_inputs``: HPV16REF, ~7.9 kb, with 40
     planted substitutions and 10 deletions in the sample, 1,100
     nanopore-like reads, k=16): the depth map built as ``call`` builds it
-    (K1, the host cuckoo build, the copy to the card), and a 1 Mbp
-    reference made from a seed; checks K8 (``csrc/hashmap.cu``) exactly
-    against its plain version on a map holding key 0, keys >= 2**63 and
-    misses, and on the workload map; K9 (``csrc/call_scan.cu``, through
-    ``call_scan_ref``) against ``call_scan_plain`` on a reference with runs
-    of N at k in {1, 12, 16, 21, 31, 32, 33, 40} and window lengths 1,
-    100 and more than P, and on the workload;
-23. times K8 at the scan's shape (~7,900 positional hashes) and at 2**20
-    read hashes beside ``torch.searchsorted`` over the map's sorted keys
-    (its library yardstick), and K9 on the workload reference and on the
-    1 Mbp reference (64M mutated k-mers), in mutated k-mers per second
-    beside K1's windows per second, each with its bound (bytes: outputs,
-    codes and the distinct 32-byte map sectors reached) and its plain
-    version's time;
+    (K1, ``np.unique``, the sorted map's layout, the copy to the card), a
+    1 Mbp reference made from a seed, and a map ~10x the L2 (50M keys);
+    checks K8 (``csrc/hashmap.cu``) exactly against its plain version on
+    a map holding key 0, keys >= 2**63, counts in the overflow and
+    misses, on the workload map and on the large map; K9
+    (``csrc/call_scan.cu``, through ``call_scan_ref``, and its byte-wise
+    route at every k) against ``call_scan_plain`` on a reference with runs
+    of N at each k of KS_CALL (both routes where k <= 32) and window
+    lengths 1, 100 and more than P, and on the workload;
+23. times K8 at the scan's shape (~7,900 positional hashes), at 2**20 read
+    hashes and on the large map, beside ``torch.searchsorted`` over the
+    map's sorted keys (``ops/hashmap.searchsorted_get``, its library
+    yardstick), and K9 on the workload reference (packed route, and its
+    byte-wise route beside it) and on the 1 Mbp reference (64M mutated
+    k-mers), in mutated k-mers per second beside K1's windows per second,
+    each with its bound (bytes: the queries in, the outputs, 12 bytes for
+    each distinct key found) and its plain version's time;
 24. drives ``call`` (``commands.call_cmd.run``, k=16, w=100, device cuda),
     counters zeroed just before and read just after (K1, K8, K9 must
     run): its VCF and a ``-d`` run byte-identical to the CPU plain path's,
     and, on three slices of the reference, a ``--resume`` from a
     ``.progress`` sidecar cut inside its second section equal to the
     uninterrupted VCF; reports the e2e seconds and the seconds by phase
-    (parse, read hashing, host map build, scan, record extraction, write),
-    the map's keys, slots and bytes on the card, and the share of planted
-    variants called.
+    (parse, read hashing, the map's unique, layout and copy, scan, record
+    extraction, write), the map's keys and bytes by part on the card, and
+    the share of planted variants called.
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record (per kernel: launches on the driven paths, in all and by
@@ -175,9 +178,10 @@ computing the same function where there is one: ``torch.gather`` for K4
 and K5, none for the others; K4 and K5 add their launches by route, K4
 its times at each timed N, K5 its staged route's time and the launch
 floor, K7 its times at the hpv16 -M shape, K1 its times at hash's shapes,
-K6 its time and route at count's table, K8 its time at 2**20 queries with
-``torch.searchsorted`` as its library_ms, K9 its mutated k-mers per second
-and its times on the 1 Mbp reference) and ``{"ok": true, "device":
+K6 its time and route at count's table, K8 its times at 2**20 queries and
+on the large map with ``torch.searchsorted`` as its library_ms, K9 its
+launches by route, its mutated k-mers per second, its byte-wise route's
+time and its times on the 1 Mbp reference) and ``{"ok": true, "device":
 {...}}``.  Any failure raises.
 """
 
@@ -1772,14 +1776,15 @@ def time_k6_count_shape(dev, hashes, card: str) -> dict:
     return res
 
 
-KS_CALL = (1, 12, 16, 21, 31, 32, 33, 40)  # K9: around K1's packed / byte-wise boundary
+KS_CALL = (1, 12, 16, 21, 31, 32, 33, 40)  # K9: around its packed / byte-wise boundary
 
 
 def check_k8(dev, cw: dict) -> int:
     """K8 exactly against its plain version on the card: a map holding key
-    0, keys >= 2**63 and random keys, queried by every key and as many
-    misses; the call workload's map queried by 2**20 read hashes and by
-    the reference's positional hashes."""
+    0, keys >= 2**63, random keys and counts past a word (the overflow),
+    queried by every key and as many misses; the call workload's map
+    queried by 2**20 read hashes and by the reference's positional
+    hashes; the large map by its queries."""
     import numpy as np
     import torch
 
@@ -1788,16 +1793,18 @@ def check_k8(dev, cw: dict) -> int:
 
     rng = np.random.default_rng(17)
     keys = np.unique(np.concatenate([
-        np.array([0, 2**63, 2**64 - 1, 0x80000001_7FFFFFFF], dtype=np.uint64),
+        np.array([0, 2**63, 2**64 - 1, 0x80000001_7FFFFFFF, 0x80000000], dtype=np.uint64),
         rng.integers(0, 2**64 - 1, size=200_000, dtype=np.uint64, endpoint=True)]))
-    vals = rng.integers(1, 2**31 - 1, size=len(keys)).astype(np.int32)
-    table = hashmap.map_table(hashmap.build_hash_map(keys, vals), dev)
+    vals = rng.integers(1, 1000, size=len(keys)).astype(np.int32)
+    vals[::97] = 2**31 - 1  # past the 16-bit count field
+    table = hashmap.build_sorted_map(keys, vals).to(dev)
     miss = rng.integers(0, 2**64 - 1, size=len(keys), dtype=np.uint64, endpoint=True)
     q = torch.from_numpy(np.concatenate([keys, miss]).view(np.int64)).to(dev)
-    cases = [("random map, key 0, keys >= 2**63, misses", table, q),
+    cases = [(f"random map (overflow {table.m}), key 0, keys >= 2**63, misses", table, q),
              ("workload map, 2**20 read hashes", cw["table"], cw["read_hashes"]),
              ("workload map, positional hashes", cw["table"],
-              call_engine.positional_hashes(cw["codes"], 16))]
+              call_engine.positional_hashes(cw["codes"], 16)),
+             (f"large map ({cw['big_map'].n} keys)", cw["big_map"], cw["big_queries"])]
     worst = 0
     for label, t, h in cases:
         got = hashmap._hashmap_get_cuda(t, h)
@@ -1807,17 +1814,17 @@ def check_k8(dev, cw: dict) -> int:
         if err or not torch.equal(got, want):
             raise AssertionError(f"hash-map kernel disagrees with the plain version: {label}")
         worst = max(worst, err)
-    if int(hashmap.hashmap_get(table, torch.zeros(1, dtype=torch.int64, device=dev))) == 0:
-        raise AssertionError("key 0 of the random map was not found")
+    if int(hashmap.hashmap_get(table, torch.zeros(1, dtype=torch.int64, device=dev))) != 2**31 - 1:
+        raise AssertionError("key 0 of the random map did not read its overflow count")
     return worst
 
 
 def check_k9(dev, cw: dict) -> int:
-    """K9 (through call_scan_ref: K1, K8, the glue, K9) exactly against
-    call_scan_plain on the card: a 1,500 bp reference with runs of N and
-    the map of reads of a mutated sample, at each k of KS_CALL and window
-    lengths 1, 100 and more than P; then the call workload's reference
-    against its own map (k=16, w=100)."""
+    """K9 (through call_scan_ref: K1, K8, the glue, K9; and its byte-wise
+    route) exactly against call_scan_plain on the card: a 1,500 bp
+    reference with runs of N and the map of reads of a mutated sample, at
+    each k of KS_CALL and window lengths 1, 100 and more than P; then the
+    call workload's reference against its own map (k=16, w=100)."""
     import numpy as np
     import torch
 
@@ -1831,8 +1838,15 @@ def check_k9(dev, cw: dict) -> int:
         nonlocal worst
         got = call_engine.call_scan_ref(codes, table, k, w)
         want = call_engine.call_scan_plain(codes, table, k, w)
-        err = max(max_abs_err(got[n].to(torch.int64), want[n].to(torch.int64)) for n in want)
-        if err or not all(torch.equal(got[n], want[n]) for n in want):
+        scan = call_engine._call_scan_cuda(codes, table, k, want["depth"], want["avg"],
+                                           want["site"], "bytewise")
+        names = ("snp_depth", "snp_call", "max_rescue", "del_depth", "del_call")
+        err = max(max(max_abs_err(got[n].to(torch.int64), want[n].to(torch.int64))
+                      for n in want),
+                  max(max_abs_err(a.to(torch.int64), want[n].to(torch.int64))
+                      for a, n in zip(scan, names)))
+        if err or not all(torch.equal(got[n], want[n]) for n in want) \
+                or not all(torch.equal(a, want[n]) for a, n in zip(scan, names)):
             raise AssertionError(f"call-scan kernel disagrees with the plain version: {label}")
         worst = max(worst, err)
         return want
@@ -1841,6 +1855,7 @@ def check_k9(dev, cw: dict) -> int:
     ref = rng.integers(0, 4, 1500).astype(np.uint8)
     ref[200:230] = 4
     ref[900] = 4
+    ref[1300:1302] = 4
     sample = ref.copy()
     sample[600] = (sample[600] + 1) % 4
     sample = np.delete(sample, 1100)
@@ -1849,24 +1864,25 @@ def check_k9(dev, cw: dict) -> int:
     codes = torch.from_numpy(ref).to(dev)
     for k in KS_CALL:
         h = kmer_window_hashes_plain(torch.from_numpy(reads), k)
-        table = hashmap.map_table(hashmap.depth_map_from_hashes(h.numpy()), dev)
+        table = hashmap.depth_map_from_hashes(h.numpy()).to(dev)
         for w in (1, 100, 5000):
             want = compare(f"k={k} w={w}", codes, table, k, w)
-        say(f"K9 k={k}, w in (1, 100, 5000): exact=True; at w=5000 "
-            f"{int(want['site'].sum())} sites, {int(want['snp_call'].sum())} SNP and "
-            f"{int(want['del_call'].sum())} DEL calls")
+        say(f"K9 k={k} ({'packed and byte-wise routes' if k <= 32 else 'byte-wise route'}), "
+            f"w in (1, 100, 5000): exact=True; at w=5000 {int(want['site'].sum())} sites, "
+            f"{int(want['snp_call'].sum())} SNP and {int(want['del_call'].sum())} DEL calls")
     want = compare("the call workload", cw["codes"], cw["table"], 16, 100)
-    say(f"K9 call workload (k=16, w=100, P={cw['codes'].numel() - 15}): exact=True, "
-        f"{int(want['site'].sum())} sites, {int(want['snp_call'].sum())} SNP and "
+    say(f"K9 call workload (k=16, w=100, P={cw['codes'].numel() - 15}): exact=True on both "
+        f"routes, {int(want['site'].sum())} sites, {int(want['snp_call'].sum())} SNP and "
         f"{int(want['del_call'].sum())} DEL calls")
     return worst
 
 
 def time_call_kernels(cw: dict, card: str, k1_windows_per_s: float) -> dict:
-    """K8 at the scan's shape (the positional hashes, P ~ 7,900) and at
-    2**20 read hashes, beside the library yardstick (torch.searchsorted
-    over the sorted sign-flipped keys, a gather, a compare); K9 on the
-    workload reference and on a 1 Mbp reference against the same map, in
+    """K8 at the scan's shape (the positional hashes, P ~ 7,900), at 2**20
+    read hashes and on the large map, beside the library yardstick
+    (torch.searchsorted over the sorted sign-flipped keys, a gather, a
+    compare); K9 on the workload reference (packed route, then its
+    byte-wise route) and on a 1 Mbp reference against the same map, in
     mutated k-mers per second beside K1's windows per second; each by
     graph replay (eager beside it), with its plain version's time and its
     bound (bench/bounds.py)."""
@@ -1876,31 +1892,33 @@ def time_call_kernels(cw: dict, card: str, k1_windows_per_s: float) -> dict:
     from rkmh_tpu_torch.ops import hashmap
 
     table, k = cw["table"], call_inputs.CALL_K
-    flipped, values = call_inputs.sorted_map(table)
     res = {}
-    for label, h in (("scan", call_engine.positional_hashes(cw["codes"], k)),
-                     ("2e20", cw["read_hashes"])):
-        if not hashmap.hashmap_get(table, h).equal(call_inputs.searchsorted_get(flipped, values,
-                                                                                h)):
+    for label, t, h in (("scan", table, call_engine.positional_hashes(cw["codes"], k)),
+                        ("2e20", table, cw["read_hashes"]),
+                        ("large_map", cw["big_map"], cw["big_queries"])):
+        flipped, values = hashmap.sorted_keys(t)
+        if not hashmap.hashmap_get(t, h).equal(hashmap.searchsorted_get(flipped, values, h)):
             raise AssertionError("the searchsorted yardstick disagrees with K8")
         res[f"k8_{label}"] = {
-            "queries": h.numel(),
-            "ms": cuda_graph_time_ms(lambda: hashmap._hashmap_get_cuda(table, h), 20),
-            "eager_ms": cuda_time_ms(lambda: hashmap._hashmap_get_cuda(table, h), 50),
-            "plain_ms": cuda_time_ms(lambda: hashmap.hashmap_get_plain(table, h), 5),
+            "queries": h.numel(), "keys": t.n, "map_bytes": t.buf.numel() * 8,
+            "ms": cuda_graph_time_ms(lambda: hashmap._hashmap_get_cuda(t, h), 20),
+            "eager_ms": cuda_time_ms(lambda: hashmap._hashmap_get_cuda(t, h), 50),
+            "plain_ms": cuda_time_ms(lambda: hashmap.hashmap_get_plain(t, h), 5),
             "library_ms": cuda_graph_time_ms(
-                lambda: call_inputs.searchsorted_get(flipped, values, h), 20),
-            "bound_ms": bounds.bound_ms(bounds.hashmap_get_bytes(table, h))}
-    for label, codes in (("call", cw["codes"]), ("1mbp", cw["big"])):
+                lambda: hashmap.searchsorted_get(flipped, values, h), 20),
+            "bound_ms": bounds.bound_ms(bounds.hashmap_get_bytes(t, h))}
+    for label, codes, route in (("call", cw["codes"], None), ("call_bytewise", cw["codes"],
+                                                              "bytewise"),
+                                ("1mbp", cw["big"], None)):
         depth, avg, site = call_inputs.scan_inputs(codes, table)
         P = codes.numel() - k + 1
-        r = {"positions": P, "mutated_kmers": 4 * k * P,
+        r = {"positions": P, "mutated_kmers": 4 * k * P, "route": route or "packed",
              "ms": cuda_graph_time_ms(lambda: call_engine._call_scan_cuda(
-                 codes, table, k, depth, avg, site), 5 if P > 100_000 else 20),
+                 codes, table, k, depth, avg, site, route), 5 if P > 100_000 else 20),
              "eager_ms": cuda_time_ms(lambda: call_engine._call_scan_cuda(
-                 codes, table, k, depth, avg, site), 5 if P > 100_000 else 50),
+                 codes, table, k, depth, avg, site, route), 5 if P > 100_000 else 50),
              "bound_ms": bounds.bound_ms(bounds.call_scan_bytes(codes, table, k))}
-        if P < 100_000:  # the plain version of 64M mutated k-mers is not timed
+        if label == "call":  # the plain version of 64M mutated k-mers is not timed
             r["plain_ms"] = cuda_time_ms(
                 lambda: call_engine.call_scan_plain(codes, table, k, call_inputs.CALL_W), 2)
         r["mutated_kmers_per_s"] = r["mutated_kmers"] / (r["ms"] / 1e3)
@@ -1920,10 +1938,18 @@ def run_call(dev, card: str, cw: dict) -> dict:
     path's, byte for byte; on three slices of the reference, a ``--resume``
     from the .progress sidecar cut in the middle of its second section
     against the uninterrupted VCF; the seconds by phase, the map and the
-    share of planted variants called."""
+    share of planted variants called; K9's launches by route (the packed
+    one alone at k=16)."""
     import io
 
     from rkmh_tpu_torch.commands import call_cmd
+    from rkmh_tpu_torch.ops import kernels
+
+    def k9_routes(path):  # K9's launches by route in the run just driven: packed at k=16
+        routes = dict(kernels.CALL_SCAN.by_route)
+        if not routes.get("packed") or routes.get("bytewise"):
+            raise AssertionError(f"{path} did not take K9's packed route alone: {routes}")
+        return routes
 
     tmp = os.path.dirname(cw["ref"])
     kw = dict(ref_files=[cw["ref"]], read_files=[cw["reads"]], ks=(16,), window_len=100)
@@ -1932,6 +1958,7 @@ def run_call(dev, card: str, cw: dict) -> dict:
     seconds, launches = driven(lambda: call_cmd.run(call_cmd.CallConfig(
         out_file=vcf, device="cuda", **kw), stats=stats), "call",
         ("window_hash", "hashmap_get", "call_scan"))
+    routes = k9_routes("call")
     gpu = read_text(vcf)
     cpu_vcf = os.path.join(tmp, "cpu.vcf")
     t0 = time.perf_counter()
@@ -1942,6 +1969,7 @@ def run_call(dev, card: str, cw: dict) -> dict:
     d_seconds, d_launches = driven(lambda: call_cmd.run(call_cmd.CallConfig(
         show_depth=True, device="cuda", **kw), out=depth_gpu), "call -d",
         ("window_hash", "hashmap_get", "call_scan"))
+    d_routes = k9_routes("call -d")
     call_cmd.run(call_cmd.CallConfig(show_depth=True, device="cpu", **kw), out=depth_cpu)
     require_same(depth_gpu.getvalue(), depth_cpu.getvalue(), "call -d")
 
@@ -1966,19 +1994,22 @@ def run_call(dev, card: str, cw: dict) -> dict:
     r_seconds, r_launches = driven(lambda: call_cmd.run(call_cmd.CallConfig(
         out_file=full, resume=True, device="cuda", **mkw)), "call --resume",
         ("window_hash", "hashmap_get", "call_scan"))
+    r_routes = k9_routes("call --resume")
     require_same(read_text(full), want, "call --resume")
     res = {"e2e_s": seconds, "phase_s": {key: v for key, v in stats.items() if key.endswith("_s")},
            "map": {key: v for key, v in stats.items() if not key.endswith("_s")},
            "planted": len(cw["variants"]), "planted_called": called,
            "planted_called_share": called / len(cw["variants"]), "records": len(keys),
-           "cpu_s": cpu_s, "launches": launches}
+           "cpu_s": cpu_s, "launches": launches, "k9_routes": routes}
     say(f"call on {card}: {seconds:.3f} s e2e for 1,100 reads and a {len(seq)} bp reference "
         f"(CPU plain path {cpu_s:.2f} s, VCF byte-identical); by phase {res['phase_s']}; "
         f"map {res['map']}; {len(keys)} VCF records, {called} of {len(cw['variants'])} planted "
         f"variants called; -d {d_seconds:.3f} s, byte-identical; --resume from a sidecar cut "
         f"mid-section {r_seconds:.3f} s, equal to the uninterrupted VCF")
-    return {"call": res, "call -d": {"e2e_s": d_seconds, "launches": d_launches},
-            "call --resume": {"e2e_s": r_seconds, "launches": r_launches}}
+    return {"call": res,
+            "call -d": {"e2e_s": d_seconds, "launches": d_launches, "k9_routes": d_routes},
+            "call --resume": {"e2e_s": r_seconds, "launches": r_launches,
+                              "k9_routes": r_routes}}
 
 
 def run_stream_stdin(card: str, zika: dict) -> dict:
@@ -2107,7 +2138,9 @@ def main() -> int:
 
         t0 = time.perf_counter()
         cw = call_inputs.call_workload(dev, work)
-        say(f"call input: 1,100 reads, map {cw['map_stats']}, a 1 Mbp reference; made in "
+        cw["big_map"], cw["big_queries"] = call_inputs.big_map(dev)
+        say(f"call input: 1,100 reads, map {cw['map_stats']}, a 1 Mbp reference, a map of "
+            f"{cw['big_map'].n} keys ({cw['big_map'].part_bytes()}); made in "
             f"{time.perf_counter() - t0:.2f} s")
         err_k8 = check_k8(dev, cw)
         err_k9 = check_k9(dev, cw)
@@ -2165,12 +2198,15 @@ def main() -> int:
         {**entry("hashmap_get", "hashmap.cu", "rkmh_tpu/ops/hashmap.py:159", err_k8,
                  call_times["k8_scan"]["ms"], call_times["k8_scan"]["eager_ms"],
                  call_times["k8_scan"]["plain_ms"], call_times["k8_scan"]["bound_ms"],
-                 call_times["k8_scan"]["library_ms"]), "at_2e20": call_times["k8_2e20"]},
+                 call_times["k8_scan"]["library_ms"]), "at_2e20": call_times["k8_2e20"],
+         "at_large_map": call_times["k8_large_map"]},
         {**entry("call_scan", "call_scan.cu", "rkmh_tpu/call_engine.py:54", err_k9,
                  call_times["k9_call"]["ms"], call_times["k9_call"]["eager_ms"],
                  call_times["k9_call"]["plain_ms"], call_times["k9_call"]["bound_ms"]),
+         "launches_by_route": {p: r.get("k9_routes", {}) for p, r in paths.items()
+                               if r.get("k9_routes")},
          "mutated_kmers_per_s": call_times["k9_call"]["mutated_kmers_per_s"],
-         "at_1mbp": call_times["k9_1mbp"]},
+         "bytewise_route": call_times["k9_call_bytewise"], "at_1mbp": call_times["k9_1mbp"]},
     ]}
     say(smi)
     say(json.dumps(record))

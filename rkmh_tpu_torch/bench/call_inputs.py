@@ -3,14 +3,19 @@
 
 * the synthetic call workload (``synth.write_call_workload``: HPV16REF,
   ~7.9 kb, and 1,100 nanopore-like reads of a sample with planted
-  variants), its depth map built as ``call`` builds it (K1, then the host
-  cuckoo build) and the reference's codes, k = 16;
+  variants), its depth map built as ``call`` builds it (K1, then
+  ``np.unique`` and the sorted map's layout) and the reference's codes,
+  k = 16;
 * the first 2**20 read k-mer hashes (every one in the map);
 * a 1 Mbp reference made from a seed (runs of N in it), scanned against
   the same map: 64M mutated k-mers at k = 16;
-* the library yardstick of a map lookup: ``torch.searchsorted`` over the
-  map's keys, sorted as unsigned (sign-flipped int64), a gather and a
-  compare, as ``search`` tests membership.
+* a map ~10x the card's L2 (``big_map``: 50M keys made from a seed, 465
+  MB) and 2**20 queries of it, half of them keys.
+
+The library yardstick of a map lookup is ``ops/hashmap.searchsorted_get``:
+``torch.searchsorted`` over the map's keys, sorted as unsigned
+(sign-flipped int64), a gather and a compare, as ``search`` tests
+membership.
 """
 
 from __future__ import annotations
@@ -23,14 +28,13 @@ from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.commands.call_cmd import build_depth_map
 from rkmh_tpu_torch.commands.common import bucketed_batches, load_packed, load_records
 from rkmh_tpu_torch.io.packing import encode_seqs
-from rkmh_tpu_torch.ops.hashmap import hashmap_get
-from rkmh_tpu_torch.ops.lookup import M32
+from rkmh_tpu_torch.ops.hashmap import SortedMap, build_sorted_map, hashmap_get
 
 CALL_K = 16
 CALL_W = 100
 BIG_REF_LEN = 1_000_000
 READ_QUERIES = 1 << 20
-_FLIP = -(2**63)
+BIG_MAP_KEYS = 50_000_000
 
 
 def ref_codes(seq: bytes, device) -> torch.Tensor:
@@ -69,23 +73,23 @@ def call_workload(device, tmp: str) -> dict:
             "read_hashes": read_hashes(reads, device), "big": big_reference(device)}
 
 
-def scan_inputs(codes: torch.Tensor, table: torch.Tensor, k: int = CALL_K, w: int = CALL_W):
+def scan_inputs(codes: torch.Tensor, table: SortedMap, k: int = CALL_K, w: int = CALL_W):
     """(depth, avg, site) of a reference row, as call_scan_ref makes them."""
     depth = hashmap_get(table, call_engine.positional_hashes(codes, k))
     return (depth, *call_engine.window_average(depth, w))
 
 
-def sorted_map(table: torch.Tensor):
-    """(the map's keys as sign-flipped int64, sorted; their values)."""
-    used = table[:, 3] != 0
-    keys = ((table[used, 0].to(torch.int64) & M32) << 32) | (table[used, 1].to(torch.int64) & M32)
-    flipped, order = torch.sort(keys ^ _FLIP)
-    return flipped, table[used, 2][order]
-
-
-def searchsorted_get(flipped: torch.Tensor, values: torch.Tensor,
-                     hashes: torch.Tensor) -> torch.Tensor:
-    """The library yardstick of a lookup: values of the hashes, 0 where absent."""
-    q = hashes ^ _FLIP
-    i = torch.searchsorted(flipped, q).clamp(max=flipped.numel() - 1)
-    return torch.where(flipped[i] == q, values[i], torch.zeros_like(values[i]))
+def big_map(device, n: int = BIG_MAP_KEYS, queries: int = READ_QUERIES, seed: int = 5):
+    """(a map of n keys spread over the uint64 range, made from a seed
+    without a sort: the running sum of random gaps; counts 1..60, every
+    1000th 2**30 (in the overflow); queries, half of them keys)."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.integers(1, int(1.9 * 2**64 / n), size=n, dtype=np.uint64)
+    keys = np.cumsum(gaps, dtype=np.uint64)
+    counts = rng.integers(1, 61, size=n).astype(np.int32)
+    counts[::1000] = 2**30
+    q = np.concatenate([rng.choice(keys, queries // 2),
+                        rng.integers(0, 2**64 - 1, size=queries - queries // 2, dtype=np.uint64,
+                                     endpoint=True)])
+    return (build_sorted_map(keys, counts).to(device),
+            torch.from_numpy(q[rng.permutation(queries)].view(np.int64)).to(device))

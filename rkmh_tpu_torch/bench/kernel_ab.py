@@ -47,8 +47,12 @@ measures the Python launch path), at:
 * call's workload (``bench/call_inputs``: HPV16REF and the depth map of
   1,100 nanopore-like reads, k=16, w=100): K8 on the reference's
   positional hashes (``k8_scan``) and on 2**20 read hashes (``k8_2e20``),
-  K9 on the reference (``k9_call``) and on a 1 Mbp reference against the
-  same map (``k9_1mbp``, checked on its first 20,000 positions).
+  K9 on the reference by its packed route (``k9_call``) and its byte-wise
+  route (``k9_call_bytewise``), and on a 1 Mbp reference against the same
+  map (``k9_1mbp``, checked on its first 20,000 positions).  A
+  ``hashmap.cu`` or ``call_scan.cu`` from before the sorted depth map
+  takes a cuckoo table (other entry points): ``bench/call_ab.sh`` times
+  such a checkout's K8, K9 and ``call`` against this one's instead.
 
 K6's diagnostics (printed, and under ``k6_diagnostics`` in the JSON):
 one atomicAdd per slot computed beforehand (``bench/diag_atomics.cu``),
@@ -514,19 +518,21 @@ def main(argv=None) -> int:
         return Case(K8, lambda: hashmap._hashmap_get_cuda(ctable, h),
                     check=equals(lambda: hashmap.hashmap_get_plain(ctable, h)))
 
-    def k9_case(key, positions=None):
+    get = call_engine.plain_getter(ctable)
+
+    def k9_case(key, positions=None, route=None):
         codes_, depth, avg, site = scans[key]
         n = positions or codes_.numel() - ck + 1
 
         def plain():
-            return call_engine._enumerate_plain(codes_, ctable, ck, depth, avg, site, 0, n)
+            return call_engine._enumerate_plain(codes_, get, ck, depth, avg, site, 0, n)
 
         def first(fn):  # the kernel's outputs at the plain version's positions
             return lambda: tuple(t[:n] for t in fn())
 
         check = equals(plain)
         return Case(K9, lambda: call_engine._call_scan_cuda(codes_, ctable, ck, depth, avg,
-                                                            site),
+                                                            site, route),
                     check=lambda fn: check(first(fn)))
 
     def k6_case(table, h, win, msk, **kw):
@@ -593,6 +599,7 @@ def main(argv=None) -> int:
         "k8_scan": k8_case(pos_hashes),
         "k8_2e20": k8_case(cw["read_hashes"]),
         "k9_call": k9_case("k9_call"),
+        "k9_call_bytewise": k9_case("k9_call", route="bytewise"),
         "k9_1mbp": k9_case("k9_1mbp", K9_CHECKED),
     }
     if args.only:
@@ -637,6 +644,7 @@ def main(argv=None) -> int:
                                                                           cw["read_hashes"])),
                       **{key: bounds.bound_ms(bounds.call_scan_bytes(scans[key][0], ctable, ck))
                          for key in scans}})
+        bound["k9_call_bytewise"] = bound["k9_call"]
     say(f"K2 raw rows: {raw_stats.probes / B:.2f} probes, {raw_stats.hits / B:.2f} hits per "
         f"read, {raw_stats.mask_bits / max(raw_stats.hits, 1):.2f} of {R} mask bits set per "
         f"hit, {raw_stats.table_bytes} table bytes reached; K3: {vars(k3_stats)}; "

@@ -11,13 +11,16 @@ reference goes at once:
 * positional hashes [P]: K1 (``ops/hashing``) on the reference, as rows of
   at most ``ROW_WINDOWS`` windows that overlap by k-1 codes, so any length
   fits the kernel's grid;
-* depth[j] = map[hash[j]]: K8 (``ops/hashmap``);
+* depth[j] = map[hash[j]]: K8 (``ops/hashmap``; the map is a
+  ``SortedMap``, the read hashes' keys sorted under a directory);
 * the trailing-window average [P] (int64 cumulative sums, float64
   division truncated to int32, as rkmh's ``int avg_d = (double)sum /
   size``) and the sites (``depth < 0.5 * avg``): PyTorch glue, as in the
   JAX package;
 * the mutation scan: K9 (``csrc/call_scan.cu``), which makes, hashes,
-  probes and calls every variant without materialising them.
+  probes and calls every variant without materialising them: its packed
+  route for k <= 32, its byte-wise route above (or where the caller asks
+  for it, ``route="bytewise"``, to time or check it).
 
 On a CPU tensor ``call_scan_ref`` is ``call_scan_plain``, the JAX chain
 step by step in PyTorch (``rkmh_tpu/call_engine.py:60-123``; the mutated
@@ -41,13 +44,16 @@ import torch
 from rkmh_tpu_torch.io.packing import PAD_CODE
 from rkmh_tpu_torch.ops import kernels
 from rkmh_tpu_torch.ops.hashing import kmer_window_hashes, kmer_window_hashes_plain
-from rkmh_tpu_torch.ops.hashmap import device_table_size, hashmap_get, hashmap_get_plain
+from rkmh_tpu_torch.ops.hashmap import (
+    SortedMap, check_map, hashmap_get, map_args, searchsorted_get, sorted_keys,
+)
 
 # rotate_snps order (rkmh.cpp:1634-1654), in 2-bit codes A=0 C=1 G=2 T=3:
 # A->(C,T,G)  C->(T,G,A)  G->(A,C,T)  T->(C,G,A)
 ROT = np.array([[1, 3, 2], [3, 2, 0], [0, 1, 3], [1, 2, 0]], dtype=np.uint8)
 
 ROW_WINDOWS = 1 << 22       # positional windows per K1 row (its limit: ~8.4M codes a row)
+MAX_PACKED_K = 32           # K9's packed route takes k <= 32
 PLAIN_CHUNK = 2048          # positions per step of the plain enumeration
 _PAD = 4                    # the deletion window's code before ref[0]
 
@@ -108,41 +114,53 @@ def mutation_hashes(ref_codes: torch.Tensor, k: int, j0: int, j1: int):
     return win, snp_hash, del_hash
 
 
-def _enumerate_plain(ref_codes, table, k, depth, avg, site, j0, j1):
+def _enumerate_plain(ref_codes, get, k, depth, avg, site, j0, j1):
     """The JAX chain's SNP and DEL calls (call_engine.py:94-118) for
-    positions [j0, j1)."""
+    positions [j0, j1); ``get`` maps hashes to their depths."""
     win, snp_hash, del_hash = mutation_hashes(ref_codes, k, j0, j1)
-    snp_depth = hashmap_get_plain(table, snp_hash)                    # [n, k, 3]
+    snp_depth = get(snp_hash)                                         # [n, k, 3]
     d, a, s = depth[j0:j1], avg[j0:j1].to(torch.float64), site[j0:j1]
     snp_call = (s[:, None, None] & (snp_depth.to(torch.float64) >= 0.1 * a[:, None, None])
                 & (snp_depth > d[:, None, None]) & (win < 4)[:, :, None])
     max_rescue = torch.where(s[:, None, None], snp_depth,
                              torch.zeros_like(snp_depth)).amax(dim=(1, 2))
-    del_depth = hashmap_get_plain(table, del_hash)
+    del_depth = get(del_hash)
     j = torch.arange(j0, j1, device=ref_codes.device)
     del_call = (s[:, None] & (del_depth.to(torch.float64) > 0.9 * a[:, None])
                 & (j > 0)[:, None])
     return snp_depth, snp_call, max_rescue.to(torch.int32), del_depth, del_call
 
 
-def call_scan_plain(ref_codes: torch.Tensor, table: torch.Tensor, k: int,
+def plain_getter(table: SortedMap):
+    """The plain lookup of a map, its keys decoded once."""
+    flipped, values = sorted_keys(table)
+    return lambda hashes: searchsorted_get(flipped, values, hashes)
+
+
+def call_scan_plain(ref_codes: torch.Tensor, table: SortedMap, k: int,
                     window_len: int) -> dict:
     """Plain PyTorch version of ``call_scan_ref``: the JAX chain step by
     step, the enumeration in chunks of PLAIN_CHUNK positions."""
     P = ref_codes.shape[0] - k + 1
-    wh = kmer_window_hashes_plain(ref_codes[None], k)[0]
-    depth = hashmap_get_plain(table, wh)
+    get = plain_getter(table)
+    depth = get(kmer_window_hashes_plain(ref_codes[None], k)[0])
     avg, site = window_average(depth, window_len)
-    parts = [_enumerate_plain(ref_codes, table, k, depth, avg, site, j0,
+    parts = [_enumerate_plain(ref_codes, get, k, depth, avg, site, j0,
                               min(j0 + PLAIN_CHUNK, P)) for j0 in range(0, P, PLAIN_CHUNK)]
     names = ("snp_depth", "snp_call", "max_rescue", "del_depth", "del_call")
     return dict(depth=depth, avg=avg, site=site,
                 **{name: torch.cat([p[i] for p in parts]) for i, name in enumerate(names)})
 
 
-def _call_scan_cuda(ref_codes, table, k, depth, avg, site):
-    """K9 wrapper: (snp_depth, snp_call, max_rescue, del_depth, del_call)."""
-    T = device_table_size(table)
+def _call_scan_cuda(ref_codes, table, k, depth, avg, site, route: str | None = None):
+    """K9 wrapper: (snp_depth, snp_call, max_rescue, del_depth, del_call).
+    ``route``: None takes the packed route for k <= 32 and the byte-wise
+    one above; "bytewise" the byte-wise route at any k."""
+    if route not in (None, "bytewise"):
+        raise ValueError(f"K9 has no route {route!r}")
+    if check_map(table).device != ref_codes.device:
+        raise ValueError(f"the map is on {table.device}, the codes on {ref_codes.device}")
+    bytewise = route == "bytewise" or k > MAX_PACKED_K
     P = ref_codes.shape[0] - k + 1
     dev = ref_codes.device
     pref = torch.cat([torch.full((1,), _PAD, dtype=torch.uint8, device=dev), ref_codes])
@@ -152,16 +170,17 @@ def _call_scan_cuda(ref_codes, table, k, depth, avg, site):
     del_depth = torch.empty((P, k), dtype=torch.int32, device=dev)
     del_call = torch.empty((P, k), dtype=torch.bool, device=dev)
     kernels.CALL_SCAN(pref, P, k, depth.contiguous(), avg.contiguous(), site.contiguous(),
-                      table, T, snp_depth, snp_call, max_rescue, del_depth, del_call)
+                      *map_args(table), snp_depth, snp_call, max_rescue, del_depth, del_call,
+                      int(bytewise), route="bytewise" if bytewise else "packed")
     return snp_depth, snp_call, max_rescue, del_depth, del_call
 
 
-def call_scan_ref(ref_codes: torch.Tensor, table: torch.Tensor, k: int,
+def call_scan_ref(ref_codes: torch.Tensor, table: SortedMap, k: int,
                   window_len: int) -> dict:
     """One reference row -> what the caller needs.
 
     ref_codes: [L] uint8 (A=0 C=1 G=2 T=3, >= 4 invalid), L >= k; table:
-    the depth map's [T, 4] int32 table on the same device.  Returns the
+    the depth map (``ops/hashmap.SortedMap``) on the same device.  Returns the
     JAX function's dict: depth, avg, site [P]; snp_depth, snp_call [P, k,
     3]; max_rescue [P]; del_depth, del_call [P, k] (P = L - k + 1).  On a
     CUDA tensor: K1, K8, the glue, K9; on a CPU tensor: call_scan_plain."""

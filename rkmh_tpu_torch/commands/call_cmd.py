@@ -2,8 +2,8 @@
 
 Counterpart of ``rkmh_tpu/commands/call_cmd.py`` on one device (rkmh's
 main_call, rkmh.cpp:1455-1904).  Flow: hash every read k-mer (K1) ->
-the exact hash -> depth map, built on the host by the numpy cuckoo copy
-(``ops/hashmap``, the JAX package's table bits) and copied to the device
+the exact hash -> depth map, built on the host from ``np.unique``'s sorted
+keys and counts (``ops/hashmap.SortedMap``) and copied to the device
 -> per reference: positional depth, trailing-window average, low-depth
 sites and the SNP/DEL rescue scan (``call_engine``: K1, K8, K9) -> records
 aggregated into VCF lines keyed and sorted as the reference's
@@ -39,7 +39,7 @@ from rkmh_tpu_torch.commands.common import (
 )
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.io.packing import encode_seqs
-from rkmh_tpu_torch.ops.hashmap import depth_map_from_hashes, map_table
+from rkmh_tpu_torch.ops.hashmap import SortedMap, build_sorted_map, unique_counts
 
 _BASE = "ACGT"
 
@@ -170,13 +170,14 @@ def extract_records(ref_name, codes_row, res, P: int, k: int, record,
 
 
 def build_depth_map(reads, ks: tuple, batch_size: int, device: torch.device,
-                    stats: dict | None = None) -> torch.Tensor:
+                    stats: dict | None = None) -> SortedMap:
     """The exact hash -> depth map over every read k-mer occurrence, zeros
-    included (rkmh.cpp:1616-1623), as the [T, 4] table on ``device``: K1
-    over bucketed batches, the existing windows' hashes fetched to the
-    host, ``np.unique`` and the numpy cuckoo build, then one copy to the
-    device.  ``stats`` (a dict) gets the seconds of the hashing and of the
-    host build and the map's keys and slots."""
+    included (rkmh.cpp:1616-1623), on ``device``: K1 over bucketed
+    batches, the existing windows' hashes fetched to the host,
+    ``np.unique``, the sorted map laid out from its keys and counts, then
+    one copy to the device.  ``stats`` (a dict) gets the seconds of the
+    hashing, the unique and the layout, the map's keys and its bytes by
+    part."""
     t0 = time.perf_counter()
     parts = []
     for _, codes, lens in bucketed_batches(reads, batch_size):
@@ -184,14 +185,17 @@ def build_depth_map(reads, ks: tuple, batch_size: int, device: torch.device,
         hashes, mask = engine.hash_batch_with_mask(batch, torch.from_numpy(lens).to(device), ks)
         parts.append(hashes[mask].cpu().numpy())
     t1 = time.perf_counter()
-    hm = depth_map_from_hashes(np.concatenate(parts) if parts else np.zeros(0, np.int64))
+    keys, counts = unique_counts(np.concatenate(parts) if parts else np.zeros(0, np.int64))
     t2 = time.perf_counter()
-    table = map_table(hm, device)
+    sm = build_sorted_map(keys, counts)
+    t3 = time.perf_counter()
+    sm = sm.to(device)
     if stats is not None:
-        stats.update(read_hashing_s=t1 - t0, map_build_s=t2 - t1,
-                     map_keys=int(hm.used.sum()), map_slots=int(hm.used.shape[0]),
-                     map_bytes=table.numel() * table.element_size())
-    return table
+        stats.update(read_hashing_s=t1 - t0, map_unique_s=t2 - t1, map_layout_s=t3 - t2,
+                     map_copy_s=time.perf_counter() - t3, map_keys=sm.n, map_bits=sm.bits,
+                     map_overflow=sm.m, map_bytes=sm.buf.numel() * 8,
+                     map_part_bytes=sm.part_bytes())
+    return sm
 
 
 def load_partials(path: str, truncate: bool = False):
@@ -231,8 +235,8 @@ def load_partials(path: str, truncate: bool = False):
 
 def run(cfg: CallConfig, out=None, stats: dict | None = None) -> int:
     """``stats`` (a dict), if given, gets the seconds of each phase
-    (parse, read hashing, host map build, scan, record extraction, write)
-    and the depth map's keys, slots and bytes on the device."""
+    (parse, read hashing, the map's unique, layout and copy, scan, record
+    extraction, write) and the depth map's keys and bytes on the device."""
     out = out or sys.stdout
     if not cfg.ks:
         log("No kmer size(s) provided. Will use a default kmer size of 16.")

@@ -5,8 +5,8 @@ table, and its ``Hpv16Tables.comb_table`` is a uint32 set table; as numpy
 arrays they become the port's tensors by reinterpreting the bits as int64
 and int32.  A ``HashCounter``'s int32 table (``.to_numpy()``) carries over
 as it is, and so does the table ``count -o`` saves (either package's npz).
-A ``HashMap``'s four arrays (``call``'s depth map) become the port's one
-[T, 4] table.
+A ``HashMap``'s four arrays (``call``'s depth map, a cuckoo table) become
+the port's ``SortedMap`` of the same keys and values.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from rkmh_tpu_torch.commands.common import RefPanel
 from rkmh_tpu_torch.ops.counter import HashCounter
-from rkmh_tpu_torch.ops.hashmap import HashMap, map_table
+from rkmh_tpu_torch.ops.hashmap import SortedMap, build_sorted_map
 from rkmh_tpu_torch.ops.lookup import table_slots
 
 
@@ -66,14 +66,16 @@ def counter_from_npz(path, device) -> HashCounter:
     return counter_from_numpy(table, device)
 
 
-def hashmap_from_numpy(hash_hi, hash_lo, used, values, device) -> torch.Tensor:
-    """The four [T] arrays of a ``HashMap`` (the JAX package's, or this
-    port's numpy build: uint32 hi and lo halves, bool used flags, int32
-    values) -> the [T, 4] int32 (hi, lo, value, used) table on ``device``
-    that ``ops.hashmap.hashmap_get`` and the call scan read, bit for bit."""
-    hm = HashMap(np.asarray(hash_hi), np.asarray(hash_lo), np.asarray(used),
-                 np.asarray(values))
-    T = hm.used.shape[0]
-    if T & (T - 1) or any(a.shape != (T,) for a in (hm.hash_hi, hm.hash_lo, hm.values)):
-        raise ValueError("a hash map is four [T] arrays, T a power of two")
-    return map_table(hm, device)
+def hashmap_from_numpy(hash_hi, hash_lo, used, values, device) -> SortedMap:
+    """The four [T] arrays of a ``HashMap`` (the JAX package's: uint32 hi
+    and lo halves, bool used flags, int32 values) -> the ``SortedMap`` of
+    its used keys and their values on ``device``, which
+    ``ops.hashmap.hashmap_get`` and the call scan read: every key reads
+    the value the JAX ``hashmap_get`` gives it."""
+    hi, lo = np.asarray(hash_hi, np.uint32), np.asarray(hash_lo, np.uint32)
+    used, vals = np.asarray(used, bool), np.asarray(values, np.int32)
+    if not hi.ndim == 1 or any(a.shape != hi.shape for a in (lo, used, vals)):
+        raise ValueError("a hash map is four [T] arrays of one length")
+    keys = (hi[used].astype(np.uint64) << np.uint64(32)) | lo[used].astype(np.uint64)
+    order = np.argsort(keys, kind="stable")
+    return build_sorted_map(keys[order], vals[used][order]).to(device)

@@ -21,7 +21,8 @@
 // one contiguous span of the code array (rows are contiguous), at most BW
 // * k bytes; rows and columns come from the flat index by a multiply-high
 // division with host-made constants.  Each warp packs 32 codes of the span
-// with three ballots into shared memory: the 2-bit codes, first base in
+// with three ballots into shared memory (packed_kmer.cuh, shared with K9's
+// packed route): the 2-bit codes, first base in
 // the most significant bits, and a bitmask of the invalid positions.  A
 // window then takes its forward key as the 2k bits at bit 2p (two word
 // loads and a funnel shift), its validity as "the k mask bits at p are all
@@ -49,11 +50,9 @@
 #include <cuda_runtime.h>
 
 #include "murmur3.cuh"
+#include "packed_kmer.cuh"
 
 namespace {
-
-using rkmh::murmur_block;
-using rkmh::murmur_finish;
 
 constexpr int PT = 256;            // packed variant: threads per block
 constexpr int WPT = 4;             // windows per thread
@@ -63,18 +62,6 @@ constexpr int MAX_PACKED_K = 32;
 // plus one word read past the last by the funnel shifts
 constexpr int SPAN_WORDS = BW * MAX_PACKED_K / 32 + 1;
 constexpr int TILE = 128;        // byte-wise variant: windows (= threads) per block
-constexpr unsigned FULL = 0xFFFFFFFFu;
-
-// 32-bit x -> 64 bits with bit j of x at bit 2j.
-__device__ __forceinline__ uint64_t spread_bits(uint32_t v) {
-  uint64_t x = v;
-  x = (x | (x << 16)) & 0x0000FFFF0000FFFFULL;
-  x = (x | (x << 8)) & 0x00FF00FF00FF00FFULL;
-  x = (x | (x << 4)) & 0x0F0F0F0F0F0F0F0FULL;
-  x = (x | (x << 2)) & 0x3333333333333333ULL;
-  x = (x | (x << 1)) & 0x5555555555555555ULL;
-  return x;
-}
 
 // Division by a fixed d >= 1 of any 32-bit n as a multiply-high and two
 // shifts (Granlund and Montgomery), the constants made on the host.
@@ -95,44 +82,6 @@ __device__ __forceinline__ uint32_t fast_div(uint32_t n, FastDiv d) {
   return (t + ((n - t) >> d.s1)) >> d.s2;
 }
 
-// h1 of the k-window whose first code is code p of a block's packed span.
-template <int k>
-__device__ __forceinline__ uint64_t hash_packed_window(const uint64_t* fwd, const uint32_t* bad,
-                                                       const uint32_t* ascii4, int p,
-                                                       uint64_t seed) {
-  const uint32_t kmask = k == 32 ? FULL : (1u << (k & 31)) - 1u;
-  if (__funnelshift_r(bad[p >> 5], bad[(p >> 5) + 1], p & 31) & kmask) return 0;
-  // forward key, left-aligned: the 2k bits at bit 2p, the rest cleared
-  const int s = (2 * p) & 63, i = (2 * p) >> 6, drop = 64 - 2 * k;
-  uint64_t x = (fwd[i] << s) | ((fwd[i + 1] >> 1) >> (63 - s));
-  x = (x >> drop) << drop;
-  // reverse complement, left-aligned: bit reversal puts base j at bits
-  // 2j, 2j+1 with its two bits swapped; swap them back, complement the 2k
-  // live bits, realign
-  uint64_t rc = __brevll(x);
-  rc = ((rc >> 1) & 0x5555555555555555ULL) | ((rc & 0x5555555555555555ULL) << 1);
-  rc = (rc ^ (~0ULL >> drop)) << drop;
-  const uint64_t canon = x <= rc ? x : rc;
-
-  // little-endian ASCII words of the canonical k-mer, zero past byte k
-  uint64_t wd[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int g = 0; g < 8; ++g) {
-    const int nb = k - 4 * g;  // bases of group g
-    if (nb > 0) {
-      uint32_t a = ascii4[(canon >> (56 - 8 * g)) & 0xFF];
-      if (nb < 4) a &= (1u << (8 * nb)) - 1u;
-      wd[g >> 1] |= (uint64_t)a << (32 * (g & 1));
-    }
-  }
-  uint64_t h1 = seed, h2 = seed;
-  const int nblocks = k >> 4;  // 0, 1 or 2
-  if (nblocks >= 1) murmur_block(h1, h2, wd[0], wd[1]);
-  if (nblocks >= 2) murmur_block(h1, h2, wd[2], wd[3]);
-  return nblocks == 0 ? murmur_finish(h1, h2, k, wd[0], wd[1])
-                      : murmur_finish(h1, h2, k, wd[2], wd[3]);
-}
-
 // Windows [0, total) of rows of W k-windows; total < 2^32.
 template <int k>
 __global__ void __launch_bounds__(PT) window_hash_packed_kernel(
@@ -142,15 +91,9 @@ __global__ void __launch_bounds__(PT) window_hash_packed_kernel(
   __shared__ uint32_t bad[SPAN_WORDS];  // bit j of word i: code 32i+j >= 4
   __shared__ uint32_t ascii4[256];      // 4 bases (first in bits 7-6) -> 4 ASCII bytes, LE
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  {
-    uint32_t a = 0;
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t c = (tid >> (6 - 2 * j)) & 3u;
-      a |= (c == 0 ? 65u : c == 1 ? 67u : c == 2 ? 71u : 84u) << (8 * j);  // A C G T
-    }
-    ascii4[tid] = a;
-  }
+  const int tid = threadIdx.x;
+  static_assert(PT == 256, "init_ascii4 fills one entry a thread");
+  rkmh::init_ascii4(ascii4);
 
   // the block's windows [f0, f0 + BW) span the codes [g0, g0 + span): the
   // windows of rows r0..r1 and the k - 1 trailing codes of each row
@@ -161,19 +104,7 @@ __global__ void __launch_bounds__(PT) window_hash_packed_kernel(
   const int64_t g0 = (int64_t)r0 * L + w0;
   const int span = (int)(fl - f0 + 1 + (r1 - r0 + 1) * (k - 1));
 
-  // warp-uniform loop bound: every lane takes part in the ballots
-  for (int base = warp * 32; base < span; base += PT) {
-    const int j = base + lane;
-    const uint32_t c = j < span ? codes[g0 + j] : 255u;
-    const uint32_t b0 = __ballot_sync(FULL, c & 1u);
-    const uint32_t b1 = __ballot_sync(FULL, c & 2u);
-    const uint32_t bd = __ballot_sync(FULL, c >= 4u);
-    if (lane == 0) {
-      // lane j's high bit to 2j, low bit to 2j + 1, then reverse: 63-2j, 62-2j
-      fwd[base >> 5] = __brevll(spread_bits(b1) | (spread_bits(b0) << 1));
-      bad[base >> 5] = bd;
-    }
-  }
+  rkmh::pack_span<PT>(codes + g0, span, fwd, bad);
   __syncthreads();
 
   // WPT windows per thread, PT apart: stores stay coalesced
@@ -185,7 +116,7 @@ __global__ void __launch_bounds__(PT) window_hash_packed_kernel(
     const uint32_t w = w0 + t - dr * W;
     const int p = (int)(t + dr * (k - 1));  // the window's first code in the span
     out[(int64_t)(r0 + dr) * out_cols + col0 + w] =
-        hash_packed_window<k>(fwd, bad, ascii4, p, seed);
+        rkmh::hash_packed_window<k>(fwd, bad, ascii4, p, seed);
   }
 }
 

@@ -1,19 +1,41 @@
-"""Exact uint64 -> int32 hash map: a cuckoo table built on the host,
-queried in two probes.
+"""Exact uint64 -> int32 map: the keys sorted under a directory of their
+top bits, built straight from ``np.unique``.
 
-Counterpart of ``rkmh_tpu/ops/hashmap.py``.  ``call`` needs rkmh's
-``read_hash_to_depth`` map (rkmh.cpp:1570-1624): the exact depth of every
-read k-mer hash, queried at every reference position and for ~4k mutated
-k-mers a position.  ``HashMap``, ``build_hash_map`` (:48) and
-``depth_map_from_hashes`` (:179) are numpy copies, so a map holds the same
-bits in either package.
+Counterpart of ``rkmh_tpu/ops/hashmap.py``: the same function, not its
+layout.  ``call`` needs rkmh's ``read_hash_to_depth`` map
+(rkmh.cpp:1570-1624): the exact depth of every read k-mer hash, 0 for a
+key it lacks, queried at every reference position and for ~4k mutated
+k-mers a position.  Key 0 is a real key (every invalid read k-mer counts
+under hash 0).  The JAX package places its keys in a cuckoo table of
+next_pow2(2n) 16-byte slots, 134 MB for call's 2.1M keys: past the card's
+L2, and its placement is most of the host's build.  ``np.unique`` already
+returns the keys sorted with their counts, so this map takes them as they
+come:
 
-On the device the map is one int32 ``[T, 4]`` tensor of (hi, lo, value,
-used) rows, so that a probe is one 16-byte load (``map_table``,
-``convert.hashmap_from_numpy``).  ``hashmap_get`` is K8
-(``csrc/hashmap.cu``) on a CUDA tensor and ``hashmap_get_plain`` on a CPU
-tensor.  A missing key reads 0.  Key 0 is a real key (every invalid read
-k-mer counts under hash 0): emptiness is the used flag alone.
+* ``bits`` B = max(MIN_BITS, bit_length(n) - 2), so that a bucket (the
+  keys that share their top B bits) holds 2 to 4 keys on average;
+* ``dir`` [2**B + 1] int32: bucket b's keys are entries [dir[b],
+  dir[b+1]);
+* ``words`` [n] int64: entry i is key i's low 64 - B bits (the top B are
+  the bucket's) over a B-bit count, ``key << B | count``, so a bucket's
+  words are sorted (unsigned) as its keys are;
+* a count that does not fit (>= 2**B - 1, or negative) is stored as
+  2**B - 1, and the key and its value go to ``ov_keys`` [m] int64 and
+  ``ov_values`` [m] int32, sorted: at call's map that is key 0 alone,
+  where invalid k-mers are many.
+
+For the 2,106,405 keys of call's workload that is 21 MB (B = 20), inside
+the ~24 MB that every SM can read at random at the L2's rate
+(``bench/l2_sweep.py``; PERF.md).  A probe (``csrc/hashmap.cuh``) reads
+dir[b] and dir[b+1], then scans the bucket's words to the first one that
+is not below the key's.
+
+The map is one int64 tensor with views (one host-to-device copy).
+``hashmap_get`` is K8 (``csrc/hashmap.cu``) on a CUDA tensor and
+``hashmap_get_plain`` on a CPU tensor: ``torch.searchsorted`` over the
+decoded keys, sign-flipped so that int64 order is the unsigned order, a
+gather and a compare (``searchsorted_get``, also the library yardstick of
+``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -25,202 +47,172 @@ import torch
 
 from rkmh_tpu_torch.ops import kernels
 
-_MUL1 = 0x9E3779B1
-_MUL2 = 0x85EBCA77
-_M32 = 0xFFFFFFFF
+MIN_BITS = 8
+_FLIP = -(2**63)  # int64 ^ _FLIP orders as the uint64 it holds
 
 
-def next_pow2(n: int) -> int:
-    return 1 << max(0, (int(n) - 1).bit_length())
+def bucket_bits(n: int) -> int:
+    return max(MIN_BITS, int(n).bit_length() - 2)
 
 
-@dataclass
-class HashMap:
-    hash_hi: np.ndarray  # [T] uint32
-    hash_lo: np.ndarray  # [T] uint32
-    used: np.ndarray     # [T] bool
-    values: np.ndarray   # [T] int32
+@dataclass(frozen=True, eq=False)
+class SortedMap:
+    """words [n] | ov_keys [m] | dir [2**bits + 1] and ov_values [m] as
+    int32 pairs, in one int64 tensor ``buf``."""
+
+    buf: torch.Tensor
+    bits: int
+    n: int
+    m: int
+
+    @property
+    def words(self) -> torch.Tensor:
+        return self.buf[: self.n]
+
+    @property
+    def ov_keys(self) -> torch.Tensor:
+        return self.buf[self.n : self.n + self.m]
+
+    @property
+    def dir(self) -> torch.Tensor:
+        return self.buf[self.n + self.m :].view(torch.int32)[: (1 << self.bits) + 1]
+
+    @property
+    def ov_values(self) -> torch.Tensor:
+        d = (1 << self.bits) + 1
+        return self.buf[self.n + self.m :].view(torch.int32)[d : d + self.m]
+
+    @property
+    def device(self) -> torch.device:
+        return self.buf.device
+
+    def to(self, device) -> "SortedMap":
+        return SortedMap(self.buf.to(device), self.bits, self.n, self.m)
+
+    def part_bytes(self) -> dict:
+        return {"words": 8 * self.n, "directory": 4 * ((1 << self.bits) + 1),
+                "overflow": 12 * self.m}
 
 
-def build_hash_map(keys: np.ndarray, values: np.ndarray) -> HashMap:
-    """keys: unique uint64; values: int32.  Host-side vectorised cuckoo:
-    rounds of first-wins claims with eviction (a random side per key per
-    round), then the classic sequential eviction walk for the last few
-    stragglers; the table doubles only when that walk fails.  A copy of
-    ``rkmh_tpu/ops/hashmap.py:48``, the same seed included, so the table
-    bits are the JAX package's."""
+def buf_len(bits: int, n: int, m: int) -> int:
+    return n + m + ((1 << bits) + 1 + m + 1) // 2
+
+
+def build_sorted_map(keys: np.ndarray, values: np.ndarray) -> SortedMap:
+    """keys: uint64, unique and sorted (``np.unique``'s order); values:
+    int32 (counts) -> the map on the CPU."""
     keys = np.asarray(keys, dtype=np.uint64)
-    values = np.asarray(values, dtype=np.int32)
-    assert keys.shape == values.shape
-    n = len(keys)
-    T = max(64, next_pow2(2 * max(n, 1)))
-
-    lo_all = keys.astype(np.uint32)
-    hi_all = (keys >> np.uint64(32)).astype(np.uint32)
-
-    while True:
-        mask_t = np.uint32(T - 1)
-        used = np.zeros(T, dtype=bool)
-        # which key occupies each slot (index into keys); -1 = empty
-        slot_key = np.full(T, -1, dtype=np.int64)
-        s1_all = (((lo_all ^ np.uint32(_MUL1)) * np.uint32(_MUL1)) & mask_t).astype(np.int64)
-        s2_all = (((hi_all ^ np.uint32(_MUL2)) * np.uint32(_MUL2)) & mask_t).astype(np.int64)
-
-        rng = np.random.default_rng(0xC0FFEE)
-        pending = np.arange(n, dtype=np.int64)
-        for _rnd in range(64):
-            if pending.size == 0:
-                break
-            t1 = s1_all[pending]
-            t2 = s2_all[pending]
-            free1 = ~used[t1]
-            free2 = ~used[t2]
-            # a random eviction side per key: a global side locks small
-            # key cycles into evicting each other forever
-            side = rng.integers(0, 2, size=pending.size).astype(bool)
-            evict = np.where(side, t2, t1)
-            tgt = np.where(free1, t1, np.where(free2, t2, evict))
-            # serialise within the round: the first pending key per slot wins
-            order = np.argsort(tgt, kind="stable")
-            ts = tgt[order]
-            first = np.ones(ts.size, dtype=bool)
-            first[1:] = ts[1:] != ts[:-1]
-            win_pos = order[first]                  # positions in `pending`
-            w_slots = tgt[win_pos]
-            evicted = slot_key[w_slots]
-            evicted = evicted[evicted >= 0]
-            slot_key[w_slots] = pending[win_pos]
-            used[w_slots] = True
-            keep = np.ones(pending.size, dtype=bool)
-            keep[win_pos] = False
-            pending = np.concatenate([pending[keep], evicted])
-        if 0 < pending.size <= 65536:
-            # sequential eviction walk for the stragglers; an evicted key
-            # never goes back into the slot it was just kicked out of
-            ok = True
-            for ki in pending.tolist():
-                cur = ki
-                came_from = -1
-                placed = False
-                for _step in range(10000):
-                    c1, c2 = s1_all[cur], s2_all[cur]
-                    if not used[c1]:
-                        tgt = c1
-                    elif not used[c2]:
-                        tgt = c2
-                    elif came_from == c1:
-                        tgt = c2
-                    elif came_from == c2:
-                        tgt = c1
-                    else:
-                        tgt = c2 if rng.integers(2) else c1
-                    prev = slot_key[tgt] if used[tgt] else -1
-                    slot_key[tgt] = cur
-                    used[tgt] = True
-                    if prev < 0:
-                        placed = True
-                        break
-                    came_from = tgt
-                    cur = int(prev)
-                if not placed:
-                    ok = False
-                    break
-            if ok:
-                pending = pending[:0]
-        if pending.size == 0:
-            occ = np.nonzero(used)[0]
-            ki = slot_key[occ]
-            hash_hi = np.zeros(T, dtype=np.uint32)
-            hash_lo = np.zeros(T, dtype=np.uint32)
-            vals = np.zeros(T, dtype=np.int32)
-            hash_hi[occ] = hi_all[ki]
-            hash_lo[occ] = lo_all[ki]
-            vals[occ] = values[ki]
-            return HashMap(hash_hi, hash_lo, used, vals)
-        T *= 2
+    v = np.asarray(values).astype(np.int64)
+    if keys.ndim != 1 or v.shape != keys.shape:
+        raise ValueError(f"keys and values are two [n] arrays, got {keys.shape} and {v.shape}")
+    if keys.size > 1 and not (keys[1:] > keys[:-1]).all():
+        raise ValueError("the keys must be unique and sorted")
+    if v.size and (v.min() < -2**31 or v.max() >= 2**31):
+        raise ValueError("the values must fit int32")
+    n = keys.size
+    if n >= 2**31:
+        raise ValueError(f"a map holds fewer than 2**31 keys, got {n}")
+    bits = bucket_bits(n)
+    sat = (1 << bits) - 1
+    over = (v < 0) | (v >= sat)
+    m = int(over.sum())
+    words = (keys << np.uint64(bits)) | np.where(over, sat, v).astype(np.uint64)
+    i32 = np.zeros(2 * (buf_len(bits, n, m) - n - m), dtype=np.int32)
+    np.cumsum(np.bincount((keys >> np.uint64(64 - bits)).astype(np.int64), minlength=1 << bits),
+              out=i32[1 : (1 << bits) + 1])
+    i32[(1 << bits) + 1 : (1 << bits) + 1 + m] = v[over]
+    buf = np.concatenate([words.view(np.int64), keys[over].view(np.int64), i32.view(np.int64)])
+    return SortedMap(torch.from_numpy(buf), bits, n, m)
 
 
-def depth_map_from_hashes(hashes: np.ndarray, mask: np.ndarray | None = None) -> HashMap:
-    """hash -> count over the window hashes (the mask's, if given): the
-    read depth map of rkmh.cpp:1616-1623.  Zeros count too: every invalid
+def unique_counts(hashes: np.ndarray, mask: np.ndarray | None = None):
+    """(keys, counts) over the window hashes (the mask's, if given): the
+    read depth of rkmh.cpp:1616-1623.  Zeros count too: every invalid
     read k-mer adds to map[0], as the reference's operator[] loop does."""
     h = np.asarray(hashes)
     h = h.view(np.uint64) if h.dtype == np.int64 else h.astype(np.uint64, copy=False)
     if mask is not None:
         h = h[np.asarray(mask, dtype=bool)]
     keys, counts = np.unique(h, return_counts=True)
-    return build_hash_map(keys, counts.astype(np.int32))
+    return keys, counts.astype(np.int32)
 
 
-def map_table(hm: HashMap, device) -> torch.Tensor:
-    """A HashMap -> its [T, 4] int32 (hi, lo, value, used) table on ``device``."""
-    rows = np.stack([np.asarray(hm.hash_hi, np.uint32).view(np.int32),
-                     np.asarray(hm.hash_lo, np.uint32).view(np.int32),
-                     np.asarray(hm.values, np.int32),
-                     np.asarray(hm.used, bool).astype(np.int32)], axis=1)
-    return torch.from_numpy(rows).to(device)
+def depth_map_from_hashes(hashes: np.ndarray, mask: np.ndarray | None = None) -> SortedMap:
+    """The read depth map of the hashes (``unique_counts``), on the CPU."""
+    return build_sorted_map(*unique_counts(hashes, mask))
 
 
-def table_size(table: torch.Tensor) -> int:
-    """T of a [T, 4] int32 map table; raises on any other layout."""
-    T = table.shape[0] if table.dim() == 2 else 0
-    if table.dtype != torch.int32 or table.dim() != 2 or table.shape[1] != 4 \
-            or T & (T - 1) or not 0 < T <= 1 << 32:
-        raise ValueError(f"a hash map table is [T, 4] int32 with T a power of two, got "
-                         f"{tuple(table.shape)} {table.dtype}")
-    return T
+def check_map(sm: SortedMap) -> SortedMap:
+    """Raises on anything but a map's layout: one contiguous 1-D int64
+    buffer of the length its bits, n and m give."""
+    if not isinstance(sm, SortedMap):
+        raise ValueError(f"a depth map is a SortedMap, got {type(sm).__name__}")
+    b = sm.buf
+    if b.dtype != torch.int64 or b.dim() != 1 \
+            or not b.is_contiguous() or not 1 <= sm.bits <= 31 or not 0 <= sm.m <= sm.n \
+            or b.numel() != buf_len(sm.bits, sm.n, sm.m):
+        raise ValueError("a depth map is one contiguous [n + m + (2**bits + 2 + m) // 2] int64 "
+                         f"buffer, got {tuple(b.shape)} {b.dtype} with bits={sm.bits}, "
+                         f"n={sm.n}, m={sm.m}")
+    return sm
 
 
-def device_table_size(table: torch.Tensor) -> int:
-    """table_size, for a table the kernels read a slot at a time as one
-    16-byte load (K8, K9): contiguous and 16-byte aligned."""
-    T = table_size(table)
-    if not table.is_contiguous() or table.data_ptr() % 16:
-        raise ValueError("the map kernels take a contiguous, 16-byte aligned table")
-    return T
+def sorted_keys(sm: SortedMap) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the keys in order, sign-flipped into int64 order; their values)."""
+    check_map(sm)
+    B, w, dev = sm.bits, sm.words, sm.device
+    bucket = torch.repeat_interleave(torch.arange(1 << B, device=dev), sm.dir.diff().long())
+    keys = ((w >> B) & ((1 << (64 - B)) - 1)) | (bucket << (64 - B))
+    values = (w & ((1 << B) - 1)).to(torch.int32)
+    over = values == (1 << B) - 1
+    if int(over.sum()) != sm.m:
+        raise ValueError(f"a map with {sm.m} overflow entries has {int(over.sum())} "
+                         "saturated counts")
+    values[over] = sm.ov_values
+    return keys ^ _FLIP, values
 
 
-def slots(hashes: torch.Tensor, T: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """A key's two slots (``rkmh_tpu/ops/hashmap.py:167-170``): the uint32
-    products of its halves, taken in int64, whose low 32 bits wrap as
-    uint32 arithmetic does; T a power of two."""
-    lo = hashes & _M32
-    hi = (hashes >> 32) & _M32  # >> is arithmetic on int64: mask
-    return (((lo ^ _MUL1) * _MUL1) & (T - 1), ((hi ^ _MUL2) * _MUL2) & (T - 1))
+def searchsorted_get(flipped: torch.Tensor, values: torch.Tensor,
+                     hashes: torch.Tensor) -> torch.Tensor:
+    """The values of the hashes (any shape), 0 where absent: ``flipped``
+    the sorted sign-flipped keys, ``values`` theirs."""
+    q = hashes ^ _FLIP
+    if flipped.numel() == 0:
+        return torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+    i = torch.searchsorted(flipped, q).clamp(max=flipped.numel() - 1)
+    return torch.where(flipped[i] == q, values[i], torch.zeros_like(values[i]))
 
 
-def hashmap_get_plain(table: torch.Tensor, hashes: torch.Tensor) -> torch.Tensor:
+def hashmap_get_plain(sm: SortedMap, hashes: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch lookup: [...] int64 keys -> [...] int32 values, 0 for
     a missing key."""
-    T = table_size(table)
-    h = hashes.to(torch.int64)
-    lo, hi = h & _M32, (h >> 32) & _M32
-    out = torch.zeros(h.shape, dtype=torch.int32, device=h.device)
-    for s in slots(h, T):
-        e = table[s].to(torch.int64)  # [..., 4]
-        hit = (e[..., 3] != 0) & ((e[..., 0] & _M32) == hi) & ((e[..., 1] & _M32) == lo)
-        out = torch.where(hit, e[..., 2].to(torch.int32), out)
-    return out
+    return searchsorted_get(*sorted_keys(sm), hashes.to(torch.int64))
 
 
-def _hashmap_get_cuda(table: torch.Tensor, hashes: torch.Tensor) -> torch.Tensor:
+def _hashmap_get_cuda(sm: SortedMap, hashes: torch.Tensor) -> torch.Tensor:
     """K8 wrapper."""
-    T = device_table_size(table)
-    if hashes.dtype != torch.int64 or hashes.device != table.device:
-        raise ValueError(f"hash-map kernel takes int64 keys on the table's device, got "
+    check_map(sm)
+    if hashes.dtype != torch.int64 or hashes.device != sm.device:
+        raise ValueError(f"hash-map kernel takes int64 keys on the map's device, got "
                          f"{hashes.dtype} on {hashes.device}")
     keys = hashes.contiguous()
     out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
     if keys.numel():
-        kernels.HASHMAP_GET(keys, keys.numel(), table, T, out)
+        kernels.HASHMAP_GET(keys, keys.numel(), *map_args(sm), out)
     return out
 
 
-def hashmap_get(table: torch.Tensor, hashes: torch.Tensor) -> torch.Tensor:
+def map_args(sm: SortedMap) -> tuple:
+    """The map's arguments of the C entry points: words, dir, ov_keys,
+    ov_values, m, bits."""
+    return sm.words, sm.dir, sm.ov_keys, sm.ov_values, sm.m, sm.bits
+
+
+def hashmap_get(sm: SortedMap, hashes: torch.Tensor) -> torch.Tensor:
     """The value of every key (0 where absent): K8 on a CUDA tensor, the
     plain version on a CPU tensor."""
     if hashes.device.type == "cuda":
-        return _hashmap_get_cuda(table, hashes)
+        return _hashmap_get_cuda(sm, hashes)
     if hashes.device.type != "cpu":
         raise ValueError(f"no hash-map path for device {hashes.device}")
-    return hashmap_get_plain(table, hashes)
+    return hashmap_get_plain(sm, hashes)

@@ -172,11 +172,13 @@ COUNTER_ADD = Kernel("rkmh_counter_add", [_p, _p, _p, _i, _p, _i, _i64, _p, _i64
 # rkmh_counter_mask(hashes, n, table, size, magic, log2_ceil, lo, hi, out, stream)
 COUNTER_MASK = Kernel("rkmh_counter_mask", [_p, _i64, _p, _i64, _u64, _i, _i, _i, _p])
 
-# rkmh_hashmap_get(keys, n, table, T, out, stream)
-HASHMAP_GET = Kernel("rkmh_hashmap_get", [_p, _i64, _p, _i64, _p])
-# rkmh_call_scan(pref, P, k, depth, avg, site, table, T, snp_depth, snp_call,
-#                max_rescue, del_depth, del_call, stream)
-CALL_SCAN = Kernel("rkmh_call_scan", [_p, _i64, _i, _p, _p, _p, _p, _i64, _p, _p, _p, _p, _p])
+# the depth map's arguments (ops/hashmap.map_args): words, dir, ov_keys, ov_values, m, bits
+_MAP = [_p, _p, _p, _p, _i, _i]
+# rkmh_hashmap_get(keys, n, <map>, out, stream)
+HASHMAP_GET = Kernel("rkmh_hashmap_get", [_p, _i64, *_MAP, _p])
+# rkmh_call_scan(pref, P, k, depth, avg, site, <map>, snp_depth, snp_call,
+#                max_rescue, del_depth, del_call, route, stream)
+CALL_SCAN = Kernel("rkmh_call_scan", [_p, _i64, _i, _p, _p, _p, *_MAP, _p, _p, _p, _p, _p, _i])
 
 KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE,
            "panel_probe_filter": PANEL_PROBE_FILTER, "set_probe": SET_PROBE,

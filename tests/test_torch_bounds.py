@@ -2,7 +2,8 @@
 
 The probe statistics must agree with the plain probe: the reference bits
 of the hits add up to the plain counts, and only the table sectors that
-probes reach are counted.  Inputs are made from a seed with numpy.
+probes reach are counted.  The depth map's bounds (K8, K9) count its
+function's work, whatever the layout.  Inputs are made from a seed with numpy.
 Tolerance: none (integer counts; the bound is bytes over a fixed rate).
 """
 
@@ -184,6 +185,16 @@ def test_kernel_ab_arguments(argv, ok, monkeypatch, capsys):
             kernel_ab.main(argv)
 
 
+def test_call_ab_script_parses_and_runs_both_checkouts_in_turns():
+    import subprocess
+
+    script = Path(kernel_ab.__file__).with_name("call_ab.sh")
+    assert subprocess.run(["bash", "-n", str(script)]).returncode == 0
+    text = script.read_text()
+    assert "call_cmd.run" in text and "_call_scan_cuda" in text and "same VCF" in text
+    assert text.count('run "$OTHER" other') == text.count('run "$ROOT" this') == 2
+
+
 def test_e2e_ab_script_parses_and_names_both_paths():
     import subprocess
 
@@ -192,3 +203,32 @@ def test_e2e_ab_script_parses_and_names_both_paths():
     text = script.read_text()
     assert "cli stream" in text and "cli hpv16" in text and "outputs identical" in text
     assert text.count('run "$OTHER" other') == text.count('run "$ROOT" this') == 2
+
+
+def test_map_bounds_count_the_function_not_the_layout():
+    """K8's and K9's bounds: the queries in, the outputs, 12 bytes for each
+    distinct key the queries find; the same for two layouts of one
+    function (here: counts in the words, or all of them in the overflow)."""
+    from rkmh_tpu_torch import call_engine
+    from rkmh_tpu_torch.ops import hashmap
+
+    rng = np.random.default_rng(4)
+    ref = torch.from_numpy(rng.integers(0, 4, 300).astype(np.uint8))
+    ref[100:103] = 4
+    k = 12
+    _, snp, dels = call_engine.mutation_hashes(ref, k, 0, 300 - k + 1)
+    found_keys = torch.cat([snp.reshape(-1)[::50], dels.reshape(-1)[::40]]).unique()
+    keys = np.unique(np.concatenate([found_keys.numpy().view(np.uint64),
+                                     rng.integers(0, 2**64 - 1, 500, dtype=np.uint64)]))
+    small = hashmap.build_sorted_map(keys, np.ones(len(keys), np.int32))
+    big = hashmap.build_sorted_map(keys, np.full(len(keys), 2**30, np.int32))
+    assert small.m == 0 and big.m == len(keys)
+    queries = torch.cat([found_keys, found_keys, torch.tensor([5, 6, 7])])
+    for sm in (small, big):
+        assert bounds.hashmap_get_bytes(sm, queries) == 12 * queries.numel() + 12 * int(
+            found_keys.numel())
+        P = 300 - k + 1
+        assert bounds.call_scan_bytes(ref, sm, k, chunk=100) == (
+            301 + 9 * P + 20 * P * k + 4 * P + 12 * int(found_keys.numel()))
+    empty = hashmap.build_sorted_map(np.zeros(0, np.uint64), np.zeros(0, np.int32))
+    assert bounds.hashmap_get_bytes(empty, queries) == 12 * queries.numel()

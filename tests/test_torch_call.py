@@ -9,8 +9,9 @@ on the CPU; the JAX package runs on the CPU too.  Tolerance: none (integer
 arrays and bytes must be equal).
 
 * ``call_scan_plain`` (the port's ``call_scan_ref`` on a CPU tensor)
-  against the JAX ``call_scan_ref``, array by array, at k in {12, 16, 33}
-  and window lengths 1, 100 and more than P; the positional hashes split
+  against the JAX ``call_scan_ref``, array by array, at k in {1, 12, 16,
+  31, 32, 33} and window lengths 1, 100 and more than P, the depth map
+  carried over from the JAX map (``convert.hashmap_from_numpy``); the positional hashes split
   into overlapping rows equal the unsplit row;
 * the command, byte for byte: the VCF, ``-d``, several references (the
   warning line), a reference shorter than k, no ``-k`` (the default-16
@@ -41,6 +42,7 @@ from rkmh_tpu_torch import call_engine, cli, convert, synth
 from rkmh_tpu_torch.commands.call_cmd import CallConfig, run
 from rkmh_tpu_torch.io.packing import encode_seqs
 from rkmh_tpu_torch.ops.hashing import kmer_window_hashes_plain
+from rkmh_tpu_torch.ops.hashmap import depth_map_from_hashes
 
 NAMES = ("depth", "avg", "site", "snp_depth", "snp_call", "max_rescue", "del_depth",
          "del_call")
@@ -143,6 +145,20 @@ def test_scan_matches_jax_with_n_runs(with_n, k, w):
     assert not got["snp_call"][n_origin].any()
 
 
+@pytest.mark.parametrize("k", [1, 12, 16, 31, 32, 33])
+def test_scan_matches_jax_around_the_packed_route(with_n, k):
+    """k = 1, and k on either side of K9's packed / byte-wise boundary (32),
+    on the reference with N origins and runs of N and reads with N: every
+    array of the JAX dict, exactly."""
+    ref, reads = with_n
+    want, got = _scan_both(ref, _depth_map(reads, k), k, 100)
+    assert set(got) == set(want) == set(NAMES)
+    for n in NAMES:
+        assert got[n].shape == want[n].shape and got[n].dtype == want[n].dtype, n
+        assert np.array_equal(got[n], want[n]), n
+    assert got["site"].any()
+
+
 @pytest.mark.parametrize("k,rows", [(16, 100), (16, 1985), (16, 1), (33, 64)])
 def test_positional_hashes_split_rows_equal_the_whole_row(with_n, k, rows):
     ref, _ = with_n
@@ -155,7 +171,7 @@ def test_positional_hashes_split_rows_equal_the_whole_row(with_n, k, rows):
 def test_scan_rejects_bad_input():
     with pytest.raises(ValueError, match="L >= k"):
         call_engine.call_scan_ref(torch.zeros(5, dtype=torch.uint8),
-                                  torch.zeros((64, 4), dtype=torch.int32), 16, 100)
+                                  depth_map_from_hashes(np.zeros(3, np.int64)), 16, 100)
 
 
 # ---- the command ---------------------------------------------------------

@@ -611,25 +611,28 @@ def test_counter_kernels_skip_empty_inputs(cuda_device):
 
 
 def _map_and_queries(seed: int, n_keys: int):
-    """A depth-map table holding key 0, keys >= 2**63 and random keys, and
-    queries: every key, and as many misses."""
+    """A depth map holding key 0, keys >= 2**63, random keys and counts
+    past a word (the overflow), and queries: every key, and as many
+    misses."""
     rng = np.random.default_rng(seed)
     keys = np.unique(np.concatenate([
-        np.array([0, 2**63, 2**64 - 1, 0x80000001_7FFFFFFF], dtype=np.uint64),
+        np.array([0, 2**63, 2**64 - 1, 0x80000001_7FFFFFFF, 0x80000000], dtype=np.uint64),
         rng.integers(0, 2**64 - 1, size=n_keys, dtype=np.uint64, endpoint=True)]))
-    vals = rng.integers(1, 2**31 - 1, size=len(keys)).astype(np.int32)
-    table = hashmap.map_table(hashmap.build_hash_map(keys, vals), "cpu")
+    vals = rng.integers(1, 2000, size=len(keys)).astype(np.int32)
+    vals[::13] = 2**31 - 1
+    sm = hashmap.build_sorted_map(keys, vals)
     miss = rng.integers(0, 2**64 - 1, size=len(keys), dtype=np.uint64, endpoint=True)
     q = np.concatenate([keys, miss])[rng.permutation(2 * len(keys))]
-    return table, torch.from_numpy(q.view(np.int64))
+    return sm, torch.from_numpy(q.view(np.int64))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_keys", [1, 1000, 300_000])
 def test_hashmap_kernel_matches_plain(cuda_device, n_keys):
-    table, q = _map_and_queries(n_keys, n_keys)
-    want = hashmap.hashmap_get_plain(table, q)
-    t, qd = table.to(cuda_device), q.to(cuda_device)
+    sm, q = _map_and_queries(n_keys, n_keys)
+    assert sm.m > 0
+    want = hashmap.hashmap_get_plain(sm, q)
+    t, qd = sm.to(cuda_device), q.to(cuda_device)
     before = kernels.HASHMAP_GET.launches
     got = hashmap.hashmap_get(t, qd)
     torch.cuda.synchronize()
@@ -639,6 +642,15 @@ def test_hashmap_kernel_matches_plain(cuda_device, n_keys):
     assert torch.equal(hashmap.hashmap_get(t, grid).cpu(), want[: grid.numel()].reshape(7, -1))
     assert hashmap.hashmap_get(t, qd[:0]).shape == (0,)
     assert kernels.HASHMAP_GET.launches == before + 2  # no launch for no keys
+
+
+@pytest.mark.cuda
+def test_hashmap_kernel_on_an_empty_map_and_a_cpu_map(cuda_device):
+    empty = hashmap.depth_map_from_hashes(np.zeros(0, np.int64)).to(cuda_device)
+    q = torch.tensor([0, 1, -1], dtype=torch.int64, device=cuda_device)
+    assert torch.equal(hashmap.hashmap_get(empty, q).cpu(), torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="on the map's device"):
+        hashmap.hashmap_get(empty.to("cpu"), q)
 
 
 def _call_case(k: int, seed: int = 5):
@@ -655,8 +667,7 @@ def _call_case(k: int, seed: int = 5):
     reads = sample[starts[:, None] + np.arange(150)]
     reads[rng.random(reads.shape) < 0.005] = 4
     h = kmer_window_hashes_plain(torch.from_numpy(reads), k)
-    table = hashmap.map_table(hashmap.depth_map_from_hashes(h.numpy()), "cpu")
-    return torch.from_numpy(ref), table
+    return torch.from_numpy(ref), hashmap.depth_map_from_hashes(h.numpy())
 
 
 @pytest.mark.cuda
@@ -666,14 +677,35 @@ def test_call_scan_kernel_matches_plain(cuda_device, k, w):
     ref, table = _call_case(k)
     want = call_engine.call_scan_plain(ref, table, k, w)
     before = kernels.launch_counts()
+    routes = dict(kernels.CALL_SCAN.by_route)
     got = call_engine.call_scan_ref(ref.to(cuda_device), table.to(cuda_device), k, w)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert [after[n] - before[n] for n in ("window_hash", "hashmap_get", "call_scan")] == [1, 1, 1]
+    route = "packed" if k <= 32 else "bytewise"
+    assert kernels.CALL_SCAN.by_route[route] == routes.get(route, 0) + 1
     for name, v in want.items():
         assert got[name].dtype == v.dtype and torch.equal(got[name].cpu(), v), name
     if w == 100 and k >= 12:
         assert bool(want["site"].any()) and bool(want["snp_call"].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 32])
+def test_call_scan_bytewise_route_matches_plain(cuda_device, k):
+    """The byte-wise route, asked for at k <= 32, gives the packed route's
+    outputs and the plain version's."""
+    ref, table = _call_case(k, seed=9)
+    want = call_engine.call_scan_plain(ref, table, k, 100)
+    r, t = ref.to(cuda_device), table.to(cuda_device)
+    args = (r, t, k, want["depth"].to(cuda_device), want["avg"].to(cuda_device),
+            want["site"].to(cuda_device))
+    names = ("snp_depth", "snp_call", "max_rescue", "del_depth", "del_call")
+    for route in (None, "bytewise"):
+        for name, got in zip(names, call_engine._call_scan_cuda(*args, route)):
+            assert torch.equal(got.cpu(), want[name]), (route, name)
+    with pytest.raises(ValueError, match="no route"):
+        call_engine._call_scan_cuda(*args, "packed")
 
 
 @pytest.mark.cuda
@@ -690,7 +722,8 @@ def test_library_is_keyed_by_sources_and_flags(monkeypatch):
     assert {p.name for p in kernels.sources()} == {"window_hash.cu", "panel_probe.cu",
                                                    "set_probe.cu", "lut_gather.cu",
                                                    "counter.cu", "hashmap.cu", "call_scan.cu"}
-    assert {p.name for p in kernels.headers()} == {"murmur3.cuh", "hashmap.cuh"}
+    assert {p.name for p in kernels.headers()} == {"murmur3.cuh", "hashmap.cuh",
+                                                   "packed_kmer.cuh"}
     monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-lineinfo",))
     assert kernels.library_path() != path
 

@@ -199,6 +199,7 @@ def test_port_never_imports_jax():
             "import rkmh_tpu_torch.commands.search_cmd, rkmh_tpu_torch.commands.recovery\n"
             "import rkmh_tpu_torch.io.sketch_json, rkmh_tpu_torch.call_engine\n"
             "import rkmh_tpu_torch.commands.call_cmd, rkmh_tpu_torch.ops.hashmap\n"
+            "import rkmh_tpu_torch.bench.call_inputs, rkmh_tpu_torch.bench.l2_sweep\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rkmh_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
