@@ -168,14 +168,57 @@ line) without CUDA or without the package beside it.  In order it:
     uninterrupted VCF; reports the e2e seconds and the seconds by phase
     (parse, read hashing, the map's unique, layout and copy, scan, record
     extraction, write), the map's keys and bytes by part on the card, and
-    the share of planted variants called.
+    the share of planted variants called;
+25. (run after 24) builds the hpv16 panel of a synthetic refpath of 640
+    type genomes (``synth.write_hpv16_workload(num_types=640)``), whose
+    projected bucket table passes the default 2,048 MB cap, so
+    ``hpv16_cmd.build_tables`` takes the sorted-key panel (printed: the
+    projected bytes, the panel's keys and bytes on the card, set-up
+    seconds by phase); checks hpv16's sorted probe (K10, ``rkmh_sorted_probe``
+    in ``csrc/set_probe.cu``) exactly against ``sorted_probe_plain`` on a
+    512-read batch of its reads (654 references: 20 mask words and a
+    partial one; keys on both sides of 2**63; reads of several 2,048-element
+    segments), on rows of one repeated value, on rows with 40% of the
+    hashes zeroed as -M zeroes them, and on a one-reference panel with a
+    4,500-element read; times K10 on the batch (graph and eager) beside its
+    plain version, its bound (rows, lens and output once, plus the key
+    sectors each binary search loads and the mask rows of the keys found:
+    ``bench/bounds.sorted_probe_stats``) and its library yardstick,
+    ``torch.searchsorted`` of the batch's run starts into the keys plus the
+    mask gather;
+26. drives that fallback through ``commands.hpv16_cmd.run`` (12,800 reads
+    in 512-read batches, device cuda; K1 and K10 must run, K3 must not): the
+    first 64 lines equal the CPU plain path's; reports e2e Mbp/s; then
+    ``hpv16 -M 2`` on the fallback (K1, K6, K7, K10); and, inside phase 10,
+    the 182-type panel under ``RKMH_TPU_SET_TABLE_MAX_MB=256`` (its 480 MiB
+    table is past it): K10 and no K3, lines byte-identical to its
+    bucket-table run;
+27. checks the wide panel probe (K11, ``rkmh_panel_probe_wide`` in
+    ``csrc/panel_probe.cu``) exactly against the plain versions at R =
+    8,193, 12,288 and 20,000 (``bench/wide_inputs.straddling_panel``: ties
+    and maxima on both sides of reference 8,192, duplicate-heavy rows),
+    both epilogues and both row modes, and against K2 at R = 8,192;
+28. drives ``stream`` over 12,288 synthetic references of 1,000 bp (k =
+    12, s = 32: the cut from s = 1000 is printed with its reason) and 2**18
+    reads of 150 bp (``commands.stream.run``, device cuda; K1 and K11 must
+    run), printing the projected table bytes first: the first 16,384 lines
+    equal the CPU plain path's; reports e2e reads/s and the host table
+    build's seconds; then times K11 on one 16,384-read batch of it (raw
+    rows and the path's sorted rows) beside its plain version, its bound
+    (``bench/bounds.panel_probe_stats``) and K2 on a table of the first
+    8,192 references;
+29. (run after 21, on the slice's input) ``stream --metrics`` over the
+    first 16,384 slice reads through the CLI: the JSON line's reads and bp
+    must be the input's; then the same run under ``RKMH_TPU_PROFILE``: the
+    trace file must exist and name the K1 and K2 kernels.
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record (per kernel: launches on the driven paths, in all and by
 path, max_abs_err against the plain version, ms, eager_ms, plain_ms, bound_ms,
 bound_by, bound_share = bound_ms / ms, and library_ms, one PyTorch call
 computing the same function where there is one: ``torch.gather`` for K4
-and K5, none for the others; K4 and K5 add their launches by route, K4
+and K5, ``torch.searchsorted`` and the mask gather for K10, none for the
+others; K11 adds K2's time at R = 8,192 and its times on the sorted rows; K4 and K5 add their launches by route, K4
 its times at each timed N, K5 its staged route's time and the launch
 floor, K7 its times at the hpv16 -M shape, K1 its times at hash's shapes,
 K6 its time and route at count's table, K8 its times at 2**20 queries and
@@ -991,6 +1034,7 @@ def run_hpv16(dev, card: str) -> dict:
         say(f"hpv16 slice: first {N_HPV16_CPU_LINES} GPU lines and the .tst file "
             f"byte-identical to the CPU plain path ({cpu_s:.2f} s on the CPU)")
         typed = float(np.mean([ln.split("\t")[1] == t for ln, t in zip(gpu_lines, truth)]))
+        capped = run_hpv16_capped(tmp, cfg, gpu_lines)
 
     # device step over resident batches (parse, table build and format excluded)
     batches = [(torch.from_numpy(codes).to(dev),
@@ -1018,6 +1062,7 @@ def run_hpv16(dev, card: str) -> dict:
            "device_step_mbp_per_s": mbp / (step_ms / 1e3),
            "device_step_reads_per_s": N_HPV16_READS / (step_ms / 1e3),
            "typed_share": typed, "launches": launches, "err_k3": err_k3, **times,
+           "capped": capped,
            "batch_hashes": batch_hashes}  # K7's hpv16 -M shape, for check_counters
     say(f"hpv16 slice on {card}: e2e {res['e2e_mbp_per_s']:.3f} Mbp/s, "
         f"{res['e2e_reads_per_s']:.1f} reads/s ({e2e_s:.2f} s for {N_HPV16_READS} reads, "
@@ -2074,6 +2119,432 @@ def run_stream_stdin(card: str, zika: dict) -> dict:
     return res
 
 
+# ---- phases 25-29: hpv16's sorted-panel fallback (K10), the panel probe past
+# 8,192 references (K11), --metrics and the profile hook
+
+N_TYPES_FALLBACK = 640       # synthetic type genomes whose bucket table passes the cap
+WIDE_RS = (8193, 12288, 20000)
+N_WIDE_REFS = 12288          # phase 28: a gene-panel scale of references
+WIDE_REF_LEN = 1000
+WIDE_SKETCH = 32             # s = 1000 would make the table ~0.4 TB (see run_wide_stream)
+N_WIDE_READS = 1 << 18
+N_WIDE_CPU_LINES = 16384
+N_METRICS_READS = 16384
+
+
+def sorted_rows_of(dev, codes, lens):
+    """K1 then the full-width sort, cut to the batch's probe width, as
+    ``engine.hpv16_sorted_batch`` takes them -> (rows, lens, K1 hashes)."""
+    import torch
+
+    from rkmh_tpu_torch.classify import engine
+    from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
+    from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+
+    x = torch.from_numpy(codes).to(dev)
+    hashes = multi_k_window_hashes(x, [HPV16_K])
+    full, sk_lens = bottom_s_sketch(hashes, hashes.shape[-1])
+    return full[:, : engine.hpv16_compact_width(lens, x.shape[1], (HPV16_K,))], sk_lens, hashes
+
+
+def check_k10(dev, tb, packed) -> tuple[int, dict]:
+    """K10 against its plain version on the card (see the module doc), then
+    its times, bound and library yardstick on the 512-read batch."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch import convert
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
+    from rkmh_tpu_torch.ops.lookup import build_sorted_panel
+    from rkmh_tpu_torch.ops.sketch import INT64_MIN, SENTINEL, bottom_s_sketch
+    from rkmh_tpu_torch.ops.sorted_probe import _sorted_probe_cuda, sorted_probe_plain
+
+    panel = tb.comb_sorted
+    T, U = len(tb.type_names), tb.n_lin + tb.n_sub
+    if (T + U) % 32 == 0 or not ((panel.keys < 0).any() and (panel.keys >= 0).any()):
+        raise AssertionError("the fallback panel should hold a partial mask word and keys "
+                             "on both sides of 2**63")
+    lens = packed.lens[:HPV16_BATCH]
+    codes = packed.codes[:HPV16_BATCH, : -(-int(lens.max()) // 128) * 128]
+    rows, sk_lens, hashes = sorted_rows_of(dev, codes, lens)
+    rng = np.random.default_rng(25)
+    zeroed = hashes.clone()  # -M: the hashes counted below min_occ become 0
+    zeroed[torch.from_numpy(rng.random(tuple(hashes.shape)) < 0.4).to(dev)] = 0
+    z_rows, z_lens = bottom_s_sketch(zeroed, zeroed.shape[-1])
+    z_rows = z_rows[:, : rows.shape[1]]
+    one_val = rows.clone()
+    one_val[:] = rows[:, :1]  # rows of one repeated value
+    one_val[sk_lens == 0] = SENTINEL
+    pool = panel.keys[torch.randperm(panel.keys.numel(), device=dev)[:4000]] ^ INT64_MIN
+    one_ref = convert.sorted_panel_from_numpy(*build_sorted_panel(
+        [pool[:3000].cpu().numpy()], num_refs=1), dev)  # R = 1
+    mix = torch.sort(torch.cat([pool, pool[:500]])[None] ^ INT64_MIN).values ^ INT64_MIN
+    cases = [("512-read batch", rows, sk_lens, panel, T, U),
+             ("rows of one repeated value", one_val, sk_lens, panel, T, U),
+             ("-M-zeroed rows", z_rows, z_lens, panel, T, U),
+             ("R = 1", mix, torch.tensor([mix.shape[1]], device=dev), one_ref, 1, 0)]
+    worst = 0
+    for label, r, ln, p, t, u in cases:
+        got = _sorted_probe_cuda(r, ln, p, t, u)
+        want = sorted_probe_plain(r, ln, p, t, u)
+        err = max_abs_err(got, want)
+        say(f"K10 {label}: rows {tuple(r.shape)}, keys {p.keys.numel()}, R = {t + u}, "
+            f"exact={err == 0}, mean shared={want[:, 1].float().mean().item():.1f}")
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"sorted-probe kernel disagrees with the plain version on {label}")
+        worst = max(worst, err)
+    if int((sk_lens > 2048).sum()) == 0:
+        raise AssertionError("no read of the batch spans more than one segment")
+
+    q = rows[(torch.arange(rows.shape[1], device=dev)[None, :] < sk_lens[:, None])
+             & (rows != SENTINEL)]
+    q = torch.unique_consecutive(q) ^ INT64_MIN  # run starts (rows are sorted within reads)
+    keys, masks = panel.keys, panel.masks
+
+    def library():
+        return masks[torch.searchsorted(keys, q).clamp(max=keys.numel() - 1)]
+
+    t = {"ms": cuda_graph_time_ms(lambda: _sorted_probe_cuda(rows, sk_lens, panel, T, U), 10),
+         "eager_ms": cuda_time_ms(lambda: _sorted_probe_cuda(rows, sk_lens, panel, T, U), 20),
+         "plain_ms": cuda_time_ms(lambda: sorted_probe_plain(rows, sk_lens, panel, T, U), 3,
+                                  warmup=1),
+         "library_ms": cuda_graph_time_ms(library, 10)}
+    st = bounds.sorted_probe_stats(rows, sk_lens, keys, masks)
+    nbytes = (bounds.read_row_bytes(rows, sk_lens) + bounds.tensor_bytes(sk_lens)
+              + rows.shape[0] * (2 + U) * 8 + st.table_bytes)
+    t["bound_ms"] = bounds.bound_ms(nbytes)
+    say(f"time sorted_probe (K10): {t['ms']:.4f} ms ({t['eager_ms']:.4f} eager) vs "
+        f"{t['plain_ms']:.4f} ms plain per {HPV16_BATCH}-read batch, rows {tuple(rows.shape)}; "
+        f"{st.probes} run starts searched in {keys.numel()} keys, {st.hits} found, "
+        f"{st.buckets} key sectors and {st.hit_slots} mask rows reached; bound "
+        f"{t['bound_ms']:.4f} ms ({nbytes} bytes); library (torch.searchsorted of the "
+        f"{q.numel()} run starts + the mask gather) {t['library_ms']:.4f} ms")
+    return worst, t
+
+
+def run_hpv16_fallback(dev, card: str) -> tuple[dict, dict]:
+    """Phases 25-26: the 640-type refpath past the cap (see the module doc)."""
+    from rkmh_tpu_torch import synth
+    from rkmh_tpu_torch.commands import hpv16_cmd
+    from rkmh_tpu_torch.commands.common import load_packed
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        reads, _ = synth.write_hpv16_workload(tmp, N_HPV16_READS, num_types=N_TYPES_FALLBACK)
+        packed = load_packed([reads])
+        mbp = int(packed.lens.sum()) / 1e6
+        say(f"hpv16 fallback input: {N_TYPES_FALLBACK} types, {N_HPV16_READS} reads, "
+            f"{mbp:.3f} Mbp, made in {time.perf_counter() - t0:.2f} s")
+        cfg = dict(refpath=tmp, ks=(HPV16_K,), batch_size=HPV16_BATCH)
+        tb = hpv16_cmd.build_tables(hpv16_cmd.Hpv16Config(**cfg, tst_file=False),
+                                    (HPV16_K,), dev)
+        if tb.comb_sorted is None:
+            raise AssertionError("the 640-type panel did not take the sorted-key panel")
+        T, U = len(tb.type_names), tb.n_lin + tb.n_sub
+        say(f"hpv16 fallback panel: projected bucket table {tb.projected_bytes} bytes "
+            f"({tb.projected_bytes / 2**30:.2f} GiB) past the 2,048 MB cap; sorted panel "
+            f"{tb.comb_sorted.keys.numel()} keys x {tb.comb_sorted.mask_words} mask words = "
+            f"{tb.comb_sorted.nbytes} bytes on the card; {T} types + {U} groups; set-up s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in tb.setup_s.items()))
+        err_k10, times = check_k10(dev, tb, packed)
+        del packed
+
+        outs = {}
+        try:
+            for device in ("cuda", "cpu"):
+                wd = os.path.join(tmp, device)
+                os.makedirs(wd)
+                os.chdir(wd)
+                path = os.path.join(wd, "out.tsv")
+                files = [reads] if device == "cuda" else [head_file(
+                    reads, os.path.join(tmp, "head.fq"), N_HPV16_CPU_LINES)]
+                run = lambda: hpv16_cmd.run(hpv16_cmd.Hpv16Config(  # noqa: E731
+                    read_files=files, out_file=path, device=device, **cfg))
+                if device == "cuda":
+                    e2e_s, launches = driven(run, "hpv16 fallback",
+                                             ("window_hash", "sorted_probe"))
+                    if launches["set_probe"]:
+                        raise AssertionError("the hpv16 fallback launched the set probe")
+                else:
+                    run()
+                outs[device] = read_text(path)
+            os.chdir(os.path.join(tmp, "cuda"))
+            m_s, m_launches = driven(
+                lambda: hpv16_cmd.run(hpv16_cmd.Hpv16Config(
+                    read_files=[reads], out_file="m.tsv", device="cuda", min_kmer_occ=MIN_OCC,
+                    **cfg)), "hpv16 -M fallback",
+                ("window_hash", "counter_add", "counter_mask", "sorted_probe"))
+            m_lines = read_text("m.tsv").count("\n")
+        finally:
+            os.chdir(cwd)
+    gpu_lines = outs["cuda"].splitlines(keepends=True)
+    if len(gpu_lines) != N_HPV16_READS or m_lines != N_HPV16_READS:
+        raise AssertionError(f"hpv16 fallback: {len(gpu_lines)} and {m_lines} lines for "
+                             f"{N_HPV16_READS} reads")
+    require_same("".join(gpu_lines[:N_HPV16_CPU_LINES]), outs["cpu"], "hpv16 fallback")
+    res = {"e2e_s": e2e_s, "e2e_mbp_per_s": mbp / e2e_s, "launches": launches,
+           "projected_table_bytes": tb.projected_bytes, "panel_bytes": tb.comb_sorted.nbytes,
+           "setup_s": tb.setup_s}
+    say(f"hpv16 fallback on {card}: e2e {res['e2e_mbp_per_s']:.3f} Mbp/s ({e2e_s:.2f} s for "
+        f"{N_HPV16_READS} reads, {mbp:.3f} Mbp, panel build and parse included); first "
+        f"{N_HPV16_CPU_LINES} lines byte-identical to the CPU plain path; -M {MIN_OCC} "
+        f"{mbp / m_s:.3f} Mbp/s ({m_s:.2f} s, two passes)")
+    return res, {"err": err_k10, **times,
+                 "m": {"e2e_s": m_s, "e2e_mbp_per_s": mbp / m_s, "launches": m_launches}}
+
+
+def run_hpv16_capped(tmp: str, cfg: dict, table_lines: list) -> dict:
+    """The published 182-type panel under RKMH_TPU_SET_TABLE_MAX_MB=256 (its
+    480 MiB table is past it) on the card: lines byte-identical to its
+    bucket-table run; K10 runs, K3 does not."""
+    from rkmh_tpu_torch.commands import hpv16_cmd
+
+    cwd = os.getcwd()
+    wd = os.path.join(tmp, "capped")
+    os.makedirs(wd)
+    old = os.environ.get("RKMH_TPU_SET_TABLE_MAX_MB")
+    os.environ["RKMH_TPU_SET_TABLE_MAX_MB"] = "256"
+    try:
+        os.chdir(wd)
+        seconds, launches = driven(lambda: hpv16_cmd.run(hpv16_cmd.Hpv16Config(
+            **cfg, out_file="out.tsv", device="cuda")),
+            "hpv16 capped", ("window_hash", "sorted_probe"))
+        lines = read_text("out.tsv").splitlines(keepends=True)
+    finally:
+        os.chdir(cwd)
+        if old is None:
+            del os.environ["RKMH_TPU_SET_TABLE_MAX_MB"]
+        else:
+            os.environ["RKMH_TPU_SET_TABLE_MAX_MB"] = old
+    if launches["set_probe"]:
+        raise AssertionError("the capped hpv16 run launched the set probe")
+    require_same("".join(lines), "".join(table_lines), "hpv16 under a 256 MB cap")
+    say(f"hpv16 182 types under RKMH_TPU_SET_TABLE_MAX_MB=256: the sorted-key panel, "
+        f"{len(lines)} lines byte-identical to the bucket-table run ({seconds:.2f} s)")
+    return {"e2e_s": seconds, "launches": launches}
+
+
+def _random_panel_table(R: int, seed: int, t: int = 24):
+    """A bucket table over R references of t values from one pool."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch.ops.lookup import build_panel_table
+
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(1, 2**63, size=4 * t * 64, dtype=np.int64)
+    pool[::3] |= np.int64(-(2**63))
+    sk = np.sort(rng.choice(pool, (R, t)).view(np.uint64), axis=1).view(np.int64)
+    table = build_panel_table(sk, np.full(R, t, np.int32)).table.view(np.int32)
+    reads = rng.choice(pool, size=(256, 149))
+    reads[rng.random(reads.shape) < 0.1] = 0
+    reads[1::7, :40] = pool[3]
+    return torch.from_numpy(table), torch.from_numpy(reads)
+
+
+def check_k11(dev) -> int:
+    """K11 against the plain versions at R = 8,193, 12,288 and 20,000 (both
+    epilogues, both row modes), and against K2 at R = 8,192."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch.bench.wide_inputs import PAST, straddling_panel
+    from rkmh_tpu_torch.ops.lookup import build_panel_table
+    from rkmh_tpu_torch.ops.probe import (
+        _panel_probe_cuda,
+        _panel_probe_filter_cuda,
+        panel_probe_filter_plain,
+        panel_probe_plain,
+    )
+    from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+
+    worst = 0
+    for R in WIDE_RS:
+        ref_sk, ref_lens, reads, set_lens = straddling_panel(R, seed=R, n_reads=512, width=149)
+        table = torch.from_numpy(build_panel_table(ref_sk, ref_lens).table.view(np.int32)).to(dev)
+        raw = torch.from_numpy(reads).to(dev)
+        set_lens = torch.from_numpy(set_lens).to(dev)
+        sk, lens = bottom_s_sketch(raw, 32)
+        for mode, rows, ln in (("raw", raw, None), ("sorted", sk, lens)):
+            for md, mm in ((0, -1), (1, 9)):
+                got = _panel_probe_cuda(rows, ln, table, R, md, mm)
+                want = panel_probe_plain(rows, ln, table, R, md, mm)
+                got_f = _panel_probe_filter_cuda(rows, ln, table, R, set_lens, md, mm)
+                want_f = panel_probe_filter_plain(rows, ln, table, R, set_lens, md, mm)
+                err = max(max_abs_err(got, want), max_abs_err(got_f, want_f))
+                if err or not (torch.equal(got, want) and torch.equal(got_f, want_f)):
+                    raise AssertionError(f"K11 disagrees with the plain version at R = {R}, "
+                                         f"{mode} rows, -D {md} -N {mm}")
+                worst = max(worst, err)
+        if want[0, :3].tolist() != [100, PAST, PAST - 2]:
+            raise AssertionError(f"K11 inputs lost their straddling ties at R = {R}")
+        say(f"K11 R = {R}: table {tuple(table.shape)}, raw and sorted rows, stream and filter "
+            f"epilogues: exact; firsts across 8,192 {want[0, :3].tolist()}")
+    table, raw = _random_panel_table(PAST, 27)
+    table, raw = table.to(dev), raw.to(dev)
+    sk, lens = bottom_s_sketch(raw, 32)
+    for rows, ln in ((raw, None), (sk, lens)):
+        k2 = _panel_probe_cuda(rows, ln, table, PAST, 1, 3, wide=False)
+        k11 = _panel_probe_cuda(rows, ln, table, PAST, 1, 3, wide=True)
+        if not torch.equal(k2, k11) or not torch.equal(k2, panel_probe_plain(rows, ln, table,
+                                                                             PAST, 1, 3)):
+            raise AssertionError("K11 and K2 disagree at R = 8,192")
+    say("K11 at R = 8,192: equal to K2 and to the plain version, raw and sorted rows")
+    return worst
+
+
+def run_wide_stream(dev, card: str) -> tuple[dict, dict]:
+    """Phase 28: stream over 12,288 references of 1,000 bp (k = 12, s = 32)
+    and 2**18 reads of 150 bp through ``commands.stream.run`` on the card;
+    then K11 timed on its batch beside K2 on the first 8,192 references."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch import synth
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
+    from rkmh_tpu_torch.classify import engine
+    from rkmh_tpu_torch.commands import stream
+    from rkmh_tpu_torch.commands.common import load_packed
+    from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
+    from rkmh_tpu_torch.ops.intersect import occ_ranks
+    from rkmh_tpu_torch.ops.lookup import build_panel_table, projected_table_bytes
+    from rkmh_tpu_torch.ops.probe import _panel_probe_cuda, panel_probe_plain
+
+    say(f"wide stream: s = {WIDE_SKETCH}, cut from rkmh's s = 1000: every bucket of the "
+        f"table holds 3 + ceil(R/32) words a slot, so at R = {N_WIDE_REFS} and s = 1000 the "
+        "table would be ~0.4 TB, past one card; a panel of this many references runs only "
+        "with a small sketch")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        refs, reads, names, src = synth.write_workload(tmp, N_WIDE_READS, num_refs=N_WIDE_REFS,
+                                                       genome_len=WIDE_REF_LEN, seed=28)
+        ref_packed = load_packed([refs])
+        ref_sk, ref_lens = engine.sketch_batch(torch.from_numpy(ref_packed.codes).to(dev),
+                                               (12,), WIDE_SKETCH)
+        valid = (torch.arange(ref_sk.shape[1], device=dev)[None, :] < ref_lens[:, None])
+        keys = torch.stack([ref_sk[valid], occ_ranks(ref_sk)[valid]])
+        n_entries = int(torch.unique(keys, dim=1).shape[1])
+        projected = projected_table_bytes(n_entries, N_WIDE_REFS, policy="narrow")
+        say(f"wide stream input: {N_WIDE_REFS} refs x {WIDE_REF_LEN} bp, {N_WIDE_READS} reads x "
+            f"150 bp, made in {time.perf_counter() - t0:.2f} s; {n_entries} (hash, occ) "
+            f"entries: projected table {projected} bytes ({projected / 2**30:.2f} GiB)")
+        n_reads = N_WIDE_READS
+        if projected > 12 << 30:  # the card holds the table and the batches' work
+            n_reads //= 2
+            reads = head_file(reads, os.path.join(tmp, "half.fq"), n_reads)
+            src = src[:n_reads]
+            say(f"wide stream: the projected table passes 12 GiB; {n_reads} reads")
+        out_gpu = os.path.join(tmp, "gpu.tsv")
+        cfg = dict(ref_files=[refs], ks=(12,), sketch_size=WIDE_SKETCH)
+        e2e_s, launches = driven(
+            lambda: stream.run(stream.StreamConfig(read_files=[reads], out_file=out_gpu,
+                                                   device="cuda", **cfg)),
+            "stream 12,288 refs", ("window_hash", "panel_probe_wide"))
+        gpu = read_text(out_gpu)
+        if gpu.count("\n") != n_reads:
+            raise AssertionError(f"wide stream: {gpu.count(chr(10))} lines for {n_reads}")
+        head = head_file(reads, os.path.join(tmp, "head.fq"), N_WIDE_CPU_LINES)
+        out_cpu = os.path.join(tmp, "cpu.tsv")
+        t0 = time.perf_counter()
+        stream.run(stream.StreamConfig(read_files=[head], out_file=out_cpu, device="cpu",
+                                       batch_size=512, **cfg))
+        cpu_s = time.perf_counter() - t0
+        require_same("".join(gpu.splitlines(keepends=True)[:N_WIDE_CPU_LINES]),
+                     read_text(out_cpu), "stream 12,288 refs")
+        assigned = np.array([ln.split("\t", 1)[0] for ln in gpu.splitlines()])
+        share = float(np.mean(assigned == np.asarray(names)[src]))
+        t0 = time.perf_counter()
+        pt = build_panel_table(ref_sk.cpu().numpy(), ref_lens.cpu().numpy())
+        build_s = time.perf_counter() - t0
+        table = torch.from_numpy(pt.table.view(np.int32)).to(dev)
+        del pt
+        say(f"stream 12,288 refs on {card}: e2e {n_reads / e2e_s:.1f} reads/s "
+            f"({e2e_s:.2f} s, panel build and parse included; the host table build alone "
+            f"{build_s:.2f} s, table {tuple(table.shape)} = {table.numel() * 4} bytes); first "
+            f"{N_WIDE_CPU_LINES} lines byte-identical to the CPU plain path ({cpu_s:.2f} s on "
+            f"the CPU); assigned to the source reference {share:.4f}")
+
+        # K11 on one 16,384-read batch of the path, raw rows and the path's sorted rows,
+        # beside K2 on a table of the first 8,192 references
+        packed = load_packed([head])
+        x = torch.from_numpy(packed.codes[:B]).to(dev)
+        raw = multi_k_window_hashes(x, (12,))
+        sk, lens = engine.bottom_s_sketch(raw, WIDE_SKETCH)
+        t8 = torch.from_numpy(build_panel_table(ref_sk[:8192].cpu().numpy(),
+                                                ref_lens[:8192].cpu().numpy())
+                              .table.view(np.int32)).to(dev)
+        times = {}
+        for label, rows, ln in (("raw", raw, None), ("sorted", sk, lens)):
+            st = bounds.panel_probe_stats(rows, ln, table, N_WIDE_REFS)
+            nbytes = bounds.read_row_bytes(rows, ln) + bounds.tensor_bytes(ln) + 3 * 4 * B
+            times[label] = {
+                "ms": cuda_graph_time_ms(
+                    lambda: _panel_probe_cuda(rows, ln, table, N_WIDE_REFS, 0, -1), 5),
+                "eager_ms": cuda_time_ms(
+                    lambda: _panel_probe_cuda(rows, ln, table, N_WIDE_REFS, 0, -1), 10),
+                "plain_ms": cuda_time_ms(
+                    lambda: panel_probe_plain(rows, ln, table, N_WIDE_REFS, 0, -1), 1, warmup=1),
+                "bound_ms": bounds.bound_ms(nbytes + st.table_bytes),
+                "k2_8192_ms": cuda_graph_time_ms(
+                    lambda: _panel_probe_cuda(rows, ln, t8, 8192, 0, -1), 5),
+                "hits_per_read": st.hits / B, "table_bytes_reached": st.table_bytes}
+            if not torch.equal(_panel_probe_cuda(rows, ln, table, N_WIDE_REFS, 0, -1),
+                               panel_probe_plain(rows, ln, table, N_WIDE_REFS, 0, -1)):
+                raise AssertionError(f"K11 disagrees with the plain version on the {label} "
+                                     "rows of the wide stream batch")
+            say(f"time panel_probe_wide (K11) {label} rows {tuple(rows.shape)}, R = "
+                f"{N_WIDE_REFS}: {times[label]['ms']:.4f} ms ({times[label]['eager_ms']:.4f} "
+                f"eager) vs {times[label]['plain_ms']:.4f} ms plain; K2 at R = 8,192 "
+                f"{times[label]['k2_8192_ms']:.4f} ms; {st.hits / B:.2f} hits a read, "
+                f"{st.table_bytes} table bytes reached; bound {times[label]['bound_ms']:.4f} ms")
+    res = {"e2e_s": e2e_s, "e2e_reads_per_s": n_reads / e2e_s, "launches": launches,
+           "host_table_build_s": build_s, "projected_table_bytes": projected}
+    return res, times
+
+
+def run_metrics(zika: dict) -> dict:
+    """Phase 29: ``stream --metrics`` over the first 16,384 slice reads (the
+    JSON line's reads and bp), then the same run under RKMH_TPU_PROFILE (a
+    trace naming the K1 and K2 kernels)."""
+    import contextlib
+    import io
+
+    from rkmh_tpu_torch import cli, observability
+
+    argv = ["stream", "-r", zika["refs"], "-f", zika["head"], "-k", "12", "--metrics",
+            "-o", os.path.join(zika["dir"], "metrics.tsv")]
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        if cli.main(argv) != 0:
+            raise AssertionError("stream --metrics failed")
+    line = json.loads([ln for ln in err.getvalue().splitlines() if ln.startswith("{")][-1])
+    if (line["reads"], line["bp"]) != (N_METRICS_READS, N_METRICS_READS * 150):
+        raise AssertionError(f"--metrics counted {line['reads']} reads, {line['bp']} bp")
+    say(f"stream --metrics: {json.dumps(line)}")
+    trace_dir = os.path.join(zika["dir"], "trace")
+    os.environ["RKMH_TPU_PROFILE"] = trace_dir
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            if cli.main(argv[:-3] + argv[-2:]) != 0:
+                raise AssertionError("stream under RKMH_TPU_PROFILE failed")
+    finally:
+        del os.environ["RKMH_TPU_PROFILE"]
+    path = os.path.join(trace_dir, observability.TRACE_FILE)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernel_names = {ev["name"] for ev in events if ev.get("cat") == "kernel"}
+    for want in ("window_hash", "panel_probe_kernel"):
+        if not any(want in n for n in kernel_names):
+            raise AssertionError(f"the profiler trace names no {want} kernel: "
+                                 f"{sorted(kernel_names)[:8]}")
+    say(f"RKMH_TPU_PROFILE: {path}, {os.path.getsize(path)} bytes, {len(events)} events, "
+        f"{len(kernel_names)} kernel names, K1 and K2 among them")
+    return {"metrics_line": line, "trace_events": len(events)}
+
+
 def main() -> int:
     import torch
 
@@ -2132,6 +2603,7 @@ def main() -> int:
         k1_hash = time_slice_library_calls(codes, hashes, card_smi)
         k6_count = time_k6_count_shape(dev, hashes, card_smi)
         run_stream_stdin(card_smi, zika)
+        metrics = run_metrics(zika)
     hpm = run_hpv16_counter(dev, card_smi)
     with tempfile.TemporaryDirectory() as work:
         from rkmh_tpu_torch.bench import call_inputs
@@ -2147,7 +2619,12 @@ def main() -> int:
         call_times = time_call_kernels(
             cw, card_smi, codes.shape[0] * (codes.shape[1] - 11) / (times["window_hash"] / 1e3))
         called = run_call(dev, card_smi, cw)
+    fallback, k10 = run_hpv16_fallback(dev, card_smi)
+    err_k11 = check_k11(dev)
+    wide, k11 = run_wide_stream(dev, card_smi)
     paths = {"stream": sl, "hpv16": hp, "stream -M -I": st_mi, "filter": fl, "hpv16 -M": hpm,
+             "hpv16 capped": hp.pop("capped"), "hpv16 fallback": fallback,
+             "hpv16 -M fallback": k10.pop("m"), "stream 12,288 refs": wide,
              **{k: v for k, v in sketches.items() if k != "setup_s"},
              **{k: v for k, v in hashed.items() if k.startswith("hash")},
              "count": counted, "search": searched, **resumed, **called}
@@ -2207,7 +2684,14 @@ def main() -> int:
                                if r.get("k9_routes")},
          "mutated_kmers_per_s": call_times["k9_call"]["mutated_kmers_per_s"],
          "bytewise_route": call_times["k9_call_bytewise"], "at_1mbp": call_times["k9_1mbp"]},
+        entry("sorted_probe", "set_probe.cu", "rkmh_tpu/classify/engine.py:829", k10["err"],
+              k10["ms"], k10["eager_ms"], k10["plain_ms"], k10["bound_ms"], k10["library_ms"]),
+        {**entry("panel_probe_wide", "panel_probe.cu", "rkmh_tpu/ops/lookup.py:341", err_k11,
+                 k11["raw"]["ms"], k11["raw"]["eager_ms"], k11["raw"]["plain_ms"],
+                 k11["raw"]["bound_ms"]),
+         "k2_at_8192_ms": k11["raw"]["k2_8192_ms"], "sorted_rows": k11["sorted"]},
     ]}
+    say(f"stream --metrics and the profile hook: {json.dumps(metrics)}")
     say(smi)
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -10,7 +10,9 @@ among its published peaks, so every bound here is by bytes.
 
 The probe statistics come from the plain pieces (``ops/lookup``), on the
 tensors' device: which bucket rows the valid elements probe, which slots
-they hit, and how many reference bits each hit's mask holds.  The exact
+they hit, and how many reference bits each hit's mask holds; for the
+sorted-key panel (K10), which key sectors each binary search loads and
+which keys' mask rows it then reads.  The exact
 map of ``call`` (K8, K9) is counted by its function, not by one layout's
 sectors: the queries' keys in and values out, and 12 bytes (a key and its
 count) for each distinct key that the queries find (``map_found_keys``);
@@ -27,11 +29,11 @@ import torch
 from rkmh_tpu_torch.ops.hashmap import SortedMap, sorted_keys
 from rkmh_tpu_torch.ops.intersect import occ_ranks, prefix_eq_ranks
 from rkmh_tpu_torch.ops.lookup import M32, bucket_indices, table_slots
-from rkmh_tpu_torch.ops.sketch import SENTINEL
+from rkmh_tpu_torch.ops.sketch import INT64_MIN, SENTINEL
 
 HBM_BYTES_PER_S = 3.35e12
 SECTOR = 32
-_CHUNK = 1 << 20  # probes gathered per step
+_LANES = 1 << 25  # table lanes gathered per step (probes x row width)
 
 
 def bound_ms(nbytes: int) -> float:
@@ -69,16 +71,17 @@ def probe_stats(rows: torch.Tensor, valid: torch.Tensor, occ: torch.Tensor,
     lo, hi = h & M32, (h >> 32) & M32
     bucket = bucket_indices(lo, hi, o, nb)
     hit_keys, hits, bits = [], 0, 0
-    for c0 in range(0, h.numel(), _CHUNK):
-        sl = slice(c0, c0 + _CHUNK)
+    step = max(1, _LANES // width)
+    for c0 in range(0, h.numel(), step):
+        sl = slice(c0, c0 + step)
         g = table[bucket[sl]].to(torch.int64) & M32  # [c, width]
         match = (g[:, S : 2 * S] == lo[sl, None]) & (g[:, 2 * S : 3 * S] == o[sl, None])
         slot = match.to(torch.int8).argmax(dim=-1)  # the first matching slot
         ok = match.any(dim=-1) & (g[:, :S].gather(1, slot[:, None])[:, 0] == hi[sl])
         hits += int(ok.sum())
-        for w in range(Wm):
-            m = g[:, (3 + w) * S : (4 + w) * S].gather(1, slot[:, None])[ok, 0]
-            bits += sum(int(((m >> r) & 1).sum()) for r in range(32))
+        words = (3 + torch.arange(Wm, device=rows.device)) * S
+        m = g.gather(1, words[None, :] + slot[:, None])[ok]  # [hits, Wm] mask words
+        bits += sum(int(((m >> r) & 1).sum()) for r in range(32))
         hit_keys.append(bucket[sl][ok] * S + slot[ok])
     buckets = torch.unique(bucket)
     lanes = torch.arange(S, 3 * S, device=rows.device)
@@ -112,6 +115,45 @@ def set_probe_stats(rows: torch.Tensor, lens: torch.Tensor, table: torch.Tensor,
     valid = ((torch.arange(n, device=rows.device)[None, :] < lens[:, None])
              & (rows != SENTINEL) & (occ == 0))
     return probe_stats(rows, valid, occ, table, num_refs)
+
+
+def sorted_probe_stats(rows: torch.Tensor, lens: torch.Tensor, keys: torch.Tensor,
+                       masks: torch.Tensor) -> ProbeStats:
+    """K10's probe of sorted [B, n] rows against a sorted-key panel
+    (``ops/sorted_probe.SortedPanel``: flipped int64 keys [U], int32 masks
+    [U, Wm]): each valid run start's lower-bound search, replayed step by
+    step as the kernel takes it, reaches the keys' sectors it loads; a
+    key found reaches its Wm mask words.  ``buckets`` counts the distinct
+    key sectors, ``hit_slots`` the distinct keys found."""
+    n = rows.shape[-1]
+    valid = ((torch.arange(n, device=rows.device)[None, :] < lens[:, None])
+             & (rows != SENTINEL) & (occ_ranks(rows) == 0))
+    q = rows[valid] ^ INT64_MIN
+    U = keys.numel()
+    lo = torch.zeros_like(q)
+    hi = torch.full_like(q, U)
+    reached = []
+    while True:
+        act = lo < hi
+        if not bool(act.any()):
+            break
+        mid = (lo + hi) >> 1
+        reached.append(torch.unique(mid[act] * 8 // SECTOR))
+        less = keys[mid.clamp(max=U - 1)] < q
+        lo = torch.where(act & less, mid + 1, lo)
+        hi = torch.where(act & ~less, mid, hi)
+    inside = lo < U
+    reached.append(torch.unique(lo[inside] * 8 // SECTOR))
+    hit = inside & (keys[lo.clamp(max=U - 1)] == q)
+    found = torch.unique(lo[hit])
+    Wm = masks.shape[1]
+    words = masks[lo[hit]].to(torch.int64) & M32
+    bits = sum(int(((words >> r) & 1).sum()) for r in range(32))
+    key_sectors = torch.unique(torch.cat(reached)).numel()
+    mask_bytes = sector_bytes(((found[:, None] * Wm + torch.arange(Wm, device=rows.device))
+                               * 4).reshape(-1)) if found.numel() else 0
+    return ProbeStats(int(q.numel()), int(hit.sum()), bits, key_sectors * SECTOR + mask_bytes,
+                      key_sectors, int(found.numel()))
 
 
 def packed_set_table_bytes(st: ProbeStats, packed) -> int:

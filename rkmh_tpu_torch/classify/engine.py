@@ -7,7 +7,8 @@ Counterpart of ``rkmh_tpu/classify/engine.py``: ``argmax_stream`` (:45),
 ``filter_sketches_table_packed`` (:886), ``hash_batch_with_mask`` (:152),
 ``sketch_batch_informative`` (:171), ``distinct_hash_mask`` (:909) and the
 hpv16 combined-table step (``hpv16_compact_width`` :718,
-``hpv16_batch_comb`` :794, with -M).  The JAX stream step packs its result
+``hpv16_batch_comb`` :794, with -M) and its sorted-panel fallback
+(``hpv16_sorted_batch`` :865).  The JAX stream step packs its result
 two reads per int64 for a remote accelerator link; here it returns int32
 [3, B] (best, shared, flag bits diff_ok | depth_fail << 1 | match_fail <<
 2), which the host formats as it is fetched: there is nothing to unpack.
@@ -28,6 +29,7 @@ from rkmh_tpu_torch.ops.intersect import occ_ranks, sort_hashes_padded
 from rkmh_tpu_torch.ops.probe import NOSORT_MAX_W, panel_probe, panel_probe_filter
 from rkmh_tpu_torch.ops.set_probe import set_probe
 from rkmh_tpu_torch.ops.sketch import SENTINEL, bottom_s_sketch
+from rkmh_tpu_torch.ops.sorted_probe import sorted_probe
 
 
 def argmax_stream(counts: torch.Tensor, min_diff: int, min_matches: int,
@@ -174,3 +176,15 @@ def hpv16_batch_comb(codes: torch.Tensor, comb_table, ks, num_types: int,
     hashes = depth_filtered_hashes(codes, ks, counter, min_occ)
     full, lens = bottom_s_sketch(hashes, hashes.shape[-1])
     return set_probe(full[:, :Wc], lens, comb_table, num_types, num_uniq)
+
+
+def hpv16_sorted_batch(codes: torch.Tensor, panel, ks, num_types: int, num_uniq: int,
+                       Wc: int, counter: torch.Tensor | None = None,
+                       min_occ: int = 0) -> torch.Tensor:
+    """The hpv16 step against the sorted-key panel (``ops/sorted_probe
+    .SortedPanel``), the fallback past the set-table cap: as
+    ``hpv16_batch_comb``, with the sorted probe in place of the set-table
+    probe; the same int64 [B, 2+U] result."""
+    hashes = depth_filtered_hashes(codes, ks, counter, min_occ)
+    full, lens = bottom_s_sketch(hashes, hashes.shape[-1])
+    return sorted_probe(full[:, :Wc], lens, panel, num_types, num_uniq)

@@ -18,9 +18,12 @@ rkmh-tpu's warning when both are given.  ``stream -i`` (and ``classify
 -i``) classifies stdin, flushed batch by batch; with ``-f`` it logs that
 -i is ignored and classifies the files, as rkmh-tpu does.  rkmh's dead
 parity flags (``-S -F -p -q -d``, and ``-z -m`` for stream) are accepted
-with rkmh-tpu's warnings.  Every other flag of rkmh-tpu (``--devices``,
-``--tp``, ``--dist-*``, ``--metrics``) is parsed and rejected with an
-error naming it (for ``hpv16``: when it would change what runs,
+with rkmh-tpu's warnings.  Every command takes ``--metrics`` (one JSON
+line of counts and rates on stderr at exit, as ``RKMH_TPU_METRICS=1``
+does; ``RKMH_TPU_PROFILE=<dir>`` adds a profiler trace:
+``observability.py``).  Every other flag of rkmh-tpu (``--devices``,
+``--tp``, ``--dist-*``) is parsed and rejected with an error naming it
+(for ``hpv16``: when it would change what runs,
 ``commands.hpv16_cmd.not_ported``), so an rkmh-tpu command line never
 runs with a flag silently dropped.
 """
@@ -40,7 +43,6 @@ _NOT_PORTED = (
     (("--dist-coordinator",), "dist_coordinator", {}),
     (("--dist-procs",), "dist_procs", {"type": int}),
     (("--dist-rank",), "dist_rank", {"type": int}),
-    (("--metrics",), "metrics", {"action": "store_true", "default": None}),
 )
 
 
@@ -161,7 +163,6 @@ def _add_hpv16_parser(sub):
     p.add_argument("--dist-coordinator", default="", help=hidden)
     p.add_argument("--dist-procs", type=int, default=0, help=hidden)
     p.add_argument("--dist-rank", type=int, default=-1, help=hidden)
-    p.add_argument("--metrics", action="store_true", help=hidden)
 
 
 def _add_hash_parsers(sub) -> None:
@@ -248,6 +249,16 @@ def build_parser():
         description="MinHash read classification (rkmh capabilities) on PyTorch + CUDA.",
     )
     sub = ap.add_subparsers(dest="command", required=True)
+    add_parser = sub.add_parser
+
+    def _add_parser(*a, **kw):  # every command takes --metrics (rkmh_tpu/cli.py:62-67)
+        p = add_parser(*a, **kw)
+        p.add_argument("--metrics", action="store_true",
+                       help="emit one JSON metrics line (reads/s, bp/s, timers) to stderr; "
+                            "RKMH_TPU_PROFILE=<dir> additionally writes a profiler trace")
+        return p
+
+    sub.add_parser = _add_parser
     for name in ("classify", "stream", "filter"):
         _add_classify_parser(sub, name)
     _add_hpv16_parser(sub)
@@ -367,7 +378,7 @@ def main(argv=None) -> int:
         from rkmh_tpu_torch.commands.hpv16_cmd import not_ported
 
         cfg = _hpv16_config(args)
-        given = not_ported(cfg) + (["--metrics"] if args.metrics else [])
+        given = not_ported(cfg)
     else:
         given = [flags[0] for flags, dest, _ in _NOT_PORTED
                  if getattr(args, dest, None) is not None]  # given (--dist-rank 0 too)
@@ -377,8 +388,11 @@ def main(argv=None) -> int:
            "hash": lambda: _run_hash(args), "count": lambda: _run_count(args),
            "search": lambda: _run_search(args),
            "call": lambda: _run_call(args)}.get(args.command, lambda: _run_stream(args))
+    from rkmh_tpu_torch.observability import observed_run
+
     try:
-        return run()
+        with observed_run(args.command, enabled=args.metrics or None):
+            return run()
     except (FileNotFoundError, IsADirectoryError, PermissionError) as e:
         print(f"rkmh-tpu-torch {args.command}: {e.strerror}: {e.filename}", file=sys.stderr)
         return 1

@@ -37,6 +37,7 @@ from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.commands.common import (
     bucketed_batches, load_packed, load_records, log, resolve_batch_size,
 )
+from rkmh_tpu_torch.commands.recovery import InjectedFailure, fail_after_chunks
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.io.packing import encode_seqs
 from rkmh_tpu_torch.ops.hashmap import SortedMap, build_sorted_map, unique_counts
@@ -295,6 +296,7 @@ def run(cfg: CallConfig, out=None, stats: dict | None = None) -> int:
 
     done_iter = iter(done_refs)
     pending_done = next(done_iter, None)
+    scanned = 0
     try:
         for ref in refs:
             if len(ref.seq) < k:
@@ -329,6 +331,11 @@ def run(cfg: CallConfig, out=None, stats: dict | None = None) -> int:
                 progress_fh.flush()
             agg.merge_from(ref_agg)
             phase["extract_s"] += time.perf_counter() - t1
+            # fault injection: RKMH_TPU_FAIL_AFTER_CHUNKS counts scanned
+            # references here (call's checkpoint granularity)
+            scanned += 1
+            if fail_after_chunks() and scanned >= fail_after_chunks():
+                raise InjectedFailure(f"injected failure after {scanned} refs")
     finally:
         if progress_fh is not None:
             progress_fh.close()

@@ -28,9 +28,11 @@ import torch
 from torch import nn
 
 from rkmh_tpu_torch.classify import engine
+from rkmh_tpu_torch.commands.recovery import InjectedFailure
 from rkmh_tpu_torch.io import native
 from rkmh_tpu_torch.io.fastx import iter_batches, read_fastx
 from rkmh_tpu_torch.io.packing import PAD_CODE, encode_seqs, length_buckets
+from rkmh_tpu_torch.observability import count
 from rkmh_tpu_torch.ops.counter import HashCounter
 from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
 from rkmh_tpu_torch.ops.lookup import build_panel_table
@@ -187,8 +189,15 @@ def load_records(paths) -> list:
 
 
 def resolve_chunk_reads(requested: int) -> int:
-    """Reads per parsed chunk; 0 = the default (65536)."""
-    return requested if requested and requested > 0 else DEFAULT_CHUNK_READS
+    """Reads per parsed chunk: ``requested`` if > 0, else
+    RKMH_TPU_CHUNK_READS if it is a positive integer, else the default
+    (65536), as ``rkmh_tpu/commands/common.py:295`` resolves it."""
+    if requested and requested > 0:
+        return requested
+    env = os.environ.get("RKMH_TPU_CHUNK_READS", "")
+    if env.isdigit() and int(env) > 0:
+        return int(env)
+    return DEFAULT_CHUNK_READS
 
 
 def _as_list(paths) -> list:
@@ -306,7 +315,9 @@ def count_read_kmers(chunks, ks, counter_size: int, batch_size: int,
 def bucketed_batches(packed, batch_size: int):
     """Yield (rows [B] indices into the chunk, codes [B, Lb], lens [B])
     grouped by padded-length bucket (``io.packing.length_buckets``), so a
-    length-spread input pads each read only to its bucket's length."""
+    length-spread input pads each read only to its bucket's length.  Each
+    batch adds its reads and bases to the run's metrics, as rkmh-tpu's
+    batchers do (``rkmh_tpu/commands/common.py:479-480, 538-539``)."""
     if len(packed) == 0:
         return
     uniq, bidx = length_buckets(packed.lens, MAX_LENGTH_BUCKETS)
@@ -314,7 +325,10 @@ def bucketed_batches(packed, batch_size: int):
         sel = np.nonzero(bidx == b)[0]
         for off in range(0, len(sel), batch_size):
             rows = sel[off : off + batch_size]
-            yield rows, packed.codes[rows][:, : int(Lb)], packed.lens[rows]
+            lens = packed.lens[rows]
+            count("reads", len(rows))
+            count("bp", int(lens.sum()))
+            yield rows, packed.codes[rows][:, : int(Lb)], lens
 
 
 class ChunkState:
@@ -393,19 +407,28 @@ class ChunkedPipeline:
         into its chunk state and advance state.filled.
     emit(state): write one completed chunk's output.
     fetch(device_results) -> host arrays, in order.
+    fail_after: raise ``InjectedFailure`` right after the chunk of that
+        number is emitted (0: never); the commands whose rkmh-tpu
+        pipeline does so pass ``recovery.fail_after_chunks()``.
     """
 
-    def __init__(self, on_result, emit, fetch, group: int = FETCH_GROUP):
+    def __init__(self, on_result, emit, fetch, group: int = FETCH_GROUP,
+                 fail_after: int = 0):
         self.on_result = on_result
         self.emit = emit
         self.fetch = fetch
         self.group = group
+        self.fail_after = fail_after
+        self.emitted = 0
         self.pending = deque()   # (state, meta, device_result)
         self.emit_q = deque()    # chunk states in input order
 
     def _drain(self):
         while self.emit_q and self.emit_q[0].complete:
             self.emit(self.emit_q.popleft())
+            self.emitted += 1
+            if self.fail_after and self.emitted >= self.fail_after:
+                raise InjectedFailure(f"RKMH_TPU_FAIL_AFTER_CHUNKS={self.fail_after} tripped")
 
     def _flush(self, n: int):
         group = [self.pending.popleft() for _ in range(min(n, len(self.pending)))]

@@ -60,7 +60,7 @@ from rkmh_tpu_torch.commands.common import (
     resolve_chunk_reads,
     two_pass_chunks,
 )
-from rkmh_tpu_torch.commands.recovery import Progress, skip_reads
+from rkmh_tpu_torch.commands.recovery import Progress, fail_after_chunks, skip_reads
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.io.fastx import iter_batches
 from rkmh_tpu_torch.io.packing import encode_seqs
@@ -201,7 +201,7 @@ def _run(cfg: FilterConfig, out, stdin, stats, progress: Progress | None = None,
             st.filled += len(rows)
 
         pipeline = ChunkedPipeline(on_result=on_result, emit=emit, fetch=fetch,
-                                   group=FETCH_GROUP)
+                                   group=FETCH_GROUP, fail_after=fail_after_chunks())
         if chunks is None:
             chunks = iter_packed_chunks(cfg.read_files, chunk_reads)
         if resume_skip:  # the -M counter pass above counted every read

@@ -14,7 +14,11 @@ All of it reads one combined set table over the T types and the U unique
 groups (``ops/lookup.build_set_table``): the hashing and the group
 differences run on the device, the table is built on the host and copied
 to the device once, where the set-probe kernel's packed layout of it is
-made once as well (``ops/set_probe.pack_set_table``).  With -M, a first pass counts every read k-mer in a
+made once as well (``ops/set_probe.pack_set_table``).  A panel whose
+projected table passes RKMH_TPU_SET_TABLE_MAX_MB (default 2048) takes the
+sorted-key panel instead (``ops/lookup.build_sorted_panel``, probed by
+``engine.hpv16_sorted_batch``; rkmh_tpu/commands/hpv16_cmd.py:273-286),
+with the same output.  With -M, a first pass counts every read k-mer in a
 ``hash % counter_size`` counter on the device (rkmh.cpp:2513-2530) and
 the classify pass drops the k-mers counted fewer than min_kmer_occ times
 before it sorts a read's hashes (rkmh.cpp:2663).  With -o FILE --resume,
@@ -22,8 +26,7 @@ FILE's complete lines count the reads already classified (a torn last line
 is cut); those reads are skipped after the tables and the -M counter pass,
 which still counts every read, and the rest is appended
 (rkmh_tpu/commands/hpv16_cmd.py:136-157, 491-496).  Not ported yet:
---devices / --tp, --dist-*, the device-side table build and the
-sorted-panel fallback past the table-size cap.
+--devices / --tp, --dist-* and the device-side table build.
 """
 
 from __future__ import annotations
@@ -48,14 +51,19 @@ from rkmh_tpu_torch.commands.common import (
     resolve_chunk_reads,
     two_pass_chunks,
 )
-from rkmh_tpu_torch.commands.recovery import count_complete_lines, skip_reads
+from rkmh_tpu_torch.commands.recovery import count_complete_lines, fail_after_chunks, skip_reads
+from rkmh_tpu_torch.convert import sorted_panel_from_numpy
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from rkmh_tpu_torch.ops.lookup import build_set_table, projected_table_bytes
+from rkmh_tpu_torch.ops.lookup import (
+    build_set_table,
+    build_sorted_panel,
+    count_unique_keys,
+    projected_table_bytes,
+)
 from rkmh_tpu_torch.ops.set_probe import pack_set_table
 from rkmh_tpu_torch.ops.sketch import INT64_MIN, SENTINEL
 
 DEFAULT_COUNTER_SIZE = 800_000_000  # rkmh.cpp:2516
-SET_TABLE_MAX_MB = 2048             # bucket-table cap (hpv16_cmd.py:273)
 
 
 @dataclass
@@ -141,11 +149,13 @@ class Hpv16Tables:
     """What the read loop needs: the combined set table on the device
     (``comb_table``, the logical layout; ``probe_table``, what the probe
     takes there: on a GPU the kernel's packed layout, on the CPU the same
-    logical table), the name maps, and the set-up seconds of each build
-    phase."""
+    logical table), or past the set-table cap the sorted-key panel
+    (``comb_sorted``, a ``SortedPanel``; then ``comb_table`` and
+    ``probe_table`` are None); the name maps, the set-up seconds of each
+    build phase, and the projected table bytes that chose between them."""
 
-    __slots__ = ("type_names", "comb_table", "probe_table", "lin_names", "sublin_names",
-                 "setup_s")
+    __slots__ = ("type_names", "comb_table", "probe_table", "comb_sorted", "lin_names",
+                 "sublin_names", "setup_s", "projected_bytes")
 
     @property
     def n_lin(self):
@@ -213,21 +223,28 @@ def build_tables(cfg: Hpv16Config, ks: tuple, device: torch.device) -> Hpv16Tabl
     # ref bit r is type r for r < T and unique group r - T after
     rows = _host_rows(th, tm) + _host_rows(lin_h, lin_keep) + _host_rows(sub_h, sub_keep)
     n_all = len(rows)
-    every = np.concatenate(rows)
-    n_entries = int(np.unique(every[every != 0]).size)
-    if projected_table_bytes(n_entries, n_all) > SET_TABLE_MAX_MB << 20:
-        raise RuntimeError(
-            f"hpv16: the combined set table for {n_entries} entries over {n_all} "
-            f"references would exceed {SET_TABLE_MAX_MB} MB; the sorted-panel "
-            "fallback for such panels is not yet ported to rkmh-tpu-torch")
-    table = build_set_table(rows, num_refs=n_all).table
-    clock.lap("host_build")
-    tb.comb_table = torch.from_numpy(table.view(np.int32)).to(device)
-    clock.lap("h2d")
-    tb.probe_table = tb.comb_table
-    if device.type == "cuda":
-        tb.probe_table = pack_set_table(tb.comb_table, n_all)
-        clock.lap("repack")
+    # past the cap the bucket table would outgrow the card: the sorted-key
+    # panel, ~10x smaller, instead (rkmh_tpu/commands/hpv16_cmd.py:273-286)
+    cap_mb = int(os.environ.get("RKMH_TPU_SET_TABLE_MAX_MB", "2048"))
+    tb.projected_bytes = projected_table_bytes(count_unique_keys(rows), n_all)
+    tb.comb_table = tb.probe_table = tb.comb_sorted = None
+    if tb.projected_bytes > cap_mb << 20:
+        keys, masks = build_sorted_panel(rows, num_refs=n_all)
+        clock.lap("host_build")
+        tb.comb_sorted = sorted_panel_from_numpy(keys, masks, device)
+        clock.lap("h2d")
+        log(f"hpv16 panel: projected bucket table exceeds "
+            f"RKMH_TPU_SET_TABLE_MAX_MB={cap_mb}; using the sorted-key "
+            f"panel ({keys.nbytes + masks.nbytes >> 20} MB)")
+    else:
+        table = build_set_table(rows, num_refs=n_all).table
+        clock.lap("host_build")
+        tb.comb_table = torch.from_numpy(table.view(np.int32)).to(device)
+        clock.lap("h2d")
+        tb.probe_table = tb.comb_table
+        if device.type == "cuda":
+            tb.probe_table = pack_set_table(tb.comb_table, n_all)
+            clock.lap("repack")
 
     uniq_rows = [np.unique(r) for r in rows[len(type_recs):]]
     lin_uniqs, sublin_uniqs = uniq_rows[: len(lin_names)], uniq_rows[len(lin_names):]
@@ -331,6 +348,9 @@ def _run(cfg: Hpv16Config, out, resume_skip: int = 0) -> int:
         # the probe width comes from the UNPADDED lengths (engine docstring)
         Wc = engine.hpv16_compact_width(lens, codes.shape[1], ks)
         batch = torch.from_numpy(codes).to(device, non_blocking=True)
+        if tb.comb_sorted is not None:
+            return (rows, lens), engine.hpv16_sorted_batch(
+                batch, tb.comb_sorted, ks, num_types, num_uniq, Wc, counter, cfg.min_kmer_occ)
         return (rows, lens), engine.hpv16_batch_comb(batch, tb.probe_table, ks, num_types,
                                                      num_uniq, Wc, counter, cfg.min_kmer_occ)
 
@@ -343,6 +363,7 @@ def _run(cfg: Hpv16Config, out, resume_skip: int = 0) -> int:
 
     pipeline = ChunkedPipeline(on_result=on_result,
                                emit=lambda st: out.write("".join(st.lines)),
-                               fetch=lambda results: [r.cpu().numpy() for r in results])
+                               fetch=lambda results: [r.cpu().numpy() for r in results],
+                               fail_after=fail_after_chunks())
     pipeline.run(chunks, make_state=_Chunk, dispatch=dispatch, batch_size=batch_size)
     return 0

@@ -1,8 +1,9 @@
 """Failure recovery for interrupted ``-o`` runs, as rkmh-tpu does it.
 
-A copy of ``rkmh_tpu/commands/recovery.py`` (``count_complete_lines``
-:52, ``skip_reads`` :73, ``LineSkipWriter`` :96, ``open_line_resume``
-:129, ``Progress`` :141).  Per-read output is deterministic, so an
+A copy of ``rkmh_tpu/commands/recovery.py`` (``InjectedFailure`` :42,
+``fail_after_chunks`` :46, ``count_complete_lines`` :52, ``skip_reads``
+:73, ``LineSkipWriter`` :96, ``open_line_resume`` :129, ``Progress``
+:141).  Per-read output is deterministic, so an
 interrupted run goes on by skipping the reads whose output already landed
 and appending the rest; the result is byte-identical to an uninterrupted
 run, and either package can resume an output of the other.  Two
@@ -16,12 +17,28 @@ mechanisms, by the command's output shape:
   of the reads that pass): ``{"reads": N, "bytes": M}`` (reads consumed,
   output bytes), replaced atomically after each chunk's records are
   flushed; ``--resume`` truncates the output to M bytes and skips N reads.
+
+Fault injection, to test the recovery end to end:
+``RKMH_TPU_FAIL_AFTER_CHUNKS=N`` raises ``InjectedFailure`` after the N-th
+chunk a ``stream``, ``filter`` or ``hpv16`` run emits, and after the N-th
+reference ``call`` scans, where rkmh-tpu raises it, with its message.
+``hash`` and ``search`` run to the end under it, as rkmh-tpu's do.
 """
 
 from __future__ import annotations
 
 import json
 import os
+
+
+class InjectedFailure(RuntimeError):
+    """Raised where RKMH_TPU_FAIL_AFTER_CHUNKS trips."""
+
+
+def fail_after_chunks() -> int:
+    """The fault-injection threshold (0 = disabled)."""
+    env = os.environ.get("RKMH_TPU_FAIL_AFTER_CHUNKS", "")
+    return int(env) if env.isdigit() else 0
 
 
 def count_complete_lines(path: str) -> int:

@@ -56,11 +56,12 @@ from rkmh_tpu_torch.commands.common import (
     resolve_chunk_reads,
     two_pass_chunks,
 )
-from rkmh_tpu_torch.commands.recovery import count_complete_lines, skip_reads
+from rkmh_tpu_torch.commands.recovery import count_complete_lines, fail_after_chunks, skip_reads
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.io.fastx import iter_fastx
 from rkmh_tpu_torch.io.native import format_lines_block
 from rkmh_tpu_torch.io.packing import encode_seqs
+from rkmh_tpu_torch.observability import count
 
 # the most lines dispatched but not yet written at once in the last -i run
 # (at most 3 batches: the bound on what a live stream holds back)
@@ -173,6 +174,8 @@ def _run_stdin(cfg: StreamConfig, out, panel, ks, batch_size: int, device, stdin
         out.write("".join(format_lines_host(panel.keys, [r.name for r in recs],
                                             res.cpu().numpy(), cfg.sketch_size)))
         out.flush()
+        count("reads", len(recs))  # rkmh_tpu/commands/stream.py:367-368
+        count("bp", sum(len(r.seq) for r in recs))
 
     def dispatch(recs):
         global last_peak_buffered_lines
@@ -296,6 +299,7 @@ def _run(cfg: StreamConfig, out, resume_skip: int = 0, stdin=None) -> int:
         st.filled += len(rows)
 
     pipeline = ChunkedPipeline(on_result=on_result,
-                               emit=lambda st: out.write(st.render()), fetch=fetch)
+                               emit=lambda st: out.write(st.render()), fetch=fetch,
+                               fail_after=fail_after_chunks())
     pipeline.run(chunks, make_state=LinesChunk, dispatch=dispatch, batch_size=batch_size)
     return 0

@@ -6,7 +6,9 @@ arrays they become the port's tensors by reinterpreting the bits as int64
 and int32.  A ``HashCounter``'s int32 table (``.to_numpy()``) carries over
 as it is, and so does the table ``count -o`` saves (either package's npz).
 A ``HashMap``'s four arrays (``call``'s depth map, a cuckoo table) become
-the port's ``SortedMap`` of the same keys and values.
+the port's ``SortedMap`` of the same keys and values.  A sorted-key panel
+(``build_sorted_panel``'s uint64 keys and uint32 masks, either package's)
+becomes a ``SortedPanel``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 from rkmh_tpu_torch.commands.common import RefPanel
 from rkmh_tpu_torch.ops.counter import HashCounter
 from rkmh_tpu_torch.ops.hashmap import SortedMap, build_sorted_map
-from rkmh_tpu_torch.ops.lookup import table_slots
+from rkmh_tpu_torch.ops.lookup import flip_keys, table_slots
+from rkmh_tpu_torch.ops.sorted_probe import SortedPanel
 
 
 def panel_from_numpy(keys, sketches_u64, lens, table_u32, device) -> RefPanel:
@@ -79,3 +82,19 @@ def hashmap_from_numpy(hash_hi, hash_lo, used, values, device) -> SortedMap:
     keys = (hi[used].astype(np.uint64) << np.uint64(32)) | lo[used].astype(np.uint64)
     order = np.argsort(keys, kind="stable")
     return build_sorted_map(keys[order], vals[used][order]).to(device)
+
+
+def sorted_panel_from_numpy(keys_u64, masks_u32, device) -> SortedPanel:
+    """(sorted distinct keys [U] uint64, masks [U, Wm] uint32), as
+    ``build_sorted_panel`` of either package makes them -> a SortedPanel on
+    ``device``: the keys with the sign bit flipped, the masks' bits as
+    int32."""
+    keys = np.asarray(keys_u64, dtype=np.uint64)
+    masks = np.asarray(masks_u32, dtype=np.uint32)
+    if keys.ndim != 1 or masks.ndim != 2 or masks.shape[0] != keys.shape[0]:
+        raise ValueError(f"a sorted panel is [U] keys and [U, Wm] masks, got "
+                         f"{keys.shape} and {masks.shape}")
+    if keys.size > 1 and not (keys[1:] > keys[:-1]).all():
+        raise ValueError("the keys of a sorted panel are distinct and ascending")
+    return SortedPanel(torch.from_numpy(np.ascontiguousarray(flip_keys(keys))).to(device),
+                       torch.from_numpy(np.ascontiguousarray(masks).view(np.int32)).to(device))

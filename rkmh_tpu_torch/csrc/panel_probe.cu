@@ -55,6 +55,25 @@
 // one load per lane and a shuffle each.  The argmax runs as warp shuffles
 // over the counters.
 
+// K11 (rkmh_panel_probe_wide) is the same kernel for any R, used past the
+// 8,192 references whose counters fit a warp's share of shared memory.
+// It replaces the same chain at R > 8192 (ops/lookup.py:341
+// counts_from_rows -> classify/engine.py:45 argmax_stream or :56
+// argmax_filter), in both row modes and both epilogues.  It holds no
+// counter per reference: the ranks and the probe are K2's, and the warp
+// appends each hit's bucket and slot to a list of at most n in its shared
+// memory.  The epilogue then takes 32 mask words (1,024 references) a
+// pass, lane l word w0 + l: its 32 counts, in registers, are the column
+// sums of that word over the hits.  Each pass reduces to (max, first
+// argmax, max before it) in reference order across the lanes, and joins
+// the running state: a right part whose max is strictly greater wins, and
+// the max before its argmax is then the larger of the left part's max and
+// its own.  That is argmax_stream's first max and previous best exactly,
+// for any R.  What bounds it: each hit's Wm mask words, one sector apiece
+// at the table's slot-major stride (S words apart), so a read costs about
+// hits x Wm random sectors.  A layout with a hit's mask words contiguous
+// would cut that to hits x Wm / 8 sectors: later work.
+
 #include <algorithm>
 #include <climits>
 #include <cstdint>
@@ -115,7 +134,11 @@ __device__ __forceinline__ int insert_rank(uint32_t* keys, int* cnt, int nslots,
 }
 
 // MAXW > 0: the counters of references lane + 32 w, w < Wm <= MAXW, in
-// registers; MAXW == 0: in the warp's shared memory.
+// registers; MAXW == 0: in the warp's shared memory; MAXW == WIDE (K11):
+// none, the read's hits are listed in the warp's shared memory and counted
+// word by word in the epilogue.
+constexpr int WIDE = -1;
+
 template <bool FILTER, int MAXW>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
 panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict__ lens, int B,
@@ -123,22 +146,27 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
                    const int32_t* __restrict__ ref_lens, int min_diff, int min_matches,
                    int nslots, int32_t* __restrict__ out) {
   constexpr bool REGS = MAXW > 0;
+  constexpr bool LIST = MAXW == WIDE;
   constexpr int NW = REGS ? MAXW : 1;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // the whole warp: nothing below waits for the block
 
-  const size_t per_warp = (size_t)nslots * 8 + (REGS ? 0 : (size_t)Wm * 128);
+  const size_t per_warp =
+      (size_t)nslots * 8 + (REGS ? 0 : LIST ? (size_t)n * 8 : (size_t)Wm * 128);
   unsigned char* mine = smem + warp * per_warp;
   uint32_t* keys = reinterpret_cast<uint32_t*>(mine);                 // [nslots] ranks table
   int* cnt = reinterpret_cast<int*>(mine + (size_t)nslots * 4);       // [nslots]
   int* scnt = reinterpret_cast<int*>(mine + (size_t)nslots * 8);      // [Wm][32] counters
+  uint32_t* hit_bucket = reinterpret_cast<uint32_t*>(scnt);           // LIST: [n] hits
+  int* hit_slot = scnt + n;                                           // LIST: [n]
+  int nhits = 0;                                                      // LIST, warp-uniform
   for (int j = lane; j < nslots; j += 32) {
     keys[j] = 0;
     cnt[j] = 0;
   }
-  if (!REGS)
+  if (!REGS && !LIST)
     for (int j = lane; j < 32 * Wm; j += 32) scnt[j] = 0;
   __syncwarp();
 
@@ -182,6 +210,7 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
     // first trip: the S lo and S occ lanes of the bucket row; second: hi
     // and (register counters) the Wm mask words of the matching slot
     const uint32_t* trow = table;
+    uint32_t bucket = 0;
     int slot = -1;
     uint32_t m[NW];
 #pragma unroll
@@ -189,7 +218,8 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
     if (valid) {
       const uint32_t lo = (uint32_t)h, hi = (uint32_t)(h >> 32), o = (uint32_t)occ;
       const uint32_t x = (lo ^ (hi * MIX) ^ (o * MIX)) * MUL;
-      trow = table + (size_t)(log2nb == 0 ? 0u : x >> (32 - log2nb)) * width;
+      bucket = log2nb == 0 ? 0u : x >> (32 - log2nb);
+      trow = table + (size_t)bucket * width;
       if ((S & 3) == 0) {  // 16-byte aligned lane groups: S/4 uint4 loads each
         for (int s4 = 0; s4 < S && slot < 0; s4 += 4) {
           const uint4 l = __ldg(reinterpret_cast<const uint4*>(trow + S + s4));
@@ -221,7 +251,14 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
 
     // count the hits: lane r adds bit r of each hit's mask words
     unsigned hits = __ballot_sync(FULL, slot >= 0);
-    if constexpr (REGS) {
+    if constexpr (LIST) {
+      if (slot >= 0) {
+        const int at = nhits + __popc(hits & ((1u << lane) - 1u));
+        hit_bucket[at] = bucket;
+        hit_slot[at] = slot;
+      }
+      nhits += __popc(hits);
+    } else if constexpr (REGS) {
       while (hits) {
         const int src = __ffs(hits) - 1;
         hits &= hits - 1;
@@ -246,40 +283,89 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
   }
   const int n_valid = __reduce_add_sync(FULL, my_valid);
 
-  // f(reference, count) over the lane's references in ascending order
-  auto each_count = [&](auto&& f) {
-    if constexpr (REGS) {
-#pragma unroll
-      for (int w = 0; w < NW; ++w)
-        if (w < Wm) f(32 * w + lane, rc[w]);
-    } else {
-      for (int w = 0; w < Wm; ++w) f(32 * w + lane, scnt[32 * w + lane]);
-    }
-  };
   // running max from -1 (stream) or 0 (filter), strict > (first ref wins
-  // ties); best stays INT_MAX in filter mode when every count is 0
+  // ties); best stays INT_MAX in filter mode when every count is 0; pm,
+  // the previous best: max(init, max(counts[:best]))
   const int init = FILTER ? 0 : -1;
-  int mx = init, best = INT_MAX;
-  each_count([&](int r, int c) {
-    if (r < R && c > mx) {
-      mx = c;
-      best = r;
+  int mx = init, best = INT_MAX, pm = init;
+  if constexpr (LIST) {
+    __syncwarp();  // the hit list is the whole warp's
+    // 32 words (1,024 references) a pass, lane w0 + lane's 32 counts in
+    // registers, each a column sum over the hits' word; a pass's (max,
+    // first argmax, max before it) joins the running one in reference
+    // order: a right part whose max is strictly greater wins, and the max
+    // before it is then the larger of the left max and its own
+    for (int w0 = 0; w0 < Wm; w0 += 32) {
+      const int w = w0 + lane;
+      int c[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) c[j] = 0;
+      if (w < Wm) {
+        for (int h = 0; h < nhits; ++h) {
+          const uint32_t m =
+              __ldg(table + (size_t)hit_bucket[h] * width + (3 + w) * S + hit_slot[h]);
+#pragma unroll
+          for (int j = 0; j < 32; ++j) c[j] += (m >> j) & 1u;
+        }
+      }
+      int smx = init, sbest = INT_MAX, sbefore = init;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        if (32 * w + j < R && c[j] > smx) {
+          sbefore = smx;
+          smx = c[j];
+          sbest = 32 * w + j;
+        }
+      }
+      for (int off = 1; off < 32; off <<= 1) {  // lane 0 ends with the pass's state
+        const int omx = __shfl_down_sync(FULL, smx, off);
+        const int obest = __shfl_down_sync(FULL, sbest, off);
+        const int obefore = __shfl_down_sync(FULL, sbefore, off);
+        if (lane + off < 32 && omx > smx) {
+          sbefore = max(smx, obefore);
+          smx = omx;
+          sbest = obest;
+        }
+      }
+      smx = __shfl_sync(FULL, smx, 0);
+      sbest = __shfl_sync(FULL, sbest, 0);
+      sbefore = __shfl_sync(FULL, sbefore, 0);
+      if (smx > mx) {
+        pm = max(mx, sbefore);
+        mx = smx;
+        best = sbest;
+      }
     }
-  });
-  for (int off = 16; off > 0; off >>= 1) {
-    const int omx = __shfl_xor_sync(FULL, mx, off);
-    const int obest = __shfl_xor_sync(FULL, best, off);
-    if (omx > mx || (omx == mx && obest < best)) {
-      mx = omx;
-      best = obest;
+  } else {
+    // f(reference, count) over the lane's references in ascending order
+    auto each_count = [&](auto&& f) {
+      if constexpr (REGS) {
+#pragma unroll
+        for (int w = 0; w < NW; ++w)
+          if (w < Wm) f(32 * w + lane, rc[w]);
+      } else {
+        for (int w = 0; w < Wm; ++w) f(32 * w + lane, scnt[32 * w + lane]);
+      }
+    };
+    each_count([&](int r, int c) {
+      if (r < R && c > mx) {
+        mx = c;
+        best = r;
+      }
+    });
+    for (int off = 16; off > 0; off >>= 1) {
+      const int omx = __shfl_xor_sync(FULL, mx, off);
+      const int obest = __shfl_xor_sync(FULL, best, off);
+      if (omx > mx || (omx == mx && obest < best)) {
+        mx = omx;
+        best = obest;
+      }
     }
+    each_count([&](int r, int c) {
+      if (r < R && r < best) pm = max(pm, c);
+    });
+    pm = __reduce_max_sync(FULL, pm);
   }
-  // previous best: max(init, max(counts[:best]))
-  int pm = init;
-  each_count([&](int r, int c) {
-    if (r < R && r < best) pm = max(pm, c);
-  });
-  pm = __reduce_max_sync(FULL, pm);
   if (lane != 0) return;
   const int sk_len = sorted_mode ? len : n_valid;
   if (FILTER) {
@@ -318,15 +404,16 @@ int launch_variant(int warps, size_t smem, const int64_t* rows, const int32_t* l
 }
 
 // The layout from the shapes: the counters in 2 registers (R <= 64), in 8
-// (R <= 256) or in shared memory; in raw mode 3n ranks slots per warp (2n
-// and 4n were slower on the zika batch), or n where 3n do not fit one
-// warp's share; as many warps per block (<= MAX_WARPS) as fit.
+// (R <= 256) or in shared memory; K11 (wide) none, a list of n hits; in
+// raw mode 3n ranks slots per warp (2n and 4n were slower on the zika
+// batch), or n where 3n do not fit one warp's share; as many warps per
+// block (<= MAX_WARPS) as fit.
 template <bool FILTER>
 int launch(const int64_t* rows, const int32_t* lens, int B, int n, const int32_t* table,
            int log2nb, int S, int Wm, int R, const int32_t* ref_lens, int min_diff,
-           int min_matches, int32_t* out, cudaStream_t stream) {
+           int min_matches, int32_t* out, cudaStream_t stream, bool wide = false) {
   if (lens == nullptr && n >= (1 << (32 - FP_BITS)) - 1) return (int)cudaErrorInvalidValue;
-  const size_t cnt_bytes = Wm <= 8 ? 0 : (size_t)Wm * 128;
+  const size_t cnt_bytes = wide ? (size_t)n * 8 : Wm <= 8 ? 0 : (size_t)Wm * 128;
   int nslots = lens == nullptr ? 3 * n : 0;
   if ((size_t)nslots * 8 + cnt_bytes > SMEM_MAX) nslots = n;
   const size_t per_warp = (size_t)nslots * 8 + cnt_bytes;
@@ -339,7 +426,8 @@ int launch(const int64_t* rows, const int32_t* lens, int B, int n, const int32_t
         warps, smem, rows, lens, B, n, table, log2nb, S, Wm, R, ref_lens, min_diff,
         min_matches, nslots, out, stream);
   };
-  return Wm <= 2   ? go(std::integral_constant<int, 2>())
+  return wide      ? go(std::integral_constant<int, WIDE>())
+         : Wm <= 2 ? go(std::integral_constant<int, 2>())
          : Wm <= 8 ? go(std::integral_constant<int, 8>())
                    : go(std::integral_constant<int, 0>());
 }
@@ -366,4 +454,21 @@ extern "C" int rkmh_panel_probe_filter(const int64_t* rows, const int32_t* lens,
                                        cudaStream_t stream) {
   return launch<true>(rows, lens, B, n, table, log2nb, S, Wm, R, ref_lens, min_diff,
                       min_matches, out, stream);
+}
+
+// K11, the wide route for any R (past the 8,192 references whose counters
+// fit shared memory): the arguments of rkmh_panel_probe_filter, with
+// ref_lens NULL for the stream epilogue (out [3, B]) and given for the
+// filter one (out [5, B]).  Requires B >= 1, 1 <= R <= 32 * Wm and n * 8
+// bytes (+ n * 8 in raw mode) within the block limit.
+extern "C" int rkmh_panel_probe_wide(const int64_t* rows, const int32_t* lens, int B, int n,
+                                     const int32_t* table, int log2nb, int S, int Wm, int R,
+                                     const int32_t* ref_lens, int min_diff, int min_matches,
+                                     int32_t* out, cudaStream_t stream) {
+  if (ref_lens == nullptr) {
+    return launch<false>(rows, lens, B, n, table, log2nb, S, Wm, R, nullptr, min_diff,
+                         min_matches, out, stream, true);
+  }
+  return launch<true>(rows, lens, B, n, table, log2nb, S, Wm, R, ref_lens, min_diff,
+                      min_matches, out, stream, true);
 }

@@ -54,6 +54,25 @@
 //   counters to a [B, 32 * Wm] buffer, and the last of them to finish (a
 //   ticket counter after a __threadfence) takes the first-max argmax.
 
+// K10 (sorted_probe_kernel, rkmh_sorted_probe) is the same kernel for
+// hpv16's fallback past the set-table cap.  It replaces the chain
+// rkmh_tpu/classify/engine.py:829-862 (_hpv16_sorted_core after the
+// sort: occ ranks, the set-semantics query mask, then
+// ops/lookup.py:658 sorted_panel_counts_masked's searchsorted, key
+// compare, mask gather and vertical popcounts, and the type argmax).  The
+// panel is np.unique's sorted distinct keys (sign bit flipped, so a
+// signed compare is the unsigned order) and a [U, Wm] mask row a key: a
+// run start takes one lower-bound binary search, log2(U) + 1 dependent
+// loads, and on equality its Wm mask words.  What bounds it: those
+// dependent loads.  The top levels of the search are the same few keys
+// for every probe and stay in L2; the last ~log2(U / 2^20) levels of a
+// panel of millions of keys (40 MB of keys at 5M) come from HBM.  It
+// keeps K3's split by segments, run-start test, on-chip counting and
+// epilogue (finish_read), and skips the counting of a warp step in which
+// no lane found its key.  A directory over the keys' top bits (as
+// ops/hashmap.SortedMap has) would cut the search to a few levels: later
+// work.
+
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -82,6 +101,57 @@ __device__ __forceinline__ void count_votes(uint32_t mine, int word, int lane, i
     if (lane == bit) votes_here = votes;
   }
   if (votes_here) atomicAdd(&cnt[32 * word + lane], votes_here);
+}
+
+// The end of a read's block, shared by K3 and K10, after the block's
+// counts are in cnt[32 * Wm] (and a __syncthreads): a read of several
+// segments adds its counters to its row of counts in device memory, and
+// the last of its blocks to get here reads them back; then warp 0 writes
+// the first-max type, its count and the U group counts.
+__device__ __forceinline__ void finish_read(int* cnt, bool* last, int* __restrict__ counts,
+                                            int* __restrict__ done, int64_t* __restrict__ out,
+                                            int b, int nseg, int Wm, int T, int U) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (nseg > 1) {
+    // a read of several segments: add to its counters in device memory;
+    // the last block to get here reads them back and takes the argmax
+    int* total = counts + (int64_t)b * 32 * Wm;
+    for (int r = tid; r < 32 * Wm; r += THREADS) {
+      if (cnt[r]) atomicAdd(&total[r], cnt[r]);
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *last = atomicAdd(&done[b], 1) == nseg - 1;
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    for (int r = tid; r < 32 * Wm; r += THREADS) cnt[r] = __ldcg(&total[r]);
+    __syncthreads();
+  }
+
+  if (warp != 0) return;
+  // jnp.argmax over the types: the first maximal index (0 when all are 0)
+  int mx = -1, best = INT_MAX;
+  for (int r = lane; r < T; r += 32) {
+    if (cnt[r] > mx) {
+      mx = cnt[r];
+      best = r;
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const int omx = __shfl_down_sync(FULL, mx, off);
+    const int obest = __shfl_down_sync(FULL, best, off);
+    if (omx > mx || (omx == mx && obest < best)) {
+      mx = omx;
+      best = obest;
+    }
+  }
+  int64_t* o = out + (int64_t)b * (2 + U);
+  if (lane == 0) {
+    o[0] = best;
+    o[1] = mx;
+  }
+  for (int u = lane; u < U; u += 32) o[2 + u] = cnt[T + u];
 }
 
 // KV: 16-byte vectors per key record (S < 4 * KV).
@@ -148,47 +218,59 @@ set_probe_kernel(const uint64_t* __restrict__ rows, int64_t row_stride,
     }
   }
   __syncthreads();
+  finish_read(cnt, &last, counts, done, out, b, nseg, Wm, T, U);
+}
 
-  if (nseg > 1) {
-    // a read of several segments: add to its counters in device memory;
-    // the last block to get here reads them back and takes the argmax
-    int* total = counts + (int64_t)b * 32 * Wm;
-    for (int r = tid; r < 32 * Wm; r += THREADS) {
-      if (cnt[r]) atomicAdd(&total[r], cnt[r]);
-    }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) last = atomicAdd(&done[b], 1) == nseg - 1;
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    for (int r = tid; r < 32 * Wm; r += THREADS) cnt[r] = __ldcg(&total[r]);
-    __syncthreads();
-  }
+// K10: the same probe of a read's run starts against the sorted-key
+// panel (hpv16's fallback past the set-table cap): a lower-bound binary
+// search of the element, sign bit flipped, in the U flipped keys; on
+// equality, the key's Wm mask words [U, Wm] count as K3 counts a slot's.
+__global__ void __launch_bounds__(THREADS)
+sorted_probe_kernel(const uint64_t* __restrict__ rows, int64_t row_stride,
+                    const int32_t* __restrict__ lens, int n, const int64_t* __restrict__ keys,
+                    int nkeys, const uint32_t* __restrict__ masks, int seg, int Wm, int T,
+                    int U, int* __restrict__ counts, int* __restrict__ done,
+                    int64_t* __restrict__ out) {
+  extern __shared__ int cnt[];  // [32 * Wm] per-reference counters
+  __shared__ bool last;
 
-  if (warp != 0) return;
-  // jnp.argmax over the types: the first maximal index (0 when all are 0)
-  int mx = -1, best = INT_MAX;
-  for (int r = lane; r < T; r += 32) {
-    if (cnt[r] > mx) {
-      mx = cnt[r];
-      best = r;
+  const int b = blockIdx.x;
+  const int len = min(lens[b], n);
+  const int first = blockIdx.y * seg;
+  if (blockIdx.y > 0 && first >= len) return;  // the read ends before this segment
+  const int end = min(first + seg, len);
+  const int nseg = max(1, (len + seg - 1) / seg);  // blocks that stay for read b
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int r = tid; r < 32 * Wm; r += THREADS) cnt[r] = 0;
+  __syncthreads();
+
+  const uint64_t* row = rows + (int64_t)b * row_stride;
+  // warp-uniform loop bound: every lane takes part in the shuffles and ballots
+  for (int base = first + warp * 32; base < end; base += THREADS) {
+    const int i = base + lane;
+    const uint64_t h = i < end ? row[i] : SENTINEL;
+    uint64_t prev = __shfl_up_sync(FULL, h, 1);
+    if (lane == 0 && i > 0 && i < end) prev = row[i - 1];
+    const bool probe = i < end && h != SENTINEL && (i == 0 || prev != h);
+    const uint32_t* rec = nullptr;  // the mask words of the key equal to h
+    if (probe) {
+      const int64_t q = (int64_t)(h ^ 0x8000000000000000ULL);
+      int lo = 0, hi = nkeys;  // the first key >= q
+      while (lo < hi) {
+        const int mid = (int)(((unsigned)lo + (unsigned)hi) >> 1);
+        if (__ldg(keys + mid) < q) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      if (lo < nkeys && __ldg(keys + lo) == q) rec = masks + (int64_t)lo * Wm;
     }
+    if (!__any_sync(FULL, rec != nullptr)) continue;  // warp-uniform
+    for (int w = 0; w < Wm; ++w) count_votes(rec != nullptr ? __ldg(rec + w) : 0u, w, lane, cnt);
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    const int omx = __shfl_down_sync(FULL, mx, off);
-    const int obest = __shfl_down_sync(FULL, best, off);
-    if (omx > mx || (omx == mx && obest < best)) {
-      mx = omx;
-      best = obest;
-    }
-  }
-  int64_t* o = out + (int64_t)b * (2 + U);
-  if (lane == 0) {
-    o[0] = best;
-    o[1] = mx;
-  }
-  for (int u = lane; u < U; u += 32) o[2 + u] = cnt[T + u];
+  __syncthreads();
+  finish_read(cnt, &last, counts, done, out, b, nseg, Wm, T, U);
 }
 
 template <int KV>
@@ -236,4 +318,30 @@ extern "C" int rkmh_set_probe(const int64_t* rows, int64_t row_stride, const int
   if (S < 16) RKMH_SET_PROBE(4);
   RKMH_SET_PROBE(8);
 #undef RKMH_SET_PROBE
+}
+
+// K10: rows, row_stride, lens, B, n, seg, counts, done and out as
+// rkmh_set_probe; keys [nkeys] int64, the sorted distinct hashes with the
+// sign bit flipped (ascending as signed values), masks [nkeys, Wm] uint32.
+// Requires B >= 1, nkeys >= 1, T >= 1, T + U <= 32 * Wm, seg a positive
+// multiple of 32 with ceil(n / seg) <= 65535.
+extern "C" int rkmh_sorted_probe(const int64_t* rows, int64_t row_stride, const int32_t* lens,
+                                 int B, int n, const int64_t* keys, int nkeys,
+                                 const int32_t* masks, int Wm, int T, int U, int seg,
+                                 int32_t* counts, int32_t* done, int64_t* out,
+                                 cudaStream_t stream) {
+  if (seg < 32 || seg % 32 || (n + seg - 1) / seg > 65535 || nkeys < 1 ||
+      (n > seg && (counts == nullptr || done == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)Wm * 32 * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(sorted_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  }
+  const dim3 grid(B, n > seg ? (n + seg - 1) / seg : 1);
+  sorted_probe_kernel<<<grid, THREADS, smem, stream>>>(
+      reinterpret_cast<const uint64_t*>(rows), row_stride, lens, n, keys, nkeys,
+      reinterpret_cast<const uint32_t*>(masks), seg, Wm, T, U, counts, done, out);
+  return (int)cudaGetLastError();
 }

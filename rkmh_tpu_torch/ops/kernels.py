@@ -13,7 +13,8 @@ loaded on import.
 Each C entry point returns ``cudaGetLastError()`` after its launch on the
 stream it is given (PyTorch's current stream); ``Kernel`` raises if that
 is not 0 and counts successful launches, in all and, for a kernel with
-several routes (K4, K5), by the route the caller names.
+several routes (K4, K5, K9) or epilogues (K11), by the route the caller
+names.
 """
 
 from __future__ import annotations
@@ -155,11 +156,20 @@ PANEL_PROBE = Kernel("rkmh_panel_probe", [_p, _p, _i, _i, _p, _i, _i, _i, _i, _i
 #                         out, stream)
 PANEL_PROBE_FILTER = Kernel("rkmh_panel_probe_filter",
                             [_p, _p, _i, _i, _p, _i, _i, _i, _i, _p, _i, _i, _p])
+# rkmh_panel_probe_wide(rows, lens|NULL, B, n, table, log2_buckets, slots, mask_words,
+#                       num_refs, ref_lens|NULL (NULL: stream, else filter), min_diff,
+#                       min_matches, out, stream)
+PANEL_PROBE_WIDE = Kernel("rkmh_panel_probe_wide",
+                          [_p, _p, _i, _i, _p, _i, _i, _i, _i, _p, _i, _i, _p])
 # rkmh_set_probe(rows, row_stride, lens, B, n, key records, slot records, log2_buckets,
 #                slots, mask_words, num_types, num_uniq, segment, counts|NULL, done|NULL,
 #                out, stream)
 SET_PROBE = Kernel("rkmh_set_probe", [_p, _i64, _p, _i, _i, _p, _p, _i, _i, _i, _i, _i, _i,
                                       _p, _p, _p])
+# rkmh_sorted_probe(rows, row_stride, lens, B, n, keys, nkeys, masks, mask_words, num_types,
+#                   num_uniq, segment, counts|NULL, done|NULL, out, stream)
+SORTED_PROBE = Kernel("rkmh_sorted_probe", [_p, _i64, _p, _i, _i, _p, _i, _p, _i, _i, _i, _i,
+                                            _p, _p, _p])
 # rkmh_lut_gather_rows(lut, idx, out, N, C, M, smem, stream)
 LUT_GATHER_ROWS = Kernel("rkmh_lut_gather_rows", [_p, _p, _p, _i, _i, _i64, _i])
 # rkmh_lut_gather_lanes(lut, idx, out, N, C, M, reg, stream)
@@ -181,7 +191,9 @@ HASHMAP_GET = Kernel("rkmh_hashmap_get", [_p, _i64, *_MAP, _p])
 CALL_SCAN = Kernel("rkmh_call_scan", [_p, _i64, _i, _p, _p, _p, *_MAP, _p, _p, _p, _p, _p, _i])
 
 KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE,
-           "panel_probe_filter": PANEL_PROBE_FILTER, "set_probe": SET_PROBE,
+           "panel_probe_filter": PANEL_PROBE_FILTER, "panel_probe_wide": PANEL_PROBE_WIDE,
+           "set_probe": SET_PROBE,
+           "sorted_probe": SORTED_PROBE,
            "lut_gather_rows": LUT_GATHER_ROWS, "lut_gather_lanes": LUT_GATHER_LANES,
            "counter_add": COUNTER_ADD, "counter_mask": COUNTER_MASK,
            "hashmap_get": HASHMAP_GET, "call_scan": CALL_SCAN}

@@ -16,6 +16,14 @@ hpv16 set table is built here on the host and copied to the card once).
 lanes are uint32 bit patterns in int32 and are widened to int64 before
 any compare or max, because an int32 lane >= 2**31 is negative.
 
+(c) The sorted-key panel, hpv16's fallback past the set-table cap
+(``lookup.py:525-539, 634-691``): ``count_unique_keys``,
+``build_sorted_panel`` (numpy, identical arrays) and its plain query
+``sorted_panel_counts(_masked)``.  The query takes the keys as int64
+with the sign bit flipped (``h ^ INT64_MIN``, ``flip_keys``), so that
+torch's signed ``searchsorted`` sees the reference's unsigned order, and
+the masks as int32 [U, Wm].
+
 Table layout: [NB, S*(3+Wm)] lanes per bucket row, slot-major
 ``[hi*S | lo*S | occ*S | mask_w*S ...]``; bit r of an entry's mask is set
 iff reference r's sketch holds at least occ+1 copies of the hash.
@@ -31,7 +39,7 @@ import torch
 
 from rkmh_tpu_torch.ops.intersect import occ_ranks
 from rkmh_tpu_torch.ops.popcount import vertical_popcounts
-from rkmh_tpu_torch.ops.sketch import SENTINEL
+from rkmh_tpu_torch.ops.sketch import INT64_MIN, SENTINEL
 
 _SENTINEL_U64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 _BUDGET_MB = 64
@@ -287,3 +295,76 @@ def lookup_intersection_counts(read_sk: torch.Tensor, read_lens: torch.Tensor,
     qmask = (torch.arange(s, device=read_sk.device)[None, :] < read_lens[:, None]) & (
         read_sk != SENTINEL)
     return lookup_intersection_counts_masked(read_sk, qmask, occ, table, num_refs)
+
+
+# ---------------------------------------------------------------------------
+# (c) the sorted-key panel (hpv16's fallback past the set-table cap)
+# ---------------------------------------------------------------------------
+
+def count_unique_keys(rows) -> int:
+    """Distinct hashes over per-reference uint64 rows, zeros and SENTINEL
+    excluded: ``_count_unique_keys`` of ``rkmh_tpu/ops/lookup.py:525``
+    without occurrence ranks, the entry count that sizes a set table."""
+    every = np.concatenate([np.zeros(0, np.uint64), *rows])
+    return int(np.unique(every[(every != 0) & (every != _SENTINEL_U64)]).size)
+
+
+def build_sorted_panel(ref_hash_rows: list, num_refs: int | None = None):
+    """Per-reference hash arrays -> (sorted distinct keys [U] uint64,
+    masks [U, Wm] uint32, bit r of a key's row set iff reference r holds
+    it).  Zeros (invalid k-mers) are excluded; an empty panel gives one
+    key 0 with an empty mask.  A copy of ``rkmh_tpu/ops/lookup.py:634``."""
+    R = num_refs if num_refs is not None else len(ref_hash_rows)
+    Wm = max(1, (R + 31) // 32)
+    keys_all = []
+    refs_all = []
+    for r, row in enumerate(ref_hash_rows):
+        row = np.asarray(row)
+        row = np.unique(row.view(np.uint64) if row.dtype == np.int64 else row.astype(np.uint64))
+        row = row[row != 0]
+        keys_all.append(row)
+        refs_all.append(np.full(len(row), r, dtype=np.int64))
+    if not keys_all or sum(len(x) for x in keys_all) == 0:
+        return np.zeros(1, dtype=np.uint64), np.zeros((1, Wm), dtype=np.uint32)
+    keys_cat = np.concatenate(keys_all)
+    refs_cat = np.concatenate(refs_all)
+    uniq, inv = np.unique(keys_cat, return_inverse=True)
+    masks = np.zeros((len(uniq), Wm), dtype=np.uint32)
+    np.bitwise_or.at(
+        masks, (inv, refs_cat // 32), (np.uint32(1) << (refs_cat % 32)).astype(np.uint32)
+    )
+    return uniq, masks
+
+
+def flip_keys(keys_u64: np.ndarray) -> np.ndarray:
+    """Sorted uint64 keys -> int64 with the sign bit flipped, sorted as
+    signed values in the same order."""
+    return np.asarray(keys_u64, dtype=np.uint64).view(np.int64) ^ np.int64(INT64_MIN)
+
+
+def sorted_panel_counts_masked(read_sk: torch.Tensor, qmask: torch.Tensor,
+                               keys_flipped: torch.Tensor, masks: torch.Tensor,
+                               num_refs: int) -> torch.Tensor:
+    """[B, s] int64 hashes + bool query mask (True = query this element)
+    -> [B, R] int32 counts of the queried elements found, per reference.
+    Callers enforce set semantics by masking later occurrences out."""
+    q = read_sk ^ INT64_MIN
+    pos = torch.searchsorted(keys_flipped, q.reshape(-1)).reshape(q.shape)
+    pos = pos.clamp(0, keys_flipped.shape[0] - 1)
+    hit = (keys_flipped[pos] == q) & qmask
+    mw = torch.where(hit[..., None], masks[pos].to(torch.int64) & M32,
+                     torch.zeros((), dtype=torch.int64, device=read_sk.device))  # [B, s, Wm]
+    counts = [vertical_popcounts(mw[..., w], min(32, num_refs - 32 * w))
+              for w in range((num_refs + 31) // 32)]
+    return torch.cat(counts, dim=-1)
+
+
+def sorted_panel_counts(read_sk: torch.Tensor, read_lens: torch.Tensor,
+                        keys_flipped: torch.Tensor, masks: torch.Tensor,
+                        num_refs: int) -> torch.Tensor:
+    """[B, s] sorted read hash arrays -> [B, R] distinct shared counts:
+    only the first occurrence of a value queries the panel."""
+    s = read_sk.shape[-1]
+    qmask = ((torch.arange(s, device=read_sk.device)[None, :] < read_lens[:, None])
+             & (read_sk != SENTINEL) & (occ_ranks(read_sk) == 0))
+    return sorted_panel_counts_masked(read_sk, qmask, keys_flipped, masks, num_refs)

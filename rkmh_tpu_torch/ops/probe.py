@@ -2,7 +2,9 @@
 
 One call runs, per read, the occurrence ranks, the bucket-table probe,
 the per-reference counts and the argmax.  On a CUDA tensor it is the
-panel-probe kernel (``csrc/panel_probe.cu``); on a CPU tensor it is
+panel-probe kernel (``csrc/panel_probe.cu``): K2 up to MAX_REFS
+references, K11, its wide route without per-reference counters, past
+them; on a CPU tensor it is
 ``panel_probe_plain``, the composition of the plain ports of the JAX
 package's functions (``ops/intersect``, ``ops/lookup``,
 ``classify/engine.argmax_stream``), which the kernel must match exactly.
@@ -31,8 +33,8 @@ from rkmh_tpu_torch.ops.sketch import SENTINEL
 # longer rows take the sorted-sketch mode (the JAX package's NOSORT_MAX_W,
 # engine.py:290)
 NOSORT_MAX_W = 256
-# past 256 references the kernel's counters live in shared memory: 32 *
-# ceil(R/32) ints per read
+# past 256 references K2's counters live in shared memory, 32 * ceil(R/32)
+# ints per read; past MAX_REFS the panel takes K11
 MAX_REFS = 8192
 _SMEM_BYTES = 232448 - 1024  # a block's shared memory on sm_90, less static use
 
@@ -89,16 +91,17 @@ def panel_probe_filter_plain(rows: torch.Tensor, lens: torch.Tensor | None,
                                              ref_lens))
 
 
-def _cuda_args(rows, lens, table, num_refs):
+def _cuda_args(rows, lens, table, num_refs, wide: bool):
     """Checks what the kernel takes; -> (rows, lens, table, log2 buckets,
-    slots, mask words), contiguous."""
+    slots, mask words), contiguous.  K11 (``wide``) keeps a list of a row's
+    hits in shared memory in place of K2's counters."""
     if rows.dtype != torch.int64 or rows.dim() != 2:
         raise ValueError(f"panel probe takes [B, n] int64 rows, got "
                          f"{tuple(rows.shape)} {rows.dtype}")
     if table.dtype != torch.int32 or table.dim() != 2 or table.device != rows.device:
         raise ValueError("panel probe takes an int32 [NB, width] table on the rows' device")
-    if not 1 <= num_refs <= MAX_REFS:
-        raise ValueError(f"panel probe kernel holds 1..{MAX_REFS} per-reference "
+    if num_refs < 1 or (not wide and num_refs > MAX_REFS):
+        raise ValueError(f"panel probe kernel K2 holds 1..{MAX_REFS} per-reference "
                          f"counters in shared memory, got {num_refs} references")
     nb = table.shape[0]
     if nb & (nb - 1):
@@ -106,11 +109,12 @@ def _cuda_args(rows, lens, table, num_refs):
     B, n = rows.shape
     S = table_slots(table.shape[1], num_refs)
     Wm = table.shape[1] // S - 3
-    # per read: raw rows need >= n ranks-table slots of 8 bytes, and past
-    # 256 references the counters go to shared memory too
-    if (n * 8 if lens is None else 0) + (Wm * 128 if Wm > 8 else 0) > _SMEM_BYTES:
-        raise ValueError(f"panel probe kernel: the ranks table of a row of {n} hashes "
-                         "does not fit in shared memory")
+    # per read: raw rows need >= n ranks-table slots of 8 bytes; past 256
+    # references K2's counters go to shared memory too, and K11's hit list
+    extra = n * 8 if wide else Wm * 128 if Wm > 8 else 0
+    if (n * 8 if lens is None else 0) + extra > _SMEM_BYTES:
+        raise ValueError(f"panel probe kernel: the shared memory of a row of {n} hashes "
+                         f"at {num_refs} references does not fit")
     rows = rows.contiguous()
     table = table.contiguous()
     if lens is not None:
@@ -120,24 +124,36 @@ def _cuda_args(rows, lens, table, num_refs):
     return rows, lens, table, nb.bit_length() - 1, S, Wm
 
 
-def _panel_probe_cuda(rows, lens, table, num_refs, min_diff, min_matches):
-    rows, lens, table, log2nb, S, Wm = _cuda_args(rows, lens, table, num_refs)
+def _panel_probe_cuda(rows, lens, table, num_refs, min_diff, min_matches, wide=None):
+    """K2, or K11 where ``wide`` (default: num_refs > MAX_REFS)."""
+    wide = num_refs > MAX_REFS if wide is None else wide
+    rows, lens, table, log2nb, S, Wm = _cuda_args(rows, lens, table, num_refs, wide)
     B, n = rows.shape
     out = torch.empty((3, B), dtype=torch.int32, device=rows.device)
-    if B:
+    if B and wide:
+        kernels.PANEL_PROBE_WIDE(rows, lens, B, n, table, log2nb, S, Wm, num_refs, None,
+                                 min_diff, min_matches, out, route="stream")
+    elif B:
         kernels.PANEL_PROBE(rows, lens, B, n, table, log2nb, S, Wm, num_refs, min_diff,
                             min_matches, out)
     return out
 
 
-def _panel_probe_filter_cuda(rows, lens, table, num_refs, ref_lens, min_diff, min_matches):
-    rows, lens, table, log2nb, S, Wm = _cuda_args(rows, lens, table, num_refs)
+def _panel_probe_filter_cuda(rows, lens, table, num_refs, ref_lens, min_diff, min_matches,
+                             wide=None):
+    """K2's filter epilogue, or K11's where ``wide`` (default: num_refs >
+    MAX_REFS)."""
+    wide = num_refs > MAX_REFS if wide is None else wide
+    rows, lens, table, log2nb, S, Wm = _cuda_args(rows, lens, table, num_refs, wide)
     if ref_lens.shape != (num_refs,) or ref_lens.device != rows.device:
         raise ValueError("ref_lens must be [num_refs] on the rows' device")
     ref_lens = ref_lens.to(torch.int32).contiguous()
     B, n = rows.shape
     out = torch.empty((5, B), dtype=torch.int32, device=rows.device)
-    if B:
+    if B and wide:
+        kernels.PANEL_PROBE_WIDE(rows, lens, B, n, table, log2nb, S, Wm, num_refs, ref_lens,
+                                 min_diff, min_matches, out, route="filter")
+    elif B:
         kernels.PANEL_PROBE_FILTER(rows, lens, B, n, table, log2nb, S, Wm, num_refs,
                                    ref_lens, min_diff, min_matches, out)
     return out

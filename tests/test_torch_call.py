@@ -327,7 +327,7 @@ def test_cli_call_matches_jax(workload, tmp_path, capsys):
 def test_cli_parses_rkmh_tpu_flags_and_defaults(argv):
     want = vars(jax_parser().parse_args(argv))
     got = vars(cli.build_parser().parse_args(argv))
-    not_ported = {"devices", "dist_coordinator", "dist_procs", "dist_rank", "metrics"}
+    not_ported = {"devices", "dist_coordinator", "dist_procs", "dist_rank"}
     assert set(got) - {"device"} == set(want)
     for key, value in want.items():
         if key in not_ported:
@@ -338,7 +338,7 @@ def test_cli_parses_rkmh_tpu_flags_and_defaults(argv):
 
 
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--dist-coordinator", "h:1"],
-                                  ["--dist-procs", "2"], ["--dist-rank", "0"], ["--metrics"]])
+                                  ["--dist-procs", "2"], ["--dist-rank", "0"]])
 def test_cli_rejects_flags_not_yet_ported(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["call", "-r", "ref.fa", "-f", "reads.fq", *flag])

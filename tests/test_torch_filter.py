@@ -204,7 +204,7 @@ def test_cli_filter_matches_jax(workload, tmp_path, capsys, monkeypatch):
 @pytest.mark.parametrize("flag", [["--devices", "4"], ["--tp", "4"], ["--dist-procs", "4"],
                                   ["--devices", "2"], ["--tp", "2"],
                                   ["--dist-coordinator", "h:1"], ["--dist-procs", "2"],
-                                  ["--dist-rank", "0"], ["--metrics"]])
+                                  ["--dist-rank", "0"]])
 def test_cli_filter_rejects_flags_not_yet_ported(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["filter", "-r", "refs.fa", "-f", "reads.fq", *flag])

@@ -154,7 +154,7 @@ def test_hash_resume_needs_an_out_file(capsys):
 def test_cli_parses_rkmh_tpu_flags_and_defaults(argv):
     want = vars(jax_parser().parse_args(argv))
     got = vars(cli.build_parser().parse_args(argv))
-    not_ported = {"devices", "dist_coordinator", "dist_procs", "dist_rank", "metrics"}
+    not_ported = {"devices", "dist_coordinator", "dist_procs", "dist_rank"}
     assert set(got) - {"device"} == set(want)
     for key, value in want.items():
         if key in not_ported:
@@ -178,7 +178,7 @@ def test_cli_hash_dead_flags_warn_as_jax(workload, capsys, flags):
 
 @pytest.mark.parametrize("command", ["hash", "count", "search"])
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--dist-coordinator", "h:1"],
-                                  ["--dist-procs", "2"], ["--dist-rank", "0"], ["--metrics"]])
+                                  ["--dist-procs", "2"], ["--dist-rank", "0"]])
 def test_cli_rejects_flags_not_yet_ported(command, flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main([command, "-r", "k.txt", "-f", "reads.fq", *flag] if command == "search"

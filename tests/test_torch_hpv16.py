@@ -137,8 +137,7 @@ def test_cli_hpv16_matches_jax(data, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--dist-coordinator", "h:1"], ["--devices", "2"],
-                                  ["--devices", "4"], ["--tp", "2"], ["--dist-procs", "2"],
-                                  ["--metrics"]])
+                                  ["--devices", "4"], ["--tp", "2"], ["--dist-procs", "2"]])
 def test_cli_rejects_flags_not_yet_ported(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["hpv16", "-f", "reads.fq", "-R", "refs", *flag])
@@ -149,14 +148,6 @@ def test_cli_rejects_flags_not_yet_ported(flag, capsys):
 def test_run_rejects_config_not_yet_ported():
     with pytest.raises(ValueError, match="--devices, --tp not yet ported"):
         hpv16_cmd.run(hpv16_cmd.Hpv16Config(min_kmer_occ=2, devices=2, tp=2, device="cpu"))
-
-
-def test_table_past_the_cap_names_the_missing_fallback(data, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(hpv16_cmd, "SET_TABLE_MAX_MB", 0)
-    with pytest.raises(RuntimeError, match="sorted-panel fallback"):
-        hpv16_cmd.build_tables(hpv16_cmd.Hpv16Config(refpath=data["full"]), (16,),
-                               torch.device("cpu"))
 
 
 def test_hpv16_batch_comb_on_a_jax_built_table(data, tmp_path, monkeypatch):

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from rkmh_tpu_torch import call_engine
+from rkmh_tpu_torch import call_engine, convert
+from rkmh_tpu_torch.bench.wide_inputs import PAST, straddling_panel
 from rkmh_tpu_torch.ops import counter, gather, hashmap, kernels, lookup
 from rkmh_tpu_torch.ops.hashing import (
     kmer_window_hashes_plain,
@@ -23,6 +24,8 @@ from rkmh_tpu_torch.ops.hashing import (
 )
 from rkmh_tpu_torch.ops.lookup import build_panel_table, build_set_table
 from rkmh_tpu_torch.ops.probe import (
+    _panel_probe_cuda,
+    _panel_probe_filter_cuda,
     panel_probe,
     panel_probe_filter,
     panel_probe_filter_plain,
@@ -35,6 +38,7 @@ from rkmh_tpu_torch.ops.set_probe import (
     set_probe_plain,
 )
 from rkmh_tpu_torch.ops.sketch import SENTINEL, bottom_s_sketch
+from rkmh_tpu_torch.ops.sorted_probe import _sorted_probe_cuda, sorted_probe, sorted_probe_plain
 
 
 @pytest.fixture
@@ -716,6 +720,95 @@ def test_call_scan_kernel_on_split_positional_rows(cuda_device):
                        kmer_window_hashes_plain(ref[None], 16)[0])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [PAST + 1, 9000, 12288])
+def test_panel_probe_wide_kernel_matches_plain(cuda_device, R):
+    """K11, both row modes and both epilogues, on ties and maxima on both
+    sides of reference 8,192 and duplicate-heavy rows."""
+    ref_sk, ref_lens, reads, set_lens = straddling_panel(R, seed=R, n_reads=99)
+    table = torch.from_numpy(build_panel_table(ref_sk, ref_lens).table.view(np.int32))
+    table, raw = table.to(cuda_device), torch.from_numpy(reads).to(cuda_device)
+    set_lens = torch.from_numpy(set_lens).to(cuda_device)
+    sk, lens = bottom_s_sketch(raw, 32)
+    before = dict(kernels.PANEL_PROBE_WIDE.by_route)
+    for rows, ln in ((raw, None), (sk, lens)):
+        for md, mm in ((0, -1), (1, 9)):
+            got = panel_probe(rows, ln, table, R, md, mm)
+            torch.cuda.synchronize()
+            want = panel_probe_plain(rows, ln, table, R, md, mm)
+            assert torch.equal(got, want), (R, ln is None, md, mm)
+            got = panel_probe_filter(rows, ln, table, R, set_lens, md, mm)
+            assert torch.equal(got, panel_probe_filter_plain(rows, ln, table, R, set_lens, md,
+                                                             mm)), (R, ln is None, md, mm)
+    assert kernels.PANEL_PROBE_WIDE.by_route["stream"] == before.get("stream", 0) + 4
+    assert want[0, :3].tolist() == [100, PAST, PAST - 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,width", [(8192, 149), (300, 256), (60, 7000), (1, 64)])
+def test_panel_probe_wide_kernel_equals_k2(cuda_device, R, width):
+    """At R <= 8,192 both kernels take the panel: K11 must give K2's bits."""
+    table, raw = _panel(R + 3 * width, R, 64, 99, width)
+    table, raw = table.to(cuda_device), raw.to(cuda_device)
+    ref_lens = torch.arange(R, dtype=torch.int32, device=cuda_device) % 70
+    sk, lens = bottom_s_sketch(raw, width if width > 1000 else width // 2)
+    for rows, ln in [(sk, lens)] + ([(raw, None)] if width <= 256 else []):
+        for wide in (False, True):
+            got = _panel_probe_cuda(rows, ln, table, R, 1, 3, wide=wide)
+            got_f = _panel_probe_filter_cuda(rows, ln, table, R, ref_lens, 1, 3, wide=wide)
+            if wide:
+                assert torch.equal(got, k2) and torch.equal(got_f, k2_f), (R, width)
+            k2, k2_f = got, got_f
+    torch.cuda.synchronize()
+
+
+def _sorted_panel(rows, R, device):
+    return convert.sorted_panel_from_numpy(*lookup.build_sorted_panel(rows, num_refs=R), device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,U,width", [(1, 0, 64), (30, 10, 500), (182, 14, 4000),
+                                       (300, 40, 256)])
+def test_sorted_probe_kernel_matches_plain(cuda_device, T, U, width):
+    """K10 against its plain version and against K3's on the same sets."""
+    table, pool, rows, rng = _set_table(T + width, T, U, 96)
+    full, lens = _sorted_rows(rng, pool, 64, width)
+    full[3] = full[3, 0]  # a row of one repeated value
+    lens[3] = width
+    full[5:8], lens[5:8] = SENTINEL, 0  # reads with no valid element (-M zeroed them all)
+    panel = _sorted_panel(rows, T + U, cuda_device)
+    assert (panel.keys.cpu() >= 0).any() and (panel.keys.cpu() < 0).any()  # keys >= 2**63 too
+    full, lens = full.to(cuda_device), lens.to(cuda_device)
+    before = kernels.SORTED_PROBE.launches
+    for n in (width, width // 2):
+        for seg in (32, 2048):
+            got = _sorted_probe_cuda(full[:, :n], lens, panel, T, U, seg=seg)
+            torch.cuda.synchronize()
+            want = sorted_probe_plain(full[:, :n], lens, panel, T, U)
+            assert torch.equal(got, want), (T, U, width, n, seg)
+        assert torch.equal(want, set_probe_plain(full[:, :n], lens, table.to(cuda_device), T, U))
+    want = sorted_probe_plain(full, lens, panel, T, U)
+    assert torch.equal(sorted_probe(full, lens, panel, T, U), want)  # the wrapper's route
+    assert kernels.SORTED_PROBE.launches == before + 5
+    assert int(want[:, 1].max()) > 1 and (want[5:8] == 0).all()
+
+
+@pytest.mark.cuda
+def test_sorted_probe_kernel_takes_a_40kb_read_and_one_key(cuda_device):
+    _, pool, rows, rng = _set_table(40, 182, 14, 2000)
+    full, lens = _sorted_rows(rng, pool, 2, 40_000)
+    panel = _sorted_panel(rows, 196, cuda_device)
+    got = sorted_probe(full.to(cuda_device), lens.to(cuda_device), panel, 182, 14)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), sorted_probe_plain(full, lens, _sorted_panel(rows, 196, "cpu"),
+                                                     182, 14))
+    assert int(got[:, 1].min()) > 100
+    one = _sorted_panel([pool[:1]], 1, cuda_device)  # R = 1, one key
+    x = torch.from_numpy(np.sort(pool[:40].view(np.uint64)).view(np.int64))[None].to(cuda_device)
+    ln = torch.tensor([40], dtype=torch.int32, device=cuda_device)
+    assert sorted_probe(x, ln, one, 1, 0).tolist() == [[0, 1]]
+
+
 def test_library_is_keyed_by_sources_and_flags(monkeypatch):
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR and path == kernels.library_path()
@@ -739,7 +832,8 @@ def test_launch_counts_reset():
     kernels.WINDOW_HASH.launches = 3
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {"window_hash": 0, "panel_probe": 0,
-                                       "panel_probe_filter": 0, "set_probe": 0,
+                                       "panel_probe_filter": 0, "panel_probe_wide": 0,
+                                       "set_probe": 0, "sorted_probe": 0,
                                        "lut_gather_rows": 0, "lut_gather_lanes": 0,
                                        "counter_add": 0, "counter_mask": 0,
                                        "hashmap_get": 0, "call_scan": 0}

@@ -146,8 +146,9 @@ def test_probe_row_modes_agree():
 
 def test_probe_kernel_wrapper_rejects_what_it_cannot_hold():
     table = torch.zeros((4, 4 * (3 + 282)), dtype=torch.int32)
-    with pytest.raises(ValueError, match="counters"):
-        _panel_probe_cuda(torch.zeros((2, 8), dtype=torch.int64), None, table, 9000, 0, -1)
+    with pytest.raises(ValueError, match="counters"):  # K2's; past them the panel takes K11
+        _panel_probe_cuda(torch.zeros((2, 8), dtype=torch.int64), None, table, 9000, 0, -1,
+                          wide=False)
     with pytest.raises(ValueError, match="power of two"):
         _panel_probe_cuda(torch.zeros((2, 8), dtype=torch.int64), None,
                           torch.zeros((3, 20), dtype=torch.int32), 40, 0, -1)

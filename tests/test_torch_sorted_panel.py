@@ -1,0 +1,208 @@
+"""hpv16's sorted-panel fallback (K10's function) in the port vs the JAX
+package.
+
+``build_sorted_panel`` must give the JAX package's arrays on the
+synthetic panel's hash sets and on edge rows (an empty row, zeros, keys
+>= 2**63, keys shared across references, R = 1, R = 33, no key at all).
+``sorted_panel_counts(_masked)``, ``sorted_probe_plain`` (what K10 must
+match on the card) and ``engine.hpv16_sorted_batch`` must equal their JAX
+counterparts on seeded inputs, with and without a read counter, on the
+JAX-built panel carried over by ``convert.sorted_panel_from_numpy``.
+``hpv16`` and ``hpv16 -M 2`` past the set-table cap
+(``RKMH_TPU_SET_TABLE_MAX_MB=0``) must be byte-identical to rkmh-tpu's
+under the same cap and to the port's own bucket-table output.  Also: what
+the K10 wrapper refuses.  Inputs: rkmh_tpu_torch.synth and numpy, from a
+seed.  Tolerance: none, every output is an integer or text.
+"""
+
+import io
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rkmh_tpu.classify import engine as jengine
+from rkmh_tpu.commands import hpv16_cmd as jcmd
+from rkmh_tpu.ops import lookup as jlookup
+from rkmh_tpu_torch import convert, synth
+from rkmh_tpu_torch.classify import engine
+from rkmh_tpu_torch.commands import hpv16_cmd
+from rkmh_tpu_torch.io.packing import encode_seqs
+from rkmh_tpu_torch.ops import lookup
+from rkmh_tpu_torch.ops.sorted_probe import SortedPanel, _sorted_probe_cuda, sorted_probe_plain
+
+SMALL = dict(num_types=8, genome_len=1500)
+HIGH = np.uint64(1 << 63)
+
+
+def _edge_rows(case, rng):
+    pool = rng.integers(1, 2**63, size=200, dtype=np.uint64)
+    pool[::3] |= HIGH  # keys >= 2**63
+    if case == "panel":  # the synthetic hpv16 panel's type genomes, hashed at k=16
+        from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
+
+        panel = synth.make_hpv16_panel(3, **SMALL)
+        codes, _ = encode_seqs([synth._ACGTN[g].tobytes() for g in panel.types])
+        h = multi_k_window_hashes(torch.from_numpy(codes), [16]).numpy().view(np.uint64)
+        return [row[row != 0] for row in h]  # padding windows hash to 0
+    rows = [rng.choice(pool, 30) for _ in range(6)]
+    if case == "empty-row":
+        rows[2] = np.zeros(0, np.uint64)
+    elif case == "zeros":
+        rows[1][:10] = 0
+        rows[4] = np.zeros(5, np.uint64)
+    elif case == "shared":
+        rows[3] = rows[0].copy()
+        rows[5] = np.concatenate([rows[0][:10], rows[1][:10]])
+    elif case == "R1":
+        rows = rows[:1]
+    elif case == "R33":
+        rows = [rng.choice(pool, 12) for _ in range(33)]
+    elif case == "no-key":
+        rows = [np.zeros(3, np.uint64), np.zeros(0, np.uint64)]
+    return rows
+
+
+@pytest.mark.parametrize("case", ["panel", "empty-row", "zeros", "high-keys", "shared", "R1",
+                                  "R33", "no-key"])
+def test_build_sorted_panel_equals_jax(case):
+    rows = _edge_rows(case, np.random.default_rng(len(case)))
+    want_k, want_m = jlookup.build_sorted_panel(rows, num_refs=len(rows))
+    got_k, got_m = lookup.build_sorted_panel([r.view(np.int64) for r in rows],
+                                             num_refs=len(rows))
+    assert got_k.dtype == want_k.dtype and got_m.dtype == want_m.dtype
+    assert np.array_equal(got_k, want_k) and np.array_equal(got_m, want_m)
+    if case == "high-keys":
+        assert (got_k >= HIGH).any() and (got_k < HIGH).any()
+    every = np.concatenate(rows) if rows else np.zeros(0, np.uint64)
+    assert lookup.count_unique_keys(rows) == int(jlookup._count_unique_keys(
+        jnp.asarray(every[None]), jnp.ones((1, every.size), bool)))
+
+
+def _panel_and_rows(seed, R=40, n_rows=24, width=48):
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(1, 2**64 - 1, size=300, dtype=np.uint64)
+    pool[::4] |= HIGH
+    keys, masks = jlookup.build_sorted_panel([rng.choice(pool, 40) for _ in range(R)], R)
+    sk = np.sort(rng.choice(np.concatenate([pool, rng.integers(1, 2**63, 60, dtype=np.uint64)]),
+                            size=(n_rows, width)), axis=1)
+    sk[3] = sk[3, 0]  # a row of one repeated value
+    lens = rng.integers(0, width + 1, n_rows).astype(np.int32)
+    lens[3] = width
+    sk[np.arange(width)[None, :] >= lens[:, None]] = np.uint64(2**64 - 1)
+    return keys, masks, sk, lens
+
+
+def test_sorted_panel_counts_match_jax():
+    keys, masks, sk, lens = _panel_and_rows(1)
+    panel = convert.sorted_panel_from_numpy(keys, masks, "cpu")
+    rows, ln = torch.from_numpy(sk.view(np.int64)), torch.from_numpy(lens)
+    want = np.asarray(jlookup.sorted_panel_counts(jnp.asarray(sk), jnp.asarray(lens),
+                                                  jnp.asarray(keys), jnp.asarray(masks), 40))
+    got = lookup.sorted_panel_counts(rows, ln, panel.keys, panel.masks, 40)
+    assert np.array_equal(got.numpy(), want) and want.max() > 0
+    qmask = np.random.default_rng(2).random(sk.shape) < 0.7  # any query mask, duplicates too
+    want = np.asarray(jlookup.sorted_panel_counts_masked(
+        jnp.asarray(sk), jnp.asarray(qmask), jnp.asarray(keys), jnp.asarray(masks), 40))
+    got = lookup.sorted_panel_counts_masked(rows, torch.from_numpy(qmask), panel.keys,
+                                            panel.masks, 40)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("T,U", [(30, 10), (1, 0), (40, 0)])
+def test_sorted_probe_plain_matches_the_jax_core(T, U):
+    keys, masks, sk, lens = _panel_and_rows(3)
+    panel = convert.sorted_panel_from_numpy(keys, masks, "cpu")
+    counts = jlookup.sorted_panel_counts(jnp.asarray(sk), jnp.asarray(lens), jnp.asarray(keys),
+                                         jnp.asarray(masks), T + U)
+    want = np.concatenate([np.asarray(jnp.argmax(counts[:, :T], -1))[:, None],
+                           np.asarray(jnp.max(counts[:, :T], -1))[:, None],
+                           np.asarray(counts[:, T:])], axis=1)
+    got = sorted_probe_plain(torch.from_numpy(sk.view(np.int64)), torch.from_numpy(lens), panel,
+                             T, U)
+    assert got.dtype == torch.int64 and np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("with_counter", [False, True])
+def test_hpv16_sorted_batch_matches_jax(with_counter):
+    ks, T = (16, 18), 8
+    panel = synth.make_hpv16_panel(3, **SMALL)
+    codes_t, _ = encode_seqs([synth._ACGTN[g].tobytes() for g in panel.types + panel.subs])
+    h = engine.multi_k_window_hashes(torch.from_numpy(codes_t), [16]).numpy().view(np.uint64)
+    keys, masks = jlookup.build_sorted_panel([r[r != 0] for r in h], len(h))
+    reads, _ = synth.make_nanopore_reads(12, 9, panel, mean_len=900, min_len=200, max_len=2000,
+                                         n_rate=0.01)
+    codes, lens = encode_seqs([r.tobytes() for r in reads] + [b"", b"ACGT"])
+    U = len(h) - T
+    counter = None
+    if with_counter:  # a small lossy counter table: collisions on purpose
+        counter = np.random.default_rng(5).integers(0, 4, 1009).astype(np.int32)
+    mine = convert.sorted_panel_from_numpy(keys, masks, "cpu")
+    for Wc in (engine.hpv16_compact_width(lens, codes.shape[1], ks),
+               sum(codes.shape[1] - k + 1 for k in ks)):
+        want = np.asarray(jengine.hpv16_sorted_batch(
+            codes, jnp.asarray(keys), jnp.asarray(masks), ks, T, U, Wc,
+            None if counter is None else jnp.asarray(counter), 2))
+        got = engine.hpv16_sorted_batch(torch.from_numpy(codes), mine, ks, T, U, Wc,
+                                        None if counter is None else torch.from_numpy(counter), 2)
+        assert np.array_equal(got.numpy(), want)
+    assert want[:, 1].max() > 0 and (want[-2:] == 0).all()
+
+
+@pytest.fixture(scope="module")
+def refpath(tmp_path_factory):
+    d = tmp_path_factory.mktemp("sorted_panel")
+    full = synth.write_hpv16_refpath(str(d / "full"), seed=3, **SMALL)
+    reads, _ = synth.make_nanopore_reads(24, 5, full, mean_len=900, min_len=900, max_len=900,
+                                         n_rate=0.01)
+    synth.write_fastq_records(str(d / "r.fq"), reads)
+    return str(d / "full"), str(d / "r.fq")
+
+
+@pytest.mark.parametrize("M", [0, 2])
+def test_hpv16_past_the_cap_byte_identical_to_jax(refpath, tmp_path, monkeypatch, capsys, M):
+    ref, reads = refpath
+    kw = dict(read_files=[reads], refpath=ref, ks=(16,), batch_size=8, min_kmer_occ=M,
+              counter_size=4099)
+    out = {}
+    for cap in ("0", None):
+        if cap is None:
+            monkeypatch.delenv("RKMH_TPU_SET_TABLE_MAX_MB", raising=False)
+        else:
+            monkeypatch.setenv("RKMH_TPU_SET_TABLE_MAX_MB", cap)
+        runs = (("jax", jcmd, {}), ("torch", hpv16_cmd, {"device": "cpu"}))
+        for name, mod, extra in runs[:2 if cap else 1][::-1] if cap else runs[1:]:
+            wd = tmp_path / f"{name}{cap}"
+            wd.mkdir()
+            monkeypatch.chdir(wd)
+            buf = io.StringIO()
+            assert mod.run(mod.Hpv16Config(**kw, **extra), out=buf) == 0
+            out[name, cap] = buf.getvalue(), (wd / "lineage_specific_hashes.16.tst").read_text()
+            err = capsys.readouterr().err
+            assert ("using the sorted-key panel" in err) == (cap == "0"), (name, cap)
+    assert len(out["jax", "0"][0].splitlines()) == 24
+    assert out["torch", "0"] == out["jax", "0"]
+    assert out["torch", None] == out["torch", "0"]  # the bucket-table path, same bytes
+
+
+def test_sorted_probe_wrapper_rejects_what_it_cannot_take():
+    keys, masks, sk, lens = _panel_and_rows(4)
+    panel = convert.sorted_panel_from_numpy(keys, masks, "cpu")
+    rows, ln = torch.from_numpy(sk.view(np.int64)), torch.from_numpy(lens)
+    with pytest.raises(ValueError, match="int64 rows"):
+        _sorted_probe_cuda(rows.to(torch.int32), ln, panel, 30, 10)
+    with pytest.raises(ValueError, match="SortedPanel"):
+        _sorted_probe_cuda(rows, ln, (panel.keys, panel.masks), 30, 10)
+    with pytest.raises(ValueError, match="int64 keys"):
+        _sorted_probe_cuda(rows, ln, SortedPanel(panel.keys[:0], panel.masks[:0]), 30, 10)
+    with pytest.raises(ValueError, match="masks"):
+        _sorted_probe_cuda(rows, ln, SortedPanel(panel.keys, panel.masks[1:]), 30, 10)
+    with pytest.raises(ValueError, match="mask words"):
+        _sorted_probe_cuda(rows, ln, panel, 30, 40)
+    with pytest.raises(ValueError, match="type"):
+        _sorted_probe_cuda(rows, ln, panel, 0, 10)
+    with pytest.raises(ValueError, match="lens"):
+        _sorted_probe_cuda(rows, ln[:-1], panel, 30, 10)
+    with pytest.raises(ValueError, match="distinct and ascending"):
+        convert.sorted_panel_from_numpy(keys[::-1], masks, "cpu")

@@ -129,7 +129,7 @@ def test_cli_accepts_dead_parity_flags_as_jax_does(workload, tmp_path, capsys):
         assert a.read() == b.read()
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--metrics"], ["--dist-coordinator", "h:1"],
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--dist-coordinator", "h:1"],
                                   ["--devices", "2"], ["--dist-rank", "0"],
                                   ["--dist-procs", "2"]])
 def test_cli_rejects_flags_not_yet_ported(flag, capsys):
@@ -200,6 +200,8 @@ def test_port_never_imports_jax():
             "import rkmh_tpu_torch.io.sketch_json, rkmh_tpu_torch.call_engine\n"
             "import rkmh_tpu_torch.commands.call_cmd, rkmh_tpu_torch.ops.hashmap\n"
             "import rkmh_tpu_torch.bench.call_inputs, rkmh_tpu_torch.bench.l2_sweep\n"
+            "import rkmh_tpu_torch.observability, rkmh_tpu_torch.ops.sorted_probe\n"
+            "import rkmh_tpu_torch.bench.wide_inputs, rkmh_tpu_torch.bench.bounds\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rkmh_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
