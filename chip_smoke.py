@@ -173,19 +173,22 @@ line) without CUDA or without the package beside it.  In order it:
     type genomes (``synth.write_hpv16_workload(num_types=640)``), whose
     projected bucket table passes the default 2,048 MB cap, so
     ``hpv16_cmd.build_tables`` takes the sorted-key panel (printed: the
-    projected bytes, the panel's keys and bytes on the card, set-up
-    seconds by phase); checks hpv16's sorted probe (K10, ``rkmh_sorted_probe``
-    in ``csrc/set_probe.cu``) exactly against ``sorted_probe_plain`` on a
-    512-read batch of its reads (654 references: 20 mask words and a
-    partial one; keys on both sides of 2**63; reads of several 2,048-element
-    segments), on rows of one repeated value, on rows with 40% of the
-    hashes zeroed as -M zeroes them, and on a one-reference panel with a
-    4,500-element read; times K10 on the batch (graph and eager) beside its
-    plain version, its bound (rows, lens and output once, plus the key
-    sectors each binary search loads and the mask rows of the keys found:
-    ``bench/bounds.sorted_probe_stats``) and its library yardstick,
-    ``torch.searchsorted`` of the batch's run starts into the keys plus the
-    mask gather;
+    projected bytes, the panel's keys, its directory's and its own bytes
+    on the card, set-up seconds by phase, the directory's among them);
+    checks hpv16's sorted probe (K10, ``rkmh_sorted_probe`` in
+    ``csrc/set_probe.cu``: a directory over the keys' top bits, then the
+    bucket's keys) exactly against ``sorted_probe_plain`` on a 512-read
+    batch of its reads (654 references: 20 mask words and a partial one;
+    keys on both sides of 2**63; reads of several 2,048-element segments),
+    on rows of one repeated value, on rows with 40% of the hashes zeroed
+    as -M zeroes them, on a one-reference panel with a 4,500-element read,
+    and on three edge directories (one bucket holding every key, one key,
+    empty buckets on both sides of 2**63); times K10 on the batch (graph
+    and eager) beside its plain version, its bound (the function's work:
+    rows, lens and output once, a key and its mask row for each distinct
+    key found, ``bench/bounds.sorted_probe_work``) and its library
+    yardstick, ``torch.searchsorted`` of the batch's run starts into the
+    keys plus the mask gather;
 26. drives that fallback through ``commands.hpv16_cmd.run`` (12,800 reads
     in 512-read batches, device cuda; K1 and K10 must run, K3 must not): the
     first 64 lines equal the CPU plain path's; reports e2e Mbp/s; then
@@ -194,19 +197,25 @@ line) without CUDA or without the package beside it.  In order it:
     table is past it): K10 and no K3, lines byte-identical to its
     bucket-table run;
 27. checks the wide panel probe (K11, ``rkmh_panel_probe_wide`` in
-    ``csrc/panel_probe.cu``) exactly against the plain versions at R =
-    8,193, 12,288 and 20,000 (``bench/wide_inputs.straddling_panel``: ties
-    and maxima on both sides of reference 8,192, duplicate-heavy rows),
-    both epilogues and both row modes, and against K2 at R = 8,192;
+    ``csrc/panel_probe.cu``, on its packed table ``ops/probe.WideTable``)
+    exactly against the plain versions on the logical table at R = 8,193,
+    12,288 and 20,000 (``bench/wide_inputs.straddling_panel``: ties and
+    maxima on both sides of reference 8,192, duplicate-heavy rows), both
+    epilogues and both row modes, on a table of one occupied slot, and
+    against K2 at R = 8,192; then times K11 beside K2 at R = 257, 1,024,
+    4,096 and 8,192 on 16,384 rows, raw and sorted;
 28. drives ``stream`` over 12,288 synthetic references of 1,000 bp (k =
     12, s = 32: the cut from s = 1000 is printed with its reason) and 2**18
     reads of 150 bp (``commands.stream.run``, device cuda; K1 and K11 must
     run), printing the projected table bytes first: the first 16,384 lines
-    equal the CPU plain path's; reports e2e reads/s and the host table
-    build's seconds; then times K11 on one 16,384-read batch of it (raw
-    rows and the path's sorted rows) beside its plain version, its bound
-    (``bench/bounds.panel_probe_stats``) and K2 on a table of the first
-    8,192 references;
+    equal the CPU plain path's; reports e2e reads/s, the host table
+    build's and the packing's seconds and the packed table's bytes on the
+    card beside the logical table's; then times K11 on one 16,384-read
+    batch of it (raw rows and the path's sorted rows) beside its plain
+    version, its bound (the function's work: rows, lens and output, an
+    entry and its mask row for each distinct entry hit,
+    ``bench/bounds.wide_probe_work``) and K2 on a table of the first 8,192
+    references;
 29. (run after 21, on the slice's input) ``stream --metrics`` over the
     first 16,384 slice reads through the CLI: the JSON line's reads and bp
     must be the input's; then the same run under ``RKMH_TPU_PROFILE``: the
@@ -218,7 +227,8 @@ path, max_abs_err against the plain version, ms, eager_ms, plain_ms, bound_ms,
 bound_by, bound_share = bound_ms / ms, and library_ms, one PyTorch call
 computing the same function where there is one: ``torch.gather`` for K4
 and K5, ``torch.searchsorted`` and the mask gather for K10, none for the
-others; K11 adds K2's time at R = 8,192 and its times on the sorted rows; K4 and K5 add their launches by route, K4
+others; K11 adds K2's time at R = 8,192, its times on the sorted rows and
+its times beside K2's at R = 257-8,192; K4 and K5 add their launches by route, K4
 its times at each timed N, K5 its staged route's time and the launch
 floor, K7 its times at the hpv16 -M shape, K1 its times at hash's shapes,
 K6 its time and route at count's table, K8 its times at 2**20 queries and
@@ -2124,6 +2134,7 @@ def run_stream_stdin(card: str, zika: dict) -> dict:
 
 N_TYPES_FALLBACK = 640       # synthetic type genomes whose bucket table passes the cap
 WIDE_RS = (8193, 12288, 20000)
+K2_SWEEP_RS = (257, 1024, 4096, 8192)  # K11 timed beside K2's shared-memory route
 N_WIDE_REFS = 12288          # phase 28: a gene-panel scale of references
 WIDE_REF_LEN = 1000
 WIDE_SKETCH = 32             # s = 1000 would make the table ~0.4 TB (see run_wide_stream)
@@ -2183,7 +2194,8 @@ def check_k10(dev, tb, packed) -> tuple[int, dict]:
     cases = [("512-read batch", rows, sk_lens, panel, T, U),
              ("rows of one repeated value", one_val, sk_lens, panel, T, U),
              ("-M-zeroed rows", z_rows, z_lens, panel, T, U),
-             ("R = 1", mix, torch.tensor([mix.shape[1]], device=dev), one_ref, 1, 0)]
+             ("R = 1", mix, torch.tensor([mix.shape[1]], device=dev), one_ref, 1, 0),
+             *edge_directory_cases(dev)]
     worst = 0
     for label, r, ln, p, t, u in cases:
         got = _sorted_probe_cuda(r, ln, p, t, u)
@@ -2210,17 +2222,52 @@ def check_k10(dev, tb, packed) -> tuple[int, dict]:
          "plain_ms": cuda_time_ms(lambda: sorted_probe_plain(rows, sk_lens, panel, T, U), 3,
                                   warmup=1),
          "library_ms": cuda_graph_time_ms(library, 10)}
-    st = bounds.sorted_probe_stats(rows, sk_lens, keys, masks)
-    nbytes = (bounds.read_row_bytes(rows, sk_lens) + bounds.tensor_bytes(sk_lens)
-              + rows.shape[0] * (2 + U) * 8 + st.table_bytes)
-    t["bound_ms"] = bounds.bound_ms(nbytes)
+    work = bounds.sorted_probe_work(rows, sk_lens, keys, masks, U)
+    t["bound_ms"] = bounds.bound_ms(work.nbytes)
     say(f"time sorted_probe (K10): {t['ms']:.4f} ms ({t['eager_ms']:.4f} eager) vs "
         f"{t['plain_ms']:.4f} ms plain per {HPV16_BATCH}-read batch, rows {tuple(rows.shape)}; "
-        f"{st.probes} run starts searched in {keys.numel()} keys, {st.hits} found, "
-        f"{st.buckets} key sectors and {st.hit_slots} mask rows reached; bound "
-        f"{t['bound_ms']:.4f} ms ({nbytes} bytes); library (torch.searchsorted of the "
-        f"{q.numel()} run starts + the mask gather) {t['library_ms']:.4f} ms")
+        f"{work.probes} run starts probed in {keys.numel()} keys under a 2**{panel.bits}-bucket "
+        f"directory, {work.hits} found, {work.found} distinct keys; bound "
+        f"{t['bound_ms']:.4f} ms ({work.nbytes} bytes: rows, lens, output, a key and its mask "
+        f"row a distinct key found); library (torch.searchsorted of the {q.numel()} run starts "
+        f"+ the mask gather) {t['library_ms']:.4f} ms")
     return worst, t
+
+
+def edge_directory_cases(dev) -> list:
+    """K10's edge directories: one bucket holding every key of a small
+    panel (the binary search inside a bucket), a panel of one key, and
+    keys on both sides of 2**63 with empty buckets around them; 40
+    references, rows of 120 hashes half of them keys."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch import convert
+    from rkmh_tpu_torch.ops.lookup import build_sorted_panel
+    from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+
+    rng = np.random.default_rng(2510)
+    sets = {
+        "one bucket holding every key": (np.uint64(0xABCDE) << np.uint64(44))
+        | rng.integers(0, 2**44, 3000, dtype=np.uint64),
+        "U = 1": np.array([2**63 + 5], dtype=np.uint64),
+        "empty buckets on both sides of 2**63": np.concatenate([
+            2**63 - 1 - rng.integers(0, 2**40, 300, dtype=np.uint64),
+            2**63 + rng.integers(0, 2**40, 300, dtype=np.uint64)]),
+    }
+    cases = []
+    for label, keys in sets.items():
+        keys = np.unique(keys)
+        panel = convert.sorted_panel_from_numpy(*build_sorted_panel(
+            [rng.choice(keys, max(1, keys.size // 2)) for _ in range(40)], num_refs=40), dev)
+        sizes = panel.dir.diff()
+        if label.startswith("one") and int((sizes > 0).sum()) != 1:
+            raise AssertionError("the one-bucket panel spreads over several buckets")
+        strangers = rng.integers(1, 2**64 - 1, 200, dtype=np.uint64)
+        raw = np.concatenate([rng.choice(keys, (64, 60)), rng.choice(strangers, (64, 60))], 1)
+        rows, lens = bottom_s_sketch(torch.from_numpy(raw.view(np.int64)).to(dev), 120)
+        cases.append((label, rows, lens, panel, 30, 10))
+    return cases
 
 
 def run_hpv16_fallback(dev, card: str) -> tuple[dict, dict]:
@@ -2243,10 +2290,14 @@ def run_hpv16_fallback(dev, card: str) -> tuple[dict, dict]:
         if tb.comb_sorted is None:
             raise AssertionError("the 640-type panel did not take the sorted-key panel")
         T, U = len(tb.type_names), tb.n_lin + tb.n_sub
+        sp = tb.comb_sorted
+        growth = sp.nbytes / (sp.nbytes - sp.directory_bytes)
         say(f"hpv16 fallback panel: projected bucket table {tb.projected_bytes} bytes "
             f"({tb.projected_bytes / 2**30:.2f} GiB) past the 2,048 MB cap; sorted panel "
-            f"{tb.comb_sorted.keys.numel()} keys x {tb.comb_sorted.mask_words} mask words = "
-            f"{tb.comb_sorted.nbytes} bytes on the card; {T} types + {U} groups; set-up s: "
+            f"{sp.keys.numel()} keys x {sp.mask_words} mask words and a directory of 2**{sp.bits}"
+            f" + 1 entries ({sp.directory_bytes} bytes, built in {tb.setup_s['directory']:.3f} "
+            f"s) = {sp.nbytes} bytes on the card ({growth:.4f} x the keys and masks alone); "
+            f"{T} types + {U} groups; set-up s: "
             + ", ".join(f"{k} {v:.3f}" for k, v in tb.setup_s.items()))
         err_k10, times = check_k10(dev, tb, packed)
         del packed
@@ -2286,7 +2337,7 @@ def run_hpv16_fallback(dev, card: str) -> tuple[dict, dict]:
     require_same("".join(gpu_lines[:N_HPV16_CPU_LINES]), outs["cpu"], "hpv16 fallback")
     res = {"e2e_s": e2e_s, "e2e_mbp_per_s": mbp / e2e_s, "launches": launches,
            "projected_table_bytes": tb.projected_bytes, "panel_bytes": tb.comb_sorted.nbytes,
-           "setup_s": tb.setup_s}
+           "directory_bytes": tb.comb_sorted.directory_bytes, "setup_s": tb.setup_s}
     say(f"hpv16 fallback on {card}: e2e {res['e2e_mbp_per_s']:.3f} Mbp/s ({e2e_s:.2f} s for "
         f"{N_HPV16_READS} reads, {mbp:.3f} Mbp, panel build and parse included); first "
         f"{N_HPV16_CPU_LINES} lines byte-identical to the CPU plain path; -M {MIN_OCC} "
@@ -2326,8 +2377,9 @@ def run_hpv16_capped(tmp: str, cfg: dict, table_lines: list) -> dict:
     return {"e2e_s": seconds, "launches": launches}
 
 
-def _random_panel_table(R: int, seed: int, t: int = 24):
-    """A bucket table over R references of t values from one pool."""
+def _random_panel_table(R: int, seed: int, t: int = 24, n_reads: int = 256):
+    """A bucket table over R references of t values from one pool, and
+    n_reads raw rows of 149 hashes drawn from it."""
     import numpy as np
     import torch
 
@@ -2338,40 +2390,48 @@ def _random_panel_table(R: int, seed: int, t: int = 24):
     pool[::3] |= np.int64(-(2**63))
     sk = np.sort(rng.choice(pool, (R, t)).view(np.uint64), axis=1).view(np.int64)
     table = build_panel_table(sk, np.full(R, t, np.int32)).table.view(np.int32)
-    reads = rng.choice(pool, size=(256, 149))
+    reads = rng.choice(pool, size=(n_reads, 149))
     reads[rng.random(reads.shape) < 0.1] = 0
     reads[1::7, :40] = pool[3]
     return torch.from_numpy(table), torch.from_numpy(reads)
 
 
-def check_k11(dev) -> int:
-    """K11 against the plain versions at R = 8,193, 12,288 and 20,000 (both
-    epilogues, both row modes), and against K2 at R = 8,192."""
+def check_k11(dev) -> tuple[int, dict]:
+    """K11 on its packed table (``ops/probe.device_table``: packed on the
+    host, copied alone) against the plain versions on the logical table at
+    R = 8,193, 12,288 and 20,000 (both epilogues, both row modes), on a
+    table of one occupied slot, and against K2 at R = 8,192; then K11
+    beside K2 at R = 257, 1,024, 4,096 and 8,192 on 16,384 rows, timed."""
     import numpy as np
     import torch
 
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms
     from rkmh_tpu_torch.bench.wide_inputs import PAST, straddling_panel
     from rkmh_tpu_torch.ops.lookup import build_panel_table
     from rkmh_tpu_torch.ops.probe import (
         _panel_probe_cuda,
         _panel_probe_filter_cuda,
+        device_table,
+        pack_wide_table,
         panel_probe_filter_plain,
         panel_probe_plain,
     )
-    from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+    from rkmh_tpu_torch.ops.sketch import SENTINEL, bottom_s_sketch
 
     worst = 0
     for R in WIDE_RS:
         ref_sk, ref_lens, reads, set_lens = straddling_panel(R, seed=R, n_reads=512, width=149)
-        table = torch.from_numpy(build_panel_table(ref_sk, ref_lens).table.view(np.int32)).to(dev)
+        logical = torch.from_numpy(build_panel_table(ref_sk, ref_lens).table.view(np.int32))
+        wide = device_table(logical, R, dev)
+        table = logical.to(dev)
         raw = torch.from_numpy(reads).to(dev)
         set_lens = torch.from_numpy(set_lens).to(dev)
         sk, lens = bottom_s_sketch(raw, 32)
         for mode, rows, ln in (("raw", raw, None), ("sorted", sk, lens)):
             for md, mm in ((0, -1), (1, 9)):
-                got = _panel_probe_cuda(rows, ln, table, R, md, mm)
+                got = _panel_probe_cuda(rows, ln, wide, R, md, mm)
                 want = panel_probe_plain(rows, ln, table, R, md, mm)
-                got_f = _panel_probe_filter_cuda(rows, ln, table, R, set_lens, md, mm)
+                got_f = _panel_probe_filter_cuda(rows, ln, wide, R, set_lens, md, mm)
                 want_f = panel_probe_filter_plain(rows, ln, table, R, set_lens, md, mm)
                 err = max(max_abs_err(got, want), max_abs_err(got_f, want_f))
                 if err or not (torch.equal(got, want) and torch.equal(got_f, want_f)):
@@ -2380,19 +2440,54 @@ def check_k11(dev) -> int:
                 worst = max(worst, err)
         if want[0, :3].tolist() != [100, PAST, PAST - 2]:
             raise AssertionError(f"K11 inputs lost their straddling ties at R = {R}")
-        say(f"K11 R = {R}: table {tuple(table.shape)}, raw and sorted rows, stream and filter "
-            f"epilogues: exact; firsts across 8,192 {want[0, :3].tolist()}")
+        say(f"K11 R = {R}: table {tuple(table.shape)} ({table.numel() * 4} bytes), packed "
+            f"{wide.nbytes} bytes (Wm = {wide.mask_words}, rows of {wide.rows.shape[1]} words), "
+            f"raw and sorted rows, stream and filter epilogues: exact; firsts across 8,192 "
+            f"{want[0, :3].tolist()}")
+
+    one = np.full((PAST + 1, 1), SENTINEL, dtype=np.int64)
+    one[PAST, 0] = 12345
+    logical = torch.from_numpy(build_panel_table(one, (one[:, 0] != SENTINEL).astype(np.int32))
+                               .table.view(np.int32))
+    wide = device_table(logical, PAST + 1, dev)
+    rows = torch.tensor([[12345, 0, 7], [1, 2, 3], [12345, 12345, 5]], device=dev)
+    for r, ln in ((rows, None), bottom_s_sketch(rows, 3)):
+        got = _panel_probe_cuda(r, ln, wide, PAST + 1, 0, -1)
+        if wide.rows.shape[0] != 1 or not torch.equal(
+                got, panel_probe_plain(r, ln, logical.to(dev), PAST + 1, 0, -1)):
+            raise AssertionError("K11 disagrees with the plain version on one occupied slot")
+    say(f"K11 on a WideTable of one occupied slot: exact, best {got[0].tolist()}")
+
     table, raw = _random_panel_table(PAST, 27)
     table, raw = table.to(dev), raw.to(dev)
+    wide = pack_wide_table(table, PAST)
     sk, lens = bottom_s_sketch(raw, 32)
     for rows, ln in ((raw, None), (sk, lens)):
         k2 = _panel_probe_cuda(rows, ln, table, PAST, 1, 3, wide=False)
-        k11 = _panel_probe_cuda(rows, ln, table, PAST, 1, 3, wide=True)
+        k11 = _panel_probe_cuda(rows, ln, wide, PAST, 1, 3, wide=True)
         if not torch.equal(k2, k11) or not torch.equal(k2, panel_probe_plain(rows, ln, table,
                                                                              PAST, 1, 3)):
             raise AssertionError("K11 and K2 disagree at R = 8,192")
-    say("K11 at R = 8,192: equal to K2 and to the plain version, raw and sorted rows")
-    return worst
+    say("K11 at R = 8,192: the packed table's answer equals K2's on the logical table and the "
+        "plain version's, raw and sorted rows")
+
+    sweep = {}
+    for R in K2_SWEEP_RS:
+        table, raw = _random_panel_table(R, 27 + R, n_reads=B)
+        table, raw = table.to(dev), raw.to(dev)
+        wide = pack_wide_table(table, R)
+        sk, lens = bottom_s_sketch(raw, 32)
+        for mode, rows, ln in (("raw", raw, None), ("sorted", sk, lens)):
+            k2 = lambda: _panel_probe_cuda(rows, ln, table, R, 0, -1, wide=False)  # noqa: E731
+            k11 = lambda: _panel_probe_cuda(rows, ln, wide, R, 0, -1, wide=True)  # noqa: E731
+            if not torch.equal(k2(), k11()):
+                raise AssertionError(f"K11 and K2 disagree at R = {R}, {mode} rows")
+            sweep[f"{R} {mode}"] = {"k2_ms": cuda_graph_time_ms(k2, 5),
+                                    "k11_ms": cuda_graph_time_ms(k11, 5)}
+            say(f"K11 beside K2 at R = {R}, {mode} rows {tuple(rows.shape)}: K2 "
+                f"{sweep[f'{R} {mode}']['k2_ms']:.4f} ms, K11 {sweep[f'{R} {mode}']['k11_ms']:.4f}"
+                " ms")
+    return worst, sweep
 
 
 def run_wide_stream(dev, card: str) -> tuple[dict, dict]:
@@ -2411,7 +2506,7 @@ def run_wide_stream(dev, card: str) -> tuple[dict, dict]:
     from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
     from rkmh_tpu_torch.ops.intersect import occ_ranks
     from rkmh_tpu_torch.ops.lookup import build_panel_table, projected_table_bytes
-    from rkmh_tpu_torch.ops.probe import _panel_probe_cuda, panel_probe_plain
+    from rkmh_tpu_torch.ops.probe import _panel_probe_cuda, pack_wide_table, panel_probe_plain
 
     say(f"wide stream: s = {WIDE_SKETCH}, cut from rkmh's s = 1000: every bucket of the "
         f"table holds 3 + ceil(R/32) words a slot, so at R = {N_WIDE_REFS} and s = 1000 the "
@@ -2459,11 +2554,18 @@ def run_wide_stream(dev, card: str) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         pt = build_panel_table(ref_sk.cpu().numpy(), ref_lens.cpu().numpy())
         build_s = time.perf_counter() - t0
-        table = torch.from_numpy(pt.table.view(np.int32)).to(dev)
+        logical = torch.from_numpy(pt.table.view(np.int32))
         del pt
+        t0 = time.perf_counter()
+        wide = pack_wide_table(logical, N_WIDE_REFS)  # on the host, as the path packs it
+        pack_s = time.perf_counter() - t0
+        wide = wide.to(dev)
+        table = logical.to(dev)  # the plain version's and the bound's
         say(f"stream 12,288 refs on {card}: e2e {n_reads / e2e_s:.1f} reads/s "
             f"({e2e_s:.2f} s, panel build and parse included; the host table build alone "
-            f"{build_s:.2f} s, table {tuple(table.shape)} = {table.numel() * 4} bytes); first "
+            f"{build_s:.2f} s, logical table {tuple(table.shape)} = {table.numel() * 4} bytes "
+            f"on the host; packed on the host in {pack_s:.3f} s: {wide.nbytes} bytes on the "
+            f"card, slots {tuple(wide.slots.shape)}, rows {tuple(wide.rows.shape)}); first "
             f"{N_WIDE_CPU_LINES} lines byte-identical to the CPU plain path ({cpu_s:.2f} s on "
             f"the CPU); assigned to the source reference {share:.4f}")
 
@@ -2478,30 +2580,29 @@ def run_wide_stream(dev, card: str) -> tuple[dict, dict]:
                               .table.view(np.int32)).to(dev)
         times = {}
         for label, rows, ln in (("raw", raw, None), ("sorted", sk, lens)):
-            st = bounds.panel_probe_stats(rows, ln, table, N_WIDE_REFS)
-            nbytes = bounds.read_row_bytes(rows, ln) + bounds.tensor_bytes(ln) + 3 * 4 * B
+            work = bounds.wide_probe_work(rows, ln, wide)
+            k11 = lambda: _panel_probe_cuda(rows, ln, wide, N_WIDE_REFS, 0, -1)  # noqa: E731
             times[label] = {
-                "ms": cuda_graph_time_ms(
-                    lambda: _panel_probe_cuda(rows, ln, table, N_WIDE_REFS, 0, -1), 5),
-                "eager_ms": cuda_time_ms(
-                    lambda: _panel_probe_cuda(rows, ln, table, N_WIDE_REFS, 0, -1), 10),
+                "ms": cuda_graph_time_ms(k11, 5), "eager_ms": cuda_time_ms(k11, 10),
                 "plain_ms": cuda_time_ms(
                     lambda: panel_probe_plain(rows, ln, table, N_WIDE_REFS, 0, -1), 1, warmup=1),
-                "bound_ms": bounds.bound_ms(nbytes + st.table_bytes),
+                "bound_ms": bounds.bound_ms(work.nbytes),
                 "k2_8192_ms": cuda_graph_time_ms(
                     lambda: _panel_probe_cuda(rows, ln, t8, 8192, 0, -1), 5),
-                "hits_per_read": st.hits / B, "table_bytes_reached": st.table_bytes}
-            if not torch.equal(_panel_probe_cuda(rows, ln, table, N_WIDE_REFS, 0, -1),
-                               panel_probe_plain(rows, ln, table, N_WIDE_REFS, 0, -1)):
+                "hits_per_read": work.hits / B, "entries_found": work.found}
+            if not torch.equal(k11(), panel_probe_plain(rows, ln, table, N_WIDE_REFS, 0, -1)):
                 raise AssertionError(f"K11 disagrees with the plain version on the {label} "
                                      "rows of the wide stream batch")
             say(f"time panel_probe_wide (K11) {label} rows {tuple(rows.shape)}, R = "
                 f"{N_WIDE_REFS}: {times[label]['ms']:.4f} ms ({times[label]['eager_ms']:.4f} "
                 f"eager) vs {times[label]['plain_ms']:.4f} ms plain; K2 at R = 8,192 "
-                f"{times[label]['k2_8192_ms']:.4f} ms; {st.hits / B:.2f} hits a read, "
-                f"{st.table_bytes} table bytes reached; bound {times[label]['bound_ms']:.4f} ms")
+                f"{times[label]['k2_8192_ms']:.4f} ms; {work.hits / B:.2f} hits a read, "
+                f"{work.found} distinct entries; bound {times[label]['bound_ms']:.4f} ms "
+                f"({work.nbytes} bytes: rows, lens, output, an entry and its mask row a "
+                f"distinct entry hit)")
     res = {"e2e_s": e2e_s, "e2e_reads_per_s": n_reads / e2e_s, "launches": launches,
-           "host_table_build_s": build_s, "projected_table_bytes": projected}
+           "host_table_build_s": build_s, "pack_s": pack_s, "packed_table_bytes": wide.nbytes,
+           "logical_table_bytes": table.numel() * 4, "projected_table_bytes": projected}
     return res, times
 
 
@@ -2620,7 +2721,7 @@ def main() -> int:
             cw, card_smi, codes.shape[0] * (codes.shape[1] - 11) / (times["window_hash"] / 1e3))
         called = run_call(dev, card_smi, cw)
     fallback, k10 = run_hpv16_fallback(dev, card_smi)
-    err_k11 = check_k11(dev)
+    err_k11, k2_sweep = check_k11(dev)
     wide, k11 = run_wide_stream(dev, card_smi)
     paths = {"stream": sl, "hpv16": hp, "stream -M -I": st_mi, "filter": fl, "hpv16 -M": hpm,
              "hpv16 capped": hp.pop("capped"), "hpv16 fallback": fallback,
@@ -2689,7 +2790,8 @@ def main() -> int:
         {**entry("panel_probe_wide", "panel_probe.cu", "rkmh_tpu/ops/lookup.py:341", err_k11,
                  k11["raw"]["ms"], k11["raw"]["eager_ms"], k11["raw"]["plain_ms"],
                  k11["raw"]["bound_ms"]),
-         "k2_at_8192_ms": k11["raw"]["k2_8192_ms"], "sorted_rows": k11["sorted"]},
+         "k2_at_8192_ms": k11["raw"]["k2_8192_ms"], "sorted_rows": k11["sorted"],
+         "beside_k2": k2_sweep},
     ]}
     say(f"stream --metrics and the profile hook: {json.dumps(metrics)}")
     say(smi)

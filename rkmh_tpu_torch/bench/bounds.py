@@ -10,14 +10,15 @@ among its published peaks, so every bound here is by bytes.
 
 The probe statistics come from the plain pieces (``ops/lookup``), on the
 tensors' device: which bucket rows the valid elements probe, which slots
-they hit, and how many reference bits each hit's mask holds; for the
-sorted-key panel (K10), which key sectors each binary search loads and
-which keys' mask rows it then reads.  The exact
-map of ``call`` (K8, K9) is counted by its function, not by one layout's
-sectors: the queries' keys in and values out, and 12 bytes (a key and its
-count) for each distinct key that the queries find (``map_found_keys``);
-K9's queries are its mutated k-mers, hashed by the plain pieces
-(``call_engine.mutation_hashes``).
+they hit, and how many reference bits each hit's mask holds.  The exact
+map of ``call`` (K8, K9), the sorted-key panel (K10) and the wide panel
+probe (K11) are counted by their function, not by one layout's sectors:
+the queries in, the outputs, and for each distinct key or entry that the
+queries find its key and its value: 12 bytes (a key and its count) in the
+map (``map_found_keys``; K9's queries are its mutated k-mers, hashed by
+the plain pieces, ``call_engine.mutation_hashes``), 8 + 4 Wm (a key and
+its mask row) in the sorted panel (``sorted_probe_work``), 12 + 4 Wm (a
+hash, its occ and its mask row) in the wide table (``wide_probe_work``).
 """
 
 from __future__ import annotations
@@ -117,43 +118,52 @@ def set_probe_stats(rows: torch.Tensor, lens: torch.Tensor, table: torch.Tensor,
     return probe_stats(rows, valid, occ, table, num_refs)
 
 
-def sorted_probe_stats(rows: torch.Tensor, lens: torch.Tensor, keys: torch.Tensor,
-                       masks: torch.Tensor) -> ProbeStats:
-    """K10's probe of sorted [B, n] rows against a sorted-key panel
-    (``ops/sorted_probe.SortedPanel``: flipped int64 keys [U], int32 masks
-    [U, Wm]): each valid run start's lower-bound search, replayed step by
-    step as the kernel takes it, reaches the keys' sectors it loads; a
-    key found reaches its Wm mask words.  ``buckets`` counts the distinct
-    key sectors, ``hit_slots`` the distinct keys found."""
+@dataclass
+class ProbeWork:
+    nbytes: int   # what the function must move
+    probes: int   # queried elements
+    hits: int     # of them, those found
+    found: int    # distinct keys (K10) or (hash, occ) entries (K11) found
+
+
+SORTED_KEY = 8  # a sorted panel's key, beside its 4 * Wm mask bytes
+WIDE_ENTRY = 12  # a panel entry's hash and occ, beside its 4 * Wm mask bytes
+
+
+def sorted_probe_work(rows: torch.Tensor, lens: torch.Tensor, keys: torch.Tensor,
+                      masks: torch.Tensor, num_uniq: int) -> ProbeWork:
+    """K10 by its function, whatever the panel's layout: the rows (the
+    first min(len, n) of each) and lens in, the int64 [B, 2 + U] output,
+    and a key and its mask row for each distinct key that the valid run
+    starts find in ``keys`` (flipped int64 [U]; ``masks`` [U, Wm])."""
     n = rows.shape[-1]
     valid = ((torch.arange(n, device=rows.device)[None, :] < lens[:, None])
              & (rows != SENTINEL) & (occ_ranks(rows) == 0))
     q = rows[valid] ^ INT64_MIN
-    U = keys.numel()
-    lo = torch.zeros_like(q)
-    hi = torch.full_like(q, U)
-    reached = []
-    while True:
-        act = lo < hi
-        if not bool(act.any()):
-            break
-        mid = (lo + hi) >> 1
-        reached.append(torch.unique(mid[act] * 8 // SECTOR))
-        less = keys[mid.clamp(max=U - 1)] < q
-        lo = torch.where(act & less, mid + 1, lo)
-        hi = torch.where(act & ~less, mid, hi)
-    inside = lo < U
-    reached.append(torch.unique(lo[inside] * 8 // SECTOR))
-    hit = inside & (keys[lo.clamp(max=U - 1)] == q)
-    found = torch.unique(lo[hit])
-    Wm = masks.shape[1]
-    words = masks[lo[hit]].to(torch.int64) & M32
-    bits = sum(int(((words >> r) & 1).sum()) for r in range(32))
-    key_sectors = torch.unique(torch.cat(reached)).numel()
-    mask_bytes = sector_bytes(((found[:, None] * Wm + torch.arange(Wm, device=rows.device))
-                               * 4).reshape(-1)) if found.numel() else 0
-    return ProbeStats(int(q.numel()), int(hit.sum()), bits, key_sectors * SECTOR + mask_bytes,
-                      key_sectors, int(found.numel()))
+    pos = torch.searchsorted(keys, q).clamp(max=keys.numel() - 1)
+    hit = keys[pos] == q
+    found = int(torch.unique(pos[hit]).numel())
+    nbytes = (read_row_bytes(rows, lens) + tensor_bytes(lens) + rows.shape[0] * (2 + num_uniq) * 8
+              + found * (SORTED_KEY + 4 * masks.shape[1]))
+    return ProbeWork(nbytes, int(q.numel()), int(hit.sum()), found)
+
+
+def wide_probe_work(rows: torch.Tensor, lens: torch.Tensor | None, wide,
+                    ref_lens: torch.Tensor | None = None) -> ProbeWork:
+    """K11 by its function, whatever the table's layout: the rows and lens
+    in (``ref_lens`` too in filter mode), the int32 [3, B] output ([5, B]
+    with ``ref_lens``), and an entry's hash, occ and mask row for each
+    distinct (hash, occ) entry that the valid elements hit
+    (``wide``: an ``ops/probe.WideTable``)."""
+    from rkmh_tpu_torch.ops.probe import _valid_and_ranks, wide_hits
+
+    valid, occ, _ = _valid_and_ranks(rows, lens)
+    e = wide_hits(rows, valid, occ, wide)
+    found = int(torch.unique(e[e >= 0]).numel())
+    nbytes = (read_row_bytes(rows, lens) + tensor_bytes(lens, ref_lens)
+              + (3 if ref_lens is None else 5) * 4 * rows.shape[0]
+              + found * (WIDE_ENTRY + 4 * wide.mask_words))
+    return ProbeWork(nbytes, int(valid.sum()), int((e >= 0).sum()), found)
 
 
 def packed_set_table_bytes(st: ProbeStats, packed) -> int:

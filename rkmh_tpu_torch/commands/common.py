@@ -36,6 +36,7 @@ from rkmh_tpu_torch.observability import count
 from rkmh_tpu_torch.ops.counter import HashCounter
 from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
 from rkmh_tpu_torch.ops.lookup import build_panel_table
+from rkmh_tpu_torch.ops.probe import device_table
 
 DEFAULT_KMER = 16          # rkmh.cpp:728-731
 DEFAULT_SKETCH = 1000      # rkmh.cpp:592
@@ -62,15 +63,19 @@ def resolve_batch_size(requested: int, device: torch.device) -> int:
 class RefPanel(nn.Module):
     """A reference panel on one device: names, sorted bottom-s sketches
     [R, s] int64 (SENTINEL-padded), their lengths [R] int32, and the
-    bucket table [NB, S*(3+Wm)] int32 the probe queries."""
+    table the probe queries: the bucket table [NB, S*(3+Wm)] int32 or,
+    past ``ops/probe.MAX_REFS`` on a GPU, its ``WideTable``
+    (``ops/probe.device_table``)."""
 
-    def __init__(self, keys, sketches: torch.Tensor, lens: torch.Tensor,
-                 table: torch.Tensor):
+    def __init__(self, keys, sketches: torch.Tensor, lens: torch.Tensor, table):
         super().__init__()
         self.keys = list(keys)
         self.register_buffer("sketches", sketches)
         self.register_buffer("lens", lens)
-        self.register_buffer("table", table)
+        if isinstance(table, torch.Tensor):
+            self.register_buffer("table", table)
+        else:
+            self.table = table
 
     @property
     def num_refs(self) -> int:
@@ -82,7 +87,8 @@ def build_ref_panel(ref_packed, ks, sketch_size: int, device: torch.device,
                     counter_size: int = DEFAULT_COUNTER_SIZE,
                     distinct_counter: bool = False) -> RefPanel:
     """Hash and sketch a parsed panel on ``device``, then build its table
-    on the host (numpy, identical to the JAX package's builder).
+    on the host (numpy, identical to the JAX package's builder); past
+    MAX_REFS on a GPU only its packed form goes to the device.
 
     With max_samples set (-I), the panel's k-mers are counted first in a
     ``hash % counter_size`` counter on the device (every occurrence for
@@ -103,7 +109,7 @@ def build_ref_panel(ref_packed, ks, sketch_size: int, device: torch.device,
                                                       max_samples)
         del counter
     pt = build_panel_table(sk.cpu().numpy(), sk_lens.cpu().numpy())
-    table = torch.from_numpy(pt.table.view(np.int32)).to(device)
+    table = device_table(pt.table.view(np.int32), pt.num_refs, device)
     return RefPanel(ref_packed.names, sk, sk_lens, table)
 
 

@@ -62,6 +62,7 @@ from rkmh_tpu_torch.ops.lookup import (
 )
 from rkmh_tpu_torch.ops.set_probe import pack_set_table
 from rkmh_tpu_torch.ops.sketch import INT64_MIN, SENTINEL
+from rkmh_tpu_torch.ops.sorted_probe import build_directory
 
 DEFAULT_COUNTER_SIZE = 800_000_000  # rkmh.cpp:2516
 
@@ -231,7 +232,9 @@ def build_tables(cfg: Hpv16Config, ks: tuple, device: torch.device) -> Hpv16Tabl
     if tb.projected_bytes > cap_mb << 20:
         keys, masks = build_sorted_panel(rows, num_refs=n_all)
         clock.lap("host_build")
-        tb.comb_sorted = sorted_panel_from_numpy(keys, masks, device)
+        directory = build_directory(keys)  # K10's bucket directory over the keys
+        clock.lap("directory")
+        tb.comb_sorted = sorted_panel_from_numpy(keys, masks, device, directory)
         clock.lap("h2d")
         log(f"hpv16 panel: projected bucket table exceeds "
             f"RKMH_TPU_SET_TABLE_MAX_MB={cap_mb}; using the sorted-key "

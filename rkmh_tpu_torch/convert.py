@@ -8,7 +8,7 @@ as it is, and so does the table ``count -o`` saves (either package's npz).
 A ``HashMap``'s four arrays (``call``'s depth map, a cuckoo table) become
 the port's ``SortedMap`` of the same keys and values.  A sorted-key panel
 (``build_sorted_panel``'s uint64 keys and uint32 masks, either package's)
-becomes a ``SortedPanel``.
+becomes a ``SortedPanel`` with the directory over its keys that K10 reads.
 """
 
 from __future__ import annotations
@@ -20,12 +20,14 @@ from rkmh_tpu_torch.commands.common import RefPanel
 from rkmh_tpu_torch.ops.counter import HashCounter
 from rkmh_tpu_torch.ops.hashmap import SortedMap, build_sorted_map
 from rkmh_tpu_torch.ops.lookup import flip_keys, table_slots
-from rkmh_tpu_torch.ops.sorted_probe import SortedPanel
+from rkmh_tpu_torch.ops.probe import device_table
+from rkmh_tpu_torch.ops.sorted_probe import SortedPanel, build_directory
 
 
 def panel_from_numpy(keys, sketches_u64, lens, table_u32, device) -> RefPanel:
     """(names, [R, s] uint64 sketches, [R] lengths, [NB, width] uint32
-    table) -> RefPanel on ``device``."""
+    table) -> RefPanel on ``device`` (past ``ops/probe.MAX_REFS`` on a GPU
+    the table's ``WideTable``)."""
     sk = np.array(sketches_u64, dtype=np.uint64).view(np.int64)  # own, writable copies
     table = np.array(table_u32, dtype=np.uint32).view(np.int32)
     table_slots(table.shape[1], len(keys))  # raises on a foreign layout
@@ -33,7 +35,7 @@ def panel_from_numpy(keys, sketches_u64, lens, table_u32, device) -> RefPanel:
         keys,
         torch.from_numpy(sk).to(device),
         torch.from_numpy(np.array(lens, dtype=np.int32)).to(device),
-        torch.from_numpy(table).to(device),
+        device_table(table, len(keys), device),
     )
 
 
@@ -84,11 +86,15 @@ def hashmap_from_numpy(hash_hi, hash_lo, used, values, device) -> SortedMap:
     return build_sorted_map(keys[order], vals[used][order]).to(device)
 
 
-def sorted_panel_from_numpy(keys_u64, masks_u32, device) -> SortedPanel:
+def sorted_panel_from_numpy(keys_u64, masks_u32, device, directory=None) -> SortedPanel:
     """(sorted distinct keys [U] uint64, masks [U, Wm] uint32), as
     ``build_sorted_panel`` of either package makes them -> a SortedPanel on
     ``device``: the keys with the sign bit flipped, the masks' bits as
-    int32."""
+    int32, and the directory over the keys' top bits (``directory``, as
+    ``ops/sorted_probe.build_directory`` gives it, or built here).  The
+    keys, padded to an even count, and the directory go to the device in
+    one int64 buffer, so that the keys start on a 16-byte boundary and the
+    directory on an 8-byte one."""
     keys = np.asarray(keys_u64, dtype=np.uint64)
     masks = np.asarray(masks_u32, dtype=np.uint32)
     if keys.ndim != 1 or masks.ndim != 2 or masks.shape[0] != keys.shape[0]:
@@ -96,5 +102,13 @@ def sorted_panel_from_numpy(keys_u64, masks_u32, device) -> SortedPanel:
                          f"{keys.shape} and {masks.shape}")
     if keys.size > 1 and not (keys[1:] > keys[:-1]).all():
         raise ValueError("the keys of a sorted panel are distinct and ascending")
-    return SortedPanel(torch.from_numpy(np.ascontiguousarray(flip_keys(keys))).to(device),
-                       torch.from_numpy(np.ascontiguousarray(masks).view(np.int32)).to(device))
+    d, bits = build_directory(keys) if directory is None else directory
+    U, even = keys.size, keys.size + keys.size % 2
+    buf = torch.empty(even + (d.size + 1) // 2, dtype=torch.int64)
+    host = buf.numpy()
+    host[:U] = flip_keys(keys)
+    host[U:even] = np.iinfo(np.int64).max
+    host[even:].view(np.int32)[: d.size] = d
+    buf = buf.to(device)
+    return SortedPanel(buf[:U], torch.from_numpy(np.ascontiguousarray(masks).view(np.int32))
+                       .to(device), buf[even:].view(torch.int32)[: d.size], bits)

@@ -23,9 +23,11 @@
 // read length is too long.
 //
 // What bounds it on the card: one random access per distinct valid element
-// into a table far larger than the 50 MB L2 (hpv16 at k=18: ~1.4M entries,
-// 2^20 buckets of S=12 slots, Wm=7 mask words), so a probe is a trip to
-// HBM and the kernel lasts as long as its slowest block.  The design:
+// into a table far larger than the ~24 MB of L2 that every SM reads at
+// random at the cache's rate (bench/l2_sweep.py; the card's L2 is 50 MB;
+// hpv16 at k=18: ~1.4M entries, 2^20 buckets of S=12 slots, Wm=7 mask
+// words), so a probe is a trip to HBM and the kernel lasts as long as its
+// slowest block.  The design:
 //
 // * The table is read in a layout made for this card, once per run, by
 //   ops/set_probe.pack_set_table: per bucket one key record (the S lo
@@ -61,17 +63,23 @@
 // ops/lookup.py:658 sorted_panel_counts_masked's searchsorted, key
 // compare, mask gather and vertical popcounts, and the type argmax).  The
 // panel is np.unique's sorted distinct keys (sign bit flipped, so a
-// signed compare is the unsigned order) and a [U, Wm] mask row a key: a
-// run start takes one lower-bound binary search, log2(U) + 1 dependent
-// loads, and on equality its Wm mask words.  What bounds it: those
-// dependent loads.  The top levels of the search are the same few keys
-// for every probe and stay in L2; the last ~log2(U / 2^20) levels of a
-// panel of millions of keys (40 MB of keys at 5M) come from HBM.  It
-// keeps K3's split by segments, run-start test, on-chip counting and
+// signed compare is the unsigned order), a [U, Wm] mask row a key, and a
+// directory over the keys' unsigned top D bits (D = max(8, bit_length(U)
+// - 2), 2 to 4 keys a bucket; ops/sorted_probe.build_directory), as
+// ops/hashmap.SortedMap has one.  A run start takes three dependent
+// trips: the directory pair (one 8-byte load where the pair is aligned;
+// 8 MB at the 640-type panel's 5M keys, inside the L2's ~24 MB), the
+// bucket's keys in 16-byte vectors, two keys a load, up to the first key
+// >= the element (a bucket of more than SCAN keys, e.g. every key sharing
+// its top bits, is first halved by a binary search inside it), and on
+// equality the key's mask row, every word of it loaded before any is
+// counted (the counting itself is ~2% of the time on the 640-type batch,
+// PERF.md).  A binary search over all U keys took log2(U) + 1 dependent
+// loads (24 at 5M keys, 40 MB of keys, its last levels from HBM), and a
+// mask row loaded word by word between the votes one more trip a word.
+// It keeps K3's split by segments, run-start test, on-chip counting and
 // epilogue (finish_read), and skips the counting of a warp step in which
-// no lane found its key.  A directory over the keys' top bits (as
-// ops/hashmap.SortedMap has) would cut the search to a few levels: later
-// work.
+// no lane found its key.
 
 #include <climits>
 #include <cstdint>
@@ -84,6 +92,8 @@ constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr uint64_t SENTINEL = 0xFFFFFFFFFFFFFFFFULL;
 constexpr uint32_t MIX = 0x85EBCA77u;
 constexpr uint32_t MUL = 0x9E3779B1u;
+constexpr int SCAN = 8;   // K10: bucket keys scanned in vectors; a longer bucket is halved first
+constexpr int MW = 32;    // K10: mask words loaded together
 
 __device__ __forceinline__ uint32_t word_of(const uint4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
@@ -222,14 +232,16 @@ set_probe_kernel(const uint64_t* __restrict__ rows, int64_t row_stride,
 }
 
 // K10: the same probe of a read's run starts against the sorted-key
-// panel (hpv16's fallback past the set-table cap): a lower-bound binary
-// search of the element, sign bit flipped, in the U flipped keys; on
-// equality, the key's Wm mask words [U, Wm] count as K3 counts a slot's.
+// panel (hpv16's fallback past the set-table cap): the element's bucket
+// in the directory, then its keys (flipped, ascending as signed values)
+// up to the first >= the flipped element; on equality, the key's Wm mask
+// words [U, Wm] count as K3 counts a slot's.
 __global__ void __launch_bounds__(THREADS)
 sorted_probe_kernel(const uint64_t* __restrict__ rows, int64_t row_stride,
                     const int32_t* __restrict__ lens, int n, const int64_t* __restrict__ keys,
-                    int nkeys, const uint32_t* __restrict__ masks, int seg, int Wm, int T,
-                    int U, int* __restrict__ counts, int* __restrict__ done,
+                    int nkeys, const int32_t* __restrict__ dir, int bits,
+                    const uint32_t* __restrict__ masks, int seg, int Wm, int T, int U,
+                    int* __restrict__ counts, int* __restrict__ done,
                     int64_t* __restrict__ out) {
   extern __shared__ int cnt[];  // [32 * Wm] per-reference counters
   __shared__ bool last;
@@ -255,19 +267,47 @@ sorted_probe_kernel(const uint64_t* __restrict__ rows, int64_t row_stride,
     const uint32_t* rec = nullptr;  // the mask words of the key equal to h
     if (probe) {
       const int64_t q = (int64_t)(h ^ 0x8000000000000000ULL);
-      int lo = 0, hi = nkeys;  // the first key >= q
-      while (lo < hi) {
-        const int mid = (int)(((unsigned)lo + (unsigned)hi) >> 1);
+      const uint32_t bk = (uint32_t)(h >> (64 - bits));  // the unsigned top bits
+      const int2 pair = __ldg(reinterpret_cast<const int2*>(dir + (bk & ~1u)));
+      int lo = (bk & 1u) ? pair.y : pair.x;
+      int hi = (bk & 1u) ? __ldg(dir + bk + 1) : pair.y;
+      // q's index, if q is a key, stays in [lo, hi)
+      while (hi - lo > SCAN) {
+        const int mid = lo + ((hi - lo) >> 1);
         if (__ldg(keys + mid) < q) {
           lo = mid + 1;
         } else {
-          hi = mid;
+          hi = mid + 1;
         }
       }
-      if (lo < nkeys && __ldg(keys + lo) == q) rec = masks + (int64_t)lo * Wm;
+      // two keys a load from the even index at or below lo; the keys are
+      // distinct, so one outside [lo, hi) never equals q
+      for (int j = lo & ~1; j < hi; j += 2) {
+        longlong2 v;
+        if (j + 1 < nkeys) {
+          v = __ldg(reinterpret_cast<const longlong2*>(keys + j));
+        } else {
+          v = make_longlong2(__ldg(keys + j), LLONG_MAX);
+        }
+        if (v.x == q || v.y == q) {
+          rec = masks + (int64_t)(v.x == q ? j : j + 1) * Wm;
+          break;
+        }
+        if (v.y >= q) break;
+      }
     }
     if (!__any_sync(FULL, rec != nullptr)) continue;  // warp-uniform
-    for (int w = 0; w < Wm; ++w) count_votes(rec != nullptr ? __ldg(rec + w) : 0u, w, lane, cnt);
+    // the row's words, MW at a time, all loaded before any is counted
+    for (int w0 = 0; w0 < Wm; w0 += MW) {
+      uint32_t m[MW];
+#pragma unroll
+      for (int j = 0; j < MW; ++j) m[j] = rec != nullptr && w0 + j < Wm ? __ldg(rec + w0 + j) : 0u;
+#pragma unroll
+      for (int j = 0; j < MW; ++j) {
+        if (w0 + j >= Wm) break;  // warp-uniform
+        count_votes(m[j], w0 + j, lane, cnt);
+      }
+    }
   }
   __syncthreads();
   finish_read(cnt, &last, counts, done, out, b, nseg, Wm, T, U);
@@ -322,16 +362,18 @@ extern "C" int rkmh_set_probe(const int64_t* rows, int64_t row_stride, const int
 
 // K10: rows, row_stride, lens, B, n, seg, counts, done and out as
 // rkmh_set_probe; keys [nkeys] int64, the sorted distinct hashes with the
-// sign bit flipped (ascending as signed values), masks [nkeys, Wm] uint32.
-// Requires B >= 1, nkeys >= 1, T >= 1, T + U <= 32 * Wm, seg a positive
-// multiple of 32 with ceil(n / seg) <= 65535.
+// sign bit flipped (ascending as signed values), on a 16-byte boundary;
+// dir [2^bits + 1] int32 on an 8-byte boundary, bucket b's keys being
+// [dir[b], dir[b+1]) (b = the hash's unsigned top bits); masks [nkeys, Wm]
+// uint32.  Requires B >= 1, nkeys >= 1, 1 <= bits <= 31, T >= 1, T + U <=
+// 32 * Wm, seg a positive multiple of 32 with ceil(n / seg) <= 65535.
 extern "C" int rkmh_sorted_probe(const int64_t* rows, int64_t row_stride, const int32_t* lens,
                                  int B, int n, const int64_t* keys, int nkeys,
-                                 const int32_t* masks, int Wm, int T, int U, int seg,
-                                 int32_t* counts, int32_t* done, int64_t* out,
-                                 cudaStream_t stream) {
-  if (seg < 32 || seg % 32 || (n + seg - 1) / seg > 65535 || nkeys < 1 ||
-      (n > seg && (counts == nullptr || done == nullptr))) {
+                                 const int32_t* dir, int bits, const int32_t* masks, int Wm,
+                                 int T, int U, int seg, int32_t* counts, int32_t* done,
+                                 int64_t* out, cudaStream_t stream) {
+  if (seg < 32 || seg % 32 || (n + seg - 1) / seg > 65535 || nkeys < 1 || bits < 1 ||
+      bits > 31 || (n > seg && (counts == nullptr || done == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = (size_t)Wm * 32 * sizeof(int);
@@ -341,7 +383,7 @@ extern "C" int rkmh_sorted_probe(const int64_t* rows, int64_t row_stride, const 
   }
   const dim3 grid(B, n > seg ? (n + seg - 1) / seg : 1);
   sorted_probe_kernel<<<grid, THREADS, smem, stream>>>(
-      reinterpret_cast<const uint64_t*>(rows), row_stride, lens, n, keys, nkeys,
+      reinterpret_cast<const uint64_t*>(rows), row_stride, lens, n, keys, nkeys, dir, bits,
       reinterpret_cast<const uint32_t*>(masks), seg, Wm, T, U, counts, done, out);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,7 @@ import torch
 
 from rkmh_tpu_torch.commands.common import RefPanel
 from rkmh_tpu_torch.ops.lookup import build_panel_table
+from rkmh_tpu_torch.ops.probe import device_table
 from rkmh_tpu_torch.ops.sketch import SENTINEL
 
 
@@ -232,4 +233,5 @@ def panel_from_sketches(records: list[SketchRecord], sketch_size: int | None,
         lens[i] = len(h)
     table = build_panel_table(sk, lens).table.view(np.int32)
     return RefPanel([r.name for r in records], torch.from_numpy(sk).to(device),
-                    torch.from_numpy(lens).to(device), torch.from_numpy(table).to(device))
+                    torch.from_numpy(lens).to(device),
+                    device_table(table, len(records), device))

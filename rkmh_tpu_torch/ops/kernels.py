@@ -156,20 +156,20 @@ PANEL_PROBE = Kernel("rkmh_panel_probe", [_p, _p, _i, _i, _p, _i, _i, _i, _i, _i
 #                         out, stream)
 PANEL_PROBE_FILTER = Kernel("rkmh_panel_probe_filter",
                             [_p, _p, _i, _i, _p, _i, _i, _i, _i, _p, _i, _i, _p])
-# rkmh_panel_probe_wide(rows, lens|NULL, B, n, table, log2_buckets, slots, mask_words,
-#                       num_refs, ref_lens|NULL (NULL: stream, else filter), min_diff,
-#                       min_matches, out, stream)
+# rkmh_panel_probe_wide(rows, lens|NULL, B, n, slot records, mask rows, log2_buckets, slots,
+#                       mask_words, row_words, num_refs, ref_lens|NULL (NULL: stream, else
+#                       filter), min_diff, min_matches, out, stream)
 PANEL_PROBE_WIDE = Kernel("rkmh_panel_probe_wide",
-                          [_p, _p, _i, _i, _p, _i, _i, _i, _i, _p, _i, _i, _p])
+                          [_p, _p, _i, _i, _p, _p, _i, _i, _i, _i, _i, _p, _i, _i, _p])
 # rkmh_set_probe(rows, row_stride, lens, B, n, key records, slot records, log2_buckets,
 #                slots, mask_words, num_types, num_uniq, segment, counts|NULL, done|NULL,
 #                out, stream)
 SET_PROBE = Kernel("rkmh_set_probe", [_p, _i64, _p, _i, _i, _p, _p, _i, _i, _i, _i, _i, _i,
                                       _p, _p, _p])
-# rkmh_sorted_probe(rows, row_stride, lens, B, n, keys, nkeys, masks, mask_words, num_types,
-#                   num_uniq, segment, counts|NULL, done|NULL, out, stream)
-SORTED_PROBE = Kernel("rkmh_sorted_probe", [_p, _i64, _p, _i, _i, _p, _i, _p, _i, _i, _i, _i,
-                                            _p, _p, _p])
+# rkmh_sorted_probe(rows, row_stride, lens, B, n, keys, nkeys, dir, bits, masks, mask_words,
+#                   num_types, num_uniq, segment, counts|NULL, done|NULL, out, stream)
+SORTED_PROBE = Kernel("rkmh_sorted_probe", [_p, _i64, _p, _i, _i, _p, _i, _p, _i, _p, _i, _i,
+                                            _i, _i, _p, _p, _p])
 # rkmh_lut_gather_rows(lut, idx, out, N, C, M, smem, stream)
 LUT_GATHER_ROWS = Kernel("rkmh_lut_gather_rows", [_p, _p, _p, _i, _i, _i64, _i])
 # rkmh_lut_gather_lanes(lut, idx, out, N, C, M, reg, stream)

@@ -195,6 +195,25 @@ def test_call_ab_script_parses_and_runs_both_checkouts_in_turns():
     assert text.count('run "$OTHER" other') == text.count('run "$ROOT" this') == 2
 
 
+def test_probe_ab_script_parses_and_runs_both_checkouts_in_turns():
+    import subprocess
+
+    script = Path(kernel_ab.__file__).with_name("probe_ab.sh")
+    assert subprocess.run(["bash", "-n", str(script)]).returncode == 0
+    text = script.read_text()
+    assert "bench.probe_inputs" in text and "_sorted_probe_cuda" in text
+    assert "_panel_probe_cuda" in text and "same outputs" in text
+    assert text.count('run "$OTHER" other') == text.count('run "$ROOT" this') == 3
+
+
+def test_probe_inputs_refuses_to_run_without_a_card(monkeypatch, capsys):
+    from rkmh_tpu_torch.bench import probe_inputs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe_inputs.main(["out"]) == 1 and "needs a CUDA device" in capsys.readouterr().err
+    assert probe_inputs.main([]) == 2
+
+
 def test_e2e_ab_script_parses_and_names_both_paths():
     import subprocess
 
@@ -232,3 +251,71 @@ def test_map_bounds_count_the_function_not_the_layout():
             301 + 9 * P + 20 * P * k + 4 * P + 12 * int(found_keys.numel()))
     empty = hashmap.build_sorted_map(np.zeros(0, np.uint64), np.zeros(0, np.int32))
     assert bounds.hashmap_get_bytes(empty, queries) == 12 * queries.numel()
+
+
+def test_sorted_probe_work_counts_the_function_not_the_layout():
+    """K10's bound: the rows and lens in, the [B, 2 + U] output, a key and
+    its mask row for each distinct key that the valid run starts find,
+    counted directly."""
+    from rkmh_tpu_torch import convert
+    from rkmh_tpu_torch.ops.lookup import build_sorted_panel, sorted_panel_counts
+
+    _, _, pool, rng = _panel(7)
+    T, U = 30, 10
+    keys, masks = build_sorted_panel([rng.choice(pool, 50) for _ in range(T + U)], T + U)
+    panel = convert.sorted_panel_from_numpy(keys, masks, "cpu")
+    raw = torch.from_numpy(rng.choice(np.concatenate([pool, rng.integers(1, 2**63, 100)]),
+                                      size=(16, 80)))
+    raw[:, 1::5] = raw[:, ::5][:, : raw[:, 1::5].shape[1]]  # repeats
+    rows, lens = bottom_s_sketch(raw, 60)
+    work = bounds.sorted_probe_work(rows, lens, panel.keys, panel.masks, U)
+    row_of = {int(k): i for i, k in enumerate(keys.tolist())}
+    found, hits, bits = set(), 0, 0
+    for row, n in zip(rows.numpy().view(np.uint64), lens.tolist()):
+        values = (set(row[:n].tolist()) - {2**64 - 1}) & row_of.keys()
+        found |= values
+        hits += len(values)
+        bits += sum(bin(int(w)).count("1") for v in values for w in masks[row_of[v]])
+    Wm = masks.shape[1]
+    assert (work.found, work.hits) == (len(found), hits) and work.found > 0
+    assert work.nbytes == (8 * int(lens.sum()) + 4 * 16 + 16 * (2 + U) * 8
+                           + len(found) * (8 + 4 * Wm))
+    # the keys counted are those whose masks the function adds up
+    assert int(sorted_panel_counts(rows, lens, panel.keys, panel.masks, T + U).sum()) == bits
+
+
+@pytest.mark.parametrize("sorted_rows", [False, True])
+def test_wide_probe_work_counts_the_function_not_the_layout(sorted_rows):
+    """K11's bound: the rows and lens (ref_lens in filter mode) in, the
+    [3, B] or [5, B] output, and a hash, occ and mask row for each distinct
+    (hash, occ) entry hit, counted directly from the sketches."""
+    from rkmh_tpu_torch.bench.wide_inputs import straddling_panel
+    from rkmh_tpu_torch.ops.probe import pack_wide_table
+    from rkmh_tpu_torch.ops.intersect import occ_ranks, prefix_eq_ranks
+
+    R = 8193
+    ref_sk, ref_lens, reads, set_lens = straddling_panel(R, seed=3, n_reads=16, width=48)
+    table = torch.from_numpy(build_panel_table(ref_sk, ref_lens).table.view(np.int32))
+    wide = pack_wide_table(table, R)
+    entries = set()
+    for row, n in zip(ref_sk.view(np.uint64), ref_lens.tolist()):
+        vals, counts = np.unique(row[:n], return_counts=True)
+        entries |= {(int(v), o) for v, c in zip(vals, counts) for o in range(c)}
+    rows, lens = torch.from_numpy(reads), None
+    if sorted_rows:
+        rows, lens = bottom_s_sketch(rows, 32)
+    occ = (occ_ranks(rows) if sorted_rows else prefix_eq_ranks(rows)).numpy()
+    x = rows.numpy().view(np.uint64)
+    valid = x != (2**64 - 1 if sorted_rows else 0)
+    if sorted_rows:
+        valid &= np.arange(x.shape[1])[None, :] < lens.numpy()[:, None]
+    pairs = {(int(h), int(o)) for h, o in zip(x[valid], occ[valid])}
+    found = pairs & entries
+    Wm = -(-R // 32)
+    rows_in = 8 * (int(lens.sum()) if sorted_rows else rows.numel()) + (4 * 16 if sorted_rows
+                                                                         else 0)
+    for ref_lens_arg, out_rows in ((None, 3), (torch.from_numpy(set_lens), 5)):
+        work = bounds.wide_probe_work(rows, lens, wide, ref_lens_arg)
+        assert work.found == len(found) > 0 and work.probes == int(valid.sum())
+        assert work.nbytes == (rows_in + (0 if ref_lens_arg is None else 4 * R)
+                               + out_rows * 4 * 16 + len(found) * (12 + 4 * Wm))

@@ -24,12 +24,16 @@ from rkmh_tpu_torch.ops.hashing import (
 )
 from rkmh_tpu_torch.ops.lookup import build_panel_table, build_set_table
 from rkmh_tpu_torch.ops.probe import (
+    WideTable,
     _panel_probe_cuda,
     _panel_probe_filter_cuda,
+    device_table,
+    pack_wide_table,
     panel_probe,
     panel_probe_filter,
     panel_probe_filter_plain,
     panel_probe_plain,
+    panel_probe_wide_packed_plain,
 )
 from rkmh_tpu_torch.ops.set_probe import (
     _set_probe_cuda,
@@ -38,7 +42,12 @@ from rkmh_tpu_torch.ops.set_probe import (
     set_probe_plain,
 )
 from rkmh_tpu_torch.ops.sketch import SENTINEL, bottom_s_sketch
-from rkmh_tpu_torch.ops.sorted_probe import _sorted_probe_cuda, sorted_probe, sorted_probe_plain
+from rkmh_tpu_torch.ops.sorted_probe import (
+    _sorted_probe_cuda,
+    sorted_probe,
+    sorted_probe_plain,
+    sorted_probe_plain_dir,
+)
 
 
 @pytest.fixture
@@ -723,21 +732,25 @@ def test_call_scan_kernel_on_split_positional_rows(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("R", [PAST + 1, 9000, 12288])
 def test_panel_probe_wide_kernel_matches_plain(cuda_device, R):
-    """K11, both row modes and both epilogues, on ties and maxima on both
-    sides of reference 8,192 and duplicate-heavy rows."""
+    """K11 on its packed table (made on the host, copied alone), both row
+    modes and both epilogues, on ties and maxima on both sides of
+    reference 8,192 and duplicate-heavy rows."""
     ref_sk, ref_lens, reads, set_lens = straddling_panel(R, seed=R, n_reads=99)
     table = torch.from_numpy(build_panel_table(ref_sk, ref_lens).table.view(np.int32))
+    wide = device_table(table, R, cuda_device)
+    assert isinstance(wide, WideTable) and wide.device.type == "cuda"
     table, raw = table.to(cuda_device), torch.from_numpy(reads).to(cuda_device)
     set_lens = torch.from_numpy(set_lens).to(cuda_device)
     sk, lens = bottom_s_sketch(raw, 32)
     before = dict(kernels.PANEL_PROBE_WIDE.by_route)
     for rows, ln in ((raw, None), (sk, lens)):
         for md, mm in ((0, -1), (1, 9)):
-            got = panel_probe(rows, ln, table, R, md, mm)
+            got = panel_probe(rows, ln, wide, R, md, mm)
             torch.cuda.synchronize()
             want = panel_probe_plain(rows, ln, table, R, md, mm)
             assert torch.equal(got, want), (R, ln is None, md, mm)
-            got = panel_probe_filter(rows, ln, table, R, set_lens, md, mm)
+            assert torch.equal(want, panel_probe_wide_packed_plain(rows, ln, wide, R, md, mm))
+            got = panel_probe_filter(rows, ln, wide, R, set_lens, md, mm)
             assert torch.equal(got, panel_probe_filter_plain(rows, ln, table, R, set_lens, md,
                                                              mm)), (R, ln is None, md, mm)
     assert kernels.PANEL_PROBE_WIDE.by_route["stream"] == before.get("stream", 0) + 4
@@ -747,19 +760,52 @@ def test_panel_probe_wide_kernel_matches_plain(cuda_device, R):
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,width", [(8192, 149), (300, 256), (60, 7000), (1, 64)])
 def test_panel_probe_wide_kernel_equals_k2(cuda_device, R, width):
-    """At R <= 8,192 both kernels take the panel: K11 must give K2's bits."""
+    """At R <= 8,192 both kernels take the panel: K11 on the packed table
+    must give K2's bits on the logical one."""
     table, raw = _panel(R + 3 * width, R, 64, 99, width)
     table, raw = table.to(cuda_device), raw.to(cuda_device)
+    wide = pack_wide_table(table, R)
     ref_lens = torch.arange(R, dtype=torch.int32, device=cuda_device) % 70
     sk, lens = bottom_s_sketch(raw, width if width > 1000 else width // 2)
     for rows, ln in [(sk, lens)] + ([(raw, None)] if width <= 256 else []):
-        for wide in (False, True):
-            got = _panel_probe_cuda(rows, ln, table, R, 1, 3, wide=wide)
-            got_f = _panel_probe_filter_cuda(rows, ln, table, R, ref_lens, 1, 3, wide=wide)
-            if wide:
-                assert torch.equal(got, k2) and torch.equal(got_f, k2_f), (R, width)
-            k2, k2_f = got, got_f
+        k2 = _panel_probe_cuda(rows, ln, table, R, 1, 3, wide=False)
+        k2_f = _panel_probe_filter_cuda(rows, ln, table, R, ref_lens, 1, 3, wide=False)
+        got = _panel_probe_cuda(rows, ln, wide, R, 1, 3, wide=True)
+        got_f = _panel_probe_filter_cuda(rows, ln, wide, R, ref_lens, 1, 3, wide=True)
+        assert torch.equal(got, k2) and torch.equal(got_f, k2_f), (R, width)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_panel_probe_wide_kernel_on_one_entry_and_8193_refs(cuda_device):
+    """K11 on a WideTable with one occupied slot, and at R = 8,193 (Wm =
+    257, not a multiple of 4) on many hits a read (every count plane)."""
+    R = PAST + 1
+    one = np.full((R, 1), SENTINEL, dtype=np.int64)
+    one[R - 1, 0] = 12345
+    table = torch.from_numpy(build_panel_table(one, (one[:, 0] != SENTINEL).astype(np.int32))
+                             .table.view(np.int32))
+    wide = pack_wide_table(table, R).to(cuda_device)
+    assert wide.rows.shape[0] == 1
+    raw = torch.tensor([[12345, 0, 7], [1, 2, 3], [12345, 12345, 5]], dtype=torch.int64)
+    for rows, ln in ((raw, None), bottom_s_sketch(raw, 3)):
+        want = panel_probe_plain(rows, ln, table, R, 0, -1)
+        got = panel_probe(rows.to(cuda_device), None if ln is None else ln.to(cuda_device),
+                          wide, R, 0, -1)
+        assert torch.equal(got.cpu(), want)
+    assert want[:2, 0].tolist() == [R - 1, 1]
+    rng = np.random.default_rng(8193)
+    pool = rng.integers(1, 2**63, size=600, dtype=np.int64)
+    sk = np.sort(rng.choice(pool, (R, 40)).view(np.uint64), axis=1).view(np.int64)
+    table = torch.from_numpy(build_panel_table(sk, np.full(R, 40, np.int32)).table.view(np.int32))
+    wide = device_table(table, R, cuda_device)
+    reads = torch.from_numpy(rng.choice(pool, (16, 1200)))  # values repeat: ranks > 0
+    for rows, ln in ((reads[:, :12], None), (reads[:, :250], None),
+                     bottom_s_sketch(reads, 1200)):  # < 16, < 256 and >= 256 hits a read
+        want = panel_probe_plain(rows, ln, table, R, 1, 3)
+        got = panel_probe(rows.to(cuda_device), None if ln is None else ln.to(cuda_device),
+                          wide, R, 1, 3)
+        assert torch.equal(got.cpu(), want), rows.shape
 
 
 def _sorted_panel(rows, R, device):
@@ -791,6 +837,41 @@ def test_sorted_probe_kernel_matches_plain(cuda_device, T, U, width):
     assert torch.equal(sorted_probe(full, lens, panel, T, U), want)  # the wrapper's route
     assert kernels.SORTED_PROBE.launches == before + 5
     assert int(want[:, 1].max()) > 1 and (want[5:8] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one-bucket", "U1", "empty-buckets"])
+def test_sorted_probe_kernel_on_edge_directories(cuda_device, case):
+    """K10 on one bucket holding every key (the binary search inside it),
+    one key, and empty buckets on both sides of 2**63."""
+    rng = np.random.default_rng(len(case))
+    if case == "one-bucket":  # 3,000 keys sharing their top 20 bits
+        keys = (np.uint64(0xABCDE) << np.uint64(44)) | rng.integers(
+            0, 2**44, 3000, dtype=np.uint64)
+    elif case == "U1":
+        keys = np.array([2**63 + 5], dtype=np.uint64)
+    else:  # keys just below and above 2**63 only: every other bucket is empty
+        keys = np.concatenate([2**63 - 1 - rng.integers(0, 2**40, 300, dtype=np.uint64),
+                               2**63 + rng.integers(0, 2**40, 300, dtype=np.uint64)])
+    keys = np.unique(keys)
+    rows = [rng.choice(keys, max(1, keys.size // 2)) for _ in range(40)]
+    panel = _sorted_panel(rows, 40, cuda_device)
+    sizes = panel.dir.diff().cpu()
+    mid = sizes.numel() // 2
+    assert int(panel.dir[-1]) == keys.size
+    if case == "one-bucket":
+        assert int((sizes > 0).sum()) == 1 and int(sizes.max()) == keys.size
+    elif case == "empty-buckets":  # only the two buckets beside 2**63 hold keys
+        assert int(sizes[mid - 1]) > 0 and int(sizes[mid]) > 0
+        assert int((sizes > 0).sum()) == 2
+    strangers = rng.integers(1, 2**64 - 1, 200, dtype=np.uint64)
+    raw = np.concatenate([rng.choice(keys, (24, 60)), rng.choice(strangers, (24, 60))], axis=1)
+    full, lens = bottom_s_sketch(torch.from_numpy(raw.view(np.int64)), 120)
+    cpu = _sorted_panel(rows, 40, "cpu")
+    want = sorted_probe_plain(full, lens, cpu, 30, 10)
+    assert torch.equal(want, sorted_probe_plain_dir(full, lens, cpu, 30, 10))
+    got = _sorted_probe_cuda(full.to(cuda_device), lens.to(cuda_device), panel, 30, 10, seg=32)
+    assert torch.equal(got.cpu(), want) and int(want[:, 1].max()) > 0
 
 
 @pytest.mark.cuda

@@ -10,8 +10,11 @@ counterparts on seeded inputs, with and without a read counter, on the
 JAX-built panel carried over by ``convert.sorted_panel_from_numpy``.
 ``hpv16`` and ``hpv16 -M 2`` past the set-table cap
 (``RKMH_TPU_SET_TABLE_MAX_MB=0``) must be byte-identical to rkmh-tpu's
-under the same cap and to the port's own bucket-table output.  Also: what
-the K10 wrapper refuses.  Inputs: rkmh_tpu_torch.synth and numpy, from a
+under the same cap and to the port's own bucket-table output.  K10's
+directory over the keys' top bits must equal a numpy count of them (the
+640-type panel's keys and edge panels), and the plain version that reads
+it, ``sorted_probe_plain_dir``, must equal ``sorted_probe_plain`` and the
+JAX core.  Also: what the K10 wrapper refuses.  Inputs: rkmh_tpu_torch.synth and numpy, from a
 seed.  Tolerance: none, every output is an integer or text.
 """
 
@@ -30,7 +33,14 @@ from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.commands import hpv16_cmd
 from rkmh_tpu_torch.io.packing import encode_seqs
 from rkmh_tpu_torch.ops import lookup
-from rkmh_tpu_torch.ops.sorted_probe import SortedPanel, _sorted_probe_cuda, sorted_probe_plain
+from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+from rkmh_tpu_torch.ops.sorted_probe import (
+    SortedPanel,
+    _sorted_probe_cuda,
+    build_directory,
+    sorted_probe_plain,
+    sorted_probe_plain_dir,
+)
 
 SMALL = dict(num_types=8, genome_len=1500)
 HIGH = np.uint64(1 << 63)
@@ -186,6 +196,83 @@ def test_hpv16_past_the_cap_byte_identical_to_jax(refpath, tmp_path, monkeypatch
     assert out["torch", None] == out["torch", "0"]  # the bucket-table path, same bytes
 
 
+def _directory_keys(case):
+    rng = np.random.default_rng(len(case))
+    if case == "640-types":  # the fallback panel's type genomes, hashed at k = 18
+        from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
+
+        panel = synth.make_hpv16_panel(0, num_types=640)
+        codes, _ = encode_seqs([synth._ACGTN[g].tobytes() for g in panel.types])
+        h = multi_k_window_hashes(torch.from_numpy(codes), [18]).numpy().view(np.uint64)
+        return np.unique(h[h != 0])
+    if case == "U1":
+        return np.array([2**63 + 77], dtype=np.uint64)
+    if case == "one-bucket":  # every key shares its top 20 bits
+        return np.unique((np.uint64(0x8F00F) << np.uint64(44))
+                         | rng.integers(0, 2**44, 5000, dtype=np.uint64))
+    if case == "high-keys-only":
+        return np.unique(rng.integers(0, 2**63, 3000, dtype=np.uint64) | HIGH)
+    # empty buckets at both ends: keys in the middle quarters only
+    return np.unique(rng.integers(2**62, 3 * 2**62, 3000, dtype=np.uint64))
+
+
+@pytest.mark.parametrize("case", ["640-types", "U1", "one-bucket", "high-keys-only",
+                                  "empty-ends"])
+def test_directory_equals_a_numpy_count(case):
+    keys = _directory_keys(case)
+    d, bits = build_directory(keys)
+    assert bits == max(8, keys.size.bit_length() - 2) and d.dtype == np.int32
+    top = keys >> np.uint64(64 - bits)
+    buckets, counts = np.unique(top, return_counts=True)
+    want = np.zeros(1 << bits, np.int64)
+    want[buckets.astype(np.int64)] = counts
+    assert np.array_equal(np.diff(d), want) and d[0] == 0 and d[-1] == keys.size
+    starts = (np.arange(1 << bits, dtype=np.uint64) << np.uint64(64 - bits))
+    assert np.array_equal(d[:-1], np.searchsorted(keys, starts))
+    if case == "640-types":
+        assert bits == 21 and keys.size > 5_000_000 and want.mean() < 4
+    elif case == "one-bucket":
+        assert (want > 0).sum() == 1
+    elif case == "high-keys-only":
+        assert (want[: 1 << (bits - 1)] == 0).all() and want[-1] > 0
+    elif case == "empty-ends":
+        assert want[0] == 0 and want[-1] == 0
+    panel = convert.sorted_panel_from_numpy(keys, np.zeros((keys.size, 1), np.uint32), "cpu",
+                                            (d, bits))
+    assert panel.bits == bits and np.array_equal(panel.dir.numpy(), d)
+    assert np.array_equal(panel.keys.numpy() ^ np.int64(-(2**63)), keys.view(np.int64))
+    assert panel.directory_bytes == 4 * d.size
+    assert panel.nbytes == 8 * keys.size + 4 * keys.size + 4 * d.size
+
+
+@pytest.mark.parametrize("case", ["-M-zeroed", "one-value", "long-read"])
+def test_directory_plain_equals_the_logical_plain_and_jax(case):
+    """The directory's plain version against ``sorted_probe_plain`` and the
+    JAX core ``_hpv16_sorted_core`` on seeded window-hash rows."""
+    rng = np.random.default_rng(len(case) + 40)
+    pool = rng.integers(1, 2**64 - 1, size=3000, dtype=np.uint64)
+    pool[::4] |= HIGH
+    T, U = 30, 10
+    keys, masks = jlookup.build_sorted_panel([rng.choice(pool, 400) for _ in range(T + U)],
+                                             T + U)
+    W = 2600 if case == "long-read" else 300  # past one 2,048-element segment
+    hashes = rng.choice(np.concatenate([pool, rng.integers(1, 2**63, 500, dtype=np.uint64)]),
+                        size=(12, W))
+    if case == "-M-zeroed":
+        hashes[rng.random(hashes.shape) < 0.4] = 0
+        hashes[3] = 0  # every hash of a read zeroed
+    elif case == "one-value":
+        hashes[::2] = hashes[::2, :1]
+    want = np.asarray(jengine._hpv16_sorted_core(jnp.asarray(hashes), jnp.asarray(keys),
+                                                 jnp.asarray(masks), W, T, U, None, 0))
+    full, lens = bottom_s_sketch(torch.from_numpy(hashes.view(np.int64)), W)
+    panel = convert.sorted_panel_from_numpy(keys, masks, "cpu")
+    got = sorted_probe_plain_dir(full, lens, panel, T, U)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(got, sorted_probe_plain(full, lens, panel, T, U))
+    assert want[:, 1].max() > 0
+
+
 def test_sorted_probe_wrapper_rejects_what_it_cannot_take():
     keys, masks, sk, lens = _panel_and_rows(4)
     panel = convert.sorted_panel_from_numpy(keys, masks, "cpu")
@@ -206,3 +293,13 @@ def test_sorted_probe_wrapper_rejects_what_it_cannot_take():
         _sorted_probe_cuda(rows, ln[:-1], panel, 30, 10)
     with pytest.raises(ValueError, match="distinct and ascending"):
         convert.sorted_panel_from_numpy(keys[::-1], masks, "cpu")
+    with pytest.raises(ValueError, match="no directory"):  # the layout K10 needs
+        _sorted_probe_cuda(rows, ln, SortedPanel(panel.keys, panel.masks), 30, 10)
+    with pytest.raises(ValueError, match="directory is int32"):
+        _sorted_probe_cuda(rows, ln, SortedPanel(panel.keys, panel.masks, panel.dir[:-1],
+                                                 panel.bits), 30, 10)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        _sorted_probe_cuda(rows, ln, SortedPanel(panel.keys[1:], panel.masks[1:], panel.dir,
+                                                 panel.bits), 30, 10)
+    with pytest.raises(ValueError, match="no directory"):
+        sorted_probe_plain_dir(rows, ln, SortedPanel(panel.keys, panel.masks), 30, 10)

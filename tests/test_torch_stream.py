@@ -202,6 +202,7 @@ def test_port_never_imports_jax():
             "import rkmh_tpu_torch.bench.call_inputs, rkmh_tpu_torch.bench.l2_sweep\n"
             "import rkmh_tpu_torch.observability, rkmh_tpu_torch.ops.sorted_probe\n"
             "import rkmh_tpu_torch.bench.wide_inputs, rkmh_tpu_torch.bench.bounds\n"
+            "import rkmh_tpu_torch.bench.probe_inputs, rkmh_tpu_torch.ops.probe\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rkmh_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
