@@ -219,14 +219,51 @@ line) without CUDA or without the package beside it.  In order it:
 29. (run after 21, on the slice's input) ``stream --metrics`` over the
     first 16,384 slice reads through the CLI: the JSON line's reads and bp
     must be the input's; then the same run under ``RKMH_TPU_PROFILE``: the
-    trace file must exist and name the K1 and K2 kernels.
+    trace file must exist and name the K1 and K2 kernels;
+30. (run after 28) checks K12 (``csrc/sparse_margin.cu``: the VW trainer's
+    sparse margins and their gradient, ``ops/sparse_margin.py``) forward and
+    backward against the plain version (``bench/margin_inputs``, within 1e-5
+    of the sum of |terms| + 1e-6: float sums in another order, atomics) at
+    the pipeline's shapes (N = 180, F = 10 with C = 1, 5, 11 and F = 110
+    with C = 1, D = 2**18), at phase 32's per-read shape (N = 4,096, F =
+    1,002, C = 10) and on the edge cases (a row of padding only, one index
+    in a whole row and in every row, index D - 1, N = 1, all padding), then
+    times forward, backward and both at the per-read shape (graph and
+    eager) beside the plain version, ``embedding_bag`` (eager) and the
+    bound (``bench/bounds.sparse_margin_bytes``);
+31. the VW model pipeline (``bench/model_pipeline``): 180 training and 36
+    held-out samples (single-strain and mixed, ``make_mix``'s machinery)
+    of nanopore-like reads of the 10 sublineages of
+    ``synth.write_hpv16_refpath``; ``stream -k 18 -s 4000`` on each (K1,
+    K2), ``vwize -n --format stream``; the four models trained (25 passes)
+    on the card (K12 forward and backward) and on the CPU; applied to the
+    held-out samples on both (K12 forward); conf_mat and interpret_wabbit;
+    weights within lr = 0.05 of the CPU's, margins within lr times the
+    row's sum of |val| (+ the sum order), class ids and ``--binary``
+    labels equal; the four shipped ``model_docker`` models applied on both
+    with equal class ids and labels; prints each model's held-out accuracy;
+32. per-read training at the trainer's full width: ``hash -w -k 18 -s
+    1000`` (K1) over 4,096 training and 1,024 held-out reads of the 10
+    sublineages, each line's XYX replaced by its sublineage (1-10);
+    ``--ect 10`` trained for 25 passes at -b 18 on the card (K12) and
+    applied to the held-out reads; prints the host's vectorize seconds,
+    the train seconds, device ms a pass (forward, backward, Adam), K12's
+    launches and the held-out accuracy;
+33. (run after 29, on the slice's input) the library's batch forms
+    (``classify/library.py``) on the card against the CPU on the zika
+    panel's sketches and the slice batch's (hashes on both sides of
+    2**63), every output equal; then the panel cache
+    (``RKMH_TPU_PANEL_CACHE`` at a temporary directory; every other phase
+    runs with it off): the set-up on a miss and on a hit (K1 0 launches),
+    and ``stream`` over the first 16,384 reads twice, byte-identical.
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record (per kernel: launches on the driven paths, in all and by
 path, max_abs_err against the plain version, ms, eager_ms, plain_ms, bound_ms,
 bound_by, bound_share = bound_ms / ms, and library_ms, one PyTorch call
 computing the same function where there is one: ``torch.gather`` for K4
-and K5, ``torch.searchsorted`` and the mask gather for K10, none for the
+and K5, ``torch.searchsorted`` and the mask gather for K10,
+``embedding_bag`` forward and its backward for K12, none for the
 others; K11 adds K2's time at R = 8,192, its times on the sorted rows and
 its times beside K2's at R = 257-8,192; K4 and K5 add their launches by route, K4
 its times at each timed N, K5 its staged route's time and the launch
@@ -234,7 +271,8 @@ floor, K7 its times at the hpv16 -M shape, K1 its times at hash's shapes,
 K6 its time and route at count's table, K8 its times at 2**20 queries and
 on the large map with ``torch.searchsorted`` as its library_ms, K9 its
 launches by route, its mutated k-mers per second, its byte-wise route's
-time and its times on the 1 Mbp reference) and ``{"ok": true, "device":
+time and its times on the 1 Mbp reference, K12 its forward + backward
+times, phase 32's numbers and phase 31's accuracies) and ``{"ok": true, "device":
 {...}}``.  Any failure raises.
 """
 
@@ -2646,6 +2684,405 @@ def run_metrics(zika: dict) -> dict:
     return {"metrics_line": line, "trace_events": len(events)}
 
 
+# ---- phases 30-33: the VW trainer's kernel (K12), the model pipeline, per-read
+# training at the trainer's full width, the library and the panel cache
+
+K12_PIPELINE_SHAPES = ((10, 1), (10, 5), (10, 11), (110, 1))  # (F, C): vwize's 10, vv's 110
+N_READ_TRAIN, N_READ_HELD = 4096, 1024   # phase 32's reads of the 10 sublineages
+READ_SKETCH = 1000                       # hash -w -s 1000: F = 1,002 features a read
+MP_POOL_READS, MP_MEAN_LEN, MP_MAX_READS = 400, 1500, 120
+MP_TRAIN, MP_HELD = (10, 80), (2, 16)    # (singles per sublineage, mixes): 180 and 36 samples
+PASSES, LR = 25, 0.05                    # wabbit's defaults; train_the_wabbit.sh's 25 passes
+
+
+def check_k12(dev) -> tuple[dict, dict]:
+    """Phase 30: K12 forward and backward against the plain version at the
+    pipeline's shapes, phase 32's per-read shape and the edge cases
+    (``bench/margin_inputs``: 1e-5 of the sum of |terms| + 1e-6), then
+    their times at the per-read shape: graph replay and eager, the plain
+    version, ``embedding_bag`` forward + backward and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.margin_inputs import check_margins, edge_cases, margin_case
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
+    from rkmh_tpu_torch.ops.sparse_margin import (_margins_cuda, _margins_grad_cuda,
+                                                  sparse_margins_plain)
+
+    per_read = f"per-read N={N_READ_TRAIN} F={READ_SKETCH + 2} C=10"
+    cases = {f"pipeline N=180 F={f} C={c}": margin_case(180, f, c, 18, f + c, dev)
+             for f, c in K12_PIPELINE_SHAPES}
+    cases[per_read] = margin_case(N_READ_TRAIN, READ_SKETCH + 2, 10, 18, 30, dev, pad=0.02)
+    cases.update(edge_cases(dev))
+    errs = {"forward": 0.0, "backward": 0.0}
+    for label, case in cases.items():
+        ef, eb = check_margins(*case)
+        errs = {"forward": max(errs["forward"], ef), "backward": max(errs["backward"], eb)}
+        say(f"K12 {label}: forward max |err| {ef:.3g}, backward {eb:.3g} (within 1e-5 of "
+            f"the sum of |terms| + 1e-6)")
+
+    W, idx, val, dm = cases[per_read]
+    C, D = W.shape
+    Wp = W.clone().requires_grad_(True)
+    plain_m = sparse_margins_plain(Wp, idx, val)
+    WT = W.T.contiguous().requires_grad_(True)  # embedding_bag's layout: [D, C]
+    dmT = dm.T.contiguous()
+    lib_m = F.embedding_bag(idx, WT, per_sample_weights=val, mode="sum")
+    if not torch.allclose(lib_m.T, plain_m, rtol=1e-4, atol=1e-3):
+        raise AssertionError("embedding_bag does not compute K12's forward")
+
+    def lib_both():
+        torch.autograd.grad(F.embedding_bag(idx, WT, per_sample_weights=val, mode="sum"),
+                            WT, dmT)
+
+    def plain_both():
+        Wq = W.detach().requires_grad_(True)
+        torch.autograd.grad(sparse_margins_plain(Wq, idx, val), Wq, dm)
+
+    fns = {"forward": (lambda: _margins_cuda(W, idx, val),
+                       lambda: sparse_margins_plain(W, idx, val),
+                       lambda: F.embedding_bag(idx, WT, per_sample_weights=val, mode="sum")),
+           "backward": (lambda: _margins_grad_cuda(dm, idx, val, D),
+                        lambda: torch.autograd.grad(plain_m, Wp, dm, retain_graph=True),
+                        lambda: torch.autograd.grad(lib_m, WT, dmT, retain_graph=True)),
+           "both": (lambda: (_margins_cuda(W, idx, val), _margins_grad_cuda(dm, idx, val, D)),
+                    plain_both, lib_both)}
+    one_way = bounds.sparse_margin_bytes(idx, val, C)
+    times = {}
+    for way, (kern, plain, lib) in fns.items():
+        times[way] = {"ms": cuda_graph_time_ms(kern, 10), "eager_ms": cuda_time_ms(kern, 20),
+                      "plain_ms": cuda_time_ms(plain, 5, warmup=2),
+                      "library_ms": cuda_time_ms(lib, 10, warmup=2),
+                      "bound_ms": bounds.bound_ms(one_way * (2 if way == "both" else 1))}
+        say(f"time K12 {way} at {per_read} (D = 2**18): {times[way]['ms']:.4f} ms graph, "
+            f"{times[way]['eager_ms']:.4f} eager; plain {times[way]['plain_ms']:.4f}; "
+            f"embedding_bag {times[way]['library_ms']:.4f} (eager); bound "
+            f"{times[way]['bound_ms']:.4f} ms ({one_way} bytes a way)")
+    W, idx, val, dm = cases["pipeline N=180 F=10 C=11"]
+    times["pipeline_both_ms"] = cuda_graph_time_ms(
+        lambda: (_margins_cuda(W, idx, val), _margins_grad_cuda(dm, idx, val, D)), 10)
+    say(f"time K12 forward + backward at N=180 F=10 C=11: {times['pipeline_both_ms']:.4f} ms")
+    return errs, times
+
+
+def _wabbit(argv, stdout=None) -> int:
+    from rkmh_tpu_torch.ml import wabbit
+
+    return wabbit.main(argv, stdout=stdout)
+
+
+def _floats_of(path: str):
+    import numpy as np
+
+    with open(path) as fh:
+        return np.array([float(x) for x in fh.read().split()])
+
+
+def run_model_pipeline(dev, card: str) -> dict:
+    """Phase 31: the model pipeline of run_models.sh on the card
+    (``bench/model_pipeline``): stream, vwize, the four models trained and
+    applied on the card and on the CPU, conf_mat and interpret_wabbit, and
+    the four shipped model_docker models applied on both."""
+    import io
+
+    import numpy as np
+
+    from rkmh_tpu_torch import synth
+    from rkmh_tpu_torch.bench import model_pipeline as mp
+    from rkmh_tpu_torch.ml.wabbit import load_model
+    from rkmh_tpu_torch.scripts import conf_mat, interpret_wabbit
+
+    res, gpu = {}, str(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        panel = synth.write_hpv16_refpath(os.path.join(tmp, "ref"), num_types=16)
+        refs = os.path.join(tmp, "ref", "new_refs.fa")
+        pools = mp.write_pools(os.path.join(tmp, "pools"), panel, MP_POOL_READS, 31, MP_MEAN_LEN)
+        sets = {tag: mp.write_samples(os.path.join(tmp, tag), pools, synth.HPV16_GENOME_LEN,
+                                      seed, *shape, MP_MAX_READS, tag)
+                for tag, seed, shape in (("train", 32, MP_TRAIN), ("held", 33, MP_HELD))}
+        say(f"model pipeline input: {len(sets['train'])} training and {len(sets['held'])} "
+            f"held-out samples of nanopore-like reads (mean {MP_MEAN_LEN} bp, 8% substitutions,"
+            f" <= {MP_MAX_READS} reads a sample) from {len(pools)} sublineage pools; made in "
+            f"{time.perf_counter() - t0:.2f} s")
+        cls = {}
+        secs, res["model pipeline: stream"] = driven(
+            lambda: cls.update({tag: mp.classify_samples(s, refs, dev) for tag, s in sets.items()}),
+            "model pipeline: stream -k 18 -s 4000", ["window_hash", "panel_probe"])
+        say(f"stream over {sum(map(len, sets.values()))} samples: {secs:.2f} s")
+        vw = {tag: mp.write_vw_files(cls[tag], [c for _, c in sets[tag]], tmp, tag)
+              for tag in sets}
+        models = {}
+
+        def train(device):
+            for name, kind, extra in mp.JOBS:
+                models[name, device] = os.path.join(tmp, f"{name}.{device}.npz")
+                if _wabbit([vw["train"][kind], "-f", models[name, device], "--passes",
+                            str(PASSES), *extra, "--device", device]) != 0:
+                    raise AssertionError(f"wabbit failed to train {name} on {device}")
+
+        secs, res["model pipeline: train"] = driven(
+            lambda: train(gpu), "model pipeline: wabbit train",
+            ["sparse_margin", "sparse_margin_grad"])
+        say(f"trained the four models on the card ({PASSES} passes each): {secs:.2f} s")
+        train("cpu")
+        preds = {}
+
+        def apply(device, which):
+            for name, kind, _ in mp.JOBS:
+                model = models[name, device] if which == "trained" else os.path.join(
+                    REPO, "model_docker", f"{name}.npz")
+                for flag in ([[]] + [["--binary"]] * (kind == "binary")):
+                    out = os.path.join(tmp, f"{name}.{device}.{which}{''.join(flag)}.pred")
+                    if _wabbit([vw["held"][kind], "-i", model, "-t", "-p", out, *flag,
+                                "--device", device]) != 0:
+                        raise AssertionError(f"wabbit failed to apply {name} on {device}")
+                    preds[name, device, which, bool(flag)] = out
+
+        def apply_both():
+            apply(gpu, "trained")
+            apply(gpu, "shipped")
+
+        secs, res["model pipeline: apply"] = driven(apply_both, "model pipeline: wabbit -t -p",
+                                                    ["sparse_margin"])
+        apply("cpu", "trained")
+        apply("cpu", "shipped")
+        accuracy = {}
+        for name, kind, _ in mp.JOBS:
+            w_gpu, w_cpu = (load_model(models[name, d])[1] for d in (gpu, "cpu"))
+            w_err = float(np.abs(w_gpu - w_cpu).max())
+            if w_err > LR:
+                raise AssertionError(f"{name}: card- and CPU-trained weights differ by {w_err} "
+                                     f"> lr = {LR}")
+            s = np.array([sum(abs(float(f.split(":")[1])) for f in ln.split("|vir")[1].split())
+                          for ln in open(vw["held"][kind])])
+            sum_val = s + s * s if "vv" in name else s  # vv adds every ordered pair's product
+            for which in ("trained", "shipped"):
+                w_max = float(np.abs(w_gpu if which == "trained" else load_model(
+                    os.path.join(REPO, "model_docker", f"{name}.npz"))[1]).max())
+                ids_gpu = read_text(preds[name, gpu, which, False])
+                ids_cpu = read_text(preds[name, "cpu", which, False])
+                if kind == "binary":
+                    m_gpu, m_cpu = (_floats_of(preds[name, d, which, False])
+                                    for d in (gpu, "cpu"))
+                    # the sum order (1e-5 of the sum of |terms|, bounded by max |w| *
+                    # sum |val|); weights trained apart, up to lr each: lr * sum |val| more
+                    tol = 1e-5 + (1e-5 * w_max + (LR if which == "trained" else 0)) * sum_val
+                    if not np.all(np.abs(m_gpu - m_cpu) <= tol):
+                        raise AssertionError(f"{name} ({which}): margins on the card and the "
+                                             f"CPU differ past the tolerance")
+                    require_same(read_text(preds[name, gpu, which, True]),
+                                 read_text(preds[name, "cpu", which, True]),
+                                 f"{name} ({which}) --binary labels")
+                else:
+                    require_same(ids_gpu, ids_cpu, f"{name} ({which}) class ids")
+            truth = mp.labels(vw["held"][kind])
+            got = read_text(preds[name, gpu, "trained", False]).split()
+            accuracy[name] = mp.accuracy(kind, got, truth)
+            accuracy[name + " (shipped)"] = mp.accuracy(
+                kind, read_text(preds[name, gpu, "shipped", False]).split(), truth)
+            out = io.StringIO()
+            pred_tags = os.path.join(tmp, f"{name}.tags")
+            with open(pred_tags, "w") as fh:
+                fh.writelines(f"{p} {os.path.basename(fq)}\n"
+                              for p, (fq, _) in zip(got, sets["held"]))
+            interpret_wabbit.main(["-i", pred_tags, "-T", {"binary": "BINARY", "lineage": "LIN",
+                                                            "sublineage": "SUB"}[kind]], stdout=out)
+            if kind == "binary":
+                cm = os.path.join(tmp, f"{name}.cm")
+                with open(cm, "w") as fh:
+                    fh.writelines(f"{-float(p)} {'coinf' if t > 0 else 'hpv'}\n"
+                                  for p, t in zip(got, truth))
+                conf_mat.main([cm], stdout=out)
+            lines = out.getvalue().splitlines()
+            say(f"{name}: weights card vs CPU max |diff| {w_err:.3g} (tolerance lr = {LR}); "
+                f"held-out accuracy {accuracy[name]:.3f} (the shipped model: "
+                f"{accuracy[name + ' (shipped)']:.3f}); interpret_wabbit: {lines[0]!r}"
+                + (f"; conf_mat: {len(lines) - len(got) - 1} rows" if kind == "binary" else ""))
+    say("model pipeline: class ids and --binary labels equal on the card and the CPU, "
+        "trained and shipped models")
+    res["accuracy"] = accuracy
+    return res
+
+
+def run_per_read_training(dev, card: str) -> dict:
+    """Phase 32: ``hash -w -k 18 -s 1000`` over N_READ_TRAIN + N_READ_HELD
+    nanopore-like reads of the 10 sublineages, labelled 1-10 in place of
+    XYX, then ``--ect 10 --passes 25 -b 18`` trained on the card and
+    applied to the held-out reads, each part timed."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch import synth
+    from rkmh_tpu_torch.bench.timing import cuda_time_ms
+    from rkmh_tpu_torch.commands.hash_cmd import HashConfig, run as hash_run
+    from rkmh_tpu_torch.convert import wabbit_from_numpy
+    from rkmh_tpu_torch.ml import wabbit
+
+    panel = synth.make_hpv16_panel(num_types=16)
+    rng = np.random.default_rng(32)
+    res = {}
+    data = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, n in (("train", N_READ_TRAIN), ("held", N_READ_HELD)):
+            labels = rng.integers(1, len(panel.subs) + 1, n)
+            reads = [None] * n
+            for c in range(1, len(panel.subs) + 1):
+                at = np.flatnonzero(labels == c)
+                for i, r in zip(at, synth.make_strain_reads(panel.subs[c - 1], at.size,
+                                                            int(rng.integers(1 << 30)))):
+                    reads[i] = r
+            fq = os.path.join(tmp, f"{tag}.fq")
+            synth.write_fastq_records(fq, reads)
+            out = io.StringIO()
+            secs, res[f"per-read: hash -w ({tag})"] = driven(
+                lambda: hash_run(HashConfig(read_files=[fq], ks=(18,), sketch_size=READ_SKETCH,
+                                            wabbitize=True, device=str(dev)), out=out),
+                f"per-read: hash -w ({tag})", ["window_hash"])
+            lines = out.getvalue().splitlines()
+            if len(lines) != n or not all(ln.startswith("XYX 1.0 `") for ln in lines):
+                raise AssertionError(f"hash -w wrote {len(lines)} lines for {n} reads")
+            t0 = time.perf_counter()
+            examples = [wabbit.parse_example(f"{lab}{ln[3:]}") for lab, ln in zip(labels, lines)]
+            idx, val, y = wabbit.vectorize(examples, 18, [], set())
+            data[tag] = (idx, val, y, time.perf_counter() - t0, secs)
+            say(f"per-read {tag}: {n} reads ({sum(map(len, reads)) / 1e6:.2f} Mbp), hash -w "
+                f"{secs:.2f} s, vectorize on the host {data[tag][3]:.2f} s, idx {idx.shape}")
+    idx, val, y, vec_s, _ = data["train"]
+    W = {}
+    train_s, res["per-read: train"] = driven(
+        lambda: W.update(w=wabbit.train_multiclass(idx, val, y, 10, 18, PASSES, LR, device=dev)),
+        "per-read: wabbit --ect 10 train", ["sparse_margin", "sparse_margin_grad"])
+    if res["per-read: train"]["sparse_margin_grad"] != PASSES:
+        raise AssertionError("one backward launch a pass expected")
+    # one pass's device time: forward, backward and Adam, as _train takes it
+    model = wabbit_from_numpy("ect", np.zeros((10, 1 << 18), np.float32), 18, [], set(), dev)
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    idx_t, val_t = torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev)
+    Y = -torch.ones((10, len(y)), device=dev)
+    Y[torch.from_numpy(y.astype(np.int64) - 1).to(dev), torch.arange(len(y), device=dev)] = 1
+    zero = torch.zeros((), device=dev)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        m = model(idx_t, val_t)
+        loss = torch.logaddexp(zero, -Y * m).mean() + wabbit.L2 * (model.W * model.W).sum()
+        loss.backward()
+        opt.step()
+
+    pass_ms = cuda_time_ms(step, PASSES, warmup=2)
+    h_idx, h_val, h_y, h_vec_s, _ = data["held"]
+    scores = {}
+    apply_s, res["per-read: apply"] = driven(
+        lambda: scores.update(m=wabbit.margins(
+            wabbit_from_numpy("ect", W["w"], 18, [], set(), dev), h_idx, h_val)),
+        "per-read: wabbit -t apply", ["sparse_margin"])
+    acc = float(np.mean(scores["m"].argmax(axis=0) + 1 == h_y))
+    stats = {"vectorize_s": vec_s, "held_vectorize_s": h_vec_s, "train_s": train_s,
+             "pass_ms": pass_ms, "apply_s": apply_s, "accuracy": acc,
+             "hash_s": data["train"][4] + data["held"][4],
+             "launches": {k: res["per-read: train"][k] + res["per-read: apply"][k]
+                          for k in ("sparse_margin", "sparse_margin_grad")}}
+    say(f"per-read training at the trainer's width ({card}): {N_READ_TRAIN} reads x "
+        f"{idx.shape[1]} features, C = 10, D = 2**18: vectorize {vec_s:.2f} s on the host, "
+        f"train {train_s:.2f} s ({PASSES} passes; {pass_ms:.4f} device ms a pass: forward, "
+        f"backward, Adam), apply {apply_s:.3f} s to {N_READ_HELD} held-out reads (vectorize "
+        f"{h_vec_s:.2f} s); K12 launches {stats['launches']}; held-out accuracy {acc:.3f}")
+    res["stats"] = stats
+    return res
+
+
+def check_library(panel, hashes) -> None:
+    """Phase 33a: the library's batch forms on the card against the CPU on
+    the zika panel's sketches and a 16,384-read batch's (hashes on both sides
+    of 2**63): every output equal."""
+    import torch
+
+    from rkmh_tpu_torch.classify import library
+    from rkmh_tpu_torch.ops.sketch import SENTINEL, bottom_s_sketch
+
+    ref_rows = torch.where(panel.sketches == SENTINEL, 0, panel.sketches)
+    read_sorted, read_lens = bottom_s_sketch(hashes, 1000)  # the slice batch's K1 output
+    read_rows = torch.where(read_sorted == SENTINEL, 0, read_sorted)
+    if not ((read_rows < 0).any() and (read_rows > 0).any()):
+        raise AssertionError("the read hashes should lie on both sides of 2**63")
+    names = [str(k) for k in panel.keys]
+    calls = {"merge_sketches_batch": lambda r, *_: library.merge_sketches_batch(r, 1000),
+             "merge_sketches_with_counts_batch":
+                 lambda r, *_: library.merge_sketches_with_counts_batch(r, 1000),
+             "informative_mask_batch": lambda r, *_: library.informative_mask_batch(r, 3),
+             "all_hash_compare_batch": lambda r, s, ln, fs, fl: library.all_hash_compare_batch(
+                 s, ln, fs, fl)}
+    devices = (str(panel.sketches.device), "cpu")
+    sides = {d: (ref_rows.to(d), read_sorted.to(d), read_lens.to(d), panel.sketches.to(d),
+                 panel.lens.to(d)) for d in devices}
+    for name, fn in calls.items():
+        for label, pick in (("panel", 0), ("reads", 1)):
+            outs = []
+            for d in devices:
+                ref_r, rs, rl, fs, fl = sides[d]
+                rows = ref_r if pick == 0 else torch.where(rs == SENTINEL, 0, rs)
+                got = fn(rows, rs, rl, fs, fl)
+                outs.append([t.cpu() for t in (got if isinstance(got, tuple) else (got,))])
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError(f"library.{name} ({label}) differs on the card and the CPU")
+            if name == "all_hash_compare_batch":
+                break  # reads against the panel: one case
+    got = [library.classify_batch(*sides[d][1:], names) for d in devices]
+    require_same("\n".join(got[0]), "\n".join(got[1]), "library.classify_batch")
+    say(f"library batch forms on the card equal the CPU's: merge, merge with counts, the "
+        f"informative mask (60 x 1000 panel sketches and {read_rows.shape[0]} x "
+        f"{read_rows.shape[1]} read sketches), all_hash_compare_batch and classify_batch "
+        f"({sum(1 for n in got[0] if n)} reads named)")
+
+
+def run_panel_cache(dev, card: str, zika: dict) -> dict:
+    """Phase 33b: stream twice with RKMH_TPU_PANEL_CACHE at a temporary
+    directory: a miss, then a hit that hashes no reference (K1 0 launches
+    in the panel's set-up) with byte-identical output."""
+    from rkmh_tpu_torch.commands.common import build_ref_panel_from_files
+    from rkmh_tpu_torch.commands.stream import StreamConfig, run
+
+    res = {}
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["RKMH_TPU_PANEL_CACHE"] = cache
+        try:
+            def set_up():
+                build_ref_panel_from_files([zika["refs"]], (12,), 1000, dev)
+
+            setup = {}
+            for label in ("miss", "hit"):
+                secs, launches = driven(set_up, f"panel cache set-up ({label})",
+                                        ["window_hash"] if label == "miss" else [])
+                setup[label] = (secs, launches["window_hash"])
+            if setup["hit"][1] != 0 or not os.listdir(cache):
+                raise AssertionError("the second set-up hashed the references")
+            for p in os.listdir(cache):
+                os.unlink(os.path.join(cache, p))
+            outs = []
+            for label in ("miss", "hit"):
+                path = os.path.join(zika["dir"], f"cache_{label}.tsv")
+                secs, res[f"stream, panel cache {label}"] = driven(
+                    lambda: run(StreamConfig(ref_files=[zika["refs"]],
+                                             read_files=[zika["head"]], ks=(12,),
+                                             sketch_size=1000, device=str(dev), out_file=path)),
+                    f"stream, panel cache {label}", ["window_hash", "panel_probe"])
+                outs.append(read_text(path))
+            require_same(outs[1], outs[0], "stream on a panel-cache hit")
+        finally:
+            os.environ["RKMH_TPU_PANEL_CACHE"] = "0"
+    n_hit, n_miss = (res[f"stream, panel cache {k}"]["window_hash"] for k in ("hit", "miss"))
+    say(f"panel cache ({card}): set-up {setup['miss'][0]:.3f} s on a miss (K1 "
+        f"{setup['miss'][1]} launches), {setup['hit'][0]:.3f} s on a hit (K1 "
+        f"{setup['hit'][1]}); stream over {N_CPU_LINES} reads: K1 {n_miss} launches on the "
+        f"miss, {n_hit} on the hit, the same bytes")
+    res["setup_s"] = {k: v[0] for k, v in setup.items()}
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2661,6 +3098,8 @@ def main() -> int:
 
     from rkmh_tpu_torch.bench.timing import card_name_and_power_limit
 
+    # every phase but 33 builds its panels: no cache entry may stand in for a build
+    os.environ["RKMH_TPU_PANEL_CACHE"] = "0"
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
     smi = card_name_and_power_limit()
@@ -2705,6 +3144,8 @@ def main() -> int:
         k6_count = time_k6_count_shape(dev, hashes, card_smi)
         run_stream_stdin(card_smi, zika)
         metrics = run_metrics(zika)
+        check_library(panel, hashes)
+        cached = run_panel_cache(dev, card_smi, zika)
     hpm = run_hpv16_counter(dev, card_smi)
     with tempfile.TemporaryDirectory() as work:
         from rkmh_tpu_torch.bench import call_inputs
@@ -2723,12 +3164,18 @@ def main() -> int:
     fallback, k10 = run_hpv16_fallback(dev, card_smi)
     err_k11, k2_sweep = check_k11(dev)
     wide, k11 = run_wide_stream(dev, card_smi)
+    err_k12, k12 = check_k12(dev)
+    pipeline = run_model_pipeline(dev, card_smi)
+    per_read = run_per_read_training(dev, card_smi)
     paths = {"stream": sl, "hpv16": hp, "stream -M -I": st_mi, "filter": fl, "hpv16 -M": hpm,
              "hpv16 capped": hp.pop("capped"), "hpv16 fallback": fallback,
              "hpv16 -M fallback": k10.pop("m"), "stream 12,288 refs": wide,
              **{k: v for k, v in sketches.items() if k != "setup_s"},
              **{k: v for k, v in hashed.items() if k.startswith("hash")},
-             "count": counted, "search": searched, **resumed, **called}
+             "count": counted, "search": searched, **resumed, **called,
+             **{k: {"launches": v} for k, v in {**pipeline, **per_read}.items()
+                if k not in ("accuracy", "stats")},
+             **{k: {"launches": v} for k, v in cached.items() if k != "setup_s"}}
 
     def launched(name):
         return sum(r["launches"].get(name, 0) for r in paths.values())
@@ -2792,8 +3239,19 @@ def main() -> int:
                  k11["raw"]["bound_ms"]),
          "k2_at_8192_ms": k11["raw"]["k2_8192_ms"], "sorted_rows": k11["sorted"],
          "beside_k2": k2_sweep},
+        {**entry("sparse_margin", "sparse_margin.cu", "rkmh_tpu/ml/wabbit.py:171",
+                 err_k12["forward"], k12["forward"]["ms"], k12["forward"]["eager_ms"],
+                 k12["forward"]["plain_ms"], k12["forward"]["bound_ms"],
+                 k12["forward"]["library_ms"]),
+         "forward_and_backward": k12["both"], "pipeline_both_ms": k12["pipeline_both_ms"],
+         "per_read_training": per_read["stats"], "pipeline_accuracy": pipeline["accuracy"]},
+        entry("sparse_margin_grad", "sparse_margin.cu", "rkmh_tpu/ml/wabbit.py:195",
+              err_k12["backward"], k12["backward"]["ms"], k12["backward"]["eager_ms"],
+              k12["backward"]["plain_ms"], k12["backward"]["bound_ms"],
+              k12["backward"]["library_ms"]),
     ]}
     say(f"stream --metrics and the profile hook: {json.dumps(metrics)}")
+    say(f"panel cache set-up seconds: {json.dumps(cached['setup_s'])}")
     say(smi)
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

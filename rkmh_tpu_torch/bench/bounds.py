@@ -221,3 +221,12 @@ def call_scan_bytes(ref_codes: torch.Tensor, sm: SortedMap, k: int,
     keys = int(torch.unique(torch.cat(found)).numel()) if found else 0
     return (ref_codes.numel() + 1 + 9 * P + 4 * P * k * 5 + 4 * P
             + MAP_ENTRY * keys)
+
+
+def sparse_margin_bytes(idx: torch.Tensor, val: torch.Tensor, num_classes: int) -> int:
+    """The bytes K12 must move one way (``ops/sparse_margin``): idx and val
+    read once, the [C, N] margins written (forward) or their gradient read
+    (backward), and C float32 weights (or gradient entries) for each
+    distinct index of an entry whose value is not 0."""
+    distinct = int(torch.unique(idx[val != 0]).numel())
+    return tensor_bytes(idx, val) + 4 * num_classes * (idx.shape[0] + distinct)

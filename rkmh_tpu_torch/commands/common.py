@@ -4,7 +4,9 @@ counter pass, batching and the pipelined dispatch/fetch/emit loop.
 Counterpart of ``rkmh_tpu/commands/common.py:17-553``.  Differences:
 
 * the panel is an ``nn.Module`` whose tables are buffers, built on the
-  requested device; the on-disk panel cache is not ported yet;
+  requested device.  The on-disk panel cache (``RKMH_TPU_PANEL_CACHE``,
+  ``_panel_cache_path``) is the JAX package's: the same key, file name and
+  payload, so an entry either package writes is a hit for the other;
 * path inputs go through the port's own copy of the native C++ parser
   (``io/native``), built at first use; a build failure raises.  Stdin
   (``-``) and file objects go through the Python parser (``io/fastx``),
@@ -108,16 +110,113 @@ def build_ref_panel(ref_packed, ks, sketch_size: int, device: torch.device,
         sk, sk_lens = engine.sketch_batch_informative(codes, counter.table, ks, sketch_size,
                                                       max_samples)
         del counter
-    pt = build_panel_table(sk.cpu().numpy(), sk_lens.cpu().numpy())
+    return _panel_from_sketches(ref_packed.names, sk, sk_lens, sk.cpu().numpy(),
+                                sk_lens.cpu().numpy(), device)
+
+
+def _panel_from_sketches(names, sk: torch.Tensor, sk_lens: torch.Tensor, sk_np: np.ndarray,
+                         lens_np: np.ndarray, device: torch.device) -> RefPanel:
+    """A RefPanel of sketches on ``device`` and their host copies: the table
+    built on the host, then copied (the build and cache-hit paths share it)."""
+    pt = build_panel_table(sk_np, lens_np)
     table = device_table(pt.table.view(np.int32), pt.num_refs, device)
-    return RefPanel(ref_packed.names, sk, sk_lens, table)
+    return RefPanel(names, sk, sk_lens, table)
+
+
+_PANEL_CACHE_VERSION = 2  # v2: pickle-free payload, length-framed key
+
+
+def _panel_cache_path(ref_files, ks, sketch_size, max_samples, counter_size,
+                      distinct_counter) -> str | None:
+    """Content-addressed cache file for a built reference panel, or None
+    when caching is disabled (RKMH_TPU_PANEL_CACHE=0) or the refs are not
+    plain files.  A copy of ``rkmh_tpu/commands/common.py:113``: the same
+    key (the length-framed reference bytes and every sketching parameter)
+    and directory (RKMH_TPU_PANEL_CACHE, else ~/.cache/rkmh_tpu/panels)."""
+    import hashlib
+
+    env = os.environ.get("RKMH_TPU_PANEL_CACHE", "")
+    if env == "0":
+        return None
+    cache_dir = env or os.path.join(
+        os.path.expanduser("~"), ".cache", "rkmh_tpu", "panels"
+    )
+    h = hashlib.sha256()
+    h.update(repr((
+        _PANEL_CACHE_VERSION, tuple(ks), sketch_size, max_samples,
+        counter_size if max_samples is not None else None, distinct_counter,
+    )).encode())
+    try:
+        for p in _as_list(ref_files):
+            if p in ("-", b"-"):
+                return None
+            with open(p, "rb") as fh:
+                data = fh.read()
+            # length-framed: different file splits of identical
+            # concatenated bytes must not collide onto one key
+            h.update(len(data).to_bytes(8, "little"))
+            h.update(data)
+    except OSError:
+        return None
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+    except OSError:
+        return None
+    return os.path.join(cache_dir, h.hexdigest()[:32] + ".npz")
 
 
 def build_ref_panel_from_files(ref_files, ks, sketch_size: int, device: torch.device,
-                               **counter_kw) -> RefPanel:
+                               max_samples: int | None = None,
+                               counter_size: int = DEFAULT_COUNTER_SIZE,
+                               distinct_counter: bool = False) -> RefPanel:
     """build_ref_panel over files parsed and concatenated in order
-    (``load_packed``); counter_kw are build_ref_panel's -I arguments."""
-    return build_ref_panel(load_packed(ref_files), ks, sketch_size, device, **counter_kw)
+    (``load_packed``), with the JAX package's content-addressed on-disk
+    sketch cache (``rkmh_tpu/commands/common.py:151``).
+
+    On a hit no reference is parsed or hashed: the sketches, lengths and
+    names come from the entry (``sk`` uint64, ``lens`` int32, ``names`` a
+    fixed-width unicode array; loaded without pickle) and only the table is
+    built.  A miss builds the panel and writes the entry through a unique
+    temporary file and an atomic replace.  An unreadable entry is rebuilt
+    and overwritten.  Disable with RKMH_TPU_PANEL_CACHE=0; a directory
+    there moves the cache."""
+    path = _panel_cache_path(ref_files, ks, sketch_size, max_samples,
+                             counter_size, distinct_counter)
+    if path is not None and os.path.exists(path):
+        try:
+            z = np.load(path)
+            sk_np = np.ascontiguousarray(z["sk"], dtype=np.uint64)
+            lens_np = z["lens"].astype(np.int32)
+            names = [str(x) for x in z["names"]]
+        except Exception as e:  # corrupt entry: rebuild and overwrite
+            log(f"panel cache entry unreadable ({e!r}); rebuilding")
+        else:
+            sk = torch.from_numpy(sk_np.view(np.int64)).to(device)
+            return _panel_from_sketches(names, sk, torch.from_numpy(lens_np).to(device),
+                                        sk_np, lens_np, device)
+
+    panel = build_ref_panel(load_packed(ref_files), ks, sketch_size, device,
+                            max_samples=max_samples, counter_size=counter_size,
+                            distinct_counter=distinct_counter)
+    if path is not None:
+        # unique tmp + atomic replace: concurrent cold-start runs must
+        # not interleave writes or observe partial files
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            with open(tmp, "wb") as fh:
+                np.savez_compressed(
+                    fh, sk=panel.sketches.cpu().numpy().view(np.uint64),
+                    lens=panel.lens.cpu().numpy(),
+                    names=np.asarray([str(k) for k in panel.keys]),
+                )
+            os.replace(tmp, path)
+        except OSError as e:
+            log(f"panel cache write skipped ({e})")
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+    return panel
 
 
 def load_or_build_panel(ref_files, ref_sketches: str, ks, sketch_size: int,

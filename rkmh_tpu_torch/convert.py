@@ -9,6 +9,8 @@ A ``HashMap``'s four arrays (``call``'s depth map, a cuckoo table) become
 the port's ``SortedMap`` of the same keys and values.  A sorted-key panel
 (``build_sorted_panel``'s uint64 keys and uint32 masks, either package's)
 becomes a ``SortedPanel`` with the directory over its keys that K10 reads.
+A VW model of ``rkmh_tpu.ml.wabbit`` (its numpy weights, or the npz file
+its ``save_model`` writes) becomes the port's ``WabbitModel``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from rkmh_tpu_torch.commands.common import RefPanel
+from rkmh_tpu_torch.ml.wabbit import WabbitModel, load_model
 from rkmh_tpu_torch.ops.counter import HashCounter
 from rkmh_tpu_torch.ops.hashmap import SortedMap, build_sorted_map
 from rkmh_tpu_torch.ops.lookup import flip_keys, table_slots
@@ -112,3 +115,22 @@ def sorted_panel_from_numpy(keys_u64, masks_u32, device, directory=None) -> Sort
     buf = buf.to(device)
     return SortedPanel(buf[:U], torch.from_numpy(np.ascontiguousarray(masks).view(np.int32))
                        .to(device), buf[even:].view(torch.int32)[: d.size], bits)
+
+
+def wabbit_from_numpy(kind: str, weights, bits: int, interactions, ignore,
+                      device) -> WabbitModel:
+    """A VW model as ``rkmh_tpu.ml.wabbit`` holds it (``kind`` "binary" with
+    weights [2**bits] or "ect" with [C, 2**bits], float32) -> a WabbitModel
+    on ``device`` with the same weights, bit for bit."""
+    W = np.array(weights, dtype=np.float32)  # an own, writable copy
+    if kind not in ("binary", "ect") or W.ndim != (1 if kind == "binary" else 2):
+        raise ValueError(f"a {kind!r} model's weights cannot be {W.dtype} {W.shape}")
+    return WabbitModel(kind, torch.from_numpy(W.reshape(-1, W.shape[-1])).to(device), bits,
+                       interactions, ignore)
+
+
+def wabbit_from_npz(path, device) -> WabbitModel:
+    """A model file ``save_model`` of either package wrote (npz: ``kind``,
+    ``weights``, ``bits``, ``interactions``, ``ignore``) -> a WabbitModel on
+    ``device``."""
+    return wabbit_from_numpy(*load_model(path), device)

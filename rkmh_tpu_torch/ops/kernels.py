@@ -190,13 +190,19 @@ HASHMAP_GET = Kernel("rkmh_hashmap_get", [_p, _i64, *_MAP, _p])
 #                max_rescue, del_depth, del_call, route, stream)
 CALL_SCAN = Kernel("rkmh_call_scan", [_p, _i64, _i, _p, _p, _p, *_MAP, _p, _p, _p, _p, _p, _i])
 
+# rkmh_sparse_margin(W, idx, val, m, N, F, C, D, stream)
+SPARSE_MARGIN = Kernel("rkmh_sparse_margin", [_p, _p, _p, _p, _i, _i, _i, _i64])
+# rkmh_sparse_margin_grad(dm, idx, val, dW, N, F, C, D, stream)
+SPARSE_MARGIN_GRAD = Kernel("rkmh_sparse_margin_grad", [_p, _p, _p, _p, _i, _i, _i, _i64])
+
 KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE,
            "panel_probe_filter": PANEL_PROBE_FILTER, "panel_probe_wide": PANEL_PROBE_WIDE,
            "set_probe": SET_PROBE,
            "sorted_probe": SORTED_PROBE,
            "lut_gather_rows": LUT_GATHER_ROWS, "lut_gather_lanes": LUT_GATHER_LANES,
            "counter_add": COUNTER_ADD, "counter_mask": COUNTER_MASK,
-           "hashmap_get": HASHMAP_GET, "call_scan": CALL_SCAN}
+           "hashmap_get": HASHMAP_GET, "call_scan": CALL_SCAN,
+           "sparse_margin": SPARSE_MARGIN, "sparse_margin_grad": SPARSE_MARGIN_GRAD}
 
 
 def reset_launch_counts() -> None:

@@ -200,6 +200,18 @@ def make_nanopore_reads(n: int, seed: int, panel: Hpv16Panel,
     return reads, truth
 
 
+def make_strain_reads(genome: np.ndarray, n: int, seed: int,
+                      mean_len: int = NANOPORE_MEAN_LEN, min_len: int = NANOPORE_MIN_LEN,
+                      max_len: int = NANOPORE_MAX_LEN,
+                      sub_rate: float = NANOPORE_SUB_RATE) -> list:
+    """n nanopore-like ASCII reads of one genome (a sublineage's, for the
+    VW model pipeline's samples): the length and noise model of
+    make_nanopore_reads, without N."""
+    rng = np.random.default_rng(seed)
+    return [_nanopore_read(genome, int(length), rng, sub_rate, 0.0)
+            for length in _read_lengths(n, rng, mean_len, min_len, max_len)]
+
+
 def _read_lengths(n: int, rng, mean_len: int, min_len: int, max_len: int) -> np.ndarray:
     """Log-normal read lengths of the given mean, clipped."""
     sigma = NANOPORE_LEN_SIGMA

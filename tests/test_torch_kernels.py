@@ -7,7 +7,8 @@ one.  This file imports no JAX, so it also runs where JAX is absent:
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.)  Inputs
 are made from a seed with numpy; tolerance: none, every output is an
-integer and must be equal.
+integer and must be equal, but for K12's float sums (``sparse_margin``:
+1e-5 of the sum of |terms| + 1e-6, ``bench/margin_inputs.py`` says why).
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from rkmh_tpu_torch import call_engine, convert
+from rkmh_tpu_torch.bench.margin_inputs import check_margins, edge_cases, margin_case
 from rkmh_tpu_torch.bench.wide_inputs import PAST, straddling_panel
 from rkmh_tpu_torch.ops import counter, gather, hashmap, kernels, lookup
 from rkmh_tpu_torch.ops.hashing import (
@@ -42,6 +44,7 @@ from rkmh_tpu_torch.ops.set_probe import (
     set_probe_plain,
 )
 from rkmh_tpu_torch.ops.sketch import SENTINEL, bottom_s_sketch
+from rkmh_tpu_torch.ops.sparse_margin import sparse_margins, sparse_margins_plain
 from rkmh_tpu_torch.ops.sorted_probe import (
     _sorted_probe_cuda,
     sorted_probe,
@@ -890,12 +893,55 @@ def test_sorted_probe_kernel_takes_a_40kb_read_and_one_key(cuda_device):
     assert sorted_probe(x, ln, one, 1, 0).tolist() == [[0, 1]]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,F,C", [(180, 10, 1), (180, 10, 5), (180, 110, 11),
+                                   (4096, 1002, 10), (333, 65, 4), (50, 40, 16), (50, 40, 17)])
+def test_sparse_margin_kernel_matches_plain(cuda_device, N, F, C):
+    """K12 forward and backward at the pipeline's shapes (vwize's 10 and
+    vv's 110 features, 1 / 5 / 11 classes), hash -w's per-read shape and
+    the class-tile edges (4, 16, 17)."""
+    before = (kernels.SPARSE_MARGIN.launches, kernels.SPARSE_MARGIN_GRAD.launches)
+    check_margins(*margin_case(N, F, C, 18, N + F + C, cuda_device))
+    assert (kernels.SPARSE_MARGIN.launches, kernels.SPARSE_MARGIN_GRAD.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_sparse_margin_kernel_edge_cases(cuda_device):
+    for name, case in edge_cases(cuda_device).items():
+        check_margins(*case)
+    W, idx, val, _ = edge_cases(cuda_device)["all padding"]
+    assert int(sparse_margins(W, idx, val).abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_sparse_margins_autograd_on_the_card(cuda_device):
+    """sparse_margins on CUDA tensors is K12 under autograd: a loss's
+    gradient through it equals the plain version's within the tolerance,
+    and the step launches both kernels once."""
+    W, idx, val, dm = margin_case(300, 50, 5, 12, 9, cuda_device)
+    Wk = W.clone().requires_grad_(True)
+    Wp = W.clone().requires_grad_(True)
+    before = (kernels.SPARSE_MARGIN.launches, kernels.SPARSE_MARGIN_GRAD.launches)
+    (sparse_margins(Wk, idx, val) * dm).sum().backward()
+    (sparse_margins_plain(Wp, idx, val) * dm).sum().backward()
+    torch.cuda.synchronize()
+    assert (kernels.SPARSE_MARGIN.launches, kernels.SPARSE_MARGIN_GRAD.launches) == \
+        (before[0] + 1, before[1] + 1)
+    bound = torch.zeros_like(W).index_add_(
+        1, idx.long().reshape(-1), (val.abs()[None] * dm.abs()[:, :, None]).reshape(5, -1))
+    assert bool(((Wk.grad - Wp.grad).abs() <= 1e-5 * bound + 1e-6).all())
+    with pytest.raises(ValueError, match="int32"):
+        sparse_margins(W, idx.long(), val)
+
+
 def test_library_is_keyed_by_sources_and_flags(monkeypatch):
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR and path == kernels.library_path()
     assert {p.name for p in kernels.sources()} == {"window_hash.cu", "panel_probe.cu",
                                                    "set_probe.cu", "lut_gather.cu",
-                                                   "counter.cu", "hashmap.cu", "call_scan.cu"}
+                                                   "counter.cu", "hashmap.cu", "call_scan.cu",
+                                                   "sparse_margin.cu"}
     assert {p.name for p in kernels.headers()} == {"murmur3.cuh", "hashmap.cuh",
                                                    "packed_kmer.cuh"}
     monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-lineinfo",))
@@ -917,4 +963,5 @@ def test_launch_counts_reset():
                                        "set_probe": 0, "sorted_probe": 0,
                                        "lut_gather_rows": 0, "lut_gather_lanes": 0,
                                        "counter_add": 0, "counter_mask": 0,
-                                       "hashmap_get": 0, "call_scan": 0}
+                                       "hashmap_get": 0, "call_scan": 0,
+                                       "sparse_margin": 0, "sparse_margin_grad": 0}

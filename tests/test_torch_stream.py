@@ -203,6 +203,12 @@ def test_port_never_imports_jax():
             "import rkmh_tpu_torch.observability, rkmh_tpu_torch.ops.sorted_probe\n"
             "import rkmh_tpu_torch.bench.wide_inputs, rkmh_tpu_torch.bench.bounds\n"
             "import rkmh_tpu_torch.bench.probe_inputs, rkmh_tpu_torch.ops.probe\n"
+            "import rkmh_tpu_torch.ml.wabbit, rkmh_tpu_torch.ml.vw_model\n"
+            "import rkmh_tpu_torch.classify.library, rkmh_tpu_torch.ops.sparse_margin\n"
+            "import pkgutil, importlib, rkmh_tpu_torch.scripts as s\n"
+            "names = [m.name for m in pkgutil.iter_modules(s.__path__)]\n"
+            "assert len(names) == 12, names\n"
+            "for n in names: importlib.import_module('rkmh_tpu_torch.scripts.' + n)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rkmh_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
