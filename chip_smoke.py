@@ -221,16 +221,19 @@ line) without CUDA or without the package beside it.  In order it:
     must be the input's; then the same run under ``RKMH_TPU_PROFILE``: the
     trace file must exist and name the K1 and K2 kernels;
 30. (run after 28) checks K12 (``csrc/sparse_margin.cu``: the VW trainer's
-    sparse margins and their gradient, ``ops/sparse_margin.py``) forward and
-    backward against the plain version (``bench/margin_inputs``, within 1e-5
-    of the sum of |terms| + 1e-6: float sums in another order, atomics) at
-    the pipeline's shapes (N = 180, F = 10 with C = 1, 5, 11 and F = 110
-    with C = 1, D = 2**18), at phase 32's per-read shape (N = 4,096, F =
-    1,002, C = 10) and on the edge cases (a row of padding only, one index
-    in a whole row and in every row, index D - 1, N = 1, all padding), then
-    times forward, backward and both at the per-read shape (graph and
-    eager) beside the plain version, ``embedding_bag`` (eager) and the
-    bound (``bench/bounds.sparse_margin_bytes``);
+    sparse margins on class-minor weights and their gradient over a sorted
+    plan, no atomics; ``ops/sparse_margin.py``) forward and backward
+    against the plain version (``bench/margin_inputs``, within 1e-5 of the
+    sum of |terms| + 1e-6: float sums in another order), and the backward
+    against itself (two runs equal, bit for bit), at the pipeline's shapes
+    (N = 180, F = 10 with C = 1, 5, 11 and F = 110 with C = 1, D = 2**18),
+    at phase 32's per-read shape (N = 4,096, F = 1,002, C = 10) and on the
+    edge cases (a row of padding only, one index in a whole row and in
+    every row, index D - 1, 131,072 entries on one slot, N = 1, all
+    padding), then times forward, backward and both at the per-read shape
+    (graph and eager) beside the plain version, ``embedding_bag`` (graph
+    and eager), the bound (``bench/bounds.sparse_margin_bytes``) and the
+    plan's build;
 31. the VW model pipeline (``bench/model_pipeline``): 180 training and 36
     held-out samples (single-strain and mixed, ``make_mix``'s machinery)
     of nanopore-like reads of the 10 sublineages of
@@ -245,10 +248,12 @@ line) without CUDA or without the package beside it.  In order it:
 32. per-read training at the trainer's full width: ``hash -w -k 18 -s
     1000`` (K1) over 4,096 training and 1,024 held-out reads of the 10
     sublineages, each line's XYX replaced by its sublineage (1-10);
-    ``--ect 10`` trained for 25 passes at -b 18 on the card (K12) and
-    applied to the held-out reads; prints the host's vectorize seconds,
-    the train seconds, device ms a pass (forward, backward, Adam), K12's
-    launches and the held-out accuracy;
+    ``--ect 10`` trained for 25 passes at -b 18 on the card (K12), twice:
+    the two runs' weights must be equal, bit for bit; applied to the
+    held-out reads; prints the host's vectorize seconds, the train
+    seconds, the plan's build, device ms a pass (and its forward,
+    backward, Adam and the rest), K12's launches and the held-out
+    accuracy;
 33. (run after 29, on the slice's input) the library's batch forms
     (``classify/library.py``) on the card against the CPU on the zika
     panel's sketches and the slice batch's (hashes on both sides of
@@ -263,7 +268,8 @@ path, max_abs_err against the plain version, ms, eager_ms, plain_ms, bound_ms,
 bound_by, bound_share = bound_ms / ms, and library_ms, one PyTorch call
 computing the same function where there is one: ``torch.gather`` for K4
 and K5, ``torch.searchsorted`` and the mask gather for K10,
-``embedding_bag`` forward and its backward for K12, none for the
+``embedding_bag`` forward and its backward for K12 (graph replay where
+it can be captured, else eager; both kept), none for the
 others; K11 adds K2's time at R = 8,192, its times on the sorted rows and
 its times beside K2's at R = 257-8,192; K4 and K5 add their launches by route, K4
 its times at each timed N, K5 its staged route's time and the launch
@@ -272,7 +278,8 @@ K6 its time and route at count's table, K8 its times at 2**20 queries and
 on the large map with ``torch.searchsorted`` as its library_ms, K9 its
 launches by route, its mutated k-mers per second, its byte-wise route's
 time and its times on the 1 Mbp reference, K12 its forward + backward
-times, phase 32's numbers and phase 31's accuracies) and ``{"ok": true, "device":
+times, its plan's build time and size, phase 32's numbers and phase 31's
+accuracies) and ``{"ok": true, "device":
 {...}}``.  Any failure raises.
 """
 
@@ -2698,17 +2705,19 @@ PASSES, LR = 25, 0.05                    # wabbit's defaults; train_the_wabbit.s
 def check_k12(dev) -> tuple[dict, dict]:
     """Phase 30: K12 forward and backward against the plain version at the
     pipeline's shapes, phase 32's per-read shape and the edge cases
-    (``bench/margin_inputs``: 1e-5 of the sum of |terms| + 1e-6), then
-    their times at the per-read shape: graph replay and eager, the plain
-    version, ``embedding_bag`` forward + backward and the bound."""
+    (``bench/margin_inputs``: 1e-5 of the sum of |terms| + 1e-6; two
+    backward runs equal, bit for bit), then their times at the per-read
+    shape: graph replay and eager, the plain version, ``embedding_bag``
+    forward + backward (graph replay and eager), the bound, and the plan's
+    build (its library sort, once a training run)."""
     import torch
     import torch.nn.functional as F
 
     from rkmh_tpu_torch.bench import bounds
     from rkmh_tpu_torch.bench.margin_inputs import check_margins, edge_cases, margin_case
     from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
-    from rkmh_tpu_torch.ops.sparse_margin import (_margins_cuda, _margins_grad_cuda,
-                                                  sparse_margins_plain)
+    from rkmh_tpu_torch.ops.sparse_margin import (_margins_cuda, _margins_grad_cuda, build_plan,
+                                                  pack_weights, sparse_margins_plain)
 
     per_read = f"per-read N={N_READ_TRAIN} F={READ_SKETCH + 2} C=10"
     cases = {f"pipeline N=180 F={f} C={c}": margin_case(180, f, c, 18, f + c, dev)
@@ -2720,48 +2729,72 @@ def check_k12(dev) -> tuple[dict, dict]:
         ef, eb = check_margins(*case)
         errs = {"forward": max(errs["forward"], ef), "backward": max(errs["backward"], eb)}
         say(f"K12 {label}: forward max |err| {ef:.3g}, backward {eb:.3g} (within 1e-5 of "
-            f"the sum of |terms| + 1e-6)")
+            f"the sum of |terms| + 1e-6); two backward runs equal, bit for bit")
 
     W, idx, val, dm = cases[per_read]
     C, D = W.shape
-    Wp = W.clone().requires_grad_(True)
-    plain_m = sparse_margins_plain(Wp, idx, val)
+    Wp, plan = pack_weights(W), build_plan(idx, val, D)
+    Wq = W.clone().requires_grad_(True)
+    plain_m = sparse_margins_plain(Wq, idx, val)
     WT = W.T.contiguous().requires_grad_(True)  # embedding_bag's layout: [D, C]
     dmT = dm.T.contiguous()
     lib_m = F.embedding_bag(idx, WT, per_sample_weights=val, mode="sum")
     if not torch.allclose(lib_m.T, plain_m, rtol=1e-4, atol=1e-3):
         raise AssertionError("embedding_bag does not compute K12's forward")
 
-    def lib_both():
-        torch.autograd.grad(F.embedding_bag(idx, WT, per_sample_weights=val, mode="sum"),
-                            WT, dmT)
+    def lib_fwd():
+        return F.embedding_bag(idx, WT, per_sample_weights=val, mode="sum")
+
+    def lib_both():  # a fresh leaf: its gradient node is made on the capturing stream
+        Wl = WT.detach().requires_grad_(True)
+        torch.autograd.grad(F.embedding_bag(idx, Wl, per_sample_weights=val, mode="sum"),
+                            Wl, dmT)
 
     def plain_both():
-        Wq = W.detach().requires_grad_(True)
-        torch.autograd.grad(sparse_margins_plain(Wq, idx, val), Wq, dm)
+        Wr = W.detach().requires_grad_(True)
+        torch.autograd.grad(sparse_margins_plain(Wr, idx, val), Wr, dm)
 
-    fns = {"forward": (lambda: _margins_cuda(W, idx, val),
-                       lambda: sparse_margins_plain(W, idx, val),
-                       lambda: F.embedding_bag(idx, WT, per_sample_weights=val, mode="sum")),
-           "backward": (lambda: _margins_grad_cuda(dm, idx, val, D),
-                        lambda: torch.autograd.grad(plain_m, Wp, dm, retain_graph=True),
+    def graph_ms(fn):
+        try:
+            return cuda_graph_time_ms(fn, 10)
+        except RuntimeError as exc:  # a library call that syncs cannot be captured
+            say(f"  (not captured in a CUDA graph: {str(exc).splitlines()[0][:120]})")
+            return None
+
+    fns = {"forward": (lambda: _margins_cuda(Wp, idx, val, C),
+                       lambda: sparse_margins_plain(W, idx, val), lib_fwd),
+           "backward": (lambda: _margins_grad_cuda(dm, plan),
+                        lambda: torch.autograd.grad(plain_m, Wq, dm, retain_graph=True),
                         lambda: torch.autograd.grad(lib_m, WT, dmT, retain_graph=True)),
-           "both": (lambda: (_margins_cuda(W, idx, val), _margins_grad_cuda(dm, idx, val, D)),
+           "both": (lambda: (_margins_cuda(Wp, idx, val, C), _margins_grad_cuda(dm, plan)),
                     plain_both, lib_both)}
     one_way = bounds.sparse_margin_bytes(idx, val, C)
     times = {}
     for way, (kern, plain, lib) in fns.items():
         times[way] = {"ms": cuda_graph_time_ms(kern, 10), "eager_ms": cuda_time_ms(kern, 20),
                       "plain_ms": cuda_time_ms(plain, 5, warmup=2),
-                      "library_ms": cuda_time_ms(lib, 10, warmup=2),
+                      "library_ms": graph_ms(lib),
+                      "library_eager_ms": cuda_time_ms(lib, 10, warmup=2),
                       "bound_ms": bounds.bound_ms(one_way * (2 if way == "both" else 1))}
-        say(f"time K12 {way} at {per_read} (D = 2**18): {times[way]['ms']:.4f} ms graph, "
-            f"{times[way]['eager_ms']:.4f} eager; plain {times[way]['plain_ms']:.4f}; "
-            f"embedding_bag {times[way]['library_ms']:.4f} (eager); bound "
-            f"{times[way]['bound_ms']:.4f} ms ({one_way} bytes a way)")
+        say(f"time K12 {way} at {per_read} (D = 2**18, Wp [D, 12]): {times[way]['ms']:.4f} ms "
+            f"graph, {times[way]['eager_ms']:.4f} eager; plain {times[way]['plain_ms']:.4f}; "
+            f"embedding_bag {times[way]['library_ms']} graph, "
+            f"{times[way]['library_eager_ms']:.4f} eager; bound {times[way]['bound_ms']:.4f} ms "
+            f"({one_way} bytes a way)")
+    t0 = time.perf_counter()
+    build_plan(idx, val, D)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    times["plan_ms"] = cuda_time_ms(lambda: build_plan(idx, val, D), 5, warmup=1)
+    times["plan"] = {"entries": plan.entries, "runs": int(plan.keys.numel()),
+                     "chunks": int(plan.chunk_run.numel()),
+                     "crossing_runs": int(plan.cross_keys.numel()), "slots": plan.slots}
+    say(f"K12's plan at {per_read}: {times['plan']}; built in {times['plan_ms']:.4f} ms "
+        f"(library sort and glue, once a training run; {first_s * 1e3:.1f} ms host clock)")
     W, idx, val, dm = cases["pipeline N=180 F=10 C=11"]
+    Wp, plan = pack_weights(W), build_plan(idx, val, D)
     times["pipeline_both_ms"] = cuda_graph_time_ms(
-        lambda: (_margins_cuda(W, idx, val), _margins_grad_cuda(dm, idx, val, D)), 10)
+        lambda: (_margins_cuda(Wp, idx, val, 11), _margins_grad_cuda(dm, plan)), 10)
     say(f"time K12 forward + backward at N=180 F=10 C=11: {times['pipeline_both_ms']:.4f} ms")
     return errs, times
 
@@ -2921,6 +2954,7 @@ def run_per_read_training(dev, card: str) -> dict:
     from rkmh_tpu_torch.commands.hash_cmd import HashConfig, run as hash_run
     from rkmh_tpu_torch.convert import wabbit_from_numpy
     from rkmh_tpu_torch.ml import wabbit
+    from rkmh_tpu_torch.ops.sparse_margin import _margins_cuda, _margins_grad_cuda, build_plan
 
     panel = synth.make_hpv16_panel(num_types=16)
     rng = np.random.default_rng(32)
@@ -2958,22 +2992,39 @@ def run_per_read_training(dev, card: str) -> dict:
         "per-read: wabbit --ect 10 train", ["sparse_margin", "sparse_margin_grad"])
     if res["per-read: train"]["sparse_margin_grad"] != PASSES:
         raise AssertionError("one backward launch a pass expected")
-    # one pass's device time: forward, backward and Adam, as _train takes it
+    again_s, res["per-read: train again"] = driven(
+        lambda: W.update(again=wabbit.train_multiclass(idx, val, y, 10, 18, PASSES, LR,
+                                                       device=dev)),
+        "per-read: wabbit --ect 10 train, a second run", ["sparse_margin", "sparse_margin_grad"])
+    if W["w"].tobytes() != W["again"].tobytes():
+        raise AssertionError("two trainings on the card gave weights that differ")
+    say(f"per-read: two trainings on the card ({train_s:.3f} s, {again_s:.3f} s) gave weights "
+        f"equal bit for bit")
+    # one pass's device time, as _train takes it: forward, backward, Adam and the loss
     model = wabbit_from_numpy("ect", np.zeros((10, 1 << 18), np.float32), 18, [], set(), dev)
     opt = torch.optim.Adam(model.parameters(), lr=LR)
     idx_t, val_t = torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev)
     Y = -torch.ones((10, len(y)), device=dev)
     Y[torch.from_numpy(y.astype(np.int64) - 1).to(dev), torch.arange(len(y), device=dev)] = 1
-    zero = torch.zeros((), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = build_plan(idx_t, val_t, 1 << 18)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
 
     def step():
         opt.zero_grad(set_to_none=True)
-        m = model(idx_t, val_t)
-        loss = torch.logaddexp(zero, -Y * m).mean() + wabbit.L2 * (model.W * model.W).sum()
-        loss.backward()
+        model.loss(idx_t, val_t, Y, plan).backward()
         opt.step()
 
     pass_ms = cuda_time_ms(step, PASSES, warmup=2)
+    Wp = model.Wp.detach()
+    m = _margins_cuda(Wp, idx_t, val_t, 10).requires_grad_(True)
+    (dm,) = torch.autograd.grad(torch.logaddexp(torch.zeros((), device=dev), -Y * m).mean(), m)
+    split = {"forward_ms": cuda_time_ms(lambda: _margins_cuda(Wp, idx_t, val_t, 10), PASSES),
+             "backward_ms": cuda_time_ms(lambda: _margins_grad_cuda(dm, plan), PASSES),
+             "adam_ms": cuda_time_ms(opt.step, PASSES)}
+    split["loss_and_glue_ms"] = pass_ms - sum(split.values())
     h_idx, h_val, h_y, h_vec_s, _ = data["held"]
     scores = {}
     apply_s, res["per-read: apply"] = driven(
@@ -2982,14 +3033,17 @@ def run_per_read_training(dev, card: str) -> dict:
         "per-read: wabbit -t apply", ["sparse_margin"])
     acc = float(np.mean(scores["m"].argmax(axis=0) + 1 == h_y))
     stats = {"vectorize_s": vec_s, "held_vectorize_s": h_vec_s, "train_s": train_s,
-             "pass_ms": pass_ms, "apply_s": apply_s, "accuracy": acc,
+             "train_again_s": again_s, "plan_s": plan_s, "pass_ms": pass_ms, "pass": split,
+             "apply_s": apply_s, "accuracy": acc,
              "hash_s": data["train"][4] + data["held"][4],
-             "launches": {k: res["per-read: train"][k] + res["per-read: apply"][k]
+             "launches": {k: sum(res[f"per-read: {p}"][k] for p in ("train", "train again",
+                                                                     "apply"))
                           for k in ("sparse_margin", "sparse_margin_grad")}}
     say(f"per-read training at the trainer's width ({card}): {N_READ_TRAIN} reads x "
         f"{idx.shape[1]} features, C = 10, D = 2**18: vectorize {vec_s:.2f} s on the host, "
-        f"train {train_s:.2f} s ({PASSES} passes; {pass_ms:.4f} device ms a pass: forward, "
-        f"backward, Adam), apply {apply_s:.3f} s to {N_READ_HELD} held-out reads (vectorize "
+        f"train {train_s:.3f} s ({PASSES} passes; the plan {plan_s * 1e3:.1f} ms once; "
+        f"{pass_ms:.4f} device ms a pass: {json.dumps(split)}), apply {apply_s:.3f} s to "
+        f"{N_READ_HELD} held-out reads (vectorize "
         f"{h_vec_s:.2f} s); K12 launches {stats['launches']}; held-out accuracy {acc:.3f}")
     res["stats"] = stats
     return res
@@ -3202,6 +3256,13 @@ def main() -> int:
         return {**entry(name, "counter.cu", f"rkmh_tpu/ops/counter.py:{line}", err, ms,
                         eager_ms, plain_ms, bound_ms), **extra}
 
+    def k12_entry(name, replaces, way):
+        t = k12[way]
+        library_ms = t["library_ms"] if t["library_ms"] is not None else t["library_eager_ms"]
+        return {**entry(name, "sparse_margin.cu", replaces, err_k12[way], t["ms"], t["eager_ms"],
+                        t["plain_ms"], t["bound_ms"], library_ms),
+                "library_graph_ms": t["library_ms"], "library_eager_ms": t["library_eager_ms"]}
+
     record = {"kernels": [
         {**entry("window_hash", "window_hash.cu", "rkmh_tpu/ops/pallas_hash.py:39", err_k1,
                  times["window_hash"], times["window_hash_eager"], times["window_hash_plain"],
@@ -3239,16 +3300,11 @@ def main() -> int:
                  k11["raw"]["bound_ms"]),
          "k2_at_8192_ms": k11["raw"]["k2_8192_ms"], "sorted_rows": k11["sorted"],
          "beside_k2": k2_sweep},
-        {**entry("sparse_margin", "sparse_margin.cu", "rkmh_tpu/ml/wabbit.py:171",
-                 err_k12["forward"], k12["forward"]["ms"], k12["forward"]["eager_ms"],
-                 k12["forward"]["plain_ms"], k12["forward"]["bound_ms"],
-                 k12["forward"]["library_ms"]),
+        {**k12_entry("sparse_margin", "rkmh_tpu/ml/wabbit.py:171", "forward"),
          "forward_and_backward": k12["both"], "pipeline_both_ms": k12["pipeline_both_ms"],
          "per_read_training": per_read["stats"], "pipeline_accuracy": pipeline["accuracy"]},
-        entry("sparse_margin_grad", "sparse_margin.cu", "rkmh_tpu/ml/wabbit.py:195",
-              err_k12["backward"], k12["backward"]["ms"], k12["backward"]["eager_ms"],
-              k12["backward"]["plain_ms"], k12["backward"]["bound_ms"],
-              k12["backward"]["library_ms"]),
+        {**k12_entry("sparse_margin_grad", "rkmh_tpu/ml/wabbit.py:195", "backward"),
+         "plan_ms": k12["plan_ms"], "plan": k12["plan"]},
     ]}
     say(f"stream --metrics and the profile hook: {json.dumps(metrics)}")
     say(f"panel cache set-up seconds: {json.dumps(cached['setup_s'])}")

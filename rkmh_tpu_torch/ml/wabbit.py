@@ -13,16 +13,22 @@ a model either package trains is applied by the other.
 * models: binary logistic (+-1 labels, margin predictions) and one-vs-all
   multiclass (``--ect k``, class-id predictions), trained full-batch with
   ``torch.optim.Adam`` from zeros, ``passes`` steps, on the JAX package's
-  loss.  The weights W [C, D] are the parameter of ``WabbitModel``, whose
+  loss.  ``WabbitModel`` holds its weights in K12's class-minor layout
+  (its parameter ``Wp`` [D, Cp], ``ops/sparse_margin.pack_weights``), where
+  Adam updates them (elementwise: the same result per weight in any
+  layout; the padding's gradient is 0, so it stays 0); ``W`` is its
+  [C, D] view, and ``weights_numpy`` the JAX package's arrays.  Its
   margins (training and ``-t -p`` apply) are ``ops/sparse_margin``'s: K12
-  on the card, the plain sum on the CPU;
+  on the card, the plain versions on the CPU.  ``_train`` builds the
+  backward's plan once a run;
 * vw's own binary ``.model`` files are applied on the host by the port's
   copy of ``vw_model``, as the JAX package does.
 
 Margins agree with the JAX package's to round-off, not bit for bit: the
-sums run in another order (K12's warp sums and atomics, torch's CPU sum),
-and torch's Adam rounds differently from optax's.  Class ids and
-``--binary`` labels are compared for equality.
+sums run in another order (K12's warp sums and its plan's order, torch's
+CPU sum), and torch's Adam rounds differently from optax's.  Class ids and
+``--binary`` labels are compared for equality.  A training run repeats its
+bits: K12's gradient has no atomics.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ from torch import nn
 
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.ops.murmur3 import murmur3_x64_128_np
-from rkmh_tpu_torch.ops.sparse_margin import sparse_margins
+from rkmh_tpu_torch.ops.sparse_margin import build_plan, pack_weights, sparse_margins_packed, \
+    unpack_weights
 
 L2 = 1e-6  # the loss's weight on sum(W * W) (rkmh_tpu/ml/wabbit.py:186, :220)
 
@@ -179,8 +186,9 @@ def vectorize(examples, bits: int, interactions, ignore):
 
 
 class WabbitModel(nn.Module):
-    """A feature-hashed linear model: W [C, 2**bits] (C = 1 for
-    ``binary``, the class count for ``ect``) and the features it reads."""
+    """A feature-hashed linear model of C classes (C = 1 for ``binary``,
+    the class count for ``ect``) over 2**bits weights, and the features
+    it reads.  Built from the weights [C, 2**bits]; holds them packed."""
 
     def __init__(self, kind: str, weights: torch.Tensor, bits: int, interactions=(),
                  ignore=()):
@@ -188,23 +196,36 @@ class WabbitModel(nn.Module):
         if weights.dim() != 2 or weights.shape[1] != 1 << bits:
             raise ValueError(f"a model of {bits} bits has weights [C, {1 << bits}], got "
                              f"{tuple(weights.shape)}")
-        self.kind, self.bits = kind, bits
+        self.kind, self.bits, self.num_classes = kind, bits, weights.shape[0]
         self.interactions, self.ignore = list(interactions), set(ignore)
-        self.W = nn.Parameter(weights)
+        self.Wp = nn.Parameter(pack_weights(weights.detach()))
 
-    def forward(self, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-        """[N, F] idx and val -> [C, N] margins."""
-        return sparse_margins(self.W, idx, val)
+    @property
+    def W(self) -> torch.Tensor:
+        """The weights [C, D], a view of ``Wp``."""
+        return unpack_weights(self.Wp, self.num_classes)
+
+    def forward(self, idx: torch.Tensor, val: torch.Tensor, plan=None) -> torch.Tensor:
+        """[N, F] idx and val -> [C, N] margins; ``plan``: the backward's
+        (``ops/sparse_margin.build_plan`` of idx and val)."""
+        return sparse_margins_packed(self.Wp, idx, val, self.num_classes, plan)
+
+    def loss(self, idx, val, Y: torch.Tensor, plan=None) -> torch.Tensor:
+        """The JAX package's loss: mean(logaddexp(0, -Y * m)) over all C * N
+        entries + L2 * sum(W * W); Y [C, N] in {-1, +1}."""
+        m = self(idx, val, plan)
+        return (torch.logaddexp(torch.zeros((), device=m.device), -Y * m).mean()
+                + L2 * (self.Wp * self.Wp).sum())
 
     def weights_numpy(self) -> np.ndarray:
         """The JAX package's layout: [D] for binary, [C, D] for ect."""
-        W = self.W.detach().cpu().numpy()
+        W = np.ascontiguousarray(self.W.detach().cpu().numpy())
         return W[0] if self.kind == "binary" else W
 
 
 def _train(Y: np.ndarray, idx, val, bits: int, passes: int, lr: float, device) -> np.ndarray:
-    """Full-batch Adam from zeros on mean(logaddexp(0, -Y * m)) + L2 *
-    sum(W * W), the mean over all C * N entries; Y [C, N] in {-1, +1}."""
+    """Full-batch Adam from zeros on ``WabbitModel.loss``; Y [C, N] in
+    {-1, +1}.  The backward's plan is built once, before the passes."""
     device = resolve_device(device)
     C = Y.shape[0]
     model = WabbitModel("binary" if C == 1 else "ect",
@@ -212,13 +233,11 @@ def _train(Y: np.ndarray, idx, val, bits: int, passes: int, lr: float, device) -
     idx_t = torch.as_tensor(np.asarray(idx, np.int32)).to(device)
     val_t = torch.as_tensor(np.asarray(val, np.float32)).to(device)
     Y_t = torch.as_tensor(Y).to(device)
-    zero = torch.zeros((), dtype=torch.float32, device=device)
+    plan = build_plan(idx_t, val_t, 1 << bits)
     opt = torch.optim.Adam(model.parameters(), lr=lr)
     for _ in range(max(1, passes)):
         opt.zero_grad(set_to_none=True)
-        m = model(idx_t, val_t)
-        loss = torch.logaddexp(zero, -Y_t * m).mean() + L2 * (model.W * model.W).sum()
-        loss.backward()
+        model.loss(idx_t, val_t, Y_t, plan).backward()
         opt.step()
     return model.weights_numpy()
 

@@ -190,10 +190,12 @@ HASHMAP_GET = Kernel("rkmh_hashmap_get", [_p, _i64, *_MAP, _p])
 #                max_rescue, del_depth, del_call, route, stream)
 CALL_SCAN = Kernel("rkmh_call_scan", [_p, _i64, _i, _p, _p, _p, *_MAP, _p, _p, _p, _p, _p, _i])
 
-# rkmh_sparse_margin(W, idx, val, m, N, F, C, D, stream)
-SPARSE_MARGIN = Kernel("rkmh_sparse_margin", [_p, _p, _p, _p, _i, _i, _i, _i64])
-# rkmh_sparse_margin_grad(dm, idx, val, dW, N, F, C, D, stream)
-SPARSE_MARGIN_GRAD = Kernel("rkmh_sparse_margin_grad", [_p, _p, _p, _p, _i, _i, _i, _i64])
+# rkmh_sparse_margin(Wp, idx, val, m, N, F, C, Cp, stream)
+SPARSE_MARGIN = Kernel("rkmh_sparse_margin", [_p, _p, _p, _p, _i, _i, _i, _i])
+# rkmh_sparse_margin_grad(dm, rows, vals, keys, chunk_run, chunk_slot, cross_keys, cross_slot,
+#                         touched, dmT, dW, part, N, C, D, E, chunk, nchunks, X, Cp, stream)
+SPARSE_MARGIN_GRAD = Kernel("rkmh_sparse_margin_grad", [_p] * 12 + [_i, _i, _i64, _i64, _i, _i,
+                                                                    _i, _i])
 
 KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE,
            "panel_probe_filter": PANEL_PROBE_FILTER, "panel_probe_wide": PANEL_PROBE_WIDE,

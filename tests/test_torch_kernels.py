@@ -8,7 +8,8 @@ one.  This file imports no JAX, so it also runs where JAX is absent:
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.)  Inputs
 are made from a seed with numpy; tolerance: none, every output is an
 integer and must be equal, but for K12's float sums (``sparse_margin``:
-1e-5 of the sum of |terms| + 1e-6, ``bench/margin_inputs.py`` says why).
+1e-5 of the sum of |terms| + 1e-6, ``bench/margin_inputs.py`` says why;
+K12's gradient, run twice, is equal).
 """
 
 import numpy as np
@@ -44,7 +45,15 @@ from rkmh_tpu_torch.ops.set_probe import (
     set_probe_plain,
 )
 from rkmh_tpu_torch.ops.sketch import SENTINEL, bottom_s_sketch
-from rkmh_tpu_torch.ops.sparse_margin import sparse_margins, sparse_margins_plain
+from rkmh_tpu_torch.ops.sparse_margin import (
+    _margins_grad_cuda,
+    build_plan,
+    pack_weights,
+    sparse_margins,
+    sparse_margins_packed,
+    sparse_margins_plain,
+    unpack_weights,
+)
 from rkmh_tpu_torch.ops.sorted_probe import (
     _sorted_probe_cuda,
     sorted_probe,
@@ -899,11 +908,11 @@ def test_sorted_probe_kernel_takes_a_40kb_read_and_one_key(cuda_device):
 def test_sparse_margin_kernel_matches_plain(cuda_device, N, F, C):
     """K12 forward and backward at the pipeline's shapes (vwize's 10 and
     vv's 110 features, 1 / 5 / 11 classes), hash -w's per-read shape and
-    the class-tile edges (4, 16, 17)."""
+    the class-tile edges (4, 16, 17); the backward twice, equal bits."""
     before = (kernels.SPARSE_MARGIN.launches, kernels.SPARSE_MARGIN_GRAD.launches)
     check_margins(*margin_case(N, F, C, 18, N + F + C, cuda_device))
     assert (kernels.SPARSE_MARGIN.launches, kernels.SPARSE_MARGIN_GRAD.launches) == \
-        (before[0] + 1, before[1] + 1)
+        (before[0] + 1, before[1] + 2)
 
 
 @pytest.mark.cuda
@@ -933,6 +942,64 @@ def test_sparse_margins_autograd_on_the_card(cuda_device):
     assert bool(((Wk.grad - Wp.grad).abs() <= 1e-5 * bound + 1e-6).all())
     with pytest.raises(ValueError, match="int32"):
         sparse_margins(W, idx.long(), val)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["one slot", "edges"])
+def test_sparse_margin_backward_repeats_its_bits(cuda_device, name):
+    """K12's backward has no atomics: five runs on the same inputs, one of
+    them over a plan built anew, give the same bits (131,072 entries on
+    one slot: one run across 512 chunks, joined by the second pass)."""
+    W, idx, val, dm = edge_cases(cuda_device)[name]
+    grads = [_margins_grad_cuda(dm, build_plan(idx, val, W.shape[1]))]
+    plan = build_plan(idx, val, W.shape[1])
+    grads += [_margins_grad_cuda(dm, plan) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, grads[0]) for g in grads[1:])
+
+
+@pytest.mark.cuda
+def test_sparse_margins_with_and_without_a_prebuilt_plan(cuda_device):
+    """The trainer's form with its plan, the same form building the plan in
+    its backward, and the [C, D] form: the same gradient bits, one launch
+    of each kernel a step; the padding's gradient 0."""
+    W, idx, val, dm = margin_case(400, 90, 10, 16, 11, cuda_device)
+    grads = []
+    before = (kernels.SPARSE_MARGIN.launches, kernels.SPARSE_MARGIN_GRAD.launches)
+    for plan in (build_plan(idx, val, W.shape[1]), None):
+        Wp = pack_weights(W).requires_grad_(True)
+        (sparse_margins_packed(Wp, idx, val, 10, plan) * dm).sum().backward()
+        grads.append(Wp.grad)
+    Wc = W.clone().requires_grad_(True)
+    (sparse_margins(Wc, idx, val) * dm).sum().backward()
+    torch.cuda.synchronize()
+    assert (kernels.SPARSE_MARGIN.launches, kernels.SPARSE_MARGIN_GRAD.launches) == \
+        (before[0] + 3, before[1] + 3)
+    assert torch.equal(grads[0], grads[1]) and torch.equal(unpack_weights(grads[0], 10), Wc.grad)
+    assert grads[0].shape == (1 << 16, 12) and not grads[0][:, 10:].any()
+
+
+@pytest.mark.cuda
+def test_sparse_margin_grad_refuses_a_chunk_it_cannot_take(cuda_device):
+    W, idx, val, dm = margin_case(50, 40, 3, 12, 5, cuda_device)
+    with pytest.raises(RuntimeError, match="rkmh_sparse_margin_grad"):
+        _margins_grad_cuda(dm, build_plan(idx, val, W.shape[1], chunk=100))
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_repeats_its_bits(cuda_device):
+    """Two --ect trainings on the card: weights equal bit for bit."""
+    from rkmh_tpu_torch.ml.wabbit import train_multiclass
+
+    rng = np.random.default_rng(14)
+    idx = rng.integers(0, 1 << 14, size=(300, 60)).astype(np.int32)
+    idx[:, :2] = [11, 12]  # constant features: their gradient cancels to ~0
+    val = rng.standard_normal((300, 60)).astype(np.float32)
+    val[:, :2] = 1.0
+    y = rng.integers(1, 11, size=300)
+    runs = [train_multiclass(idx, val, y, 10, 14, 25, 0.05, device=cuda_device)
+            for _ in range(2)]
+    assert runs[0].shape == (10, 1 << 14) and runs[0].tobytes() == runs[1].tobytes()
 
 
 def test_library_is_keyed_by_sources_and_flags(monkeypatch):
