@@ -260,7 +260,31 @@ line) without CUDA or without the package beside it.  In order it:
     2**63), every output equal; then the panel cache
     (``RKMH_TPU_PANEL_CACHE`` at a temporary directory; every other phase
     runs with it off): the set-up on a miss and on a hit (K1 0 launches),
-    and ``stream`` over the first 16,384 reads twice, byte-identical.
+    and ``stream`` over the first 16,384 reads twice, byte-identical;
+34. (run after 12) ``--devices`` / ``--tp``'s kernels: K2's partial
+    epilogue (``rkmh_panel_probe_partial``: a tp shard's local best, max,
+    max before the best and sketch length) exactly against its plain
+    version on every shard of the zika panel at tp = 2 and 4 (raw rows and
+    sorted s = 50 rows, the running max from -1 and from 0) and of
+    ``bench/wide_inputs.straddling_panel`` at R = 20,000, tp = 2 (10,000
+    references a shard: K11's route); the shards merged
+    (``parallel/mesh.merge_tp_partials``) equal the unsharded K2 / K11
+    stream and filter outputs word for word; K6 and K7 over each of 4 slot
+    ranges of a 2e8-slot table exactly against their plain versions, the
+    ranges' tables together equal to the single-table K6's and K7 over the
+    ranges in turn equal to the single-table K7; the partial epilogue, K6
+    and K7 over a range timed with their bounds;
+35. (run after 33, and inside 28) the ``--devices`` paths on a grid of
+    ``(cuda:0,) * 4`` (``mesh_devices``; the four shards share the card),
+    each with the counters zeroed just before and read just after, byte
+    for byte against the same command on one device: ``stream`` at (dp,
+    tp) = (4, 1) and (2, 2), ``stream -M 2 -I 40`` and ``filter -M 2 -I 40
+    -N 10`` at (2, 2) (K6 and K7 launched over slot ranges), ``stream`` over
+    phase 28's 12,288 references at tp = 2, ``stream -i`` at (2, 2) over the
+    first 16,384 reads, ``hash``, ``count`` and ``search`` with ``--devices
+    4``; reads/s beside one device's; then ``rkmh-tpu-torch stream --devices
+    2`` through the CLI: on one card stderr holds the fallback line and
+    stdout is one device's.
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record (per kernel: launches on the driven paths, in all and by
@@ -279,7 +303,8 @@ on the large map with ``torch.searchsorted`` as its library_ms, K9 its
 launches by route, its mutated k-mers per second, its byte-wise route's
 time and its times on the 1 Mbp reference, K12 its forward + backward
 times, its plan's build time and size, phase 32's numbers and phase 31's
-accuracies) and ``{"ok": true, "device":
+accuracies; K6 and K7 their launches over a slot range and their times on
+one; the partial epilogue its shape) and ``{"ok": true, "device":
 {...}}``.  Any failure raises.
 """
 
@@ -2596,6 +2621,16 @@ def run_wide_stream(dev, card: str) -> tuple[dict, dict]:
                      read_text(out_cpu), "stream 12,288 refs")
         assigned = np.array([ln.split("\t", 1)[0] for ln in gpu.splitlines()])
         share = float(np.mean(assigned == np.asarray(names)[src]))
+        # phase 35: the same run with the panel in 2 shards of 6,144 references
+        out_grid = os.path.join(tmp, "grid.tsv")
+        label = "stream 12,288 refs --devices 4 --tp 2"
+        grid_s, grid_launches = driven(
+            lambda: stream.run(stream.StreamConfig(
+                read_files=[reads], out_file=out_grid, device="cuda", devices=GRID, tp=2,
+                mesh_devices=(torch.device("cuda", 0),) * GRID, **cfg)),
+            label, ("window_hash", "panel_probe_partial"))
+        same_file(out_grid, out_gpu, label)
+        sharded = sharded_report(label, card, n_reads, grid_s, e2e_s, grid_launches)
         t0 = time.perf_counter()
         pt = build_panel_table(ref_sk.cpu().numpy(), ref_lens.cpu().numpy())
         build_s = time.perf_counter() - t0
@@ -2646,7 +2681,7 @@ def run_wide_stream(dev, card: str) -> tuple[dict, dict]:
                 f"({work.nbytes} bytes: rows, lens, output, an entry and its mask row a "
                 f"distinct entry hit)")
     res = {"e2e_s": e2e_s, "e2e_reads_per_s": n_reads / e2e_s, "launches": launches,
-           "host_table_build_s": build_s, "pack_s": pack_s, "packed_table_bytes": wide.nbytes,
+           "sharded": sharded, "host_table_build_s": build_s, "pack_s": pack_s, "packed_table_bytes": wide.nbytes,
            "logical_table_bytes": table.numel() * 4, "projected_table_bytes": projected}
     return res, times
 
@@ -3137,6 +3172,324 @@ def run_panel_cache(dev, card: str, zika: dict) -> dict:
     return res
 
 
+# ---- phases 34-35: --devices / --tp (``parallel/``): K2's partial epilogue and K6 / K7
+# over slot ranges, then the sharded paths on a grid of (cuda:0,) * 4
+
+GRID = 4              # the grid's entries, all cuda:0 on a one-card machine
+RANGE_PARTS = 4       # K6 / K7 over each of 4 ranges of a 2e8-slot table
+PARTIAL_TPS = (2, 4)  # the zika panel's 60 references in 2 and 4 shards
+N_WIDE_PARTIAL = 20000  # K11's route a shard: 10,000 references each at tp = 2
+
+
+def check_partials(dev, panel, hashes) -> tuple[int, dict]:
+    """Phase 34a: K2's partial epilogue (``rkmh_panel_probe_partial``)
+    exactly against ``panel_probe_partial_plain`` on every shard of the zika
+    panel at tp = 2 and 4 (raw rows and sorted s = 50 rows, init -1 and 0)
+    and of ``bench/wide_inputs.straddling_panel`` at R = 20,000, tp = 2 (K11's
+    route: 10,000 references a shard); the merged shards
+    (``parallel/mesh.merge_tp_partials``) must equal the unsharded K2 or K11
+    output word for word, stream and filter, with and without -D/-N.  Then
+    times the partial epilogue on one zika shard (tp = 2, raw rows)."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
+    from rkmh_tpu_torch.bench.wide_inputs import straddling_panel
+    from rkmh_tpu_torch.ops.lookup import build_panel_table
+    from rkmh_tpu_torch.ops.probe import (
+        _panel_probe_cuda,
+        _panel_probe_filter_cuda,
+        _panel_probe_partial_cuda,
+        device_table,
+        panel_probe_partial_plain,
+    )
+    from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+    from rkmh_tpu_torch.parallel.mesh import build_sharded_tables, merge_tp_partials
+
+    worst = 0
+
+    def check(label, sk_np, lens_np, full, ref_lens, rows_modes, tp):
+        nonlocal worst
+        R = sk_np.shape[0]
+        tables, rps = build_sharded_tables(sk_np, lens_np, tp)
+        logical = [torch.from_numpy(np.ascontiguousarray(t).view(np.int32)).to(dev)
+                   for t in tables]
+        shards = [device_table(t.cpu(), rps, dev) for t in logical]
+        for mode, rows, ln in rows_modes:
+            for init in (-1, 0):
+                got = [_panel_probe_partial_cuda(rows, ln, s, rps, init) for s in shards]
+                want = [panel_probe_partial_plain(rows, ln, t, rps, init) for t in logical]
+                err = max(max_abs_err(g, w) for g, w in zip(got, want))
+                if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"partial epilogue disagrees with the plain version: "
+                                         f"{label}, tp {tp}, {mode} rows, init {init}")
+                worst = max(worst, err)
+                for md, mm in ((0, -1), (1, 9)):
+                    if init == -1:
+                        merged = merge_tp_partials(torch.stack(got), rps, md, mm)
+                        whole = _panel_probe_cuda(rows, ln, full, R, md, mm)
+                    else:
+                        merged = merge_tp_partials(torch.stack(got), rps, md, mm, ref_lens)
+                        whole = _panel_probe_filter_cuda(rows, ln, full, R, ref_lens, md, mm)
+                    if not torch.equal(merged, whole):
+                        raise AssertionError(f"merged partials differ from the unsharded "
+                                             f"kernel: {label}, tp {tp}, {mode} rows, init "
+                                             f"{init}, -D {md} -N {mm}")
+        route = "K11" if rps > 8192 else "K2 registers" if rps <= 256 else "K2 shared memory"
+        say(f"partial epilogue, {label}, tp = {tp} ({rps} references a shard, {route}): every "
+            f"shard exact against its plain version, raw and sorted rows, init -1 and 0; the "
+            f"merged shards equal the unsharded stream and filter outputs word for word")
+        return logical, shards, rps
+
+    sk_np, lens_np = panel.sketches.cpu().numpy(), panel.lens.cpu().numpy()
+    sk50, lens50 = bottom_s_sketch(hashes, 50)
+    zika_rows = (("raw", hashes, None), ("sorted s=50", sk50, lens50))
+    timed = None
+    for tp in PARTIAL_TPS:
+        got = check("zika", sk_np, lens_np, panel.table, panel.lens, zika_rows, tp)
+        if timed is None:
+            timed = got
+    ref_sk, ref_lens, reads, set_lens = straddling_panel(N_WIDE_PARTIAL, seed=34, n_reads=512,
+                                                         width=149)
+    full = device_table(torch.from_numpy(build_panel_table(ref_sk, ref_lens).table
+                                         .view(np.int32)), N_WIDE_PARTIAL, dev)
+    raw = torch.from_numpy(reads).to(dev)
+    sk, ln = bottom_s_sketch(raw, 32)
+    check("straddling panel", ref_sk, ref_lens, full, torch.from_numpy(set_lens).to(dev),
+          (("raw", raw, None), ("sorted s=32", sk, ln)), 2)
+
+    logical, shards, rps = timed
+    run = lambda: _panel_probe_partial_cuda(hashes, None, shards[0], rps, -1)  # noqa: E731
+    st = bounds.panel_probe_stats(hashes, None, logical[0], rps)
+    t = {"ms": cuda_graph_time_ms(run, 20), "eager_ms": cuda_time_ms(run, 50),
+         "plain_ms": cuda_time_ms(lambda: panel_probe_partial_plain(
+             hashes, None, logical[0], rps, -1), 5),
+         "bound_ms": bounds.bound_ms(bounds.tensor_bytes(hashes) + st.table_bytes
+                                     + bounds.PARTIAL_OUT * hashes.shape[0]),
+         "shape": list(hashes.shape), "shard_refs": rps}
+    say(f"time panel_probe_partial (zika shard 0 of 2, raw rows {tuple(hashes.shape)}): "
+        f"{t['ms']:.4f} ms ({t['eager_ms']:.4f} eager) vs {t['plain_ms']:.4f} ms plain; bound "
+        f"{t['bound_ms']:.4f} ms (rows, {st.table_bytes} B of the shard table's sectors, "
+        f"{bounds.PARTIAL_OUT} B a read out)")
+    return worst, t
+
+
+def check_counter_ranges(dev, hashes) -> tuple[dict, dict]:
+    """Phase 34b: K6 and K7 over each of RANGE_PARTS slot ranges of a
+    2e8-slot table, exactly against their plain versions (the stream
+    batch's hashes with the counter pass's window mask derived in the
+    kernel, binned and direct; random hashes, zeros and >= 2**63 among
+    them, with a mask tensor); the ranges put together equal the
+    single-table K6's table bit for bit, and K7 run over the ranges in turn
+    equals the single-table K7.  Then times K6 and K7 on the second range
+    at the stream shape.  -> ({name: max_abs_err}, {name: times})."""
+    import torch
+
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
+    from rkmh_tpu_torch.ops import counter
+    from rkmh_tpu_torch.ops.hashing import window_mask
+
+    size = COUNTER_SIZES[0]
+    n = size // RANGE_PARTS
+    lens150 = torch.full((hashes.shape[0],), 150, dtype=torch.int32, device=dev)
+    windows = (lens150, 160, [12])
+    mask = window_mask(lens150, 160, [12])
+    rh, rm = (t.to(dev) for t in random_hashes(34, (4096, 149)))
+    whole = torch.zeros(size, dtype=torch.int32, device=dev)
+    counter._counter_add_cuda(whole, hashes, None, windows)
+    counter._counter_add_cuda(whole, rh, rm)
+    worst = {"counter_add": 0, "counter_mask": 0}
+    parts = []
+    for o in range(RANGE_PARTS):
+        at = {"base": o * n, "size": size}
+        want = torch.zeros(n, dtype=torch.int32, device=dev)
+        counter.counter_add_plain(want, hashes, mask, **at)
+        counter.counter_add_plain(want, rh, rm, **at)
+        for binned in (True, False):
+            got = torch.zeros(n, dtype=torch.int32, device=dev)
+            counter._counter_add_cuda(got, hashes, None, windows, binned=binned, **at)
+            counter._counter_add_cuda(got, rh, rm, binned=binned, **at)
+            err = max_abs_err(got, want)
+            if err or not torch.equal(got, want):
+                raise AssertionError(f"K6 over slots [{o * n}, {(o + 1) * n}) (binned={binned}) "
+                                     "disagrees with the plain version")
+            worst["counter_add"] = max(worst["counter_add"], err)
+        parts.append(got)
+    if not torch.equal(torch.cat(parts), whole):
+        raise AssertionError("K6's ranges put together differ from the single-table K6")
+    for h in (hashes, rh):
+        out = h
+        for o in range(RANGE_PARTS):
+            at = {"base": o * n, "size": size}
+            g = counter._counter_mask_cuda(parts[o], out, MIN_OCC, counter.INT32_MAX, **at)
+            w = counter.counter_mask_plain(parts[o], out, MIN_OCC, counter.INT32_MAX, **at)
+            err = max_abs_err(g, w)
+            if err or not torch.equal(g, w):
+                raise AssertionError(f"K7 over slots [{o * n}, {(o + 1) * n}) disagrees with "
+                                     "the plain version")
+            worst["counter_mask"] = max(worst["counter_mask"], err)
+            out = g
+        if not torch.equal(out, counter._counter_mask_cuda(whole, h, MIN_OCC, counter.INT32_MAX)):
+            raise AssertionError("K7 over the ranges in turn differs from the single-table K7")
+    say(f"K6/K7 over {RANGE_PARTS} ranges of {n} slots of a {size}-slot table: each exact "
+        f"against its plain version (binned and direct, the window mask and a mask tensor); "
+        f"the ranges equal the single-table K6 table and K7 bit for bit")
+
+    # timed on the second range (base > 0), as a dp shard of the -M counter runs them
+    at = {"base": n, "size": size}
+    table = parts[1]
+    in_range = counter.slots(hashes[mask], size)
+    in_range = in_range[(in_range >= n) & (in_range < 2 * n)]
+    add_sectors = bounds.sector_bytes(torch.unique(in_range) * 4)
+    nz = counter.slots(hashes[hashes != 0], size)
+    get_sectors = bounds.sector_bytes(torch.unique(nz[(nz >= n) & (nz < 2 * n)]) * 4)
+    plain_table = table.clone()
+    add = lambda: counter._counter_add_cuda(table, hashes, None, windows, **at)  # noqa: E731
+    get = lambda: counter._counter_mask_cuda(table, hashes, MIN_OCC,  # noqa: E731
+                                             counter.INT32_MAX, **at)
+    t = {"counter_add": {
+            "ms": cuda_graph_time_ms(add, 20), "eager_ms": cuda_time_ms(add, 20),
+            "plain_ms": cuda_time_ms(lambda: counter.counter_add_plain(plain_table, hashes,
+                                                                       mask, **at), 5),
+            "bound_ms": bounds.bound_ms(bounds.tensor_bytes(hashes, lens150) + 2 * add_sectors)},
+         "counter_mask": {
+            "ms": cuda_graph_time_ms(get, 20), "eager_ms": cuda_time_ms(get, 20),
+            "plain_ms": cuda_time_ms(lambda: counter.counter_mask_plain(
+                table, hashes, MIN_OCC, counter.INT32_MAX, **at), 5),
+            "bound_ms": bounds.bound_ms(2 * bounds.tensor_bytes(hashes) + get_sectors)}}
+    for name, v in t.items():
+        v.update(slots=n, base=n)
+        say(f"time {name} over slots [{n}, {2 * n}): {v['ms']:.4f} ms ({v['eager_ms']:.4f} "
+            f"eager) vs {v['plain_ms']:.4f} ms plain, hashes {tuple(hashes.shape)}; bound "
+            f"{v['bound_ms']:.4f} ms")
+    return worst, t
+
+
+def sharded_report(label: str, card: str, reads: int, seconds: float, single_s: float,
+                   launches: dict) -> dict:
+    say(f"{label} on {card}, {GRID} shards sharing one card: e2e {reads / seconds:.1f} reads/s "
+        f"({seconds:.3f} s for {reads} reads); one device {reads / single_s:.1f} reads/s")
+    return {"e2e_s": seconds, "e2e_reads_per_s": reads / seconds,
+            "one_device_reads_per_s": reads / single_s, "launches": launches}
+
+
+def run_sharded_paths(dev, card: str, zika: dict, single: dict, hash_res: dict) -> dict:
+    """Phase 35: the --devices paths on a grid of (cuda:0,) * 4, each
+    driven with the counters zeroed just before and read just after and
+    held byte for byte against the same command on one device on the card:
+    stream at (dp, tp) = (4, 1) and (2, 2), stream -M 2 -I 40 and filter -M
+    2 -I 40 -N 10 at (2, 2) (K6 and K7 over slot ranges), stream -i at (2,
+    2) over the first 16,384 reads, hash, count and search with --devices
+    4 (over the 2**18 reads of phase 17 for hash and search); then
+    ``rkmh-tpu-torch stream --devices 2`` through the CLI: on one card its
+    stderr holds the fallback line and its stdout is unchanged.  ``single``:
+    the one-device results of phases 6, 13 and 14."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch.commands import count_cmd, filter_cmd, hash_cmd, search_cmd, stream
+    from rkmh_tpu_torch.ops import kernels
+
+    grid = (torch.device("cuda", 0),) * GRID
+    tmp = zika["dir"]
+    res = {}
+    base = dict(ref_files=[zika["refs"]], ks=(12,), sketch_size=1000)
+    one = {"stream": os.path.join(tmp, "gpu.tsv"),
+           "stream -M -I": os.path.join(tmp, "stream_mi.tsv"),
+           "filter": os.path.join(tmp, "filter.fq")}
+    probe = ("window_hash", "panel_probe_partial")
+    counted = probe + ("counter_add", "counter_mask")
+    for label, run, want, single_s, needed in (
+            *[(f"stream --devices 4 --tp {tp}", lambda out, tp=tp: stream.run(
+                stream.StreamConfig(read_files=[zika["reads"]], out_file=out, device="cuda",
+                                    devices=GRID, tp=tp, mesh_devices=grid, **base)),
+               one["stream"], single["stream"]["e2e_s"], probe) for tp in (1, 2)],
+            ("stream -M 2 -I 40 --devices 4 --tp 2", lambda out: stream.run(stream.StreamConfig(
+                read_files=[zika["reads"]], out_file=out, device="cuda", devices=GRID, tp=2,
+                mesh_devices=grid, min_kmer_occ=MIN_OCC, max_samples=MAX_SAMPLES, **base)),
+             one["stream -M -I"], single["stream -M -I"]["e2e_s"], counted),
+            ("filter -M 2 -I 40 -N 10 --devices 4 --tp 2", lambda out: filter_cmd.run(
+                filter_cmd.FilterConfig(read_files=[zika["reads"]], out_file=out, device="cuda",
+                                        devices=GRID, tp=2, mesh_devices=grid,
+                                        min_kmer_occ=MIN_OCC, max_samples=MAX_SAMPLES,
+                                        min_matches=FILTER_MIN_MATCHES, **base)),
+             one["filter"], single["filter"]["e2e_s"], counted)):
+        out = os.path.join(tmp, "sharded.out")
+        seconds, launches = driven(lambda: run(out), label, needed)
+        same_file(out, want, label)
+        if "-M" in label:
+            ranges = {k: kernels.KERNELS[k].by_route.get("range", 0)
+                      for k in ("counter_add", "counter_mask")}
+            if not all(ranges.values()):
+                raise AssertionError(f"{label}: K6/K7 launches over a slot range {ranges}")
+            launches = {**launches, "by_range": ranges}
+        res[label] = sharded_report(label, card, N_SLICE_READS, seconds, single_s, launches)
+        os.remove(out)
+
+    out = os.path.join(tmp, "sharded_i.tsv")
+    with open(zika["head"], "rb") as stdin:
+        seconds, launches = driven(lambda: stream.run(stream.StreamConfig(
+            in_stream=True, out_file=out, device="cuda", devices=GRID, tp=2, mesh_devices=grid,
+            **base), stdin=stdin), "stream -i --devices 4 --tp 2", probe)
+    require_same(read_text(out), head_lines(one["stream"], N_CPU_LINES), "stream -i --devices")
+    res["stream -i --devices 4 --tp 2"] = {**report(
+        "stream -i --devices 4 --tp 2", card, N_CPU_LINES, seconds,
+        f", the Python parser; {GRID} shards sharing one card"), "launches": launches}
+
+    reads = hash_res["reads"]
+    refs = write_search_refs(tmp)
+    for label, run, needed, n_reads in (
+            ("hash --devices 4", lambda out, **kw: hash_cmd.run(hash_cmd.HashConfig(
+                read_files=[reads], ks=(12,), out_file=out, device="cuda", **kw)),
+             ("window_hash",), N_HASH_READS),
+            ("count --devices 4", lambda out, **kw: count_cmd.run(count_cmd.CountConfig(
+                read_files=[zika["reads"]], ks=(12,), counter_size=COUNT_SLOTS, out_file=out,
+                device="cuda", **kw)), ("window_hash", "counter_add"), N_SLICE_READS),
+            ("search --devices 4", lambda out, **kw: search_cmd.run(search_cmd.SearchConfig(
+                ref_files=[refs], read_files=[reads], ks=(12,), out_file=out, device="cuda",
+                **kw)), ("window_hash",), N_HASH_READS)):
+        ext = ".npz" if label.startswith("count") else ".txt"
+        want, out = os.path.join(tmp, "one" + ext), os.path.join(tmp, "grid" + ext)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(want)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        seconds, launches = driven(lambda: run(out, devices=GRID, mesh_devices=grid), label,
+                                   needed)
+        if ext == ".npz":
+            with np.load(want) as a, np.load(out) as b:
+                if not all(np.array_equal(a[k], b[k]) for k in a.files):
+                    raise AssertionError(f"{label}: the table differs from one device's")
+        else:
+            same_file(out, want, label)
+        res[label] = sharded_report(label, card, n_reads, seconds, single_s, launches)
+        os.remove(want)
+        os.remove(out)
+
+    head = head_file(zika["reads"], os.path.join(tmp, "cli_head.fq"), N_CPU_LINES)
+    proc = subprocess.run([sys.executable, "-m", "rkmh_tpu_torch.cli", "stream", "-r",
+                           zika["refs"], "-f", head, "-k", "12", "--devices", "2"],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    n_visible = torch.cuda.device_count()
+    fallback = (f"stream --devices ignored (--devices 2 > {n_visible} visible device(s)); "
+                "running single-device")
+    if n_visible == 1:
+        if proc.returncode or fallback not in proc.stderr.splitlines():
+            raise AssertionError(f"stream --devices 2 on one card: rc {proc.returncode}, "
+                                 f"stderr {proc.stderr[-500:]!r}")
+    elif proc.returncode:
+        raise AssertionError(f"stream --devices 2: rc {proc.returncode}")
+    require_same(proc.stdout, head_lines(one["stream"], N_CPU_LINES), "stream --devices 2 (CLI)")
+    say(f"CLI stream --devices 2 on {n_visible} card(s): stdout byte-identical to one device"
+        + (f"; stderr: {fallback}" if n_visible == 1 else ""))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3187,6 +3540,8 @@ def main() -> int:
         hp = run_hpv16(dev, card_smi)
         counters, k7_hpv16 = check_counters(dev, hashes, hp.pop("batch_hashes"))
         filt = check_k2_filter(dev, panel, hashes)
+        err_partial, partial_t = check_partials(dev, panel, hashes)
+        err_ranges, ranges_t = check_counter_ranges(dev, hashes)
         st_mi = run_stream_counters(dev, card_smi, zika)
         fl = run_filter(dev, card_smi, zika)
         sketches = run_ref_sketches(dev, card_smi, zika)
@@ -3200,6 +3555,8 @@ def main() -> int:
         metrics = run_metrics(zika)
         check_library(panel, hashes)
         cached = run_panel_cache(dev, card_smi, zika)
+        sharded = run_sharded_paths(dev, card_smi, zika,
+                                    {"stream": sl, "stream -M -I": st_mi, "filter": fl}, hashed)
     hpm = run_hpv16_counter(dev, card_smi)
     with tempfile.TemporaryDirectory() as work:
         from rkmh_tpu_torch.bench import call_inputs
@@ -3229,7 +3586,10 @@ def main() -> int:
              "count": counted, "search": searched, **resumed, **called,
              **{k: {"launches": v} for k, v in {**pipeline, **per_read}.items()
                 if k not in ("accuracy", "stats")},
-             **{k: {"launches": v} for k, v in cached.items() if k != "setup_s"}}
+             **{k: {"launches": v} for k, v in cached.items() if k != "setup_s"},
+             **sharded, "stream 12,288 refs --devices 4 --tp 2": wide.pop("sharded")}
+    by_range = {name: sum(r["launches"].get("by_range", {}).get(name, 0) for r in paths.values())
+                for name in ("counter_add", "counter_mask")}
 
     def launched(name):
         return sum(r["launches"].get(name, 0) for r in paths.values())
@@ -3254,7 +3614,11 @@ def main() -> int:
     def counter_entry(name, line, **extra):
         err, ms, plain_ms, bound_ms, eager_ms = counters[name]
         return {**entry(name, "counter.cu", f"rkmh_tpu/ops/counter.py:{line}", err, ms,
-                        eager_ms, plain_ms, bound_ms), **extra}
+                        eager_ms, plain_ms, bound_ms),
+                "launches_by_range": by_range[name],
+                "range": {**ranges_t[name], "max_abs_err": err_ranges[name],
+                          "bound_share": ranges_t[name]["bound_ms"] / ranges_t[name]["ms"]},
+                **extra}
 
     def k12_entry(name, replaces, way):
         t = k12[way]
@@ -3295,6 +3659,10 @@ def main() -> int:
          "bytewise_route": call_times["k9_call_bytewise"], "at_1mbp": call_times["k9_1mbp"]},
         entry("sorted_probe", "set_probe.cu", "rkmh_tpu/classify/engine.py:829", k10["err"],
               k10["ms"], k10["eager_ms"], k10["plain_ms"], k10["bound_ms"], k10["library_ms"]),
+        {**entry("panel_probe_partial", "panel_probe.cu", "rkmh_tpu/parallel/mesh.py:157",
+                 err_partial, partial_t["ms"], partial_t["eager_ms"], partial_t["plain_ms"],
+                 partial_t["bound_ms"]), "shape": partial_t["shape"],
+         "shard_refs": partial_t["shard_refs"]},
         {**entry("panel_probe_wide", "panel_probe.cu", "rkmh_tpu/ops/lookup.py:341", err_k11,
                  k11["raw"]["ms"], k11["raw"]["eager_ms"], k11["raw"]["plain_ms"],
                  k11["raw"]["bound_ms"]),

@@ -128,6 +128,7 @@ class ProbeWork:
 
 SORTED_KEY = 8  # a sorted panel's key, beside its 4 * Wm mask bytes
 WIDE_ENTRY = 12  # a panel entry's hash and occ, beside its 4 * Wm mask bytes
+PARTIAL_OUT = 16  # a tp shard's partial epilogue writes four int32 a read (K2's stream: 12)
 
 
 def sorted_probe_work(rows: torch.Tensor, lens: torch.Tensor, keys: torch.Tensor,

@@ -113,7 +113,7 @@ def distinct_hash_mask(codes: torch.Tensor, lengths: torch.Tensor, ks):
     return x, (occ_ranks(x) == 0) & (x != SENTINEL)
 
 
-def _probe_rows(hashes: torch.Tensor, sketch_size: int):
+def probe_rows(hashes: torch.Tensor, sketch_size: int):
     """-> (rows, lens) for the panel probe.  When every window fits the
     sketch (W <= s) the bottom-s selection is the identity, so the raw
     hashes go to the probe with prefix-equality ranks and no sort (lens
@@ -129,7 +129,7 @@ def classify_codes_table(codes: torch.Tensor, panel, ks, sketch_size: int,
                          min_diff: int, min_matches: int,
                          counter: torch.Tensor | None = None, min_occ: int = 0) -> torch.Tensor:
     """The per-batch stream step: [B, L] uint8 codes -> int32 [3, B]."""
-    rows, lens = _probe_rows(depth_filtered_hashes(codes, ks, counter, min_occ), sketch_size)
+    rows, lens = probe_rows(depth_filtered_hashes(codes, ks, counter, min_occ), sketch_size)
     return panel_probe(rows, lens, panel.table, panel.num_refs, min_diff, min_matches)
 
 
@@ -138,7 +138,7 @@ def filter_codes_table(codes: torch.Tensor, panel, ks, sketch_size: int,
                        counter: torch.Tensor | None = None, min_occ: int = 0) -> torch.Tensor:
     """The per-batch filter step: [B, L] uint8 codes -> int32 [5, B]
     (best, shared, total_union, keep, flags)."""
-    rows, lens = _probe_rows(depth_filtered_hashes(codes, ks, counter, min_occ), sketch_size)
+    rows, lens = probe_rows(depth_filtered_hashes(codes, ks, counter, min_occ), sketch_size)
     return panel_probe_filter(rows, lens, panel.table, panel.num_refs, panel.lens,
                               min_diff, min_matches)
 

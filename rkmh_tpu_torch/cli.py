@@ -21,9 +21,14 @@ parity flags (``-S -F -p -q -d``, and ``-z -m`` for stream) are accepted
 with rkmh-tpu's warnings.  Every command takes ``--metrics`` (one JSON
 line of counts and rates on stderr at exit, as ``RKMH_TPU_METRICS=1``
 does; ``RKMH_TPU_PROFILE=<dir>`` adds a profiler trace:
-``observability.py``).  Every other flag of rkmh-tpu (``--devices``,
-``--tp``, ``--dist-*``) is parsed and rejected with an error naming it
-(for ``hpv16``: when it would change what runs,
+``observability.py``).  ``--devices N`` (with ``--tp T`` for
+``stream``, ``classify`` and ``filter``) runs ``stream``, ``classify``,
+``filter``, ``hash``, ``count`` and ``search`` over N devices of the
+machine (``parallel/``), with rkmh-tpu's defaults (0 and 1) and its
+logged fallback to one device where the geometry cannot apply.  Every
+other flag of rkmh-tpu (``--dist-*``; ``--devices`` of ``call``;
+``--devices``/``--tp`` of ``hpv16``) is parsed and rejected with an error
+naming it (for ``hpv16``: when it would change what runs,
 ``commands.hpv16_cmd.not_ported``), so an rkmh-tpu command line never
 runs with a flag silently dropped.
 """
@@ -36,14 +41,17 @@ import sys
 from rkmh_tpu_torch.device import DEFAULT_DEVICE
 
 # (flags, dest, argparse keywords) of rkmh-tpu flags the port does not
-# run yet; hash, count, search and call have no --tp
-_NOT_PORTED = (
-    (("--devices",), "devices", {"type": int}),
-    (("--tp",), "tp", {"type": int}),
+# run yet: --dist-* everywhere, and call's --devices
+_DIST = (
     (("--dist-coordinator",), "dist_coordinator", {}),
     (("--dist-procs",), "dist_procs", {"type": int}),
     (("--dist-rank",), "dist_rank", {"type": int}),
 )
+_CALL_DEVICES = ((("--devices",), "devices", {"type": int}),)
+
+
+def _not_ported(command: str) -> tuple:
+    return _CALL_DEVICES + _DIST if command == "call" else _DIST
 
 
 def _add_dead_flags(p, stream: bool) -> None:
@@ -63,11 +71,20 @@ def _add_dead_flags(p, stream: bool) -> None:
         p.add_argument("-m", "--merge-sketch", action="store_true", help=hidden)
 
 
-def _add_not_ported(p, tp: bool = True) -> None:
-    for flags, dest, kw in _NOT_PORTED:
-        if tp or dest != "tp":
-            p.add_argument(*flags, dest=dest, help=argparse.SUPPRESS,
-                           **{"default": None, **kw})
+def _add_not_ported(p, command: str) -> None:
+    for flags, dest, kw in _not_ported(command):
+        p.add_argument(*flags, dest=dest, help=argparse.SUPPRESS, **{"default": None, **kw})
+
+
+def _add_devices(p, tp: bool) -> None:
+    """--devices (and --tp) with rkmh-tpu's defaults (rkmh_tpu/cli.py:84-90,
+    154-155)."""
+    p.add_argument("--devices", type=int, default=0,
+                   help="run over N local devices (reads data-parallel); 0 = one device")
+    if tp:
+        p.add_argument("--tp", type=int, default=1,
+                       help="shard the reference panel over T of the --devices "
+                            "(devices = dp x tp)")
 
 
 def _warn_dead_flags(args) -> None:
@@ -133,7 +150,8 @@ def _add_classify_parser(sub, name: str):
     _add_dead_flags(p, stream=name != "filter")
     p.add_argument("-i", "--in-stream", action="store_true", dest="in_stream",
                    help="classify reads from stdin (ignored with -f, as in rkmh)")
-    _add_not_ported(p)
+    _add_devices(p, tp=True)
+    _add_not_ported(p, name)
 
 
 def _add_hpv16_parser(sub):
@@ -195,7 +213,8 @@ def _add_hash_parsers(sub) -> None:
     p.add_argument("--out", default="", dest="out_file", help="write the lines here")
     p.add_argument("--resume", action="store_true",
                    help="go on with an interrupted --out run")
-    _add_not_ported(p, tp=False)
+    _add_devices(p, tp=False)
+    _add_not_ported(p, "hash")
 
     p = sub.add_parser("count")
     p.add_argument("-f", "--fasta", action="append", default=[], dest="reads")
@@ -206,7 +225,8 @@ def _add_hash_parsers(sub) -> None:
     p.add_argument("-o", "--out-file", default="", help="save the counter table (npz)")
     p.add_argument("--dump", action="store_true", help="print the occupied slots")
     _add_run_flags(p)
-    _add_not_ported(p, tp=False)
+    _add_devices(p, tp=False)
+    _add_not_ported(p, "count")
 
     p = sub.add_parser("search")
     p.add_argument("-f", "--fasta", action="append", default=[], dest="reads")
@@ -218,7 +238,8 @@ def _add_hash_parsers(sub) -> None:
     p.add_argument("-o", "--output", default="", dest="out_file",
                    help="write the match lines here")
     p.add_argument("--resume", action="store_true", help="go on with an interrupted -o run")
-    _add_not_ported(p, tp=False)
+    _add_devices(p, tp=False)
+    _add_not_ported(p, "search")
 
 
 def _add_call_parser(sub):
@@ -240,7 +261,7 @@ def _add_call_parser(sub):
                         "checkpointed in <out>.progress")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="cuda (default; an error without a GPU) or cpu")
-    _add_not_ported(p, tp=False)
+    _add_not_ported(p, "call")
 
 
 def build_parser():
@@ -280,7 +301,7 @@ def _run_stream(args):
         max_samples=args.max_samples, counter_size=args.counter_size,
         batch_size=args.batch_size, chunk_reads=args.chunk_reads,
         ref_sketches=args.ref_sketches, out_file=args.out_file, resume=args.resume,
-        in_stream=args.in_stream, device=args.device,
+        in_stream=args.in_stream, devices=args.devices, tp=args.tp, device=args.device,
     ))
 
 
@@ -295,7 +316,8 @@ def _run_filter(args):
         max_samples=args.max_samples, in_stream=args.in_stream,
         counter_size=args.counter_size, batch_size=args.batch_size,
         chunk_reads=args.chunk_reads, ref_sketches=args.ref_sketches,
-        out_file=args.out_file, resume=args.resume, device=args.device,
+        out_file=args.out_file, resume=args.resume, devices=args.devices, tp=args.tp,
+        device=args.device,
     ))
 
 
@@ -337,7 +359,7 @@ def _run_hash(args):
         output_kmers=args.output_kmers, wabbitize=args.wabbitize,
         output_counts=args.output_counts, json_out=args.json, sourmash_out=args.sourmash,
         out_prefix=args.out_prefix, batch_size=args.batch_size, chunk_reads=args.chunk_reads,
-        out_file=args.out_file, resume=args.resume, device=args.device,
+        out_file=args.out_file, resume=args.resume, devices=args.devices, device=args.device,
     ))
 
 
@@ -347,7 +369,7 @@ def _run_count(args):
     return run(CountConfig(
         read_files=args.reads, ks=tuple(args.ks), counter_size=args.counter_size,
         batch_size=args.batch_size, out_file=args.out_file, dump=args.dump,
-        chunk_reads=args.chunk_reads, device=args.device,
+        chunk_reads=args.chunk_reads, devices=args.devices, device=args.device,
     ))
 
 
@@ -357,7 +379,7 @@ def _run_search(args):
     return run(SearchConfig(
         ref_files=args.refs, read_files=args.reads, ks=tuple(args.ks),
         batch_size=args.batch_size, chunk_reads=args.chunk_reads, out_file=args.out_file,
-        resume=args.resume, device=args.device,
+        resume=args.resume, devices=args.devices, device=args.device,
     ))
 
 
@@ -380,7 +402,7 @@ def main(argv=None) -> int:
         cfg = _hpv16_config(args)
         given = not_ported(cfg)
     else:
-        given = [flags[0] for flags, dest, _ in _NOT_PORTED
+        given = [flags[0] for flags, dest, _ in _not_ported(args.command)
                  if getattr(args, dest, None) is not None]  # given (--dist-rank 0 too)
     if given:
         ap.error(f"{args.command}: {', '.join(given)} not yet ported to rkmh-tpu-torch")

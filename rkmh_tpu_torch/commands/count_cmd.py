@@ -13,8 +13,11 @@ rkmh-tpu's:
 
 The counting is the -M counter pass of the other commands
 (``common.count_read_kmers``: K1, then K6 with the window mask derived in
-the kernel), and the table comes back in one device-to-host copy.  Not
-ported: --devices and --dist-*.
+the kernel), and the table comes back in one device-to-host copy.
+``--devices N`` (``commands.common.DpCtx``, rkmh_tpu/commands/
+count_cmd.py:69-73) hashes each of a batch's N row slices on its own
+device and adds them into the one table (addition commutes: the same
+bits).  Not ported: --dist-*.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 
 from rkmh_tpu_torch.commands.common import (
     DEFAULT_KMER,
+    DpCtx,
     count_read_kmers,
     iter_packed_chunks,
     log,
@@ -46,7 +50,9 @@ class CountConfig:
     out_file: str = ""              # -o: save the table as npz
     dump: bool = False              # --dump: print the occupied slots
     chunk_reads: int = 0            # streaming window; 0 = default (65536)
+    devices: int = 0                # --devices: hash over N devices (dp); 0 = one device
     device: str = DEFAULT_DEVICE
+    mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
 
 
 def run(cfg: CountConfig, out=None, stats: dict | None = None) -> int:
@@ -59,6 +65,9 @@ def run(cfg: CountConfig, out=None, stats: dict | None = None) -> int:
     ks = tuple(cfg.ks) if cfg.ks else (DEFAULT_KMER,)
     if not cfg.ks:
         log("Using default kmer size of 16.")
+    dpc = DpCtx.maybe(cfg.devices, device, cfg.mesh_devices)
+    if dpc is not None:
+        batch_size = dpc.round_batch(batch_size)
 
     total_reads = total_kmers = 0
 
@@ -73,7 +82,7 @@ def run(cfg: CountConfig, out=None, stats: dict | None = None) -> int:
 
     counter = count_read_kmers(
         tallied(iter_packed_chunks(cfg.read_files, resolve_chunk_reads(cfg.chunk_reads))),
-        ks, cfg.counter_size, batch_size, device)
+        ks, cfg.counter_size, batch_size, device, dpc)
     if stats is not None:
         stats["binned"] = counter.binned
     table = counter.to_numpy()

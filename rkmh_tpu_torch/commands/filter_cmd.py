@@ -30,8 +30,12 @@ Classification uses the filter argmax (``engine.argmax_filter``: a read
 that matches nothing gets reference "" and fails the diff filter).  -I
 counts each k-mer once per reference (unlike stream -I); -M counts every
 read k-mer of the ``-f`` files in a first pass, so with -M and no ``-f``
-the counter stays empty and every streamed read fails, as in rkmh.  Not
-ported yet: --devices / --tp and --dist-*.
+the counter stays empty and every streamed read fails, as in rkmh.
+``--devices N [--tp T]`` runs the step over a (dp, tp) grid of devices
+(rkmh_tpu/commands/filter_cmd.py:158-176, 226-240: ``commands.common
+.ShardedCtx``), in file mode and -i, with the -M counter dp-sharded; pad
+rows have keep 0 and fall off; a geometry that cannot apply logs rkmh-tpu's
+line and runs on one device.  Not ported yet: --dist-*.
 """
 
 from __future__ import annotations
@@ -52,12 +56,15 @@ from rkmh_tpu_torch.commands.common import (
     DEFAULT_SKETCH,
     ChunkState,
     ChunkedPipeline,
+    ShardedCtx,
     count_read_kmers,
     iter_packed_chunks,
     load_or_build_panel,
     log,
+    mesh_candidates,
     resolve_batch_size,
     resolve_chunk_reads,
+    sharded_geometry_reason,
     two_pass_chunks,
 )
 from rkmh_tpu_torch.commands.recovery import Progress, fail_after_chunks, skip_reads
@@ -91,7 +98,10 @@ class FilterConfig:
     ref_sketches: str = ""          # --ref-sketches / -R: panel from a sketch file
     out_file: str = ""              # -o: write here instead of stdout
     resume: bool = False            # --resume: go on with a partial -o file
+    devices: int = 0                # --devices: a (dp, tp) grid of N devices; 0 = one device
+    tp: int = 1                     # --tp: panel shards (devices = dp * tp)
     device: str = DEFAULT_DEVICE
+    mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
 
 
 def run(cfg: FilterConfig, out=None, stdin=None, stats: dict | None = None) -> int:
@@ -165,15 +175,32 @@ def _run(cfg: FilterConfig, out, stdin, stats, progress: Progress | None = None,
     panel = load_or_build_panel(cfg.ref_files, cfg.ref_sketches, ks, cfg.sketch_size, device,
                                 max_samples=cfg.max_samples, counter_size=cfg.counter_size,
                                 distinct_counter=True)
+    # decided before the -M pass: with --devices the counter shards over dp
+    sharded = None
+    if cfg.devices > 1:
+        candidates = mesh_candidates(device, cfg.mesh_devices)
+        reason = sharded_geometry_reason(cfg.devices, cfg.tp, panel.num_refs, len(candidates),
+                                         cfg.min_kmer_occ, cfg.counter_size)
+        if reason is not None:
+            log(f"filter --devices ignored ({reason}); running single-device")
+        else:
+            sharded = ShardedCtx(panel, ks, cfg.devices, cfg.tp, cfg.counter_size, batch_size,
+                                 candidates)
     counter = None
     chunks = None
     if cfg.min_kmer_occ >= 0:
         # the counter exists, possibly empty, whenever -M is given
         pass1, pass2 = two_pass_chunks(cfg.read_files, chunk_reads)
-        counter = count_read_kmers(pass1, ks, cfg.counter_size, batch_size, device).table
+        if sharded is not None:
+            sharded.build_counter(pass1)
+        else:
+            counter = count_read_kmers(pass1, ks, cfg.counter_size, batch_size, device).table
         chunks = pass2()
 
     def classify(codes: np.ndarray) -> torch.Tensor:
+        if sharded is not None:
+            return sharded.step(codes, cfg.sketch_size, cfg.min_diff, cfg.min_matches,
+                                cfg.min_kmer_occ, filter_mode=True)
         batch = torch.from_numpy(codes).to(device, non_blocking=True)
         return engine.filter_codes_table(batch, panel, ks, cfg.sketch_size, cfg.min_diff,
                                          cfg.min_matches, counter, cfg.min_kmer_occ)

@@ -24,7 +24,10 @@ K1 hashes each batch on the device (``engine.hash_batch_with_mask``, or
 are formatted a batch at a time by the native formatter
 (``rkmh_format_hash_lines``), the -w and JSON records in Python.  Hashes
 come back as int64 bit patterns and are read as uint64 before any of them
-becomes text.  Not ported: --devices and --dist-*.
+becomes text.  ``--devices N`` (``commands.common.DpCtx``,
+rkmh_tpu/commands/hash_cmd.py:138-142) hashes each of a batch's N row
+slices on its own device and fetches them in row order.  Not ported:
+--dist-*.
 """
 
 from __future__ import annotations
@@ -41,11 +44,13 @@ from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.commands.common import (
     DEFAULT_KMER,
     ChunkedPipeline,
+    DpCtx,
     LinesChunk,
     iter_packed_chunks,
     log,
     resolve_batch_size,
     resolve_chunk_reads,
+    rows_in_order,
 )
 from rkmh_tpu_torch.commands.recovery import count_complete_lines, skip_reads
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
@@ -68,7 +73,9 @@ class HashConfig:
     chunk_reads: int = 0          # streaming window; 0 = default (65536)
     out_file: str = ""            # --out: hash lines here
     resume: bool = False          # --resume: line-counted append to --out
+    devices: int = 0              # --devices: hash over N devices (dp); 0 = one device
     device: str = DEFAULT_DEVICE
+    mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
 
 
 def _wabbit_line(name: str, mins: list[int], ks, sketch_size: int,
@@ -141,6 +148,9 @@ def _run(cfg: HashConfig, out, resume_skip: int) -> int:
         log("Using default kmer size of 16.")
     else:
         log(f"Using a kmer size of {ks[0]}")
+    dpc = DpCtx.maybe(cfg.devices, device, cfg.mesh_devices)
+    if dpc is not None:
+        batch_size = dpc.round_batch(batch_size)
     want_json = cfg.json_out or cfg.sourmash_out or bool(cfg.out_prefix)
     chunks = iter_packed_chunks(cfg.read_files, resolve_chunk_reads(cfg.chunk_reads))
     if resume_skip:
@@ -159,17 +169,21 @@ def _run(cfg: HashConfig, out, resume_skip: int) -> int:
     sketch = cfg.sketch_size > 0
 
     def dispatch(st, rows, codes, lens):
-        batch = torch.from_numpy(codes).to(device, non_blocking=True)
+        # the batch's row slices on their devices (one slice without --devices)
+        parts = (dpc.put(codes, lens) if dpc is not None else
+                 [(torch.from_numpy(codes).to(device, non_blocking=True),
+                   torch.from_numpy(lens).to(device, non_blocking=True))])
         if sketch:
-            return (rows, lens), engine.sketch_batch(batch, ks, cfg.sketch_size)
-        return (rows, lens), engine.hash_batch_with_mask(
-            batch, torch.from_numpy(lens).to(device, non_blocking=True), ks)
+            return (rows, lens), [engine.sketch_batch(c, ks, cfg.sketch_size) for c, _ in parts]
+        return (rows, lens), [engine.hash_batch_with_mask(c, n, ks) for c, n in parts]
 
     def fetch(results):
-        return [tuple(t.cpu().numpy() for t in res) for res in results]
+        return [tuple(rows_in_order([part[t] for part in res]) for t in range(2))
+                for res in results]
 
     def on_result(st, meta, arrs):
         rows, lens = meta
+        arrs = [a[: len(rows)] for a in arrs]  # the pad rows of a dp split off
         vals = arrs[0].view(np.uint64)
         if sketch:  # the first sk_lens columns of each row are its sketch
             mask = np.arange(vals.shape[1])[None, :] < arrs[1][:, None]

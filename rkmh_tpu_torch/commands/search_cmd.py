@@ -16,7 +16,10 @@ patterns with the sign bit flipped, so that the signed order is the
 unsigned one, then a gather and a compare).  With ``-o FILE --resume`` the
 lines already in FILE are dropped as they are made again
 (``recovery.LineSkipWriter``), since a read shorter than k writes no line.
-Not ported: --devices and --dist-*.
+``--devices N`` (``commands.common.DpCtx``, rkmh_tpu/commands/
+search_cmd.py:102-106) runs each of a batch's N row slices on its own
+device, against a copy of the keys there, and fetches them in row order.
+Not ported: --dist-*.
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ from rkmh_tpu_torch.commands.common import (
     DEFAULT_KMER,
     ChunkState,
     ChunkedPipeline,
+    DpCtx,
     iter_packed_chunks,
     log,
     resolve_batch_size,
     resolve_chunk_reads,
+    rows_in_order,
 )
 from rkmh_tpu_torch.commands.recovery import open_line_resume
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
@@ -53,7 +58,9 @@ class SearchConfig:
     chunk_reads: int = 0            # streaming window; 0 = default (65536)
     out_file: str = ""              # -o: lines here
     resume: bool = False            # --resume: line-counted append to -o
+    devices: int = 0                # --devices: search over N devices (dp); 0 = one device
     device: str = DEFAULT_DEVICE
+    mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
 
 
 def load_ref_kmers(paths) -> np.ndarray:
@@ -167,14 +174,24 @@ def _run(cfg: SearchConfig, out) -> int:
 
     ref_hashes = load_ref_kmers(cfg.ref_files)
     log(f"Loaded {len(ref_hashes)} reference kmers.")
-    keys = sorted_keys(ref_hashes, device)
+    dpc = DpCtx.maybe(cfg.devices, device, cfg.mesh_devices)
+    if dpc is not None:
+        batch_size = dpc.round_batch(batch_size)
+    keys = {}  # the sorted keys on each device a slice runs on
+
+    def member(codes: torch.Tensor) -> torch.Tensor:
+        if codes.device not in keys:
+            keys[codes.device] = sorted_keys(ref_hashes, codes.device)
+        return member_mask(kmer_window_hashes(codes, k), keys[codes.device])
 
     def dispatch(st, rows, codes, lens):
-        batch = torch.from_numpy(codes).to(device, non_blocking=True)
-        return (rows, lens), member_mask(kmer_window_hashes(batch, k), keys)
+        parts = (dpc.put(codes) if dpc is not None
+                 else [torch.from_numpy(codes).to(device, non_blocking=True)])
+        return (rows, lens), [member(c) for c in parts]
 
     def on_result(st, meta, found):
         rows, lens = meta
+        found = found[: len(rows)]  # the pad rows of a dp split off
         for r, line in zip(rows.tolist(),
                            format_search_lines(found, lens, k, rows, st.names, st.seqs)):
             st.lines[r] = line
@@ -182,7 +199,7 @@ def _run(cfg: SearchConfig, out) -> int:
 
     pipeline = ChunkedPipeline(on_result=on_result,
                                emit=lambda st: out.write(b"".join(st.lines).decode()),
-                               fetch=lambda results: [r.cpu().numpy() for r in results])
+                               fetch=lambda results: [rows_in_order(r) for r in results])
     pipeline.run(iter_packed_chunks(cfg.read_files, resolve_chunk_reads(cfg.chunk_reads)),
                  make_state=_SearchChunk, dispatch=dispatch, batch_size=batch_size)
     return 0

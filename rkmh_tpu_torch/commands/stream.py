@@ -26,7 +26,11 @@ stdin as it arrives (``_run_stdin``, :315-425): a reader thread parses
 records into a bounded queue, batches go to the device as they fill (or,
 when the input stalls, as they are), and each batch's lines are written
 and flushed once its result lands; with -M the stream is buffered and run
-in two passes (:489-498).  Not ported yet: --devices / --tp and --dist-*.
+in two passes (:489-498).  ``--devices N [--tp T]`` runs the step over a
+(dp, tp) grid of devices (``_ShardedClassify``, :242-305, :518-543): the
+reads dp-sharded, the panel tp-sharded, the -M counter dp-sharded, the
+output byte-identical; a geometry that cannot apply logs rkmh-tpu's line
+and runs on one device.  Not ported yet: --dist-*.
 """
 
 from __future__ import annotations
@@ -48,12 +52,15 @@ from rkmh_tpu_torch.commands.common import (
     DEFAULT_COUNTER_SIZE,
     ChunkedPipeline,
     LinesChunk,
+    ShardedCtx,
     count_read_kmers,
     iter_packed_chunks,
     load_or_build_panel,
     log,
+    mesh_candidates,
     resolve_batch_size,
     resolve_chunk_reads,
+    sharded_geometry_reason,
     two_pass_chunks,
 )
 from rkmh_tpu_torch.commands.recovery import count_complete_lines, fail_after_chunks, skip_reads
@@ -85,7 +92,10 @@ class StreamConfig:
     out_file: str = ""           # -o: write here instead of stdout
     resume: bool = False         # --resume: go on with a partial -o file
     in_stream: bool = False      # -i: classify stdin (ignored with -f)
+    devices: int = 0             # --devices: a (dp, tp) grid of N devices; 0 = one device
+    tp: int = 1                  # --tp: panel shards (devices = dp * tp)
     device: str = DEFAULT_DEVICE
+    mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
 
 
 # the 8 possible "\t<sketch>[FAIL:DEPTH]\t[FAIL:MATCHES]\t[FAIL:DIFF]\n"
@@ -142,7 +152,7 @@ _IDLE = object()
 _EOF = object()
 
 
-def _run_stdin(cfg: StreamConfig, out, panel, ks, batch_size: int, device, stdin) -> int:
+def _run_stdin(cfg: StreamConfig, out, panel, batch_size: int, step, stdin) -> int:
     """stream -i: classify a stream (``stdin``, or the process's stdin)
     with low latency, byte-identical to file mode.  A reader thread parses
     records into a queue of at most 4 batches; the consumer fills batches,
@@ -180,9 +190,7 @@ def _run_stdin(cfg: StreamConfig, out, panel, ks, batch_size: int, device, stdin
     def dispatch(recs):
         global last_peak_buffered_lines
         codes, _ = encode_seqs([r.seq for r in recs])
-        batch = torch.from_numpy(codes).to(device, non_blocking=True)
-        pending.append((recs, engine.classify_codes_table(
-            batch, panel, ks, cfg.sketch_size, cfg.min_diff, cfg.min_matches)))
+        pending.append((recs, step(codes)))
         last_peak_buffered_lines = max(last_peak_buffered_lines,
                                        sum(len(r) for r, _ in pending))
 
@@ -223,6 +231,15 @@ def _run_stdin(cfg: StreamConfig, out, panel, ks, batch_size: int, device, stdin
     if err is not None:
         raise err
     return 0
+
+
+def _validate_devices(cfg: StreamConfig, num_refs: int, n_visible: int) -> str | None:
+    """Why --devices cannot apply: "unset" without it (--tp alone runs on
+    one device, silently), None when it can."""
+    if cfg.devices <= 1:
+        return "unset"
+    return sharded_geometry_reason(cfg.devices, cfg.tp, num_refs, n_visible,
+                                   cfg.min_kmer_occ, cfg.counter_size)
 
 
 def run(cfg: StreamConfig, out=None, stdin=None) -> int:
@@ -267,12 +284,30 @@ def _run(cfg: StreamConfig, out, resume_skip: int = 0, stdin=None) -> int:
 
     panel = load_or_build_panel(cfg.ref_files, cfg.ref_sketches, ks, cfg.sketch_size, device,
                                 max_samples=cfg.max_samples, counter_size=cfg.counter_size)
-    if in_stream:
-        return _run_stdin(cfg, out, panel, ks, batch_size, device, stdin)
+    candidates = mesh_candidates(device, cfg.mesh_devices)
+    reason = _validate_devices(cfg, panel.num_refs, len(candidates))
+    if cfg.devices > 1 and reason not in (None, "unset"):
+        log(f"stream --devices ignored ({reason}); running single-device")
+    sharded = (ShardedCtx(panel, ks, cfg.devices, cfg.tp, cfg.counter_size, batch_size,
+                          candidates) if reason is None else None)
     counter = None
+
+    def step(codes: np.ndarray) -> torch.Tensor:
+        if sharded is not None:
+            return sharded.step(codes, cfg.sketch_size, cfg.min_diff, cfg.min_matches,
+                                cfg.min_kmer_occ)
+        batch = torch.from_numpy(codes).to(device, non_blocking=True)
+        return engine.classify_codes_table(batch, panel, ks, cfg.sketch_size, cfg.min_diff,
+                                           cfg.min_matches, counter, cfg.min_kmer_occ)
+
+    if in_stream:
+        return _run_stdin(cfg, out, panel, batch_size, step, stdin)
     if cfg.min_kmer_occ >= 0:
         pass1, pass2 = two_pass_chunks(read_files, chunk_reads)
-        counter = count_read_kmers(pass1, ks, cfg.counter_size, batch_size, device).table
+        if sharded is not None:  # the counter itself shards over dp (parallel/ep.py)
+            sharded.build_counter(pass1)
+        else:
+            counter = count_read_kmers(pass1, ks, cfg.counter_size, batch_size, device).table
         chunks = pass2()
     else:
         chunks = iter_packed_chunks(read_files, chunk_reads)
@@ -280,10 +315,7 @@ def _run(cfg: StreamConfig, out, resume_skip: int = 0, stdin=None) -> int:
         chunks = skip_reads(chunks, resume_skip)
 
     def dispatch(st, rows, codes, lens):
-        batch = torch.from_numpy(codes).to(device, non_blocking=True)
-        return rows, engine.classify_codes_table(
-            batch, panel, ks, cfg.sketch_size, cfg.min_diff, cfg.min_matches,
-            counter, cfg.min_kmer_occ)
+        return rows, step(codes)
 
     def fetch(results):
         return [r.cpu().numpy() for r in results]

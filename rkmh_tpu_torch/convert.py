@@ -10,7 +10,11 @@ the port's ``SortedMap`` of the same keys and values.  A sorted-key panel
 (``build_sorted_panel``'s uint64 keys and uint32 masks, either package's)
 becomes a ``SortedPanel`` with the directory over its keys that K10 reads.
 A VW model of ``rkmh_tpu.ml.wabbit`` (its numpy weights, or the npz file
-its ``save_model`` writes) becomes the port's ``WabbitModel``.
+its ``save_model`` writes) becomes the port's ``WabbitModel``.  For
+``--devices``: rkmh-tpu's stacked tp shard tables (``build_sharded_tables``'
+[tp, NB, width] uint32) become a ``ShardedPanel`` on a grid, and a [size]
+int32 counter table (a dp-sharded one fetched whole) becomes a
+``ShardedCounter``'s dp shards (``ShardedCounter.to_numpy`` gives it back).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from rkmh_tpu_torch.ops.hashmap import SortedMap, build_sorted_map
 from rkmh_tpu_torch.ops.lookup import flip_keys, table_slots
 from rkmh_tpu_torch.ops.probe import device_table
 from rkmh_tpu_torch.ops.sorted_probe import SortedPanel, build_directory
+from rkmh_tpu_torch.parallel.ep import ShardedCounter
+from rkmh_tpu_torch.parallel.mesh import Mesh, ShardedPanel
 
 
 def panel_from_numpy(keys, sketches_u64, lens, table_u32, device) -> RefPanel:
@@ -72,6 +78,30 @@ def counter_from_npz(path, device) -> HashCounter:
     if table.shape != (size,):
         raise ValueError(f"{path}: a table of shape {table.shape} for a counter size of {size}")
     return counter_from_numpy(table, device)
+
+
+def sharded_tables_from_numpy(tables_u32, ref_lens, mesh: Mesh) -> ShardedPanel:
+    """rkmh-tpu's stacked tp shard tables ([tp, NB, width] uint32, from
+    ``rkmh_tpu.parallel.mesh.build_sharded_tables``) and the [R] sketch
+    lengths -> a ShardedPanel on ``mesh`` (shard j on column j)."""
+    tables = np.array(tables_u32, dtype=np.uint32)
+    if tables.ndim != 3:
+        raise ValueError(f"sharded tables are [tp, NB, width], got shape {tables.shape}")
+    table_slots(tables.shape[2], len(ref_lens) // max(tables.shape[0], 1))
+    return ShardedPanel(mesh, tables, np.asarray(ref_lens, dtype=np.int32))
+
+
+def sharded_counter_from_numpy(table_i32, mesh: Mesh) -> ShardedCounter:
+    """A [size] int32 counter table -> a ShardedCounter on ``mesh`` whose dp
+    shards hold its slots, bit for bit."""
+    table = np.asarray(table_i32)
+    if table.ndim != 1 or table.dtype != np.int32:
+        raise ValueError(f"a counter table is 1-D int32, got {table.dtype} {table.shape}")
+    counter = ShardedCounter(mesh, table.shape[0])
+    for o, owner in enumerate(counter.owners):
+        n = counter.shard_size
+        owner.table.copy_(torch.from_numpy(table[o * n: (o + 1) * n].copy()))
+    return counter
 
 
 def hashmap_from_numpy(hash_hi, hash_lo, used, values, device) -> SortedMap:

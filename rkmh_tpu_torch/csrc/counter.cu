@@ -20,6 +20,15 @@
 // unpadded reads, derived here from the reads' lengths, the padded length
 // and the k values, so that no [B, W] mask is built or read.
 //
+// A slot range: both kernels take (base, n_slots), the part [base, base +
+// n_slots) of the logical hash % size table that `table` holds (a dp
+// shard of the sharded counter, rkmh_tpu/parallel/ep.py:35-141).  K6 adds
+// only the elements whose slot lies in the range, at slot - base; K7 masks
+// only those and passes every other hash through, so a hash visiting each
+// owner of a partition in turn comes out as the whole table's K7 gives it.
+// (0, size) is the whole table: the kernels are then exactly the
+// single-table kernels, and the single-table callers pass it.
+//
 // What bounds K6 on the card: one read-modify-write of a random 4 B slot
 // per element in a table of 40 MB (filter's 1e7 slots, inside the 50 MB
 // L2) to 3.2 GB (hpv16's 8e8 slots), plus a streaming read of the 8 B
@@ -93,6 +102,16 @@ __device__ __forceinline__ uint32_t slot_of(uint64_t h, Modulus m) {
   return (uint32_t)(h - q * m.size);
 }
 
+// The slots [base, base + n) of the table that a call reads or adds to.
+struct Range {
+  uint32_t base, n;
+};
+
+// h's slot less base; >= r.n (unsigned) where the range does not hold it.
+__device__ __forceinline__ uint32_t local_slot(uint64_t h, Modulus m, Range r) {
+  return slot_of(h, m) - r.base;
+}
+
 // Division by a fixed d >= 1 of any 32-bit n (as in window_hash.cu).
 struct FastDiv {
   uint32_t m;
@@ -143,10 +162,14 @@ __device__ __forceinline__ bool counted(const Counted& w, int64_t i) {
 }
 
 __global__ void counter_add_direct_kernel(const uint64_t* __restrict__ hashes, Counted w,
-                                          int64_t n, int32_t* __restrict__ table, Modulus m) {
+                                          int64_t n, int32_t* __restrict__ table, Modulus m,
+                                          Range r) {
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
-    if (counted(w, i)) atomicAdd(&table[slot_of(hashes[i], m)], 1);
+    if (counted(w, i)) {
+      const uint32_t s = local_slot(hashes[i], m, r);
+      if (s < r.n) atomicAdd(&table[s], 1);
+    }
   }
 }
 
@@ -160,7 +183,7 @@ static_assert(MAX_BINS <= 2 * SCATTER_THREADS, "the scan takes two bins a thread
 
 __global__ void __launch_bounds__(SCATTER_THREADS, 3)
 bin_scatter_kernel(const uint64_t* __restrict__ hashes, Counted w, int64_t n, Modulus m,
-                   int shift, int nbins, int cap, int32_t* __restrict__ cursor,
+                   Range r, int shift, int nbins, int cap, int32_t* __restrict__ cursor,
                    uint32_t* __restrict__ bins, int32_t* __restrict__ table) {
   __shared__ uint32_t sorted[TILE];  // the tile's slots in bin order
   __shared__ int hist[MAX_BINS];     // elements of the tile per bin
@@ -185,14 +208,14 @@ bin_scatter_kernel(const uint64_t* __restrict__ hashes, Counted w, int64_t n, Mo
     h[j] = on ? hashes[i] : 0;
     if (on && h[j] == 0) ++my_zeros;  // hash 0 is slot 0: added once per block
   }
-  uint32_t slot[PER_THREAD];
+  uint32_t slot[PER_THREAD];  // local: slot - base
   int rank[PER_THREAD];  // the element's place among its bin's in this tile; -1: none
 #pragma unroll
   for (int j = 0; j < PER_THREAD; ++j) {
     rank[j] = -1;
     if (h[j] != 0) {
-      slot[j] = slot_of(h[j], m);
-      rank[j] = atomicAdd(&hist[slot[j] >> shift], 1);
+      slot[j] = local_slot(h[j], m, r);
+      if (slot[j] < r.n) rank[j] = atomicAdd(&hist[slot[j] >> shift], 1);
     }
   }
   my_zeros = __reduce_add_sync(FULL, my_zeros);
@@ -246,7 +269,7 @@ bin_scatter_kernel(const uint64_t* __restrict__ hashes, Counted w, int64_t n, Mo
       atomicAdd(&table[s], 1);  // the bin's list is full
     }
   }
-  if (tid == 0 && zeros) atomicAdd(&table[0], zeros);
+  if (tid == 0 && zeros && r.base == 0) atomicAdd(&table[0], zeros);
 }
 
 constexpr int MERGE_THREADS = 512;
@@ -327,15 +350,19 @@ bin_merge_kernel(const uint32_t* __restrict__ bins, const int32_t* __restrict__ 
 constexpr int MASK_THREADS = 256;
 using u64 = unsigned long long;
 
-// h if lo <= count <= hi, else 0.
-__device__ __forceinline__ u64 kept(u64 h, int c, int lo, int hi) {
-  return (lo <= c && c <= hi) ? h : 0ULL;
+// h if the range does not hold its slot (mine false) or lo <= count <= hi,
+// else 0.
+__device__ __forceinline__ u64 kept(u64 h, int c, bool mine, int lo, int hi) {
+  return (!mine || (lo <= c && c <= hi)) ? h : 0ULL;
 }
 
-// The count of h; no load for hash 0, whose output is 0 whatever its count.
+// The count of h where the range holds its slot (mine); no load for hash 0
+// (mine false: its output is 0 whatever its count) nor outside the range.
 __device__ __forceinline__ int count_of(u64 h, const int32_t* __restrict__ table,
-                                        Modulus m) {
-  return h != 0 ? __ldg(table + slot_of(h, m)) : 0;
+                                        Modulus m, Range r, bool& mine) {
+  const uint32_t s = local_slot(h, m, r);
+  mine = h != 0 && s < r.n;
+  return mine ? __ldg(table + s) : 0;
 }
 
 // hashes + head is 16-byte aligned (head is 0 or 1); the n - head elements
@@ -347,20 +374,25 @@ __device__ __forceinline__ int count_of(u64 h, const int32_t* __restrict__ table
 template <bool VEC_OUT>
 __global__ void __launch_bounds__(MASK_THREADS)
 counter_mask_kernel(const u64* __restrict__ hashes, int64_t n, int64_t head,
-                    const int32_t* __restrict__ table, Modulus m, int lo, int hi,
+                    const int32_t* __restrict__ table, Modulus m, Range r, int lo, int hi,
                     u64* __restrict__ out) {
   const int64_t nvec = (n - head) >> 1;
   if (blockIdx.x == 0 && threadIdx.x < 2) {
     const int64_t i = threadIdx.x == 0 ? (head ? 0 : n) : (((n - head) & 1) ? n - 1 : n);
-    if (i < n) out[i] = kept(hashes[i], count_of(hashes[i], table, m), lo, hi);
+    if (i < n) {
+      bool mine;
+      const int c = count_of(hashes[i], table, m, r, mine);
+      out[i] = kept(hashes[i], c, mine, lo, hi);
+    }
   }
   const ulonglong2* hv = reinterpret_cast<const ulonglong2*>(hashes + head);
   u64* o = out + head;
   for (int64_t v = (int64_t)blockIdx.x * MASK_THREADS + threadIdx.x; v < nvec;
        v += (int64_t)gridDim.x * MASK_THREADS) {
     const ulonglong2 x = hv[v];
-    const int c0 = count_of(x.x, table, m), c1 = count_of(x.y, table, m);
-    const u64 y0 = kept(x.x, c0, lo, hi), y1 = kept(x.y, c1, lo, hi);
+    bool m0, m1;
+    const int c0 = count_of(x.x, table, m, r, m0), c1 = count_of(x.y, table, m, r, m1);
+    const u64 y0 = kept(x.x, c0, m0, lo, hi), y1 = kept(x.y, c1, m1, lo, hi);
     if (VEC_OUT) {
       reinterpret_cast<ulonglong2*>(o)[v] = make_ulonglong2(y0, y1);
     } else {
@@ -377,20 +409,26 @@ int blocks_for(int64_t n) {
 
 }  // namespace
 
-// table[h % size] += 1 for every counted element of hashes [n]: those whose
-// mask byte is non-zero (mask given), those that are windows of the
-// unpadded reads (lens [B] given: hashes is [B, sum over ks of max(L - k +
-// 1, 0)], and n < 2^32), or all (both NULL).  magic and log2_ceil describe
-// size (see make_modulus).  With scratch (cursor [nbins] and bins [nbins *
-// cap]) the adds go through the bins: bin = slot >> shift, nbins <= 512;
-// with bins NULL every element is one atomicAdd.  stats (int32 [2], or NULL)
-// += what the merge did: [0] the adds it sent to the table, [1] the elements
-// it merged into them.  Requires n >= 1, 1 <= size < 2^31, nk <= 8.
+// table[h % size - base] += 1 for every counted element of hashes [n] whose
+// slot h % size lies in [base, base + n_slots) (table [n_slots]; (0, size):
+// the whole table).  Counted: those whose mask byte is non-zero (mask
+// given), those that are windows of the unpadded reads (lens [B] given:
+// hashes is [B, sum over ks of max(L - k + 1, 0)], and n < 2^32), or all
+// (both NULL).  magic and log2_ceil describe size (see make_modulus).  With
+// scratch (cursor [nbins] and bins [nbins * cap]) the adds go through the
+// bins: bin = (slot - base) >> shift, nbins <= 512; with bins NULL every
+// element is one atomicAdd.  stats (int32 [2], or NULL) += what the merge
+// did: [0] the adds it sent to the table, [1] the elements it merged into
+// them.  Requires n >= 1, 1 <= size < 2^31, nk <= 8, 1 <= n_slots and
+// base + n_slots <= size.
 extern "C" int rkmh_counter_add(const int64_t* hashes, const uint8_t* mask,
                                 const int32_t* lens, int L, const int* ks, int nk, int64_t n,
                                 int32_t* table, int64_t size, uint64_t magic, int log2_ceil,
-                                int32_t* cursor, uint32_t* bins, int shift, int nbins, int cap,
-                                int32_t* stats, cudaStream_t stream) {
+                                int64_t base, int64_t n_slots, int32_t* cursor, uint32_t* bins,
+                                int shift, int nbins, int cap, int32_t* stats,
+                                cudaStream_t stream) {
+  if (base < 0 || n_slots < 1 || base + n_slots > size) return (int)cudaErrorInvalidValue;
+  const Range r = {(uint32_t)base, (uint32_t)n_slots};
   Counted w = {};
   w.mask = mask;
   w.lens = mask == nullptr ? lens : nullptr;
@@ -410,31 +448,36 @@ extern "C" int rkmh_counter_add(const int64_t* hashes, const uint8_t* mask,
   const Modulus m = make_modulus(size, magic, log2_ceil);
   const uint64_t* h = reinterpret_cast<const uint64_t*>(hashes);
   if (bins == nullptr) {
-    counter_add_direct_kernel<<<blocks_for(n), THREADS, 0, stream>>>(h, w, n, table, m);
+    counter_add_direct_kernel<<<blocks_for(n), THREADS, 0, stream>>>(h, w, n, table, m, r);
     return (int)cudaGetLastError();
   }
   if (nbins < 1 || nbins > MAX_BINS || cap < 1 || shift < 0 || shift > 31 ||
-      ((size - 1) >> shift) >= nbins) {
+      ((n_slots - 1) >> shift) >= nbins) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaMemsetAsync(cursor, 0, (size_t)nbins * sizeof(int32_t), stream);
   if (err != cudaSuccess) return (int)err;
   const int64_t tiles = (n + TILE - 1) / TILE;
   bin_scatter_kernel<<<(unsigned)tiles, SCATTER_THREADS, 0, stream>>>(
-      h, w, n, m, shift, nbins, cap, cursor, bins, table);
+      h, w, n, m, r, shift, nbins, cap, cursor, bins, table);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bin_merge_kernel<<<nbins, MERGE_THREADS, 0, stream>>>(bins, cursor, cap, table, stats);
   return (int)cudaGetLastError();
 }
 
-// out[i] = hashes[i] if lo <= table[hashes[i] % size] <= hi, else 0.
+// out[i] = hashes[i] if its slot s = hashes[i] % size lies outside [base,
+// base + n_slots) or lo <= table[s - base] <= hi, else 0 (hash 0: 0).
 // hashes and out may lie anywhere 8-byte aligned (a view of the hashes at an
 // odd element offset included); nothing past n is read or written.
-// Requires n >= 1, 1 <= size < 2^31; magic and log2_ceil as above.
+// Requires n >= 1, 1 <= size < 2^31, base + n_slots <= size; magic and
+// log2_ceil as above.
 extern "C" int rkmh_counter_mask(const int64_t* hashes, int64_t n, const int32_t* table,
-                                 int64_t size, uint64_t magic, int log2_ceil, int lo, int hi,
-                                 int64_t* out, cudaStream_t stream) {
+                                 int64_t size, uint64_t magic, int log2_ceil, int64_t base,
+                                 int64_t n_slots, int lo, int hi, int64_t* out,
+                                 cudaStream_t stream) {
+  if (base < 0 || n_slots < 1 || base + n_slots > size) return (int)cudaErrorInvalidValue;
+  const Range r = {(uint32_t)base, (uint32_t)n_slots};
   const u64* h = reinterpret_cast<const u64*>(hashes);
   u64* o = reinterpret_cast<u64*>(out);
   const int64_t head = ((uintptr_t)h & 15) ? 1 : 0;
@@ -444,10 +487,10 @@ extern "C" int rkmh_counter_mask(const int64_t* hashes, int64_t n, const int32_t
   const Modulus m = make_modulus(size, magic, log2_ceil);
   if (((uintptr_t)(o + head) & 15) == 0) {
     counter_mask_kernel<true><<<(unsigned)blocks, MASK_THREADS, 0, stream>>>(
-        h, n, head, table, m, lo, hi, o);
+        h, n, head, table, m, r, lo, hi, o);
   } else {
     counter_mask_kernel<false><<<(unsigned)blocks, MASK_THREADS, 0, stream>>>(
-        h, n, head, table, m, lo, hi, o);
+        h, n, head, table, m, r, lo, hi, o);
   }
   return (int)cudaGetLastError();
 }

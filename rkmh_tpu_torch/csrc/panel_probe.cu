@@ -18,6 +18,16 @@
 // Output: int32 [5, B] = best, shared, total_union, keep, flag bits
 // depth_fail | match_fail << 1 | diff_ok << 2.
 //
+// The partial mode (rkmh_panel_probe_partial) is the epilogue of one tp
+// shard of a sharded panel (rkmh_tpu/parallel/mesh.py:120-169, where the
+// shards' counts are all_gather'd before argmax_stream / argmax_filter):
+// the same probe over the shard's R references, then the running max from
+// `init` (-1 for stream, 0 for filter) without the flags.  Output: int32
+// [4, B] = local best (INT_MAX where no count is above init), max count,
+// max(init, max(counts[:best])) and the sketch length;
+// parallel/mesh.merge_tp_partials joins the shards' rows exactly.  It
+// serves every route of K2 and K11 (rkmh_panel_probe_partial's mask_rows).
+//
 // Input rows are [B, n] uint64, in one of two modes:
 //   (a) lens == NULL: raw window hashes (used when W <= s); valid = h != 0,
 //       occ = a rank among the equal elements of the row;
@@ -303,13 +313,18 @@ __device__ __forceinline__ void wide_epilogue(const uint32_t* __restrict__ mask_
   }
 }
 
-template <bool FILTER, int MAXW>
+// The epilogues: the stream flags, the filter's record, a shard's partial.
+constexpr int STREAM = 0;
+constexpr int FILTER = 1;
+constexpr int PARTIAL = 2;
+
+template <int MODE, int MAXW>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
 panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict__ lens, int B,
                    int n, const uint32_t* __restrict__ table,
                    const uint32_t* __restrict__ mask_rows, int row_words, int log2nb, int S,
                    int Wm, int R, const int32_t* __restrict__ ref_lens, int min_diff,
-                   int min_matches, int nslots, int32_t* __restrict__ out) {
+                   int min_matches, int init_partial, int nslots, int32_t* __restrict__ out) {
   constexpr bool REGS = MAXW > 0;
   constexpr bool LIST = MAXW < 0;
   constexpr int NW = REGS ? MAXW : 1;
@@ -464,10 +479,11 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
   }
   const int n_valid = __reduce_add_sync(FULL, my_valid);
 
-  // running max from -1 (stream) or 0 (filter), strict > (first ref wins
-  // ties); best stays INT_MAX in filter mode when every count is 0; pm,
-  // the previous best: max(init, max(counts[:best]))
-  const int init = FILTER ? 0 : -1;
+  // running max from -1 (stream), 0 (filter) or init_partial, strict >
+  // (first ref wins ties); best stays INT_MAX when no count is above init
+  // (filter: every count 0); pm, the previous best: max(init,
+  // max(counts[:best]))
+  const int init = MODE == FILTER ? 0 : MODE == STREAM ? -1 : init_partial;
   int mx = init, best = INT_MAX, pm = init;
   if constexpr (LIST) {
     __syncwarp();  // the hit list is the whole warp's
@@ -511,7 +527,12 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
   }
   if (lane != 0) return;
   const int sk_len = sorted_mode ? len : n_valid;
-  if (FILTER) {
+  if (MODE == PARTIAL) {
+    out[b] = best;
+    out[B + b] = mx;
+    out[2 * B + b] = pm;
+    out[3 * B + b] = sk_len;
+  } else if (MODE == FILTER) {
     const bool updated = mx > 0;
     const int shared = updated ? mx : 0;
     const bool diff_ok = shared - (updated ? pm : 0) > min_diff;
@@ -530,19 +551,19 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
   }
 }
 
-template <bool FILTER, int MAXW>
+template <int MODE, int MAXW>
 int launch_variant(int warps, size_t smem, const int64_t* rows, const int32_t* lens, int B,
                    int n, const int32_t* table, const int32_t* mask_rows, int row_words,
                    int log2nb, int S, int Wm, int R, const int32_t* ref_lens, int min_diff,
-                   int min_matches, int nslots, int32_t* out, cudaStream_t stream) {
+                   int min_matches, int init, int nslots, int32_t* out, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(panel_probe_kernel<FILTER, MAXW>,
+    cudaFuncSetAttribute(panel_probe_kernel<MODE, MAXW>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   }
-  panel_probe_kernel<FILTER, MAXW><<<(B + warps - 1) / warps, 32 * warps, smem, stream>>>(
+  panel_probe_kernel<MODE, MAXW><<<(B + warps - 1) / warps, 32 * warps, smem, stream>>>(
       reinterpret_cast<const uint64_t*>(rows), lens, B, n,
       reinterpret_cast<const uint32_t*>(table), reinterpret_cast<const uint32_t*>(mask_rows),
-      row_words, log2nb, S, Wm, R, ref_lens, min_diff, min_matches, nslots, out);
+      row_words, log2nb, S, Wm, R, ref_lens, min_diff, min_matches, init, nslots, out);
   return (int)cudaGetLastError();
 }
 
@@ -552,11 +573,11 @@ int launch_variant(int warps, size_t smem, const int64_t* rows, const int32_t* l
 // raw mode 3n ranks slots per warp (2n and 4n were slower on the zika
 // batch), or n where 3n do not fit one warp's share; as many warps per
 // block (<= MAX_WARPS) as fit.
-template <bool FILTER>
+template <int MODE>
 int launch(const int64_t* rows, const int32_t* lens, int B, int n, const int32_t* table,
            int log2nb, int S, int Wm, int R, const int32_t* ref_lens, int min_diff,
            int min_matches, int32_t* out, cudaStream_t stream,
-           const int32_t* mask_rows = nullptr, int row_words = 0) {
+           const int32_t* mask_rows = nullptr, int row_words = 0, int init = 0) {
   const bool wide = mask_rows != nullptr || row_words > 0;
   if (lens == nullptr && n >= (1 << (32 - FP_BITS)) - 1) return (int)cudaErrorInvalidValue;
   if (wide && (n >= (1 << 16) || row_words < Wm || row_words % WPL))
@@ -570,9 +591,9 @@ int launch(const int64_t* rows, const int32_t* lens, int B, int n, const int32_t
       per_warp == 0 ? MAX_WARPS : (int)std::min<size_t>(MAX_WARPS, SMEM_MAX / per_warp);
   const size_t smem = per_warp * warps;
   auto go = [&](auto maxw) {
-    return launch_variant<FILTER, decltype(maxw)::value>(
+    return launch_variant<MODE, decltype(maxw)::value>(
         warps, smem, rows, lens, B, n, table, mask_rows, row_words, log2nb, S, Wm, R, ref_lens,
-        min_diff, min_matches, nslots, out, stream);
+        min_diff, min_matches, init, nslots, out, stream);
   };
   return wide      ? (n < 256 ? go(std::integral_constant<int, WIDE>())
                               : go(std::integral_constant<int, WIDE16>()))
@@ -590,8 +611,8 @@ extern "C" int rkmh_panel_probe(const int64_t* rows, const int32_t* lens, int B,
                                 const int32_t* table, int log2nb, int S, int Wm, int R,
                                 int min_diff, int min_matches, int32_t* out,
                                 cudaStream_t stream) {
-  return launch<false>(rows, lens, B, n, table, log2nb, S, Wm, R, nullptr, min_diff,
-                       min_matches, out, stream);
+  return launch<STREAM>(rows, lens, B, n, table, log2nb, S, Wm, R, nullptr, min_diff,
+                        min_matches, out, stream);
 }
 
 // The filter mode: as rkmh_panel_probe, plus ref_lens [R] int32 (the
@@ -601,8 +622,8 @@ extern "C" int rkmh_panel_probe_filter(const int64_t* rows, const int32_t* lens,
                                        int Wm, int R, const int32_t* ref_lens,
                                        int min_diff, int min_matches, int32_t* out,
                                        cudaStream_t stream) {
-  return launch<true>(rows, lens, B, n, table, log2nb, S, Wm, R, ref_lens, min_diff,
-                      min_matches, out, stream);
+  return launch<FILTER>(rows, lens, B, n, table, log2nb, S, Wm, R, ref_lens, min_diff,
+                        min_matches, out, stream);
 }
 
 // K11, the wide route for any R (past the 8,192 references whose counters
@@ -622,9 +643,25 @@ extern "C" int rkmh_panel_probe_wide(const int64_t* rows, const int32_t* lens, i
                                      int32_t* out, cudaStream_t stream) {
   if (row_words < 1) return (int)cudaErrorInvalidValue;
   if (ref_lens == nullptr) {
-    return launch<false>(rows, lens, B, n, slots, log2nb, S, Wm, R, nullptr, min_diff,
-                         min_matches, out, stream, mask_rows, row_words);
+    return launch<STREAM>(rows, lens, B, n, slots, log2nb, S, Wm, R, nullptr, min_diff,
+                          min_matches, out, stream, mask_rows, row_words);
   }
-  return launch<true>(rows, lens, B, n, slots, log2nb, S, Wm, R, ref_lens, min_diff,
-                      min_matches, out, stream, mask_rows, row_words);
+  return launch<FILTER>(rows, lens, B, n, slots, log2nb, S, Wm, R, ref_lens, min_diff,
+                        min_matches, out, stream, mask_rows, row_words);
+}
+
+// A tp shard's partial epilogue, by every route a shard can take: with
+// mask_rows NULL, K2 on the logical table (`table` [2^log2nb, S*(3+Wm)],
+// row_words ignored), as rkmh_panel_probe requires it; with mask_rows, K11
+// on the packed table (`table` the slot records), as rkmh_panel_probe_wide
+// requires it.  init: the running max's start (-1 stream, 0 filter).  ->
+// out [4, B] int32: local best (INT_MAX where no count is above init), max
+// count, max(init, max(counts[:best])), sketch length.
+extern "C" int rkmh_panel_probe_partial(const int64_t* rows, const int32_t* lens, int B, int n,
+                                        const int32_t* table, const int32_t* mask_rows,
+                                        int log2nb, int S, int Wm, int row_words, int R,
+                                        int init, int32_t* out, cudaStream_t stream) {
+  if (mask_rows != nullptr && row_words < 1) return (int)cudaErrorInvalidValue;
+  return launch<PARTIAL>(rows, lens, B, n, table, log2nb, S, Wm, R, nullptr, 0, 0, out, stream,
+                         mask_rows, mask_rows != nullptr ? row_words : 0, init);
 }

@@ -19,6 +19,13 @@ repeats its k-mers, so a ``HashCounter`` reads from its first binned call
 how many elements went into each add to the table and sends a pass whose
 k-mers are mostly distinct (``MERGE_MIN_RATIO``) as one atomic per element
 from then on.
+
+Each function also takes a slot range, ``base`` and the logical ``size``
+(None: the table's length): the table then holds the slots [base, base +
+len(table)) of the ``hash % size`` table, as a dp shard of
+``parallel/ep.ShardedCounter`` does.  An add counts only the hashes whose
+slot lies there; a mask masks only those and passes every other hash
+through.  (0, None) is the whole table, the kernels' single-table call.
 """
 
 from __future__ import annotations
@@ -84,21 +91,36 @@ def magic_remainder(h: int, size: int, magic: int, l: int) -> int:
 
 def bin_plan(size: int, n: int) -> tuple[int, int, int]:
     """(shift, bins, cap) of the binned K6 for n elements into a table of
-    ``size`` slots: bin = slot >> shift, at most MAX_BINS bins (a table
-    smaller than that has one bin per slot), each with a list of cap slots:
-    twice the mean and some, so that only a skewed input overflows."""
+    ``size`` slots (a slot range's length): bin = slot >> shift, at most
+    MAX_BINS bins (a table smaller than that has one bin per slot), each
+    with a list of cap slots: twice the mean and some, so that only a
+    skewed input overflows."""
     shift = max(0, (size - 1).bit_length() - (MAX_BINS.bit_length() - 1))
     bins = ((size - 1) >> shift) + 1
     return shift, bins, 2 * -(-n // bins) + 1024
 
 
+def _range(table: torch.Tensor, base: int, size: int | None) -> tuple[int, int]:
+    """(base, logical size) of a table holding slots [base, base + len)."""
+    size = table.shape[0] if size is None else _check_size(size)
+    base = int(base)
+    if base < 0 or base + table.shape[0] > size:
+        raise ValueError(f"slots [{base}, {base + table.shape[0]}) lie outside a table "
+                         f"of {size}")
+    return base, size
+
+
 def counter_add_plain(table: torch.Tensor, hashes: torch.Tensor,
-                      mask: torch.Tensor | None = None) -> torch.Tensor:
-    """table[h % size] += 1 for every masked-in hash, in place."""
+                      mask: torch.Tensor | None = None, base: int = 0,
+                      size: int | None = None) -> torch.Tensor:
+    """table[h % size - base] += 1 for every masked-in hash whose slot the
+    table holds, in place."""
+    base, size = _range(table, base, size)
     h = hashes.reshape(-1)
     if mask is not None:
         h = h[mask.reshape(-1)]
-    idx = slots(h, table.shape[0])
+    idx = slots(h, size) - base
+    idx = idx[(idx >= 0) & (idx < table.shape[0])]
     return table.index_add_(0, idx, torch.ones_like(idx, dtype=table.dtype))
 
 
@@ -107,10 +129,15 @@ def counter_get_plain(table: torch.Tensor, hashes: torch.Tensor) -> torch.Tensor
     return table[slots(hashes, table.shape[0])]
 
 
-def counter_mask_plain(table: torch.Tensor, hashes: torch.Tensor, lo: int,
-                       hi: int) -> torch.Tensor:
-    """Each hash whose count lies in [lo, hi], 0 elsewhere."""
-    return mask_by_frequency_range(hashes, counter_get_plain(table, hashes), lo, hi)
+def counter_mask_plain(table: torch.Tensor, hashes: torch.Tensor, lo: int, hi: int,
+                       base: int = 0, size: int | None = None) -> torch.Tensor:
+    """Each hash whose count lies in [lo, hi], 0 elsewhere; a hash whose
+    slot the table does not hold passes as it is."""
+    base, size = _range(table, base, size)
+    idx = slots(hashes, size) - base
+    mine = (idx >= 0) & (idx < table.shape[0])
+    counts = table[torch.where(mine, idx, 0)]
+    return torch.where(mine, mask_by_frequency_range(hashes, counts, lo, hi), hashes)
 
 
 def _check(table: torch.Tensor, hashes: torch.Tensor) -> None:
@@ -123,15 +150,19 @@ def _check(table: torch.Tensor, hashes: torch.Tensor) -> None:
 
 
 def _counter_add_cuda(table, hashes, mask, windows=None, binned: bool | None = None,
-                      stats: torch.Tensor | None = None):
+                      stats: torch.Tensor | None = None, base: int = 0,
+                      size: int | None = None):
     """K6.  ``windows`` = (lengths [B], L, ks) counts the windows of the
     unpadded reads in place of a mask tensor; ``binned`` None lets the
     input's size choose the route.  Returns whether the call went through
     the bins; it then added to ``stats`` (int32 [2] on the device) the adds
-    it sent to the table and the elements it merged into them."""
+    it sent to the table and the elements it merged into them.  A launch on
+    a slot range (a table shorter than ``size``) counts under the route
+    "range"."""
     _check(table, hashes)
+    base, size = _range(table, base, size)
     hashes = hashes.contiguous()
-    n, size = hashes.numel(), table.shape[0]
+    n, n_slots = hashes.numel(), table.shape[0]
     lens, L, ks = None, 0, ()
     if windows is not None:
         lens, L, ks = windows
@@ -159,61 +190,68 @@ def _counter_add_cuda(table, hashes, mask, windows=None, binned: bool | None = N
     if binned is None:
         binned = n >= BINNED_MIN_N
     if binned:
-        shift, nbins, cap = bin_plan(size, n)
+        shift, nbins, cap = bin_plan(n_slots, n)
         cursor = torch.empty(nbins, dtype=torch.int32, device=table.device)
         bins = torch.empty(nbins * cap, dtype=torch.int32, device=table.device)
     kernels.COUNTER_ADD(hashes, mask, lens, L, ctypes.cast(ks_arr, ctypes.c_void_p), len(ks),
-                        n, table, size, magic, l, cursor, bins, shift, nbins, cap,
-                        stats if binned else None)
+                        n, table, size, magic, l, base, n_slots, cursor, bins, shift, nbins,
+                        cap, stats if binned else None,
+                        route="range" if n_slots < size else None)
     return binned
 
 
-def _counter_mask_cuda(table, hashes, lo, hi):
+def _counter_mask_cuda(table, hashes, lo, hi, base: int = 0, size: int | None = None):
+    """K7; a launch on a slot range counts under the route "range"."""
     _check(table, hashes)
+    base, size = _range(table, base, size)
     hashes = hashes.contiguous()
     out = torch.empty_like(hashes)
     if hashes.numel():
-        kernels.COUNTER_MASK(hashes, hashes.numel(), table, table.shape[0],
-                             *remainder_magic(table.shape[0]), lo, hi, out)
+        kernels.COUNTER_MASK(hashes, hashes.numel(), table, size, *remainder_magic(size), base,
+                             table.shape[0], lo, hi, out,
+                             route="range" if table.shape[0] < size else None)
     return out
 
 
 def counter_add(table: torch.Tensor, hashes: torch.Tensor,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
-    """table[h % size] += 1 for every masked-in hash (mask None: all), in
-    place; returns the table."""
+                mask: torch.Tensor | None = None, base: int = 0,
+                size: int | None = None) -> torch.Tensor:
+    """table[h % size - base] += 1 for every masked-in hash (mask None:
+    all) whose slot the table holds, in place; returns the table."""
     if table.device.type == "cuda":
-        _counter_add_cuda(table, hashes, mask)
+        _counter_add_cuda(table, hashes, mask, base=base, size=size)
         return table
     if table.device.type != "cpu":
         raise ValueError(f"no counter path for device {table.device}")
-    return counter_add_plain(table, hashes, mask)
+    return counter_add_plain(table, hashes, mask, base, size)
 
 
 def counter_add_windows(table: torch.Tensor, hashes: torch.Tensor, lengths: torch.Tensor,
-                        L: int, ks) -> torch.Tensor:
+                        L: int, ks, base: int = 0, size: int | None = None) -> torch.Tensor:
     """``counter_add`` of the [B, W] window hashes of reads padded to L
     with ``window_mask(lengths, L, ks)``, which the kernel derives per
     element instead of reading a [B, W] mask; in place, returns the table."""
     ks = [ks] if isinstance(ks, int) else list(ks)
     if table.device.type == "cuda":
-        _counter_add_cuda(table, hashes, None, (lengths, L, ks))
+        _counter_add_cuda(table, hashes, None, (lengths, L, ks), base=base, size=size)
         return table
     if table.device.type != "cpu":
         raise ValueError(f"no counter path for device {table.device}")
-    return counter_add_plain(table, hashes, window_mask(lengths, L, ks))
+    return counter_add_plain(table, hashes, window_mask(lengths, L, ks), base, size)
 
 
-def counter_mask(table: torch.Tensor, hashes: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """Hashes whose count lies in [lo, hi], 0 elsewhere: -M keeps
-    (min_occ, INT32_MAX), -I keeps (0, max_samples)."""
+def counter_mask(table: torch.Tensor, hashes: torch.Tensor, lo: int, hi: int,
+                 base: int = 0, size: int | None = None) -> torch.Tensor:
+    """Hashes whose count lies in [lo, hi], 0 elsewhere, and those whose
+    slot the table does not hold as they are: -M keeps (min_occ,
+    INT32_MAX), -I keeps (0, max_samples)."""
     # counts are int32: bounds clamped to its range select the same counts
     lo, hi = max(int(lo), -INT32_MAX - 1), min(int(hi), INT32_MAX)
     if table.device.type == "cuda":
-        return _counter_mask_cuda(table, hashes, lo, hi)
+        return _counter_mask_cuda(table, hashes, lo, hi, base, size)
     if table.device.type != "cpu":
         raise ValueError(f"no counter path for device {table.device}")
-    return counter_mask_plain(table, hashes, lo, hi)
+    return counter_mask_plain(table, hashes, lo, hi, base, size)
 
 
 def merge_pays(elements: int, adds: int) -> bool:
@@ -224,21 +262,28 @@ def merge_pays(elements: int, adds: int) -> bool:
 
 class HashCounter(nn.Module):
     """A ``hash % size`` depth counter whose int32 table is a buffer,
-    allocated zeroed on ``device`` (never on the host for a GPU)."""
+    allocated zeroed on ``device`` (never on the host for a GPU).  With
+    ``base`` and ``n_slots`` it holds only the slots [base, base +
+    n_slots) of the table (a dp shard of ``parallel/ep.ShardedCounter``)."""
 
-    def __init__(self, size: int, device: torch.device | str):
+    def __init__(self, size: int, device: torch.device | str, base: int = 0,
+                 n_slots: int | None = None):
         super().__init__()
-        self.register_buffer("table", torch.zeros(_check_size(size), dtype=torch.int32,
-                                                  device=device))
+        self.size = _check_size(size)
+        self.base = int(base)
+        n_slots = self.size if n_slots is None else int(n_slots)
+        self.register_buffer("table", torch.zeros(n_slots, dtype=torch.int32, device=device))
+        _range(self.table, self.base, self.size)
         self.binned: bool | None = None  # K6's route; None until a binned call was read
 
     def add(self, hashes: torch.Tensor, mask: torch.Tensor | None = None) -> HashCounter:
-        counter_add(self.table, hashes, mask)
+        counter_add(self.table, hashes, mask, self.base, self.size)
         return self
 
     def get(self, hashes: torch.Tensor) -> torch.Tensor:
-        """The (collision-lossy) count of each hash."""
-        return self.table[slots(hashes, self.table.shape[0])]
+        """The (collision-lossy) count of each hash (whose slot the table
+        holds)."""
+        return self.table[slots(hashes, self.size) - self.base]
 
     def to_numpy(self):
         """The int32 table on the host (one device-to-host copy)."""
@@ -250,15 +295,16 @@ class HashCounter(nn.Module):
         call that goes through the bins is read back (one synchronisation a
         pass) and sets the route of the later ones."""
         if self.table.device.type != "cuda":
-            counter_add_windows(self.table, hashes, lengths, L, ks)
+            counter_add_windows(self.table, hashes, lengths, L, ks, self.base, self.size)
             return self
         windows = (lengths, L, [ks] if isinstance(ks, int) else list(ks))
+        at = {"base": self.base, "size": self.size}
         if self.binned is None:
             stats = torch.zeros(2, dtype=torch.int32, device=self.table.device)
-            if _counter_add_cuda(self.table, hashes, None, windows, stats=stats):
+            if _counter_add_cuda(self.table, hashes, None, windows, stats=stats, **at):
                 adds, elements = stats.tolist()
                 self.binned = merge_pays(elements, adds)
         else:  # a small input is one atomic per element on either route
             _counter_add_cuda(self.table, hashes, None, windows,
-                              binned=None if self.binned else False)
+                              binned=None if self.binned else False, **at)
         return self

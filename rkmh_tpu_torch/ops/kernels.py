@@ -13,8 +13,8 @@ loaded on import.
 Each C entry point returns ``cudaGetLastError()`` after its launch on the
 stream it is given (PyTorch's current stream); ``Kernel`` raises if that
 is not 0 and counts successful launches, in all and, for a kernel with
-several routes (K4, K5, K9) or epilogues (K11), by the route the caller
-names.
+several routes (K4, K5, K9, K2's partial epilogue), epilogues (K11) or
+slot ranges (K6, K7), by the route the caller names.
 """
 
 from __future__ import annotations
@@ -161,6 +161,11 @@ PANEL_PROBE_FILTER = Kernel("rkmh_panel_probe_filter",
 #                       filter), min_diff, min_matches, out, stream)
 PANEL_PROBE_WIDE = Kernel("rkmh_panel_probe_wide",
                           [_p, _p, _i, _i, _p, _p, _i, _i, _i, _i, _i, _p, _i, _i, _p])
+# rkmh_panel_probe_partial(rows, lens|NULL, B, n, table (K2) or slot records (K11),
+#                          mask rows|NULL (NULL: K2), log2_buckets, slots, mask_words,
+#                          row_words, num_refs, init, out, stream)
+PANEL_PROBE_PARTIAL = Kernel("rkmh_panel_probe_partial",
+                             [_p, _p, _i, _i, _p, _p, _i, _i, _i, _i, _i, _i, _p])
 # rkmh_set_probe(rows, row_stride, lens, B, n, key records, slot records, log2_buckets,
 #                slots, mask_words, num_types, num_uniq, segment, counts|NULL, done|NULL,
 #                out, stream)
@@ -175,12 +180,14 @@ LUT_GATHER_ROWS = Kernel("rkmh_lut_gather_rows", [_p, _p, _p, _i, _i, _i64, _i])
 # rkmh_lut_gather_lanes(lut, idx, out, N, C, M, reg, stream)
 LUT_GATHER_LANES = Kernel("rkmh_lut_gather_lanes", [_p, _p, _p, _i, _i, _i, _i])
 # rkmh_counter_add(hashes, mask|NULL, lens|NULL, L, ks (host ints), nk, n, table, size,
-#                  magic, log2_ceil, cursor|NULL, bins|NULL, shift, nbins, cap, stats|NULL,
-#                  stream)
+#                  magic, log2_ceil, base, n_slots, cursor|NULL, bins|NULL, shift, nbins, cap,
+#                  stats|NULL, stream)
 COUNTER_ADD = Kernel("rkmh_counter_add", [_p, _p, _p, _i, _p, _i, _i64, _p, _i64, _u64, _i,
-                                          _p, _p, _i, _i, _i, _p])
-# rkmh_counter_mask(hashes, n, table, size, magic, log2_ceil, lo, hi, out, stream)
-COUNTER_MASK = Kernel("rkmh_counter_mask", [_p, _i64, _p, _i64, _u64, _i, _i, _i, _p])
+                                          _i64, _i64, _p, _p, _i, _i, _i, _p])
+# rkmh_counter_mask(hashes, n, table, size, magic, log2_ceil, base, n_slots, lo, hi, out,
+#                   stream)
+COUNTER_MASK = Kernel("rkmh_counter_mask", [_p, _i64, _p, _i64, _u64, _i, _i64, _i64, _i, _i,
+                                            _p])
 
 # the depth map's arguments (ops/hashmap.map_args): words, dir, ov_keys, ov_values, m, bits
 _MAP = [_p, _p, _p, _p, _i, _i]
@@ -199,6 +206,7 @@ SPARSE_MARGIN_GRAD = Kernel("rkmh_sparse_margin_grad", [_p] * 12 + [_i, _i, _i64
 
 KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE,
            "panel_probe_filter": PANEL_PROBE_FILTER, "panel_probe_wide": PANEL_PROBE_WIDE,
+           "panel_probe_partial": PANEL_PROBE_PARTIAL,
            "set_probe": SET_PROBE,
            "sorted_probe": SORTED_PROBE,
            "lut_gather_rows": LUT_GATHER_ROWS, "lut_gather_lanes": LUT_GATHER_LANES,

@@ -6,10 +6,12 @@ policies, ``projected_table_bytes``, ``table_slots``,
 ``_collect_entries``, ``_bucket_of``, ``build_panel_table``,
 ``PanelTable``, ``build_set_table``), copied for the reason given in
 ``io/fastx.py``.  It builds the identical table from the same sketches or
-hash sets, with the same defaults (64 MB budget).  Not copied: the
-``RKMH_TPU_SLOTS`` / ``RKMH_TPU_TABLE_BUDGET_MB`` overrides, the forced
-geometry of tensor-parallel shards and the device-side table builds (the
-hpv16 set table is built here on the host and copied to the card once).
+hash sets, with the same defaults (64 MB budget), and takes the forced
+geometry (``num_buckets``, ``slots``) that gives every tp shard of a
+sharded panel one shape (``parallel/mesh.build_sharded_tables``).  Not
+copied: the ``RKMH_TPU_SLOTS`` / ``RKMH_TPU_TABLE_BUDGET_MB`` overrides and
+the device-side table builds (the hpv16 set table is built here on the
+host and copied to the card once).
 
 (b) The query, plain PyTorch (``lookup.py:296-390``): ``bucket_indices``,
 ``counts_from_rows``, ``lookup_intersection_counts(_masked)``.  Table
@@ -165,10 +167,12 @@ def _bucket_of(lo: np.ndarray, hi: np.ndarray, occ: np.ndarray, nb: int):
 
 
 def build_panel_table(ref_sk, ref_lens=None, num_refs: int | None = None,
-                      policy: str = "narrow") -> PanelTable:
+                      policy: str = "narrow", num_buckets: int | None = None,
+                      slots: int | None = None) -> PanelTable:
     """Build the bucket table from a sorted sketch matrix [R, t] (uint64,
     or int64 bit patterns; SENTINEL-padded rows, as bottom_s_sketch makes
-    them)."""
+    them).  ``num_buckets`` and ``slots`` force the geometry (the bucket
+    count still doubles where a bucket overflows)."""
     ref_sk = np.asarray(ref_sk)
     if ref_sk.dtype == np.int64:
         ref_sk = ref_sk.view(np.uint64)
@@ -178,17 +182,17 @@ def build_panel_table(ref_sk, ref_lens=None, num_refs: int | None = None,
 
     ents = _collect_entries(ref_sk, ref_lens, R, Wm)
     if ents is None:
-        S = pick_slots(0, Wm, policy)
-        empty = np.zeros((1, S * (3 + Wm)), dtype=np.uint32)
+        S = slots or pick_slots(0, Wm, policy)
+        empty = np.zeros((num_buckets or 1, S * (3 + Wm)), dtype=np.uint32)
         empty[:, 2 * S : 3 * S] = _EMPTY_OCC
         return PanelTable(empty, R, Wm)
     h, occ, masks = ents
     n = len(h)
-    S = pick_slots(n, Wm, policy)
+    S = slots or pick_slots(n, Wm, policy)
     lo = h.astype(np.uint32)
     hi = (h >> np.uint64(32)).astype(np.uint32)
 
-    nb = predicted_buckets(n, S)
+    nb = num_buckets or predicted_buckets(n, S)
     while True:
         b = _bucket_of(lo, hi, occ, nb)
         order = np.argsort(b, kind="stable")

@@ -10,7 +10,17 @@ package's functions (``ops/intersect``, ``ops/lookup``,
 ``classify/engine.argmax_stream``), which the kernel must match exactly.
 ``panel_probe_filter`` is the same probe with the filter command's
 epilogue (``classify/engine.argmax_filter``); its plain version is
-``panel_probe_filter_plain``.
+``panel_probe_filter_plain``.  ``panel_probe_partial`` is the epilogue of
+one tp shard of a sharded panel (``parallel/mesh.py``): per read the
+local first argmax, the max, the max before the argmax and the sketch
+length, which ``parallel/mesh.merge_tp_partials`` joins over the shards;
+its plain version is ``panel_probe_partial_plain``, on either table.  It
+replaces the tp ``all_gather`` of the shards' counts and the argmax after
+it (``rkmh_tpu/parallel/mesh.py:157-160``) and is bound as K2 is, by the
+bucket rows its probes load: on a shard's own table, whose geometry is
+rkmh-tpu's (S = 2 at 30 references, where the whole zika panel takes 4),
+the slot loads are scalar and it takes 1.26x the whole table's K2
+(PERF.md §6).
 
 Rows are [B, n] int64 hashes in one of two modes:
 
@@ -203,6 +213,35 @@ def panel_probe_wide_packed_plain(rows: torch.Tensor, lens: torch.Tensor | None,
     return pack_filter_result(*argmax_filter(counts, min_diff, min_matches, sk_lens, ref_lens))
 
 
+INT32_MAX = 2**31 - 1  # a partial's best where no count is above init
+
+
+def partial_from_counts(counts: torch.Tensor, sk_lens: torch.Tensor, init: int) -> torch.Tensor:
+    """[B, R] counts -> int32 [4, B] (best, max, max before best, sketch
+    length): the running max from ``init`` (-1 stream, 0 filter) over the
+    references in order, a reference winning on a strictly greater count;
+    best is INT32_MAX where no count is above init, and the max before it
+    is max(init, max(counts[:best]))."""
+    mx = counts.amax(dim=-1).clamp(min=init)
+    best = torch.where(mx > init, counts.argmax(dim=-1), INT32_MAX)
+    iota = torch.arange(counts.shape[-1], device=counts.device)
+    pm = torch.where(iota[None, :] < best[:, None], counts,
+                     torch.full_like(counts, init)).amax(dim=-1).clamp(min=init)
+    return torch.stack([t.to(torch.int32) for t in (best, mx, pm, sk_lens)])
+
+
+def panel_probe_partial_plain(rows: torch.Tensor, lens: torch.Tensor | None, table,
+                              num_refs: int, init: int) -> torch.Tensor:
+    """A tp shard's partial epilogue in plain PyTorch, on the logical table
+    or its ``WideTable``: int32 [4, B] (``partial_from_counts``)."""
+    if isinstance(table, WideTable):
+        valid, occ, sk_lens = _valid_and_ranks(rows, lens)
+        counts = wide_counts(rows, valid, occ, table)
+    else:
+        counts, sk_lens = _plain_counts(rows, lens, table, num_refs)
+    return partial_from_counts(counts, sk_lens, init)
+
+
 def panel_probe_plain(rows: torch.Tensor, lens: torch.Tensor | None, table: torch.Tensor,
                       num_refs: int, min_diff: int, min_matches: int) -> torch.Tensor:
     from rkmh_tpu_torch.classify.engine import argmax_stream
@@ -308,6 +347,36 @@ def _panel_probe_filter_cuda(rows, lens, table, num_refs, ref_lens, min_diff, mi
         kernels.PANEL_PROBE_FILTER(rows, lens, B, n, table.contiguous(), log2nb, S, Wm,
                                    num_refs, ref_lens, min_diff, min_matches, out)
     return out
+
+
+def _panel_probe_partial_cuda(rows, lens, table, num_refs, init, wide=None):
+    """K2's partial epilogue, or K11's where ``wide`` (default: num_refs >
+    MAX_REFS); launches count by route ("k2" or "wide")."""
+    wide = num_refs > MAX_REFS if wide is None else wide
+    rows, lens, log2nb, S, Wm = _cuda_args(rows, lens, table, num_refs, wide)
+    B, n = rows.shape
+    out = torch.empty((4, B), dtype=torch.int32, device=rows.device)
+    if B and wide:
+        kernels.PANEL_PROBE_PARTIAL(rows, lens, B, n, table.slots, table.rows, log2nb, S, Wm,
+                                    table.rows.shape[1], num_refs, init, out, route="wide")
+    elif B:
+        kernels.PANEL_PROBE_PARTIAL(rows, lens, B, n, table.contiguous(), None, log2nb, S, Wm,
+                                    0, num_refs, init, out, route="k2")
+    return out
+
+
+def panel_probe_partial(rows: torch.Tensor, lens: torch.Tensor | None, table, num_refs: int,
+                        init: int) -> torch.Tensor:
+    """[B, n] int64 rows against one tp shard's table (``num_refs`` of its
+    references) -> int32 [4, B] (local best, max, max before best, sketch
+    length); ``init`` -1 for stream, 0 for filter."""
+    if init not in (-1, 0):
+        raise ValueError(f"a partial's running max starts at -1 or 0, got {init}")
+    if rows.device.type == "cuda":
+        return _panel_probe_partial_cuda(rows, lens, table, num_refs, init)
+    if rows.device.type != "cpu":
+        raise ValueError(f"no panel-probe path for device {rows.device}")
+    return panel_probe_partial_plain(rows, lens, table, num_refs, init)
 
 
 def panel_probe(rows: torch.Tensor, lens: torch.Tensor | None, table, num_refs: int,

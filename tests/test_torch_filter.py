@@ -205,7 +205,24 @@ def test_cli_filter_matches_jax(workload, tmp_path, capsys, monkeypatch):
                                   ["--devices", "2"], ["--tp", "2"],
                                   ["--dist-coordinator", "h:1"], ["--dist-procs", "2"],
                                   ["--dist-rank", "0"]])
-def test_cli_filter_rejects_flags_not_yet_ported(flag, capsys):
+def test_cli_filter_rejects_flags_not_yet_ported(flag, workload, capsys):
+    """--dist-* are rejected by name.  --devices and --tp run since they
+    were ported: ``--devices N --device cpu`` sees one device, logs
+    rkmh-tpu's fallback line and prints rkmh-tpu's bytes; ``--tp N`` alone
+    runs on one device and logs nothing."""
+    if flag[0] in ("--devices", "--tp"):
+        argv = ["filter", "-r", workload["refs"], "-f", workload["short"], "-k", "12", "-N",
+                "45", *flag]
+        assert jax_main(argv) == 0
+        want = capsys.readouterr().out
+        assert cli.main([*argv, "--device", "cpu"]) == 0
+        got = capsys.readouterr()
+        assert got.out == want and 0 < want.count("\n") < 4 * 160
+        fallback = (f"filter --devices ignored (--devices {flag[1]} > 1 visible device(s)); "
+                    "running single-device")
+        assert [ln for ln in got.err.splitlines() if "ignored" in ln] == (
+            [fallback] if flag[0] == "--devices" else [])
+        return
     with pytest.raises(SystemExit) as exc:
         cli.main(["filter", "-r", "refs.fa", "-f", "reads.fq", *flag])
     assert exc.value.code == 2

@@ -154,7 +154,7 @@ def test_hash_resume_needs_an_out_file(capsys):
 def test_cli_parses_rkmh_tpu_flags_and_defaults(argv):
     want = vars(jax_parser().parse_args(argv))
     got = vars(cli.build_parser().parse_args(argv))
-    not_ported = {"devices", "dist_coordinator", "dist_procs", "dist_rank"}
+    not_ported = {"dist_coordinator", "dist_procs", "dist_rank"}
     assert set(got) - {"device"} == set(want)
     for key, value in want.items():
         if key in not_ported:
@@ -179,7 +179,27 @@ def test_cli_hash_dead_flags_warn_as_jax(workload, capsys, flags):
 @pytest.mark.parametrize("command", ["hash", "count", "search"])
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--dist-coordinator", "h:1"],
                                   ["--dist-procs", "2"], ["--dist-rank", "0"]])
-def test_cli_rejects_flags_not_yet_ported(command, flag, capsys):
+def test_cli_rejects_flags_not_yet_ported(command, flag, workload, capsys):
+    """--dist-* are rejected by name.  --devices runs since it was ported:
+    with ``--device cpu`` the port sees one device, logs rkmh-tpu's
+    fallback line and prints rkmh-tpu's bytes."""
+    if flag[0] == "--devices":
+        kmers = str(workload["dir"] / "kmers.txt")
+        seq = "".join(open(workload["refs"]).read().split(">")[1].split("\n")[1:])
+        with open(kmers, "w") as fh:
+            fh.write("\n".join(seq[i: i + 12] for i in range(0, 1200, 5)) + "\n")
+        argv = ([command, "-r", kmers, "-f", workload["short"], "-k", "12", *flag]
+                if command == "search" else
+                [command, "-f", workload["short"], "-k", "12", *flag]
+                + (["--dump"] if command == "count" else []))
+        assert jax_main(argv) == 0
+        want = capsys.readouterr().out
+        assert cli.main([*argv, "--device", "cpu"]) == 0
+        got = capsys.readouterr()
+        assert got.out == want and want
+        assert ("--devices ignored (--devices 2 > 1 visible device(s)); running single-device"
+                in got.err.splitlines())
+        return
     with pytest.raises(SystemExit) as exc:
         cli.main([command, "-r", "k.txt", "-f", "reads.fq", *flag] if command == "search"
                  else [command, "-f", "reads.fq", *flag])

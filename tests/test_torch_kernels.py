@@ -35,9 +35,12 @@ from rkmh_tpu_torch.ops.probe import (
     panel_probe,
     panel_probe_filter,
     panel_probe_filter_plain,
+    panel_probe_partial,
+    panel_probe_partial_plain,
     panel_probe_plain,
     panel_probe_wide_packed_plain,
 )
+from rkmh_tpu_torch.parallel.mesh import build_sharded_tables, merge_tp_partials
 from rkmh_tpu_torch.ops.set_probe import (
     _set_probe_cuda,
     pack_set_table,
@@ -223,6 +226,89 @@ def test_panel_probe_filter_kernel_matches_plain(cuda_device, R, width):
             assert torch.equal(got, want), (R, width, ln is None, md, mm)
     assert kernels.PANEL_PROBE_FILTER.launches == before + 4 * len(cases)
     assert int(want[1].max()) > 0 and (want[0, :8] == -1).all()
+
+
+def _sketches(seed, R, t=24, n_reads=256, width=149):
+    """[R, t] sorted pool-drawn sketches (SENTINEL-padded), their lengths,
+    read rows drawn from the pool (a tenth invalid) and filter's [R]
+    reference lengths."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(1, 2**63, size=4 * t, dtype=np.int64)
+    pool[::3] |= np.int64(-(2**63))
+    sk = np.full((R, t), SENTINEL, dtype=np.int64)
+    lens = rng.integers(t // 2, t + 1, R).astype(np.int32)
+    for r in range(R):
+        sk[r, : lens[r]] = np.sort(rng.choice(pool, lens[r]).view(np.uint64)).view(np.int64)
+    reads = rng.choice(pool, size=(n_reads, width))
+    reads[rng.random(reads.shape) < 0.1] = 0
+    return sk, lens, reads, rng.integers(0, 80, R).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,tp", [(60, 2), (600, 4), (600, 2), (20000, 2)])
+def test_panel_probe_partial_kernel_matches_plain_and_merges(cuda_device, R, tp):
+    # every route a tp shard takes: counters in registers (30 and 150
+    # references a shard), in shared memory (300) and K11's (10,000); the
+    # shards merged equal the unsharded kernel, stream and filter
+    if R > PAST:
+        sk, lens, reads, set_lens = straddling_panel(R, seed=R, n_reads=256, width=149)
+    else:
+        sk, lens, reads, set_lens = _sketches(R, R)
+    tables, rps = build_sharded_tables(sk, lens, tp)
+    logical = [torch.from_numpy(np.ascontiguousarray(t).view(np.int32)) for t in tables]
+    shards = [device_table(t, rps, cuda_device) for t in logical]
+    logical = [t.to(cuda_device) for t in logical]
+    whole = device_table(torch.from_numpy(build_panel_table(sk, lens).table.view(np.int32)), R,
+                         cuda_device)
+    raw = torch.from_numpy(reads).to(cuda_device)
+    set_lens = torch.from_numpy(set_lens).to(cuda_device)
+    sk_rows, sk_lens = bottom_s_sketch(raw, 32)
+    before = kernels.PANEL_PROBE_PARTIAL.launches
+    for rows, ln in ((raw, None), (sk_rows, sk_lens)):
+        for init in (-1, 0):
+            got = [panel_probe_partial(rows, ln, t, rps, init) for t in shards]
+            torch.cuda.synchronize()
+            for g, t in zip(got, logical):
+                assert torch.equal(g, panel_probe_partial_plain(rows, ln, t, rps, init))
+            if init == -1:
+                want = panel_probe(rows, ln, whole, R, 1, 3)
+                assert torch.equal(merge_tp_partials(torch.stack(got), rps, 1, 3), want)
+            else:
+                want = panel_probe_filter(rows, ln, whole, R, set_lens, 1, 3)
+                assert torch.equal(merge_tp_partials(torch.stack(got), rps, 1, 3, set_lens), want)
+    assert kernels.PANEL_PROBE_PARTIAL.launches == before + 4 * tp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,parts", [(200_000_000, 4), (1009 * 3, 3)])
+def test_counter_kernels_over_slot_ranges(cuda_device, size, parts):
+    # K6 over each range (binned and direct, a mask tensor and the window
+    # mask) puts the whole table's counts together; K7 over the ranges in
+    # turn is the whole table's K7
+    h, m = (t.to(cuda_device) for t in _hashes(size % 1000, (512, 149)))
+    lens = torch.from_numpy(np.random.default_rng(parts).integers(0, 161, 512)).to(cuda_device)
+    whole = torch.zeros(size, dtype=torch.int32, device=cuda_device)
+    counter.counter_add_plain(whole, h, m)
+    counter.counter_add_plain(whole, h, window_mask(lens, 160, [12]))
+    n = size // parts
+    adds = kernels.COUNTER_ADD.by_route.get("range", 0)
+    for binned in (True, False):
+        pieces = []
+        for o in range(parts):
+            t = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+            counter._counter_add_cuda(t, h, m, binned=binned, base=o * n, size=size)
+            counter._counter_add_cuda(t, h, None, (lens, 160, [12]), binned=binned, base=o * n,
+                                      size=size)
+            pieces.append(t)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(pieces), whole), binned
+    assert kernels.COUNTER_ADD.by_route["range"] == adds + 4 * parts
+    for lo, hi in ((2, counter.INT32_MAX), (0, 1)):
+        out = h
+        for o in range(parts):
+            out = counter.counter_mask(pieces[o], out, lo, hi, o * n, size)
+        torch.cuda.synchronize()
+        assert torch.equal(out, counter.counter_mask_plain(whole, h, lo, hi)), (lo, hi)
 
 
 @pytest.mark.cuda
@@ -1027,6 +1113,7 @@ def test_launch_counts_reset():
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {"window_hash": 0, "panel_probe": 0,
                                        "panel_probe_filter": 0, "panel_probe_wide": 0,
+                                       "panel_probe_partial": 0,
                                        "set_probe": 0, "sorted_probe": 0,
                                        "lut_gather_rows": 0, "lut_gather_lanes": 0,
                                        "counter_add": 0, "counter_mask": 0,

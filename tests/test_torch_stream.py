@@ -132,7 +132,25 @@ def test_cli_accepts_dead_parity_flags_as_jax_does(workload, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--dist-coordinator", "h:1"],
                                   ["--devices", "2"], ["--dist-rank", "0"],
                                   ["--dist-procs", "2"]])
-def test_cli_rejects_flags_not_yet_ported(flag, capsys):
+def test_cli_rejects_flags_not_yet_ported(flag, workload, capsys):
+    """--dist-* are rejected by name.  --devices and --tp run since they
+    were ported: ``--devices 2 --device cpu`` sees one device, logs
+    rkmh-tpu's fallback line and prints rkmh-tpu's bytes; ``--tp 2`` alone
+    runs on one device and logs nothing."""
+    from rkmh_tpu.cli import main as jax_main
+
+    if flag[0] in ("--devices", "--tp"):
+        argv = ["stream", "-r", workload["refs"], "-f", workload["short"], "-k", "12", *flag]
+        assert jax_main(argv) == 0
+        want = capsys.readouterr().out
+        assert cli.main([*argv, "--device", "cpu"]) == 0
+        got = capsys.readouterr()
+        assert got.out == want and len(want.splitlines()) == 200
+        fallback = ("stream --devices ignored (--devices 2 > 1 visible device(s)); running "
+                    "single-device")
+        assert [ln for ln in got.err.splitlines() if "ignored" in ln] == (
+            [fallback] if flag[0] == "--devices" else [])
+        return
     with pytest.raises(SystemExit) as exc:
         cli.main(["stream", "-r", "refs.fa", "-f", "reads.fq", *flag])
     assert exc.value.code == 2
@@ -205,6 +223,7 @@ def test_port_never_imports_jax():
             "import rkmh_tpu_torch.bench.probe_inputs, rkmh_tpu_torch.ops.probe\n"
             "import rkmh_tpu_torch.ml.wabbit, rkmh_tpu_torch.ml.vw_model\n"
             "import rkmh_tpu_torch.classify.library, rkmh_tpu_torch.ops.sparse_margin\n"
+            "import rkmh_tpu_torch.parallel.mesh, rkmh_tpu_torch.parallel.ep\n"
             "import pkgutil, importlib, rkmh_tpu_torch.scripts as s\n"
             "names = [m.name for m in pkgutil.iter_modules(s.__path__)]\n"
             "assert len(names) == 12, names\n"
