@@ -284,7 +284,33 @@ line) without CUDA or without the package beside it.  In order it:
     first 16,384 reads, ``hash``, ``count`` and ``search`` with ``--devices
     4``; reads/s beside one device's; then ``rkmh-tpu-torch stream --devices
     2`` through the CLI: on one card stderr holds the fallback line and
-    stdout is one device's.
+    stdout is one device's;
+36. the kernels' new modes: (inside 9) K3's partial epilogue
+    (``rkmh_set_probe_partial``, a tp shard's window of the combined
+    columns) on every shard of the 182-type panel at tp = 2 and 4 (the
+    shard tables of ``hpv16_cmd.build_tables(tp_shards=tp)``) on the
+    512-read batch, whose reads take 1, 2 and 3+ 2,048-element segments:
+    each shard exactly against ``set_probe_partial_plain``, the merged
+    shards (``merge_hpv16_partials``) against the whole table's K3, the
+    window (0, T + U) against ``rkmh_set_probe`` bit for bit; timed on shard
+    0 of 2 (graph, eager) beside its plain version, its bound
+    (``bench/bounds.set_probe_partial_bytes``) and the whole table's K3;
+    (after 22) K9 with a base > 0: the call workload's reference in 2 and 4
+    slices (``call_engine.call_scan_slice``) against each slice's plain
+    version and the whole row's scan, and timed on slice 1 of 4;
+37. the last sharded paths on a grid of ``(cuda:0,) * 4``, each driven
+    with the counters zeroed just before and read just after, byte for
+    byte against the same command on one device, Mbp/s (seconds for call)
+    beside one device's, the peak memory reckoned before each hpv16 run
+    and measured: (inside 10, on its input) ``hpv16`` at (2, 2) over the
+    12,800 reads, at (4, 1) and (1, 4), ``-M 2`` (2 dp slot ranges of the
+    8e8-slot counter) and the 182 types under a 256 MB cap (the sorted
+    panel, K10 on each dp slice) at (2, 2) over the first 3,200, and
+    ``rkmh-tpu-torch hpv16 --devices 2`` through the CLI (the fallback
+    line on one card); (after 24) ``call --devices 4``: the workload's VCF
+    and ``-d`` and the 1 Mbp reference's VCF; ``parallel/sp.sp_sketch`` of
+    two 4.2 Mbp genomes over 4 chunks, k = 16 and -k 12 -k 16, against one
+    device's sketch.
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record (per kernel: launches on the driven paths, in all and by
@@ -304,7 +330,10 @@ launches by route, its mutated k-mers per second, its byte-wise route's
 time and its times on the 1 Mbp reference, K12 its forward + backward
 times, its plan's build time and size, phase 32's numbers and phase 31's
 accuracies; K6 and K7 their launches over a slot range and their times on
-one; the partial epilogue its shape) and ``{"ok": true, "device":
+one; the partial epilogue its shape; K3 its launches by route, whole table
+and partial; K3's partial epilogue its shape, the whole table's K3 time
+and the batch's reads by segments; K9 its base mode's time and error) and
+``{"ok": true, "device":
 {...}}``.  Any failure raises.
 """
 
@@ -1064,6 +1093,7 @@ def run_hpv16(dev, card: str) -> dict:
             f"probe: {tb.probe_table.nbytes / 2**20:.1f} MiB beside it; set-up s: "
             + ", ".join(f"{k} {v:.3f}" for k, v in tb.setup_s.items()))
         err_k3, times, batch_hashes = check_k3(dev, tb, packed, panel)
+        err_partial3, partial3_t = check_set_probe_partial(dev, tb, cfg, packed)
 
         gpu_dir, cpu_dir = os.path.join(tmp, "gpu"), os.path.join(tmp, "cpu")
         os.makedirs(gpu_dir)
@@ -1115,6 +1145,8 @@ def run_hpv16(dev, card: str) -> dict:
             f"byte-identical to the CPU plain path ({cpu_s:.2f} s on the CPU)")
         typed = float(np.mean([ln.split("\t")[1] == t for ln, t in zip(gpu_lines, truth)]))
         capped = run_hpv16_capped(tmp, cfg, gpu_lines)
+        sharded = run_sharded_hpv16(dev, card, tmp, cfg, reads, gpu_lines, e2e_s, mbp,
+                                    tb.probe_table.nbytes)
 
     # device step over resident batches (parse, table build and format excluded)
     batches = [(torch.from_numpy(codes).to(dev),
@@ -1142,7 +1174,8 @@ def run_hpv16(dev, card: str) -> dict:
            "device_step_mbp_per_s": mbp / (step_ms / 1e3),
            "device_step_reads_per_s": N_HPV16_READS / (step_ms / 1e3),
            "typed_share": typed, "launches": launches, "err_k3": err_k3, **times,
-           "capped": capped,
+           "capped": capped, "sharded": sharded, "err_partial": err_partial3,
+           "partial_t": partial3_t,
            "batch_hashes": batch_hashes}  # K7's hpv16 -M shape, for check_counters
     say(f"hpv16 slice on {card}: e2e {res['e2e_mbp_per_s']:.3f} Mbp/s, "
         f"{res['e2e_reads_per_s']:.1f} reads/s ({e2e_s:.2f} s for {N_HPV16_READS} reads, "
@@ -3490,6 +3523,363 @@ def run_sharded_paths(dev, card: str, zika: dict, single: dict, hash_res: dict) 
     return res
 
 
+N_SHARDED_HEAD = 3200    # phase 37: the reads of the (4, 1), (1, 4), -M and capped grids
+N_CLI_HPV16 = 256        # phase 37: the CLI's --devices 2 run on one card
+SP_LEN = 1 << 22         # phase 37: sp_sketch over 4 chunks of two genomes of 4.2 Mbp
+SP_SKETCH = 1000
+
+
+def check_set_probe_partial(dev, tb, cfg: dict, packed) -> tuple[int, dict]:
+    """Phase 36a: K3's partial epilogue (``rkmh_set_probe_partial``) on
+    every shard of the 182-type panel at tp = 2 and 4 (the shard tables as
+    ``hpv16_cmd.build_tables(tp_shards=tp)`` builds them) on the first
+    HPV16_BATCH reads, whose rows take 1, 2 and 3 or more 2,048-element
+    segments: each shard exactly against ``set_probe_partial_plain`` on its
+    logical table, the merged shards (``merge_hpv16_partials``) against the
+    whole table's K3, and the window (0, T + U) against the whole table's K3
+    bit for bit.  Then times the partial epilogue on shard 0 of 2 (graph
+    and eager) beside its plain version and its bound.  -> (max_abs_err,
+    times)."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
+    from rkmh_tpu_torch.classify import engine
+    from rkmh_tpu_torch.commands import hpv16_cmd
+    from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
+    from rkmh_tpu_torch.ops.set_probe import (
+        SEGMENT,
+        _set_probe_cuda,
+        _set_probe_partial_cuda,
+        merge_hpv16_partials,
+        pack_set_table,
+        set_probe_partial_plain,
+    )
+    from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+
+    T, U = len(tb.type_names), tb.n_lin + tb.n_sub
+    lens = packed.lens[:HPV16_BATCH]
+    codes = packed.codes[:HPV16_BATCH, : -(-int(lens.max()) // 128) * 128]
+    x = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
+    full, sk_lens = bottom_s_sketch(multi_k_window_hashes(x, [HPV16_K]),
+                                    x.shape[1] - HPV16_K + 1)
+    Wc = engine.hpv16_compact_width(lens, x.shape[1], (HPV16_K,))
+    rows = full[:, :Wc]
+    segs = (-(-sk_lens.clamp(max=Wc) // SEGMENT)).clamp(min=1)
+    by_segs = {n: int((segs == n).sum()) for n in (1, 2)}
+    by_segs["3+"] = int((segs >= 3).sum())
+    if not all(by_segs.values()):
+        raise AssertionError(f"the batch lacks reads of 1, 2 or 3+ segments: {by_segs}")
+    whole = _set_probe_cuda(rows, sk_lens, tb.probe_table, T, U)
+    if not torch.equal(_set_probe_partial_cuda(rows, sk_lens, tb.probe_table, 0, T + U, T, U),
+                       whole):
+        raise AssertionError("K3's partial route over (0, T + U) differs from rkmh_set_probe")
+    worst, timed = 0, None
+    for tp in PARTIAL_TPS:
+        stb = hpv16_cmd.build_tables(hpv16_cmd.Hpv16Config(**cfg, tst_file=False),
+                                     (HPV16_K,), dev, tp_shards=tp)
+        rps, parts = stb.rps, []
+        for j in range(tp):
+            logical = torch.from_numpy(np.ascontiguousarray(stb.shard_tables[j])
+                                       .view(np.int32)).to(dev)
+            shard = pack_set_table(logical, rps)
+            got = _set_probe_partial_cuda(rows, sk_lens, shard, j * rps, rps, T, U)
+            want = set_probe_partial_plain(rows, sk_lens, logical, j * rps, rps, T, U)
+            err = max_abs_err(got, want)
+            if err or not torch.equal(got, want):
+                raise AssertionError(f"K3's partial epilogue disagrees with the plain version: "
+                                     f"tp {tp}, shard {j}")
+            worst = max(worst, err)
+            parts.append(got)
+            if timed is None:
+                timed = (logical, shard, rps)
+        if not torch.equal(merge_hpv16_partials(torch.stack(parts)), whole):
+            raise AssertionError(f"merged K3 partials differ from the whole table's K3 at tp {tp}")
+        say(f"K3 partial epilogue, 182-type panel, tp = {tp} ({rps} columns a shard, "
+            f"{tp * rps - T - U} pad columns, shard table {tuple(stb.shard_tables.shape)}): every "
+            f"shard exact against its plain version on rows {tuple(rows.shape)} (reads of 1, 2, "
+            f"3+ segments: {by_segs}); the merged shards equal the whole table's K3")
+        del stb
+    logical, shard, rps = timed
+    run = lambda: _set_probe_partial_cuda(rows, sk_lens, shard, 0, rps, T, U)  # noqa: E731
+    t = {"ms": cuda_graph_time_ms(run, 10), "eager_ms": cuda_time_ms(run, 20),
+         "plain_ms": cuda_time_ms(lambda: set_probe_partial_plain(
+             rows, sk_lens, logical, 0, rps, T, U), 3, warmup=1),
+         "bound_ms": bounds.bound_ms(bounds.set_probe_partial_bytes(rows, sk_lens, logical,
+                                                                    shard, rps, U)),
+         "whole_ms": cuda_graph_time_ms(
+             lambda: _set_probe_cuda(rows, sk_lens, tb.probe_table, T, U), 10),
+         "shape": list(rows.shape), "shard_columns": rps, "reads_by_segments": by_segs}
+    say(f"time set_probe_partial (182-type panel, shard 0 of 2, {rps} columns, rows "
+        f"{tuple(rows.shape)}): {t['ms']:.4f} ms ({t['eager_ms']:.4f} eager) vs "
+        f"{t['plain_ms']:.4f} ms plain; the whole table's K3 {t['whole_ms']:.4f} ms; bound "
+        f"{t['bound_ms']:.4f} ms (share {t['bound_ms'] / t['ms']:.3f})")
+    return worst, t
+
+
+def check_k9_base(dev, cw: dict) -> tuple[int, dict]:
+    """Phase 36b: K9 with a slice's global offset (base > 0) on the call
+    workload's reference cut into 2 and 4 slices as ``call --devices``
+    cuts it: each slice's K1, K8, window average over the previous slice's
+    last w depths and K9 (``call_scan_slice``) exactly against the same
+    slice's plain version (``_enumerate_plain`` at the same base) and
+    against the whole row's scan sliced.  Then times K9 on slice 1 of 4.
+    -> (max_abs_err, times)."""
+    import torch
+
+    from rkmh_tpu_torch import call_engine
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
+    from rkmh_tpu_torch.io.packing import PAD_CODE
+
+    k, w = 16, 100
+    codes, table = cw["codes"], cw["table"]
+    whole = call_engine.call_scan_plain(codes, table, k, w)
+    P = codes.numel() - k + 1
+    worst, timed = 0, None
+    for n in (2, 4):
+        Pl = -(-P // n)
+        padded = torch.full((n * Pl + k + 1,), int(PAD_CODE), dtype=torch.uint8, device=dev)
+        padded[0] = 4
+        padded[1: 1 + codes.numel()] = codes
+        halo = None
+        for d in range(n):
+            j0, j1 = d * Pl, min((d + 1) * Pl, P)
+            pref = padded[j0: j0 + Pl + k + 1]
+            got = call_engine.call_scan_slice(pref, table, k, w, Pl, j0, halo)
+            want = call_engine.call_scan_slice(pref, table, k, w, Pl, j0, halo, plain=True)
+            for name in want:
+                err = max_abs_err(got[name].to(torch.int64), want[name].to(torch.int64))
+                if err or not torch.equal(got[name], want[name]) \
+                        or not torch.equal(got[name][: j1 - j0], whole[name][j0:j1]):
+                    raise AssertionError(f"K9 at base {j0} (slice {d} of {n}) disagrees: {name}")
+                worst = max(worst, err)
+            if n == 4 and d == 1:
+                timed = (pref, got, j0, Pl)
+            halo = got["depth"][-w:]
+    pref, got, base, Pl = timed
+    run = lambda: call_engine._call_scan_pref_cuda(  # noqa: E731
+        pref, table, k, got["depth"], got["avg"], got["site"], base=base)
+    t = {"ms": cuda_graph_time_ms(run, 20), "eager_ms": cuda_time_ms(run, 50), "base": base,
+         "positions": Pl}
+    say(f"K9 with a base: the workload reference in 2 and 4 slices, every slice exact against "
+        f"its plain version and the whole row's scan; slice 1 of 4 ({Pl} positions from "
+        f"{base}): {t['ms']:.5f} ms ({t['eager_ms']:.5f} eager)")
+    return worst, t
+
+
+def reckon_peak(step_rows: int, width: int, extra: dict) -> str:
+    """The peak device memory a sharded run should reach, reckoned before
+    it: what is allocated now, the named extras, and one batch's working set
+    (the K1 hashes, the sort's keys, values and output: ~4 int64 copies of
+    [rows, width] a tp column)."""
+    import torch
+
+    parts = {"resident": torch.cuda.memory_allocated(), **extra,
+             "batch working set": 4 * 8 * step_rows * width}
+    total = sum(parts.values())
+    return (f"{total / 2**30:.2f} GiB ("
+            + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in parts.items()) + ")")
+
+
+def run_sharded_hpv16(dev, card: str, tmp: str, cfg: dict, reads: str, one_lines: list,
+                      one_s: float, mbp: float, table_bytes: int) -> dict:
+    """Phase 37a (inside phase 10, on its input): hpv16 on a grid of
+    (cuda:0,) * 4, each run driven with the counters zeroed just before and
+    read just after, byte for byte against one device on the card: (2, 2)
+    over all N_HPV16_READS reads (against phase 10's run), (4, 1) and (1, 4)
+    over the first N_SHARDED_HEAD, -M 2 at (2, 2) (the 8e8-slot counter in
+    2 dp slot ranges) and the 182 types under a 256 MB cap at (2, 2) (the
+    sorted panel replicated, K10 on each dp slice) over the same head, each
+    beside its one-device run; the peak memory reckoned before each run and
+    measured; then ``rkmh-tpu-torch hpv16 --devices 2`` through the CLI: on
+    one card the fallback line on stderr and one device's stdout."""
+    import subprocess
+
+    import torch
+
+    from rkmh_tpu_torch.commands import hpv16_cmd
+    from rkmh_tpu_torch.ops import kernels
+
+    grid = (torch.device("cuda", 0),) * GRID
+    head = head_file(reads, os.path.join(tmp, "head37.fq"), N_SHARDED_HEAD)
+    with open(head) as fh:
+        head_mbp = sum(len(ln) - 1 for i, ln in enumerate(fh) if i % 4 == 1) / 1e6
+    with open(reads) as fh:
+        max_len = max(len(ln) - 1 for i, ln in enumerate(fh) if i % 4 == 1)
+    cwd, res = os.getcwd(), {}
+
+    def one_run(label, read_files, needed, **kw):
+        wd = os.path.join(tmp, label.replace(" ", "_"))
+        os.makedirs(wd)
+        os.chdir(wd)
+        seconds, launches = driven(lambda: hpv16_cmd.run(hpv16_cmd.Hpv16Config(
+            **{**cfg, "read_files": read_files}, out_file="out.tsv", device="cuda", **kw)),
+            label, needed)
+        return seconds, launches, read_text("out.tsv")
+
+    def grid_run(label, read_files, want, single_s, n_mbp, tp, needed, extra, **kw):
+        say(f"{label}: reckoned peak {reckon_peak(HPV16_BATCH // (GRID // tp), max_len, extra)}")
+        torch.cuda.reset_peak_memory_stats()
+        seconds, launches, text = one_run(label, read_files, needed, devices=GRID, tp=tp,
+                                          mesh_devices=grid, **kw)
+        peak = torch.cuda.max_memory_allocated()
+        require_same(text, want, label)
+        r = {"e2e_s": seconds, "e2e_mbp_per_s": n_mbp / seconds,
+             "one_device_mbp_per_s": n_mbp / single_s, "ratio": single_s / seconds,
+             "peak_gib": peak / 2**30, "launches": launches,
+             "set_probe_by_route": {"whole": launches["set_probe"],
+                                    "partial": launches["set_probe_partial"]}}
+        say(f"{label} on {card}, {GRID} shards sharing one card: e2e {r['e2e_mbp_per_s']:.3f} "
+            f"Mbp/s ({seconds:.2f} s); one device {r['one_device_mbp_per_s']:.3f} Mbp/s; ratio "
+            f"{r['ratio']:.3f}; peak {r['peak_gib']:.2f} GiB allocated; byte-identical")
+        res[label] = r
+        return r
+
+    part = ("window_hash", "set_probe_partial")
+    try:
+        head_s, _, head_text = one_run("hpv16 one device head", [head], ("window_hash",
+                                                                        "set_probe"))
+        require_same(head_text, "".join(one_lines[:N_SHARDED_HEAD]), "hpv16 head")
+        shards = {"shard tables (about the whole table's)": table_bytes}
+        grid_run("hpv16 --devices 4 --tp 2", [reads], "".join(one_lines), one_s, mbp, 2, part,
+                 shards)
+        for tp in (1, 4):
+            grid_run(f"hpv16 --devices 4 --tp {tp}", [head], head_text, head_s, head_mbp, tp,
+                     part, shards)
+        m_s, _, m_text = one_run("hpv16 -M one device head", [head],
+                                 ("window_hash", "counter_add", "counter_mask", "set_probe"),
+                                 min_kmer_occ=MIN_OCC)
+        r = grid_run("hpv16 -M 2 --devices 4 --tp 2", [head], m_text, m_s, head_mbp, 2,
+                     part + ("counter_add", "counter_mask"),
+                     {**shards, "counter (2 slot ranges)": 4 * HPV16_COUNTER},
+                     min_kmer_occ=MIN_OCC)
+        ranges = {k: kernels.KERNELS[k].by_route.get("range", 0)
+                  for k in ("counter_add", "counter_mask")}
+        if not all(ranges.values()):
+            raise AssertionError(f"hpv16 -M --devices: K6/K7 launches over a slot range {ranges}")
+        r["launches"] = {**r["launches"], "by_range": ranges}
+        old = os.environ.get("RKMH_TPU_SET_TABLE_MAX_MB")
+        os.environ["RKMH_TPU_SET_TABLE_MAX_MB"] = "256"
+        try:
+            c_s, _, c_text = one_run("hpv16 capped one device head", [head],
+                                     ("window_hash", "sorted_probe"))
+            require_same(c_text, head_text, "hpv16 capped head")
+            r = grid_run("hpv16 capped --devices 4 --tp 2", [head], c_text, c_s, head_mbp, 2,
+                         ("window_hash", "sorted_probe"),
+                         {"sorted panel (~1/10 of the table)": table_bytes // 10})
+            if r["launches"]["set_probe"] or r["launches"]["set_probe_partial"]:
+                raise AssertionError("the capped sharded hpv16 run launched K3")
+        finally:
+            if old is None:
+                del os.environ["RKMH_TPU_SET_TABLE_MAX_MB"]
+            else:
+                os.environ["RKMH_TPU_SET_TABLE_MAX_MB"] = old
+        wd = os.path.join(tmp, "cli37")
+        os.makedirs(wd)
+        small = head_file(reads, os.path.join(tmp, "cli37.fq"), N_CLI_HPV16)
+        proc = subprocess.run([sys.executable, "-m", "rkmh_tpu_torch.cli", "hpv16", "-f", small,
+                               "-R", tmp, "-k", str(HPV16_K), "--devices", "2"], cwd=wd,
+                              env={**os.environ, "PYTHONPATH": REPO}, capture_output=True,
+                              text=True, timeout=300)
+    finally:
+        os.chdir(cwd)
+    n_visible = torch.cuda.device_count()
+    fallback = (f"hpv16 --devices ignored (--devices 2 > {n_visible} visible device(s)); "
+                "running single-device")
+    if proc.returncode or (n_visible == 1 and fallback not in proc.stderr.splitlines()):
+        raise AssertionError(f"hpv16 --devices 2 through the CLI: rc {proc.returncode}, "
+                             f"stderr {proc.stderr[-500:]!r}")
+    require_same(proc.stdout, "".join(one_lines[:N_CLI_HPV16]), "hpv16 --devices 2 (CLI)")
+    say(f"CLI hpv16 --devices 2 on {n_visible} card(s): stdout byte-identical to one device"
+        + (f"; stderr: {fallback}" if n_visible == 1 else ""))
+    return res
+
+
+def run_sharded_call(dev, card: str, cw: dict) -> dict:
+    """Phase 37b: ``call --devices 4`` on the grid of (cuda:0,) * 4 (each
+    run driven with the counters zeroed just before and read just after)
+    byte for byte against one device on the card: the call workload's VCF
+    and ``-d``, and the VCF of the 1 Mbp reference of ``bench/call_inputs``
+    (written as FASTA) against the same map's reads; seconds beside one
+    device's."""
+    import io
+
+    import torch
+
+    from rkmh_tpu_torch.commands import call_cmd
+    from rkmh_tpu_torch.ops import kernels
+
+    grid = (torch.device("cuda", 0),) * GRID
+    tmp = os.path.dirname(cw["ref"])
+    big = os.path.join(tmp, "big.fa")
+    with open(big, "w") as fh:
+        fh.write(">big1mbp\n" + bytes(b"ACGTN"[c] for c in cw["big"].cpu().tolist())
+                 .decode() + "\n")
+    needed = ("window_hash", "hashmap_get", "call_scan")
+    res = {}
+    for label, ref, show_depth in (("call --devices 4", cw["ref"], False),
+                                   ("call -d --devices 4", cw["ref"], True),
+                                   ("call 1 Mbp --devices 4", big, False)):
+        kw = dict(ref_files=[ref], read_files=[cw["reads"]], ks=(16,), window_len=100,
+                  show_depth=show_depth)
+        outs = {}
+        for devices in (0, GRID):
+            buf = io.StringIO()
+            seconds, launches = driven(lambda: call_cmd.run(call_cmd.CallConfig(
+                devices=devices, device="cuda", mesh_devices=grid, **kw), out=buf),
+                label if devices else label.replace(" --devices 4", " one device"), needed)
+            outs[devices] = (buf.getvalue(), seconds, launches,
+                             dict(kernels.CALL_SCAN.by_route))
+        require_same(outs[GRID][0], outs[0][0], label)
+        _, seconds, launches, routes = outs[GRID]
+        res[label] = {"e2e_s": seconds, "one_device_s": outs[0][1],
+                      "ratio": outs[0][1] / seconds, "launches": launches, "k9_routes": routes,
+                      "bytes": len(outs[GRID][0])}
+        say(f"{label} on {card}, {GRID} slices sharing one card: {seconds:.3f} s; one device "
+            f"{outs[0][1]:.3f} s; byte-identical ({len(outs[GRID][0])} bytes); K9 launches "
+            f"{routes}")
+    return res
+
+
+def run_sp_sketch(dev, card: str) -> dict:
+    """Phase 37c: ``parallel/sp.sp_sketch`` of two synthetic genomes of
+    SP_LEN codes (runs of N) over 4 chunks on (cuda:0,) * 4, driven with
+    the counters zeroed just before and read just after (K1), against one
+    device's ``bottom_s_sketch`` of the whole rows (``engine.sketch_batch``),
+    for k = 16 and for -k 12 -k 16; seconds beside one device's."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch.classify import engine
+    from rkmh_tpu_torch.parallel.sp import make_sp_mesh, sp_sketch
+
+    rng = np.random.default_rng(37)
+    codes = rng.integers(0, 4, (2, SP_LEN)).astype(np.uint8)
+    for start in range(10_000, SP_LEN, 500_000):
+        codes[:, start: start + 40] = 4
+    mesh = make_sp_mesh([torch.device("cuda", 0)] * GRID)
+    res = {}
+    for ks in ((16,), (12, 16)):
+        out = {}
+        seconds, launches = driven(lambda: out.update(sp=sp_sketch(mesh, codes, ks, SP_SKETCH)),
+                                   f"sp_sketch k={ks}", ("window_hash",))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = engine.sketch_batch(torch.from_numpy(codes).to(dev), ks, SP_SKETCH)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        sk, lens = out["sp"]
+        if not (torch.equal(sk, one[0]) and torch.equal(lens, one[1])):
+            raise AssertionError(f"sp_sketch over {GRID} chunks differs from one device, ks {ks}")
+        label = f"sp_sketch -k {' -k '.join(map(str, ks))}"
+        res[label] = {"e2e_s": seconds, "one_device_s": one_s, "launches": launches}
+        say(f"{label} on {card}: {GRID} chunks of {SP_LEN // GRID} codes x 2 genomes, s = "
+            f"{SP_SKETCH}: {seconds:.4f} s (one device {one_s:.4f} s), equal to one device's "
+            f"sketch")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3569,9 +3959,12 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f} s")
         err_k8 = check_k8(dev, cw)
         err_k9 = check_k9(dev, cw)
+        err_k9_base, k9_base = check_k9_base(dev, cw)
         call_times = time_call_kernels(
             cw, card_smi, codes.shape[0] * (codes.shape[1] - 11) / (times["window_hash"] / 1e3))
         called = run_call(dev, card_smi, cw)
+        sharded_call = run_sharded_call(dev, card_smi, cw)
+    sp = run_sp_sketch(dev, card_smi)
     fallback, k10 = run_hpv16_fallback(dev, card_smi)
     err_k11, k2_sweep = check_k11(dev)
     wide, k11 = run_wide_stream(dev, card_smi)
@@ -3587,7 +3980,8 @@ def main() -> int:
              **{k: {"launches": v} for k, v in {**pipeline, **per_read}.items()
                 if k not in ("accuracy", "stats")},
              **{k: {"launches": v} for k, v in cached.items() if k != "setup_s"},
-             **sharded, "stream 12,288 refs --devices 4 --tp 2": wide.pop("sharded")}
+             **sharded, "stream 12,288 refs --devices 4 --tp 2": wide.pop("sharded"),
+             **hp.pop("sharded"), **sharded_call, **sp}
     by_range = {name: sum(r["launches"].get("by_range", {}).get(name, 0) for r in paths.values())
                 for name in ("counter_add", "counter_mask")}
 
@@ -3636,9 +4030,16 @@ def main() -> int:
               bound["panel_probe"]),
         entry("panel_probe_filter", "panel_probe.cu", "rkmh_tpu/classify/engine.py:56",
               filt[0], filt[1], filt[3], filt[2], bound["panel_probe_filter"]),
-        entry("set_probe", "set_probe.cu", "rkmh_tpu/classify/engine.py:794", hp["err_k3"],
-              hp["set_probe"], hp["set_probe_eager"], hp["set_probe_plain"],
-              hp["set_probe_bound"]),
+        {**entry("set_probe", "set_probe.cu", "rkmh_tpu/classify/engine.py:794", hp["err_k3"],
+                 hp["set_probe"], hp["set_probe_eager"], hp["set_probe_plain"],
+                 hp["set_probe_bound"]),
+         "launches_by_route": {"whole": launched("set_probe"),
+                               "partial": launched("set_probe_partial")}},
+        {**entry("set_probe_partial", "set_probe.cu", "rkmh_tpu/parallel/mesh.py:369",
+                 hp["err_partial"], hp["partial_t"]["ms"], hp["partial_t"]["eager_ms"],
+                 hp["partial_t"]["plain_ms"], hp["partial_t"]["bound_ms"]),
+         **{key: hp["partial_t"][key] for key in ("whole_ms", "shape", "shard_columns",
+                                                  "reads_by_segments")}},
         gather_entry("lut_gather_rows", 109, launches_by_route=gather_launches[
             "lut_gather_rows_by_route"], by_n=gathers_by_n),
         gather_entry("lut_gather_lanes", 140, launches_by_route=gather_launches[
@@ -3655,6 +4056,7 @@ def main() -> int:
                  call_times["k9_call"]["plain_ms"], call_times["k9_call"]["bound_ms"]),
          "launches_by_route": {p: r.get("k9_routes", {}) for p, r in paths.items()
                                if r.get("k9_routes")},
+         "base_mode": {**k9_base, "max_abs_err": err_k9_base},
          "mutated_kmers_per_s": call_times["k9_call"]["mutated_kmers_per_s"],
          "bytewise_route": call_times["k9_call_bytewise"], "at_1mbp": call_times["k9_1mbp"]},
         entry("sorted_probe", "set_probe.cu", "rkmh_tpu/classify/engine.py:829", k10["err"],

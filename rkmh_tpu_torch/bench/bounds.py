@@ -178,6 +178,17 @@ def packed_set_table_bytes(st: ProbeStats, packed) -> int:
             + st.hit_slots * sectors(packed.slots.shape[1]))
 
 
+def set_probe_partial_bytes(rows: torch.Tensor, lens: torch.Tensor, shard: torch.Tensor,
+                            packed, rps: int, num_uniq: int) -> int:
+    """K3's partial epilogue on one tp shard: the rows (the first min(len,
+    n) of each) and lens in, the sectors of the shard's packed table
+    (``packed``, made from the logical ``shard`` of ``rps`` references)
+    that the run starts reach, and the int64 [B, 2+U] out."""
+    st = set_probe_stats(rows, lens, shard, rps)
+    return (read_row_bytes(rows, lens) + tensor_bytes(lens) + packed_set_table_bytes(st, packed)
+            + rows.shape[0] * (2 + num_uniq) * 8)
+
+
 def read_row_bytes(rows: torch.Tensor, lens: torch.Tensor | None) -> int:
     """Row bytes a probe needs: every element of raw rows, the first
     min(len, n) of sorted ones."""

@@ -6,13 +6,14 @@ path).  Ported: ``stream``'s ``-r -f -k -s -M -N -D -I -i -t --counter-size
 --batch-size --chunk-reads --ref-sketches -R -o --resume``, ``filter``'s
 ``-r -f -k -s -M -N -D -I -i -t --counter-size --batch-size --chunk-reads
 --ref-sketches -R -o --resume``, ``hpv16``'s ``-f -R -k -s -M -t -N -D
---counter-size --batch-size --chunk-reads -o --resume``, ``hash``'s ``-f
--r -k -s -t -K -w -c -o --json --sourmash --batch-size --chunk-reads --out
---resume`` (``-M -I -m -T`` accepted with rkmh-tpu's warnings),
-``count``'s ``-f -k -t --counter-size --batch-size -o --dump
+--counter-size --batch-size --chunk-reads -o --resume --devices --tp``,
+``hash``'s ``-f -r -k -s -t -K -w -c -o --json --sourmash --batch-size
+--chunk-reads --out --resume`` (``-M -I -m -T`` accepted with rkmh-tpu's
+warnings), ``count``'s ``-f -k -t --counter-size --batch-size -o --dump
 --chunk-reads``, ``search``'s ``-f -r -k -t --batch-size --chunk-reads
--o --resume`` and ``call``'s ``-r -f -k -s -t -w -d -o --resume`` (``-s``
-and ``-t`` accepted and unused, as in rkmh-tpu).  ``-R`` of stream and
+-o --resume`` and ``call``'s ``-r -f -k -s -t -w -d -o --resume
+--devices`` (``-s`` and ``-t`` accepted and unused, as in rkmh-tpu).
+``-R`` of stream and
 filter is an alias of ``--ref-sketches`` (rkmh's own -R is dead), with
 rkmh-tpu's warning when both are given.  ``stream -i`` (and ``classify
 -i``) classifies stdin, flushed batch by batch; with ``-f`` it logs that
@@ -25,10 +26,12 @@ does; ``RKMH_TPU_PROFILE=<dir>`` adds a profiler trace:
 ``stream``, ``classify`` and ``filter``) runs ``stream``, ``classify``,
 ``filter``, ``hash``, ``count`` and ``search`` over N devices of the
 machine (``parallel/``), with rkmh-tpu's defaults (0 and 1) and its
-logged fallback to one device where the geometry cannot apply.  Every
-other flag of rkmh-tpu (``--dist-*``; ``--devices`` of ``call``;
-``--devices``/``--tp`` of ``hpv16``) is parsed and rejected with an error
-naming it (for ``hpv16``: when it would change what runs,
+logged fallback to one device where the geometry cannot apply;
+``hpv16 --devices N --tp T`` shards its reads over dp = N / T and its set
+table over T of them, and ``call --devices N`` its reference positions
+over N, with their own fallback lines.  Every other flag of rkmh-tpu
+(``--dist-*``) is parsed and rejected with an error naming it (for
+``hpv16``: when it would change what runs,
 ``commands.hpv16_cmd.not_ported``), so an rkmh-tpu command line never
 runs with a flag silently dropped.
 """
@@ -41,17 +44,12 @@ import sys
 from rkmh_tpu_torch.device import DEFAULT_DEVICE
 
 # (flags, dest, argparse keywords) of rkmh-tpu flags the port does not
-# run yet: --dist-* everywhere, and call's --devices
+# run yet: --dist-* everywhere
 _DIST = (
     (("--dist-coordinator",), "dist_coordinator", {}),
     (("--dist-procs",), "dist_procs", {"type": int}),
     (("--dist-rank",), "dist_rank", {"type": int}),
 )
-_CALL_DEVICES = ((("--devices",), "devices", {"type": int}),)
-
-
-def _not_ported(command: str) -> tuple:
-    return _CALL_DEVICES + _DIST if command == "call" else _DIST
 
 
 def _add_dead_flags(p, stream: bool) -> None:
@@ -71,8 +69,8 @@ def _add_dead_flags(p, stream: bool) -> None:
         p.add_argument("-m", "--merge-sketch", action="store_true", help=hidden)
 
 
-def _add_not_ported(p, command: str) -> None:
-    for flags, dest, kw in _not_ported(command):
+def _add_not_ported(p) -> None:
+    for flags, dest, kw in _DIST:
         p.add_argument(*flags, dest=dest, help=argparse.SUPPRESS, **{"default": None, **kw})
 
 
@@ -151,7 +149,7 @@ def _add_classify_parser(sub, name: str):
     p.add_argument("-i", "--in-stream", action="store_true", dest="in_stream",
                    help="classify reads from stdin (ignored with -f, as in rkmh)")
     _add_devices(p, tp=True)
-    _add_not_ported(p, name)
+    _add_not_ported(p)
 
 
 def _add_hpv16_parser(sub):
@@ -174,10 +172,13 @@ def _add_hpv16_parser(sub):
     p.add_argument("--resume", action="store_true",
                    help="go on with an interrupted -o run: skip the reads already "
                         "written, append the rest")
+    p.add_argument("--devices", type=int, default=0,
+                   help="classify reads data-parallel over N local devices; 0 = one device")
+    p.add_argument("--tp", type=int, default=1,
+                   help="shard the combined type + group set table over T of the "
+                        "--devices (devices = dp x tp)")
     # rkmh-tpu hpv16 flags with rkmh-tpu's defaults, not run by the port yet
     hidden = argparse.SUPPRESS
-    p.add_argument("--devices", type=int, default=0, help=hidden)
-    p.add_argument("--tp", type=int, default=1, help=hidden)
     p.add_argument("--dist-coordinator", default="", help=hidden)
     p.add_argument("--dist-procs", type=int, default=0, help=hidden)
     p.add_argument("--dist-rank", type=int, default=-1, help=hidden)
@@ -214,7 +215,7 @@ def _add_hash_parsers(sub) -> None:
     p.add_argument("--resume", action="store_true",
                    help="go on with an interrupted --out run")
     _add_devices(p, tp=False)
-    _add_not_ported(p, "hash")
+    _add_not_ported(p)
 
     p = sub.add_parser("count")
     p.add_argument("-f", "--fasta", action="append", default=[], dest="reads")
@@ -226,7 +227,7 @@ def _add_hash_parsers(sub) -> None:
     p.add_argument("--dump", action="store_true", help="print the occupied slots")
     _add_run_flags(p)
     _add_devices(p, tp=False)
-    _add_not_ported(p, "count")
+    _add_not_ported(p)
 
     p = sub.add_parser("search")
     p.add_argument("-f", "--fasta", action="append", default=[], dest="reads")
@@ -239,7 +240,7 @@ def _add_hash_parsers(sub) -> None:
                    help="write the match lines here")
     p.add_argument("--resume", action="store_true", help="go on with an interrupted -o run")
     _add_devices(p, tp=False)
-    _add_not_ported(p, "search")
+    _add_not_ported(p)
 
 
 def _add_call_parser(sub):
@@ -261,7 +262,10 @@ def _add_call_parser(sub):
                         "checkpointed in <out>.progress")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="cuda (default; an error without a GPU) or cpu")
-    _add_not_ported(p, "call")
+    p.add_argument("--devices", type=int, default=0,
+                   help="shard the positional scan over N local devices (reference "
+                        "positions data-parallel); 0 = one device")
+    _add_not_ported(p)
 
 
 def build_parser():
@@ -389,7 +393,7 @@ def _run_call(args):
     return run(CallConfig(
         ref_files=args.refs, read_files=args.reads, ks=tuple(args.ks),
         window_len=args.window_len, show_depth=args.show_depth, out_file=args.out_file,
-        resume=args.resume, device=args.device,
+        resume=args.resume, devices=args.devices, device=args.device,
     ))
 
 
@@ -402,7 +406,7 @@ def main(argv=None) -> int:
         cfg = _hpv16_config(args)
         given = not_ported(cfg)
     else:
-        given = [flags[0] for flags, dest, _ in _not_ported(args.command)
+        given = [flags[0] for flags, dest, _ in _DIST
                  if getattr(args, dest, None) is not None]  # given (--dist-rank 0 too)
     if given:
         ap.error(f"{args.command}: {', '.join(given)} not yet ported to rkmh-tpu-torch")

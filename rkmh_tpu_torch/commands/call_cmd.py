@@ -18,7 +18,12 @@ reference's aggregate goes to the JSON-lines sidecar ``FILE.progress``
 as it is scanned, and ``--resume`` merges the complete sections and scans
 only the rest, so the VCF equals an uninterrupted run's.
 
-Not ported yet: ``--devices`` and ``--dist-*`` (rejected by the CLI).
+``--devices N`` (rkmh_tpu/commands/call_cmd.py:293-341) scans each
+reference's positions in N slices over a grid of N devices
+(``parallel/mesh.ShardedCallScan``); with more devices than visible, or
+for a reference too short for a window's width a slice, rkmh-tpu's line is
+logged and that work runs on one device.  Not ported yet: ``--dist-*``
+(rejected by the CLI).
 """
 
 from __future__ import annotations
@@ -35,12 +40,13 @@ import torch
 from rkmh_tpu_torch import call_engine
 from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.commands.common import (
-    bucketed_batches, load_packed, load_records, log, resolve_batch_size,
+    bucketed_batches, load_packed, load_records, log, mesh_candidates, resolve_batch_size,
 )
 from rkmh_tpu_torch.commands.recovery import InjectedFailure, fail_after_chunks
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.io.packing import encode_seqs
 from rkmh_tpu_torch.ops.hashmap import SortedMap, build_sorted_map, unique_counts
+from rkmh_tpu_torch.parallel.mesh import ShardedCallScan, make_mesh
 
 _BASE = "ACGT"
 
@@ -55,7 +61,9 @@ class CallConfig:
     batch_size: int = 2048   # reads a K1 batch of the depth map; 0 = auto
     out_file: str = ""       # -o: write the VCF here (required for --resume)
     resume: bool = False     # skip refs whose partials are checkpointed
+    devices: int = 0         # --devices: the positional scan over N devices; 0 = one
     device: str = DEFAULT_DEVICE
+    mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
 
 
 def _code_char(c: int) -> str:
@@ -296,6 +304,18 @@ def run(cfg: CallConfig, out=None, stats: dict | None = None) -> int:
 
     done_iter = iter(done_refs)
     pending_done = next(done_iter, None)
+
+    # --devices N: each reference's positions over N slices of a grid
+    scan_sharded = None
+    if cfg.devices > 1:
+        candidates = mesh_candidates(device, cfg.mesh_devices)
+        if cfg.devices > len(candidates):
+            log(f"call --devices ignored (--devices {cfg.devices} > {len(candidates)} "
+                "visible device(s)); running single-device")
+        else:
+            mesh = make_mesh(candidates[: cfg.devices], dp=cfg.devices, tp=1)
+            scan_sharded = ShardedCallScan(mesh, table, k, cfg.window_len)
+
     scanned = 0
     try:
         for ref in refs:
@@ -308,9 +328,15 @@ def run(cfg: CallConfig, out=None, stats: dict | None = None) -> int:
             t0 = time.perf_counter()
             codes, _ = encode_seqs([ref.seq])
             row = codes[0, : len(ref.seq)]
-            res = call_engine.call_scan_ref(torch.from_numpy(row).to(device), table, k,
-                                            cfg.window_len)
-            res = {name: v.cpu().numpy() for name, v in res.items()}
+            if scan_sharded is not None and scan_sharded.slice_len(P) >= cfg.window_len:
+                res = scan_sharded(row)
+            else:
+                if scan_sharded is not None:
+                    log(f"call --devices: {ref.name} spans only {P} positions "
+                        f"(< window {cfg.window_len} per device); single-device")
+                res = call_engine.call_scan_ref(torch.from_numpy(row).to(device), table, k,
+                                                cfg.window_len)
+                res = {name: v.cpu().numpy() for name, v in res.items()}
             t1 = time.perf_counter()
             phase["scan_s"] += t1 - t0
 

@@ -573,10 +573,11 @@ class ChunkedPipeline:
         self._drain()
 
 
-def sharded_geometry_reason(devices: int, tp: int, num_refs: int, n_visible: int,
+def sharded_geometry_reason(devices: int, tp: int, num_refs: int | None, n_visible: int,
                             min_kmer_occ: int = -1, counter_size: int = 0) -> str | None:
     """Why a --devices geometry cannot apply (None = it can); the reasons
-    of ``rkmh_tpu/commands/common.py:573``, word for word."""
+    of ``rkmh_tpu/commands/common.py:573``, word for word.  ``num_refs``
+    None: a panel that pads itself to a multiple of tp (hpv16's)."""
     if tp < 1 or devices % tp:
         return f"--devices {devices} is not divisible by --tp {tp}"
     if devices > n_visible:
@@ -584,7 +585,7 @@ def sharded_geometry_reason(devices: int, tp: int, num_refs: int, n_visible: int
     if min_kmer_occ >= 0 and counter_size % (devices // tp):
         return (f"-M counter size {counter_size} is not divisible by "
                 f"the {devices // tp} dp shards")
-    if num_refs % tp:
+    if num_refs is not None and num_refs % tp:
         return f"--tp {tp} does not divide {num_refs} references"
     return None
 
@@ -594,6 +595,25 @@ def mesh_candidates(device: torch.device, mesh_devices=None) -> list:
     when given (the tests' and chip_smoke's seam), else every visible
     device of ``device``'s kind."""
     return list(mesh_devices) if mesh_devices is not None else visible_devices(device)
+
+
+def pad_rows(codes: np.ndarray, lens, dp: int):
+    """Pad a batch to a dp multiple with all-invalid reads (code 4, length
+    0); consumers index only the real rows.  -> (codes, lens or None)."""
+    pad = (-codes.shape[0]) % dp
+    if pad:
+        codes = np.concatenate([codes, np.full((pad, codes.shape[1]), 4, dtype=codes.dtype)])
+        if lens is not None:
+            lens = np.concatenate([np.asarray(lens), np.zeros(pad, dtype=np.int32)])
+    return codes, lens
+
+
+def count_read_kmers_sharded(chunks, ks, counter: ShardedCounter, batch_size: int) -> None:
+    """The -M counter pass into a dp-sharded counter: bit-equal to one
+    device's ``count_read_kmers``."""
+    for chunk in chunks:
+        for _, codes, lens in bucketed_batches(chunk, batch_size):
+            counter.add_codes(*pad_rows(codes, lens, counter.mesh.dp), ks)
 
 
 class ShardedCtx:
@@ -614,23 +634,11 @@ class ShardedCtx:
                                                 panel.lens.cpu().numpy())
         self.counter: ShardedCounter | None = None  # set by build_counter (-M)
 
-    def pad_rows(self, codes: np.ndarray, lens=None):
-        """Pad the batch to a dp multiple with all-invalid reads (code 4,
-        length 0); consumers index only the real rows."""
-        pad = (-codes.shape[0]) % self.dp
-        if pad:
-            codes = np.concatenate([codes, np.full((pad, codes.shape[1]), 4, dtype=codes.dtype)])
-            if lens is not None:
-                lens = np.concatenate([np.asarray(lens), np.zeros(pad, dtype=np.int32)])
-        return codes, lens
-
     def build_counter(self, pass1_chunks) -> None:
         """The -M first pass (rkmh.cpp:903-910) into the dp-sharded
         counter: bit-equal to one device's ``count_read_kmers``."""
         self.counter = ShardedCounter(self.mesh, self.counter_size)
-        for chunk in pass1_chunks:
-            for _, codes, lens in bucketed_batches(chunk, self.batch_size):
-                self.counter.add_codes(*self.pad_rows(codes, lens), self.ks)
+        count_read_kmers_sharded(pass1_chunks, self.ks, self.counter, self.batch_size)
 
     def step(self, codes: np.ndarray, sketch_size: int, min_diff: int, min_matches: int,
              min_occ: int, filter_mode: bool = False) -> torch.Tensor:
@@ -638,8 +646,8 @@ class ShardedCtx:
         result of its real rows, on the grid's first device."""
         n = codes.shape[0]
         step = sharded_filter_step if filter_mode else sharded_classify_step
-        return step(self.mesh, self.panel, self.pad_rows(codes)[0], self.ks, sketch_size,
-                    min_diff, min_matches, self.counter, min_occ)[:, :n]
+        return step(self.mesh, self.panel, pad_rows(codes, None, self.dp)[0], self.ks,
+                    sketch_size, min_diff, min_matches, self.counter, min_occ)[:, :n]
 
 
 def rows_in_order(parts) -> np.ndarray:

@@ -56,6 +56,19 @@
 //   counters to a [B, 32 * Wm] buffer, and the last of them to finish (a
 //   ticket counter after a __threadfence) takes the first-max argmax.
 
+// rkmh_set_probe_partial is K3 on one tp shard of the table (hpv16
+// --devices N --tp T): the shard holds the combined columns [col0, col0 +
+// ncols), its own Wm = ceil(ncols / 32) mask words, and the same probe and
+// counting run on it.  Only the epilogue differs (finish_read's column
+// window): the first-max over the shard's type columns, written as a global
+// type index (-1 and max -1 where the shard holds no type column), and its
+// group columns' counts at their global place in [B, 2+U], 0 in every other
+// group column.  It replaces the tp all_gather of the [B/dp, rps] counts
+// and the argmax in ShardedHpv16Comb.finish_local
+// (rkmh_tpu/parallel/mesh.py:369-385); the shards meet in
+// ops/set_probe.merge_hpv16_partials.  rkmh_set_probe is the window (0, T +
+// U), so both entry points run one kernel.
+
 // K10 (sorted_probe_kernel, rkmh_sorted_probe) is the same kernel for
 // hpv16's fallback past the set-table cap.  It replaces the chain
 // rkmh_tpu/classify/engine.py:829-862 (_hpv16_sorted_core after the
@@ -117,10 +130,15 @@ __device__ __forceinline__ void count_votes(uint32_t mine, int word, int lane, i
 // counts are in cnt[32 * Wm] (and a __syncthreads): a read of several
 // segments adds its counters to its row of counts in device memory, and
 // the last of its blocks to get here reads them back; then warp 0 writes
-// the first-max type, its count and the U group counts.
+// the first-max type, its count and the U group counts.  Counter c is the
+// combined column col0 + c for c < ncols: the whole table is (0, T + U), a
+// tp shard its own window, whose type columns give a global first-max
+// (-1 and max -1 where it holds none) and whose group columns land at
+// their global place, 0 in the other group columns.
 __device__ __forceinline__ void finish_read(int* cnt, bool* last, int* __restrict__ counts,
                                             int* __restrict__ done, int64_t* __restrict__ out,
-                                            int b, int nseg, int Wm, int T, int U) {
+                                            int b, int nseg, int Wm, int T, int U, int col0,
+                                            int ncols) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (nseg > 1) {
     // a read of several segments: add to its counters in device memory;
@@ -141,8 +159,9 @@ __device__ __forceinline__ void finish_read(int* cnt, bool* last, int* __restric
 
   if (warp != 0) return;
   // jnp.argmax over the types: the first maximal index (0 when all are 0)
+  const int nt = max(0, min(T - col0, ncols));  // the window's type columns
   int mx = -1, best = INT_MAX;
-  for (int r = lane; r < T; r += 32) {
+  for (int r = lane; r < nt; r += 32) {
     if (cnt[r] > mx) {
       mx = cnt[r];
       best = r;
@@ -158,10 +177,13 @@ __device__ __forceinline__ void finish_read(int* cnt, bool* last, int* __restric
   }
   int64_t* o = out + (int64_t)b * (2 + U);
   if (lane == 0) {
-    o[0] = best;
+    o[0] = mx < 0 ? -1 : col0 + best;
     o[1] = mx;
   }
-  for (int u = lane; u < U; u += 32) o[2 + u] = cnt[T + u];
+  for (int u = lane; u < U; u += 32) {
+    const int c = T + u - col0;  // group u's counter in this window
+    o[2 + u] = c >= 0 && c < ncols ? cnt[c] : 0;
+  }
 }
 
 // KV: 16-byte vectors per key record (S < 4 * KV).
@@ -170,7 +192,7 @@ __global__ void __launch_bounds__(THREADS)
 set_probe_kernel(const uint64_t* __restrict__ rows, int64_t row_stride,
                  const int32_t* __restrict__ lens, int n, const uint4* __restrict__ keys,
                  const uint4* __restrict__ slots, int log2nb, int S, int Wm, int seg, int T,
-                 int U, int* __restrict__ counts, int* __restrict__ done,
+                 int U, int col0, int ncols, int* __restrict__ counts, int* __restrict__ done,
                  int64_t* __restrict__ out) {
   extern __shared__ int cnt[];  // [32 * Wm] per-reference counters
   __shared__ bool last;
@@ -228,7 +250,7 @@ set_probe_kernel(const uint64_t* __restrict__ rows, int64_t row_stride,
     }
   }
   __syncthreads();
-  finish_read(cnt, &last, counts, done, out, b, nseg, Wm, T, U);
+  finish_read(cnt, &last, counts, done, out, b, nseg, Wm, T, U, col0, ncols);
 }
 
 // K10: the same probe of a read's run starts against the sorted-key
@@ -310,13 +332,14 @@ sorted_probe_kernel(const uint64_t* __restrict__ rows, int64_t row_stride,
     }
   }
   __syncthreads();
-  finish_read(cnt, &last, counts, done, out, b, nseg, Wm, T, U);
+  finish_read(cnt, &last, counts, done, out, b, nseg, Wm, T, U, 0, T + U);
 }
 
 template <int KV>
 int launch(const int64_t* rows, int64_t row_stride, const int32_t* lens, int B, int n,
            const int32_t* keys, const int32_t* slots, int log2nb, int S, int Wm, int T, int U,
-           int seg, int32_t* counts, int32_t* done, int64_t* out, cudaStream_t stream) {
+           int col0, int ncols, int seg, int32_t* counts, int32_t* done, int64_t* out,
+           cudaStream_t stream) {
   const size_t smem = (size_t)Wm * 32 * sizeof(int);
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(set_probe_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -326,8 +349,28 @@ int launch(const int64_t* rows, int64_t row_stride, const int32_t* lens, int B, 
   set_probe_kernel<KV><<<grid, THREADS, smem, stream>>>(
       reinterpret_cast<const uint64_t*>(rows), row_stride, lens, n,
       reinterpret_cast<const uint4*>(keys), reinterpret_cast<const uint4*>(slots), log2nb, S,
-      Wm, seg, T, U, counts, done, out);
+      Wm, seg, T, U, col0, ncols, counts, done, out);
   return (int)cudaGetLastError();
+}
+
+// Both K3 entry points: the probe of every segment, then finish_read over
+// the counter window (col0, ncols).
+int set_probe(const int64_t* rows, int64_t row_stride, const int32_t* lens, int B, int n,
+              const int32_t* keys, const int32_t* slots, int log2nb, int S, int Wm, int T,
+              int U, int col0, int ncols, int seg, int32_t* counts, int32_t* done,
+              int64_t* out, cudaStream_t stream) {
+  if (seg < 32 || seg % 32 || (n + seg - 1) / seg > 65535 || S < 1 || S > 31 || ncols < 1 ||
+      ncols > 32 * Wm || (n > seg && (counts == nullptr || done == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define RKMH_SET_PROBE(KV)                                                                  \
+  return launch<KV>(rows, row_stride, lens, B, n, keys, slots, log2nb, S, Wm, T, U, col0, \
+                    ncols, seg, counts, done, out, stream)
+  if (S < 4) RKMH_SET_PROBE(1);
+  if (S < 8) RKMH_SET_PROBE(2);
+  if (S < 16) RKMH_SET_PROBE(4);
+  RKMH_SET_PROBE(8);
+#undef RKMH_SET_PROBE
 }
 
 }  // namespace
@@ -346,18 +389,24 @@ extern "C" int rkmh_set_probe(const int64_t* rows, int64_t row_stride, const int
                               int log2nb, int S, int Wm, int T, int U, int seg,
                               int32_t* counts, int32_t* done, int64_t* out,
                               cudaStream_t stream) {
-  if (seg < 32 || seg % 32 || (n + seg - 1) / seg > 65535 || S < 1 || S > 31 ||
-      (n > seg && (counts == nullptr || done == nullptr))) {
-    return (int)cudaErrorInvalidValue;
-  }
-#define RKMH_SET_PROBE(KV)                                                                 \
-  return launch<KV>(rows, row_stride, lens, B, n, keys, slots, log2nb, S, Wm, T, U, seg, \
-                    counts, done, out, stream)
-  if (S < 4) RKMH_SET_PROBE(1);
-  if (S < 8) RKMH_SET_PROBE(2);
-  if (S < 16) RKMH_SET_PROBE(4);
-  RKMH_SET_PROBE(8);
-#undef RKMH_SET_PROBE
+  return set_probe(rows, row_stride, lens, B, n, keys, slots, log2nb, S, Wm, T, U, 0, T + U,
+                   seg, counts, done, out, stream);
+}
+
+// K3's partial epilogue on one tp shard: the arguments of rkmh_set_probe,
+// the table being the shard's packed table (Wm = ceil(ncols / 32)), and the
+// shard's window of the combined columns, [col0, col0 + ncols); out [B,
+// 2+U] int64: the first-max global type index among the shard's type
+// columns and its count (-1 and -1 where it holds none), its group
+// columns' counts at their global place and 0 in the others.  Requires 1
+// <= ncols <= 32 * Wm besides rkmh_set_probe's requirements.
+extern "C" int rkmh_set_probe_partial(const int64_t* rows, int64_t row_stride,
+                                      const int32_t* lens, int B, int n, const int32_t* keys,
+                                      const int32_t* slots, int log2nb, int S, int Wm, int T,
+                                      int U, int col0, int ncols, int seg, int32_t* counts,
+                                      int32_t* done, int64_t* out, cudaStream_t stream) {
+  return set_probe(rows, row_stride, lens, B, n, keys, slots, log2nb, S, Wm, T, U, col0, ncols,
+                   seg, counts, done, out, stream);
 }
 
 // K10: rows, row_stride, lens, B, n, seg, counts, done and out as

@@ -13,8 +13,8 @@ loaded on import.
 Each C entry point returns ``cudaGetLastError()`` after its launch on the
 stream it is given (PyTorch's current stream); ``Kernel`` raises if that
 is not 0 and counts successful launches, in all and, for a kernel with
-several routes (K4, K5, K9, K2's partial epilogue), epilogues (K11) or
-slot ranges (K6, K7), by the route the caller names.
+several routes (K4, K5, K9, K2's and K3's partial epilogues), epilogues
+(K11) or slot ranges (K6, K7), by the route the caller names.
 """
 
 from __future__ import annotations
@@ -171,6 +171,11 @@ PANEL_PROBE_PARTIAL = Kernel("rkmh_panel_probe_partial",
 #                out, stream)
 SET_PROBE = Kernel("rkmh_set_probe", [_p, _i64, _p, _i, _i, _p, _p, _i, _i, _i, _i, _i, _i,
                                       _p, _p, _p])
+# rkmh_set_probe_partial(rows, row_stride, lens, B, n, key records, slot records, log2_buckets,
+#                        slots, mask_words, num_types, num_uniq, col0, ncols, segment,
+#                        counts|NULL, done|NULL, out, stream)
+SET_PROBE_PARTIAL = Kernel("rkmh_set_probe_partial", [_p, _i64, _p, _i, _i, _p, _p, _i, _i, _i,
+                                                      _i, _i, _i, _i, _i, _p, _p, _p])
 # rkmh_sorted_probe(rows, row_stride, lens, B, n, keys, nkeys, dir, bits, masks, mask_words,
 #                   num_types, num_uniq, segment, counts|NULL, done|NULL, out, stream)
 SORTED_PROBE = Kernel("rkmh_sorted_probe", [_p, _i64, _p, _i, _i, _p, _i, _p, _i, _p, _i, _i,
@@ -194,8 +199,9 @@ _MAP = [_p, _p, _p, _p, _i, _i]
 # rkmh_hashmap_get(keys, n, <map>, out, stream)
 HASHMAP_GET = Kernel("rkmh_hashmap_get", [_p, _i64, *_MAP, _p])
 # rkmh_call_scan(pref, P, k, depth, avg, site, <map>, snp_depth, snp_call,
-#                max_rescue, del_depth, del_call, route, stream)
-CALL_SCAN = Kernel("rkmh_call_scan", [_p, _i64, _i, _p, _p, _p, *_MAP, _p, _p, _p, _p, _p, _i])
+#                max_rescue, del_depth, del_call, base, route, stream)
+CALL_SCAN = Kernel("rkmh_call_scan", [_p, _i64, _i, _p, _p, _p, *_MAP, _p, _p, _p, _p, _p, _i64,
+                                      _i])
 
 # rkmh_sparse_margin(Wp, idx, val, m, N, F, C, Cp, stream)
 SPARSE_MARGIN = Kernel("rkmh_sparse_margin", [_p, _p, _p, _p, _i, _i, _i, _i])
@@ -207,7 +213,7 @@ SPARSE_MARGIN_GRAD = Kernel("rkmh_sparse_margin_grad", [_p] * 12 + [_i, _i, _i64
 KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE,
            "panel_probe_filter": PANEL_PROBE_FILTER, "panel_probe_wide": PANEL_PROBE_WIDE,
            "panel_probe_partial": PANEL_PROBE_PARTIAL,
-           "set_probe": SET_PROBE,
+           "set_probe": SET_PROBE, "set_probe_partial": SET_PROBE_PARTIAL,
            "sorted_probe": SORTED_PROBE,
            "lut_gather_rows": LUT_GATHER_ROWS, "lut_gather_lanes": LUT_GATHER_LANES,
            "counter_add": COUNTER_ADD, "counter_mask": COUNTER_MASK,

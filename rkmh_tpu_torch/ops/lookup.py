@@ -4,7 +4,8 @@
 and :393-415 (``predicted_buckets``, ``pick_slots`` with both slot
 policies, ``projected_table_bytes``, ``table_slots``,
 ``_collect_entries``, ``_bucket_of``, ``build_panel_table``,
-``PanelTable``, ``build_set_table``), copied for the reason given in
+``PanelTable``, ``build_set_table``; and ``build_sharded_set_tables``, a
+host counterpart of :559), copied for the reason given in
 ``io/fastx.py``.  It builds the identical table from the same sketches or
 hash sets, with the same defaults (64 MB budget), and takes the forced
 geometry (``num_buckets``, ``slots``) that gives every tp shard of a
@@ -219,25 +220,65 @@ def build_panel_table(ref_sk, ref_lens=None, num_refs: int | None = None,
     return PanelTable(table, R, Wm)
 
 
-def build_set_table(ref_hash_rows, num_refs: int | None = None) -> PanelTable:
-    """Per-reference hash arrays (uint64 or int64 bit patterns, any order,
-    duplicates and zeros allowed) -> a table of occ-0 entries only: the
-    set semantics of the hpv16 comparators (rkmh.cpp:2673/2688).  A query
-    element that repeats an earlier one carries occ > 0 and misses, so a
-    full sorted read row counts distinct shared hashes."""
+def _distinct_rows(ref_hash_rows) -> list[np.ndarray]:
+    """Each row's distinct non-zero hashes, sorted, as uint64."""
     cleaned = []
     for row in ref_hash_rows:
         row = np.asarray(row)
         row = np.unique(row.view(np.uint64) if row.dtype == np.int64 else row.astype(np.uint64))
         cleaned.append(row[row != 0])
+    return cleaned
+
+
+def _set_table(cleaned: list, num_refs: int, **geometry) -> PanelTable:
+    """A set table of distinct rows (``_distinct_rows``), laid out as
+    SENTINEL-padded sketch rows for ``build_panel_table``."""
     maxlen = max([1, *map(len, cleaned)])
     mat = np.full((len(cleaned), maxlen), _SENTINEL_U64, dtype=np.uint64)
     lens = np.zeros(len(cleaned), dtype=np.int32)
     for i, row in enumerate(cleaned):
         mat[i, : len(row)] = row
         lens[i] = len(row)
-    R = len(cleaned) if num_refs is None else num_refs
-    return build_panel_table(mat, lens, num_refs=R, policy="compact")
+    return build_panel_table(mat, lens, num_refs=num_refs, policy="compact", **geometry)
+
+
+def build_set_table(ref_hash_rows, num_refs: int | None = None) -> PanelTable:
+    """Per-reference hash arrays (uint64 or int64 bit patterns, any order,
+    duplicates and zeros allowed) -> a table of occ-0 entries only: the
+    set semantics of the hpv16 comparators (rkmh.cpp:2673/2688).  A query
+    element that repeats an earlier one carries occ > 0 and misses, so a
+    full sorted read row counts distinct shared hashes."""
+    cleaned = _distinct_rows(ref_hash_rows)
+    return _set_table(cleaned, len(cleaned) if num_refs is None else num_refs)
+
+
+def build_sharded_set_tables(ref_hash_rows, tp: int):
+    """Per-reference hash arrays -> ([tp, NB, width] uint32 set tables,
+    references per shard rps) for hpv16's tp shards: a numpy counterpart of
+    ``build_sharded_set_tables_device`` (``rkmh_tpu/ops/lookup.py:559``)
+    with the padding of ``place_tp_comb_table`` (``rkmh_tpu/parallel/
+    mesh.py:481-504``).  The rows are padded to a multiple of tp with empty
+    rows at the end, so no pad column comes before a real one; shard j
+    holds rows [j * rps, (j + 1) * rps), its mask bit r its local row r.
+    Every shard takes one geometry: S from the largest shard's distinct
+    keys at Wm = ceil(rps / 32), the largest predicted bucket count, and on
+    any overflow every shard again at twice the buckets.  rkmh-tpu builds
+    its tables on the device, so the slots inside a bucket may lie in
+    another order; the geometry and every query's counts are the same."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    cleaned = _distinct_rows(ref_hash_rows)
+    cleaned += [np.zeros(0, np.uint64)] * ((-len(cleaned)) % tp)
+    rps = len(cleaned) // tp
+    groups = [cleaned[j * rps: (j + 1) * rps] for j in range(tp)]
+    ns = [count_unique_keys(g) for g in groups]
+    S = pick_slots(max(max(ns), 1), max(1, (rps + 31) // 32), "compact")
+    nb = max(predicted_buckets(n, S) for n in ns)
+    while True:
+        tables = [_set_table(g, rps, num_buckets=nb, slots=S).table for g in groups]
+        if all(t.shape[0] == nb for t in tables):
+            return np.stack(tables), rps
+        nb *= 2  # a shard overflowed: regrow every shard
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,15 @@ words and a bitmap of the occupied slots, per slot a record with hi and
 the Wm mask words.  ``set_probe_packed_plain`` probes that layout in
 plain PyTorch, in segments as the kernel's blocks do.
 
+``set_probe_partial`` is the same probe on one tp shard of the table
+(hpv16 ``--devices N --tp T``): the shard holds the combined columns
+[col0, col0 + rps), and its result keeps the [B, 2+U] layout: the
+first-max global type index among its type columns and that max (-1 and
+-1 where it holds none), its group columns' counts at their global place
+and 0 in the others.  ``merge_hpv16_partials`` joins the tp shards' results
+into the whole table's (the kernel: ``rkmh_set_probe_partial``, K3's
+``partial`` route; the plain version ``set_probe_partial_plain``).
+
 Rows are [B, n] int64 hashes sorted in unsigned order (bottom_s_sketch
 over every window, cut to the first n columns) with lens [B]: valid = i <
 len and h != SENTINEL.  The table must be a set table (every entry occ 0,
@@ -99,8 +108,10 @@ def pack_set_table(table: torch.Tensor, num_refs: int) -> PackedSetTable:
     return PackedSetTable(keys, slots.view(nb * S, SW), S, Wm)
 
 
-def set_probe_plain(rows: torch.Tensor, lens: torch.Tensor, table: torch.Tensor,
-                    num_types: int, num_uniq: int) -> torch.Tensor:
+def _logical_counts(rows: torch.Tensor, lens: torch.Tensor, table: torch.Tensor,
+                    num_refs: int) -> torch.Tensor:
+    """[B, num_refs] int32 distinct shared counts of sorted rows in the
+    logical table, in pieces of at most _PLAIN_LANES gathered lanes."""
     B, n = rows.shape
     step = max(1, _PLAIN_LANES // max(1, n * table.shape[1]))
     parts = []
@@ -110,19 +121,64 @@ def set_probe_plain(rows: torch.Tensor, lens: torch.Tensor, table: torch.Tensor,
         qmask = (torch.arange(n, device=rows.device)[None, :] < ln[:, None]) & (full != SENTINEL)
         lo, hi = full & M32, (full >> 32) & M32
         gathered = table[bucket_indices(lo, hi, occ, table.shape[0])]
-        parts.append(counts_from_rows(gathered, lo, hi, occ, qmask, num_types + num_uniq))
-    counts = torch.cat(parts) if parts else torch.zeros(
-        (0, num_types + num_uniq), dtype=torch.int32, device=rows.device)
-    return _best_type_and_groups(counts, num_types)
+        parts.append(counts_from_rows(gathered, lo, hi, occ, qmask, num_refs))
+    return torch.cat(parts) if parts else torch.zeros(
+        (0, num_refs), dtype=torch.int32, device=rows.device)
 
 
-def _best_type_and_groups(counts: torch.Tensor, num_types: int) -> torch.Tensor:
-    """[B, T+U] counts -> int64 [B, 2+U]: jnp.argmax over the types (the
-    first maximal index, 0 when all are 0), their max, the group counts."""
-    tc = counts[:, :num_types]
-    return torch.cat([tc.argmax(dim=-1, keepdim=True).to(torch.int64),
-                      tc.amax(dim=-1, keepdim=True).to(torch.int64),
-                      counts[:, num_types:].to(torch.int64)], dim=1)
+def set_probe_plain(rows: torch.Tensor, lens: torch.Tensor, table: torch.Tensor,
+                    num_types: int, num_uniq: int) -> torch.Tensor:
+    counts = _logical_counts(rows, lens, table, num_types + num_uniq)
+    return _window_result(counts, num_types, num_uniq)
+
+
+def _window_result(counts: torch.Tensor, num_types: int, num_uniq: int,
+                   col0: int = 0) -> torch.Tensor:
+    """The counts [B, ncols] of the combined columns [col0, col0 + ncols)
+    -> int64 [B, 2+U]: jnp.argmax over the window's type columns as a
+    global index (the first maximal one, 0 when all are 0 in the whole
+    table) and their max, or -1 and -1 where the window holds no type
+    column; the window's group columns at their global place, 0 in the
+    others.  The whole table is the window (0, T + U)."""
+    B, ncols = counts.shape
+    nt = max(0, min(num_types - col0, ncols))
+    out = torch.zeros((B, 2 + num_uniq), dtype=torch.int64, device=counts.device)
+    if nt:
+        tc = counts[:, :nt]
+        out[:, 0] = tc.argmax(dim=-1) + col0
+        out[:, 1] = tc.amax(dim=-1)
+    else:
+        out[:, :2] = -1
+    u0, u1 = max(0, col0 - num_types), min(num_uniq, col0 + ncols - num_types)
+    if u1 > u0:
+        out[:, 2 + u0 : 2 + u1] = counts[:, num_types + u0 - col0 : num_types + u1 - col0]
+    return out
+
+
+def set_probe_partial_plain(rows: torch.Tensor, lens: torch.Tensor, table, col0: int, rps: int,
+                            num_types: int, num_uniq: int) -> torch.Tensor:
+    """The partial epilogue in plain PyTorch: the shard's counts over its
+    ``rps`` columns (in its logical table, or in its ``PackedSetTable`` as
+    the kernel's blocks count them), then ``_window_result``."""
+    if isinstance(table, PackedSetTable):
+        counts = _packed_counts(rows, lens, table, rps)
+    else:
+        counts = _logical_counts(rows, lens, table, rps)
+    return _window_result(counts, num_types, num_uniq, col0)
+
+
+def merge_hpv16_partials(parts: torch.Tensor) -> torch.Tensor:
+    """The tp shards' partials [tp, B, 2+U] (shard j's window after shard
+    j-1's) -> the whole table's int64 [B, 2+U]: the max is the shards'
+    largest, the best the best of the first shard that holds it (a shard
+    before it has a smaller max, so no earlier column ties it), the group
+    columns the sum over the shards (each group is counted in one shard).
+    Shard 0 holds type 0, so a read that shares nothing gets type 0 and 0."""
+    m = parts[:, :, 1]
+    mx = m.amax(dim=0)
+    star = (m == mx).to(torch.uint8).argmax(dim=0)  # the first shard holding the max
+    best = parts[:, :, 0].gather(0, star[None]).squeeze(0)
+    return torch.cat([best[:, None], mx[:, None], parts[:, :, 2:].sum(dim=0)], dim=1)
 
 
 def packed_segment_counts(rows: torch.Tensor, lens: torch.Tensor, packed: PackedSetTable,
@@ -163,17 +219,41 @@ def set_probe_packed_plain(rows: torch.Tensor, lens: torch.Tensor, packed: Packe
     """The kernel's function on the packed layout in plain PyTorch: the
     counts of the segments between ``bounds`` (default: every SEGMENT
     elements) added up, then the first-max argmax over the types."""
+    counts = _packed_counts(rows, lens, packed, num_types + num_uniq, bounds)
+    return _window_result(counts, num_types, num_uniq)
+
+
+def _packed_counts(rows: torch.Tensor, lens: torch.Tensor, packed: PackedSetTable,
+                   num_refs: int, bounds: list[int] | None = None) -> torch.Tensor:
+    """[B, num_refs] int32 counts in the packed layout: the segments
+    between ``bounds`` (default: every SEGMENT elements) added up."""
     B, n = rows.shape
     if bounds is None:
         bounds = list(range(0, n, SEGMENT))
     bounds = [*bounds, n]
-    counts = torch.zeros((B, num_types + num_uniq), dtype=torch.int32, device=rows.device)
+    counts = torch.zeros((B, num_refs), dtype=torch.int32, device=rows.device)
     for first, end in zip(bounds[:-1], bounds[1:]):
-        counts += packed_segment_counts(rows, lens, packed, num_types + num_uniq, first, end)
-    return _best_type_and_groups(counts, num_types)
+        counts += packed_segment_counts(rows, lens, packed, num_refs, first, end)
+    return counts
 
 
 def _set_probe_cuda(rows, lens, packed, num_types, num_uniq, seg: int = SEGMENT):
+    return _launch(rows, lens, packed, num_types, num_uniq, 0, num_types + num_uniq, seg, False)
+
+
+def _set_probe_partial_cuda(rows, lens, packed, col0: int, rps: int, num_types, num_uniq,
+                            seg: int = SEGMENT):
+    """K3's partial route: the shard's columns [col0, col0 + rps)."""
+    if col0 < 0 or rps < 1:
+        raise ValueError(f"a shard's window starts at col0 >= 0 and holds rps >= 1 columns, "
+                         f"got col0 {col0}, rps {rps}")
+    return _launch(rows, lens, packed, num_types, num_uniq, col0, rps, seg, True)
+
+
+def _launch(rows, lens, packed, num_types, num_uniq, col0, ncols, seg, partial: bool):
+    """Check the inputs and launch K3 over the counter window (col0,
+    ncols): the whole table (rkmh_set_probe, the window (0, T + U)) or, with
+    ``partial``, a shard's (rkmh_set_probe_partial)."""
     if rows.dtype != torch.int64 or rows.dim() != 2:
         raise ValueError(f"set probe takes [B, n] int64 rows, got "
                          f"{tuple(rows.shape)} {rows.dtype}")
@@ -186,8 +266,9 @@ def _set_probe_cuda(rows, lens, packed, num_types, num_uniq, seg: int = SEGMENT)
         raise ValueError(f"set probe needs >= 1 type and >= 0 groups, got "
                          f"{num_types} and {num_uniq}")
     S, Wm = packed.num_slots, packed.mask_words
-    if num_types + num_uniq > 32 * Wm:
-        raise ValueError(f"{num_types} + {num_uniq} references do not fit {Wm} mask words")
+    if ncols > 32 * Wm:
+        raise ValueError(f"{ncols} references do not fit {Wm} mask words" if partial else
+                         f"{num_types} + {num_uniq} references do not fit {Wm} mask words")
     nb = packed.keys.shape[0]
     if nb & (nb - 1):
         raise ValueError(f"bucket count {nb} is not a power of two")
@@ -203,9 +284,15 @@ def _set_probe_cuda(rows, lens, packed, num_types, num_uniq, seg: int = SEGMENT)
         if n > seg:  # some read may span several blocks
             scratch = torch.zeros(B * (32 * Wm + 1), dtype=torch.int32, device=rows.device)
             counts, done = scratch[B:], scratch[:B]
-        kernels.SET_PROBE(rows, rows.stride(0), lens, B, n, packed.keys, packed.slots,
-                          nb.bit_length() - 1, S, Wm, num_types, num_uniq, seg, counts, done,
-                          out)
+        if partial:
+            kernels.SET_PROBE_PARTIAL(rows, rows.stride(0), lens, B, n, packed.keys,
+                                      packed.slots, nb.bit_length() - 1, S, Wm, num_types,
+                                      num_uniq, col0, ncols, seg, counts, done, out,
+                                      route="partial")
+        else:
+            kernels.SET_PROBE(rows, rows.stride(0), lens, B, n, packed.keys, packed.slots,
+                              nb.bit_length() - 1, S, Wm, num_types, num_uniq, seg, counts,
+                              done, out)
     return out
 
 
@@ -220,3 +307,16 @@ def set_probe(rows: torch.Tensor, lens: torch.Tensor, table, num_types: int,
     if isinstance(table, PackedSetTable):
         return set_probe_packed_plain(rows, lens, table, num_types, num_uniq)
     return set_probe_plain(rows, lens, table, num_types, num_uniq)
+
+
+def set_probe_partial(rows: torch.Tensor, lens: torch.Tensor, table, col0: int, rps: int,
+                      num_types: int, num_uniq: int) -> torch.Tensor:
+    """[B, n] sorted int64 rows + lens against one tp shard's set table
+    (its combined columns [col0, col0 + rps); on a GPU its
+    ``PackedSetTable``, packed with ``rps`` references) -> int64 [B, 2+U],
+    to be joined by ``merge_hpv16_partials``."""
+    if rows.device.type == "cuda":
+        return _set_probe_partial_cuda(rows, lens, table, col0, rps, num_types, num_uniq)
+    if rows.device.type != "cpu":
+        raise ValueError(f"no set-probe path for device {rows.device}")
+    return set_probe_partial_plain(rows, lens, table, col0, rps, num_types, num_uniq)

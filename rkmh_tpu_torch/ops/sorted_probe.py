@@ -30,7 +30,7 @@ from rkmh_tpu_torch.ops.hashmap import bucket_bits
 from rkmh_tpu_torch.ops.intersect import occ_ranks
 from rkmh_tpu_torch.ops.lookup import M32, sorted_panel_counts_masked
 from rkmh_tpu_torch.ops.popcount import vertical_popcounts
-from rkmh_tpu_torch.ops.set_probe import SEGMENT, _best_type_and_groups
+from rkmh_tpu_torch.ops.set_probe import SEGMENT, _window_result
 from rkmh_tpu_torch.ops.sketch import INT64_MIN, SENTINEL
 
 # the plain version gathers [reads, n, Wm] mask words as int64; it goes
@@ -143,7 +143,7 @@ def _plain(rows, lens, panel, num_types, num_uniq, directory: bool):
                                 for w in range((R + 31) // 32)], dim=-1))
     counts = torch.cat(parts) if parts else torch.zeros(
         (0, R), dtype=torch.int32, device=rows.device)
-    return _best_type_and_groups(counts, num_types)
+    return _window_result(counts, num_types, num_uniq)
 
 
 def _check_directory(panel: SortedPanel) -> None:

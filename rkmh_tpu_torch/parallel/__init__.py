@@ -1,6 +1,7 @@
 """Sharded modes on one host: a (dp, tp) grid of devices driven by one process.
 
 Counterpart of ``rkmh_tpu/parallel/`` for ``--devices`` / ``--tp``:
-``mesh.py`` (the grid, the tp-sharded panel and the sharded classify and
-filter steps) and ``ep.py`` (the dp-sharded -M counter).
+``mesh.py`` (the grid, the tp-sharded panels and the sharded classify,
+filter, hpv16 and call steps), ``ep.py`` (the dp-sharded -M counter) and
+``sp.py`` (long genomes sketched in chunks over the grid).
 """

@@ -26,6 +26,20 @@ argmax over them, the tp partials meet on device (i, 0), where
 ``merge_tp_partials`` joins them exactly (a few elementwise ops on [tp,
 B/dp] int32).  Copies between devices are non-blocking; the host waits
 where the caller fetches.
+
+hpv16 (``rkmh_tpu/parallel/mesh.py:261-504``): ``ShardedSetPanel`` holds
+the combined type + group set table in tp shards of contiguous columns
+(``ops/lookup.build_sharded_set_tables``, pad columns last);
+``ShardedHpv16Comb`` runs on device (i, j) K1 on slice i, the -M mask,
+the full-width sort cut to Wc and K3's partial epilogue against shard j
+(``ops/set_probe.set_probe_partial``), and merges the tp partials on (i, 0)
+(``merge_hpv16_partials``, in place of the all_gather and argmax of
+``finish_local``); past the set-table cap ``ShardedHpv16Sorted`` probes
+the replicated sorted panel with K10 on each dp slice, with no tp split.
+``call`` (``:553-660``): ``ShardedCallScan`` splits the positions of a
+reference into dp slices, each scanned on its device from a host-built
+slice of the codes with its (k+1)-code halo (K1, K8, the window average
+over the previous slice's last w depths, K9 at the slice's global offset).
 """
 
 from __future__ import annotations
@@ -33,7 +47,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rkmh_tpu_torch.call_engine import call_scan_slice
 from rkmh_tpu_torch.classify.engine import probe_rows
+from rkmh_tpu_torch.io.packing import PAD_CODE
+from rkmh_tpu_torch.ops.counter import INT32_MAX
 from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
 from rkmh_tpu_torch.ops.lookup import build_panel_table, table_slots
 from rkmh_tpu_torch.ops.probe import (
@@ -42,6 +59,9 @@ from rkmh_tpu_torch.ops.probe import (
     pack_result,
     panel_probe_partial,
 )
+from rkmh_tpu_torch.ops.set_probe import merge_hpv16_partials, pack_set_table, set_probe_partial
+from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+from rkmh_tpu_torch.ops.sorted_probe import SortedPanel, sorted_probe
 
 STREAM_INIT, FILTER_INIT = -1, 0  # where the running max starts (engine.argmax_*)
 
@@ -197,11 +217,8 @@ def sharded_partials(mesh: Mesh, panel: ShardedPanel, codes: np.ndarray, ks,
     grid the [tp, 4, B/dp] partials of slice i on device (i, 0): on device
     (i, j) K1, the -M mask through ``counter`` (``ep.ShardedCounter``)
     when given, then the partial epilogue against shard j."""
-    if codes.shape[0] % mesh.dp:
-        raise ValueError(f"a batch of {codes.shape[0]} rows does not split over dp {mesh.dp}")
     out = []
-    for i, part in enumerate(np.split(codes, mesh.dp)):
-        host = torch.from_numpy(part)
+    for i, host in enumerate(_slices(mesh, codes)):
         parts = []
         for j in range(mesh.tp):
             hashes = multi_k_window_hashes(host.to(mesh[i, j], non_blocking=True), ks)
@@ -214,10 +231,18 @@ def sharded_partials(mesh: Mesh, panel: ShardedPanel, codes: np.ndarray, ks,
     return out
 
 
-def _in_row_order(mesh: Mesh, results: list) -> torch.Tensor:
-    """The dp row results [C, B/dp] joined [C, B] on device (0, 0)."""
+def _slices(mesh: Mesh, codes: np.ndarray) -> list:
+    """Host codes [B, L] (B a multiple of dp) -> the dp row slices as CPU tensors."""
+    if codes.shape[0] % mesh.dp:
+        raise ValueError(f"a batch of {codes.shape[0]} rows does not split over dp {mesh.dp}")
+    return [torch.from_numpy(part) for part in np.split(codes, mesh.dp)]
+
+
+def _in_row_order(mesh: Mesh, results: list, dim: int = 1) -> torch.Tensor:
+    """The dp row results ([C, B/dp], or [B/dp, C] with dim 0) joined on
+    device (0, 0)."""
     home = mesh[0, 0]
-    return torch.cat([r.to(home, non_blocking=True) for r in results], dim=1)
+    return torch.cat([r.to(home, non_blocking=True) for r in results], dim=dim)
 
 
 def sharded_classify_step(mesh: Mesh, panel: ShardedPanel, codes: np.ndarray, ks,
@@ -243,3 +268,151 @@ def sharded_filter_step(mesh: Mesh, panel: ShardedPanel, codes: np.ndarray, ks,
     return _in_row_order(mesh, [
         merge_tp_partials(p, panel.rps, min_diff, min_matches, panel.ref_lens[mesh[i, 0]])
         for i, p in enumerate(partials)])
+
+
+# ---- hpv16 (rkmh_tpu/parallel/mesh.py:261-504)
+
+
+class ShardedSetPanel:
+    """hpv16's combined set table in tp shards on a mesh: shard j (the
+    combined columns [j * rps, (j + 1) * rps)) on every device of column
+    j, placed once per (shard, device), so a grid that repeats a device
+    holds each shard there once; on a GPU in K3's packed layout, packed
+    once with ``rps`` references."""
+
+    def __init__(self, mesh: Mesh, tables: np.ndarray, rps: int):
+        """``tables``: [tp, NB, width] uint32 (``build_sharded_set_tables``)."""
+        if tables.shape[0] != mesh.tp:
+            raise ValueError(f"{tables.shape[0]} shard tables for tp {mesh.tp}")
+        self.mesh, self.rps = mesh, rps
+        self._tables = {}
+        for i in range(mesh.dp):
+            for j in range(mesh.tp):
+                key = (j, mesh[i, j])
+                if key not in self._tables:
+                    t = torch.from_numpy(np.ascontiguousarray(tables[j]).view(np.int32))
+                    t = t.to(mesh[i, j])
+                    self._tables[key] = pack_set_table(t, rps) if t.device.type == "cuda" else t
+
+    def table(self, i: int, j: int):
+        """Shard j's table on device (i, j)."""
+        return self._tables[(j, self.mesh[i, j])]
+
+
+def _masked(hashes: torch.Tensor, counter, j: int, min_occ: int) -> torch.Tensor:
+    """The -M mask through the dp-sharded counter (rows of column j)."""
+    return hashes if counter is None else counter.mask(hashes, j, min_occ, INT32_MAX)
+
+
+class ShardedHpv16Comb:
+    """The hpv16 step over the grid against a ``ShardedSetPanel``
+    (``rkmh_tpu/parallel/mesh.py:261-397``): host codes [B, L] (B % dp ==
+    0) -> int64 [B, 2+U] on device (0, 0), as ``engine.hpv16_batch_comb``
+    gives it on one device.  On device (i, j): K1 on slice i, the -M mask
+    through ``counter`` (``ep.ShardedCounter``), every window hash sorted
+    and cut to Wc columns, K3's partial epilogue against shard j; the tp
+    partials meet on device (i, 0) (``merge_hpv16_partials``)."""
+
+    def __init__(self, mesh: Mesh, panel: ShardedSetPanel, ks, num_types: int, num_uniq: int,
+                 counter=None, min_occ: int = 0):
+        self.mesh, self.panel, self.ks = mesh, panel, tuple(ks)
+        self.num_types, self.num_uniq = num_types, num_uniq
+        self.counter, self.min_occ = counter, min_occ
+
+    def __call__(self, codes: np.ndarray, Wc: int) -> torch.Tensor:
+        mesh, rps = self.mesh, self.panel.rps
+        out = []
+        for i, host in enumerate(_slices(mesh, codes)):
+            parts = []
+            for j in range(mesh.tp):
+                hashes = multi_k_window_hashes(host.to(mesh[i, j], non_blocking=True), self.ks)
+                hashes = _masked(hashes, self.counter, j, self.min_occ)
+                full, lens = bottom_s_sketch(hashes, hashes.shape[-1])
+                partial = set_probe_partial(full[:, :Wc], lens, self.panel.table(i, j), j * rps,
+                                            rps, self.num_types, self.num_uniq)
+                parts.append(partial.to(mesh[i, 0], non_blocking=True))
+            out.append(merge_hpv16_partials(torch.stack(parts)))
+        return _in_row_order(mesh, out, dim=0)
+
+
+def _panel_on(panel: SortedPanel, device: torch.device) -> SortedPanel:
+    """A copy of a sorted panel on ``device`` (fresh buffers: the keys and
+    the directory keep the alignment K10 needs)."""
+    if panel.device == device:
+        return panel
+    return SortedPanel(panel.keys.to(device), panel.masks.to(device),
+                       None if panel.dir is None else panel.dir.to(device), panel.bits)
+
+
+class ShardedHpv16Sorted:
+    """The hpv16 step past the set-table cap over the grid
+    (``rkmh_tpu/parallel/mesh.py:400-478``): the sorted panel replicated
+    on the first device of every row, K10 on each dp slice there, no tp
+    split (rkmh-tpu's tp columns compute the same counts); the same int64
+    [B, 2+U] on device (0, 0) as ``engine.hpv16_sorted_batch``."""
+
+    def __init__(self, mesh: Mesh, panel: SortedPanel, ks, num_types: int, num_uniq: int,
+                 counter=None, min_occ: int = 0):
+        self.mesh, self.ks = mesh, tuple(ks)
+        self.panels = {}
+        for i in range(mesh.dp):
+            self.panels.setdefault(mesh[i, 0], _panel_on(panel, mesh[i, 0]))
+        self.num_types, self.num_uniq = num_types, num_uniq
+        self.counter, self.min_occ = counter, min_occ
+
+    def __call__(self, codes: np.ndarray, Wc: int) -> torch.Tensor:
+        out = []
+        for i, host in enumerate(_slices(self.mesh, codes)):
+            dev = self.mesh[i, 0]
+            hashes = multi_k_window_hashes(host.to(dev, non_blocking=True), self.ks)
+            hashes = _masked(hashes, self.counter, 0, self.min_occ)
+            full, lens = bottom_s_sketch(hashes, hashes.shape[-1])
+            out.append(sorted_probe(full[:, :Wc], lens, self.panels[dev], self.num_types,
+                                    self.num_uniq))
+        return _in_row_order(self.mesh, out, dim=0)
+
+
+# ---- call (rkmh_tpu/parallel/mesh.py:553-660)
+
+
+class ShardedCallScan:
+    """``call``'s positional scan with the positions over the grid's dp
+    rows (``sharded_call_scan_fn``): the depth map copied once to each
+    distinct device of the grid's first column; a reference's P positions
+    in dp slices of Pl = ceil(P / dp), slice d scanned on device (d, 0)
+    from the codes [d * Pl - 1, (d + 1) * Pl + k) (one code before, a
+    pad code for d = 0, and the k-halo), the window average reading the
+    previous slice's last w depths (zeros for d = 0), K9's deletions
+    guarded on the global index.  Needs Pl >= w (callers fall back below)."""
+
+    def __init__(self, mesh: Mesh, table, k: int, window_len: int):
+        self.mesh, self.k, self.window_len = mesh, k, window_len
+        self.maps = {}
+        for d in range(mesh.dp):
+            self.maps.setdefault(mesh[d, 0], table.to(mesh[d, 0]))
+
+    def slice_len(self, P: int) -> int:
+        return -(-P // self.mesh.dp)
+
+    def __call__(self, ref_codes: np.ndarray) -> dict:
+        """[L] uint8 codes -> ``call_scan_ref``'s dict as host arrays of P
+        = L - k + 1 positions."""
+        n, k, w = self.mesh.dp, self.k, self.window_len
+        L = ref_codes.shape[0]
+        P = L - k + 1
+        Pl = self.slice_len(P)
+        if Pl < w:
+            raise ValueError(f"{P} positions over {n} slices leave {Pl} a slice, < window {w}")
+        padded = np.full(n * Pl + k + 1, PAD_CODE, dtype=np.uint8)
+        padded[0] = 4          # row j reaches ref[j - 1] for the deletion (k+1)-mers
+        padded[1: 1 + L] = ref_codes
+        parts, halo = [], None
+        for d in range(n):
+            dev = self.mesh[d, 0]
+            pref = torch.from_numpy(padded[d * Pl: d * Pl + Pl + k + 1]).to(dev)
+            res = call_scan_slice(pref, self.maps[dev], k, w, Pl, base=d * Pl,
+                                  halo=None if halo is None else halo.to(dev))
+            halo = res["depth"][-w:]
+            parts.append(res)
+        return {name: torch.cat([p[name].cpu() for p in parts])[:P].numpy()
+                for name in parts[0]}

@@ -18,7 +18,15 @@ arrays and bytes must be equal).
   line), two ``-k`` (exit 1), ``--resume`` from a ``.progress`` sidecar cut
   at a section boundary, inside a section and inside a line, and from the
   JAX package's own sidecar, ``--resume`` without ``-o`` (exit 1); the CLI,
-  with ``--devices`` and ``--dist-*`` rejected by name.
+  with ``--dist-*`` rejected by name;
+* ``call --devices 4`` and ``--devices 8`` against rkmh-tpu's sharded run
+  on JAX's 8 virtual CPU devices (the port on ``mesh_devices = (cpu,) *
+  8``): the VCF, ``-d``, several references and ``--resume``, byte for
+  byte; the two fallback lines (more devices than visible; a reference of
+  fewer positions a slice than the window); the slices' pieces alone:
+  ``_enumerate_plain`` with a base and ``window_average`` with a halo equal
+  the unsharded result sliced, and ``ShardedCallScan`` equals the JAX
+  ``sharded_call_scan_fn``'s arrays.
 """
 
 import io
@@ -327,7 +335,7 @@ def test_cli_call_matches_jax(workload, tmp_path, capsys):
 def test_cli_parses_rkmh_tpu_flags_and_defaults(argv):
     want = vars(jax_parser().parse_args(argv))
     got = vars(cli.build_parser().parse_args(argv))
-    not_ported = {"devices", "dist_coordinator", "dist_procs", "dist_rank"}
+    not_ported = {"dist_coordinator", "dist_procs", "dist_rank"}
     assert set(got) - {"device"} == set(want)
     for key, value in want.items():
         if key in not_ported:
@@ -339,7 +347,20 @@ def test_cli_parses_rkmh_tpu_flags_and_defaults(argv):
 
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--dist-coordinator", "h:1"],
                                   ["--dist-procs", "2"], ["--dist-rank", "0"]])
-def test_cli_rejects_flags_not_yet_ported(flag, capsys):
+def test_cli_rejects_flags_not_yet_ported(flag, workload, capsys):
+    """--dist-* are rejected by name.  --devices runs since it was ported:
+    ``--devices 2 --device cpu`` sees one device, logs rkmh-tpu's fallback
+    line and prints rkmh-tpu's VCF."""
+    if flag[0] == "--devices":
+        argv = ["call", "-r", workload["ref"], "-f", workload["reads"], "-k", "16", *flag]
+        assert cli.main([*argv, "--device", "cpu"]) == 0
+        got = capsys.readouterr()
+        assert jax_run(JaxConfig(ref_files=[workload["ref"]], read_files=[workload["reads"]],
+                                 ks=(16,))) == 0
+        assert got.out == capsys.readouterr().out and got.out.startswith("##fileformat")
+        assert ("call --devices ignored (--devices 2 > 1 visible device(s)); running "
+                "single-device") in got.err.splitlines()
+        return
     with pytest.raises(SystemExit) as exc:
         cli.main(["call", "-r", "ref.fa", "-f", "reads.fq", *flag])
     assert exc.value.code == 2
@@ -350,3 +371,109 @@ def test_cli_call_on_cuda_without_a_gpu_fails(workload, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["call", "-r", workload["ref"], "-f", workload["reads"]])
+
+
+# ---- --devices ---------------------------------------------------------------
+
+GRID = (torch.device("cpu"),) * 8  # as many entries as JAX's virtual devices
+
+
+@pytest.mark.parametrize("devices", [4, 8])
+@pytest.mark.parametrize("kw", [dict(), dict(show_depth=True), dict(multi=True)],
+                         ids=["vcf", "d", "multi"])
+def test_devices_match_jax(workload, capsys, devices, kw):
+    refs = [workload["multi"] if kw.pop("multi", False) else workload["ref"]]
+    base = dict(ref_files=refs, read_files=[workload["reads"]], ks=(16,), devices=devices, **kw)
+    capsys.readouterr()
+    want = io.StringIO()
+    assert jax_run(JaxConfig(**base), out=want) == 0
+    werr = capsys.readouterr().err
+    got = io.StringIO()
+    assert run(CallConfig(device="cpu", mesh_devices=GRID, **base), out=got) == 0
+    assert got.getvalue() == want.getvalue() and _logs(capsys.readouterr().err) == _logs(werr)
+    one = io.StringIO()
+    assert run(CallConfig(device="cpu", **{**base, "devices": 0}), out=one) == 0
+    assert one.getvalue() == got.getvalue()
+
+
+def test_devices_resume_equals_the_uninterrupted_vcf(workload, tmp_path):
+    kw = dict(ref_files=[workload["multi"]], read_files=[workload["reads"]], ks=(16,),
+              devices=4)
+    jax_out = str(tmp_path / "jax.vcf")
+    assert jax_run(JaxConfig(out_file=jax_out, **kw)) == 0
+    out = str(tmp_path / "port.vcf")
+    shutil.copyfile(jax_out + ".progress", out + ".progress")
+    _progress_cut(out + ".progress", "mid-section")
+    assert run(CallConfig(out_file=out, resume=True, device="cpu", mesh_devices=GRID,
+                          **kw)) == 0
+    assert open(out).read() == open(jax_out).read()
+    assert open(out + ".progress").read() == open(jax_out + ".progress").read()
+
+
+@pytest.mark.parametrize("kw,line", [
+    (dict(devices=9), "call --devices ignored (--devices 9 > 8 visible device(s)); "
+                      "running single-device"),
+    (dict(devices=8, window_len=400, multi=True),
+     "call --devices: partA spans only 2585 positions (< window 400 per device); "
+     "single-device"),
+], ids=["visible", "short"])
+def test_devices_fallback_lines_match_jax(workload, capsys, kw, line):
+    refs = [workload["multi"] if kw.pop("multi", False) else workload["ref"]]
+    base = dict(ref_files=refs, read_files=[workload["reads"]], ks=(16,), **kw)
+    capsys.readouterr()
+    want = io.StringIO()
+    assert jax_run(JaxConfig(**base), out=want) == 0
+    werr = _logs(capsys.readouterr().err)
+    got = io.StringIO()
+    assert run(CallConfig(device="cpu", mesh_devices=GRID, **base), out=got) == 0
+    gerr = _logs(capsys.readouterr().err)
+    assert got.getvalue() == want.getvalue() and gerr == werr and line in gerr
+
+
+@pytest.mark.parametrize("k,w,n", [(16, 100, 4), (12, 37, 8), (33, 1, 3)])
+def test_slices_equal_the_unsharded_scan(with_n, k, w, n):
+    """Each slice's pieces on their own: the window average with the
+    previous slice's last w depths as its halo, ``_enumerate_plain`` at the
+    slice's base (its deletions guarded on the global index), and the
+    whole ``call_scan_slice``, against the unsharded arrays sliced; then
+    ``ShardedCallScan`` against the JAX ``sharded_call_scan_fn``."""
+    ref, reads = with_n
+    m = _depth_map(reads, k)
+    table = convert.hashmap_from_numpy(m.hash_hi, m.hash_lo, m.used, m.values, "cpu")
+    row = torch.from_numpy(encode_seqs([ref])[0][0, :len(ref)].copy())
+    whole = call_engine.call_scan_ref(row, table, k, w)
+    P = len(ref) - k + 1
+    Pl = -(-P // n)
+    padded = torch.full((n * Pl + k + 1,), 255, dtype=torch.uint8)
+    padded[0] = 4
+    padded[1: 1 + len(ref)] = row
+    get = call_engine.plain_getter(table)
+    for d in range(n):
+        j0, j1 = d * Pl, min((d + 1) * Pl, P)
+        halo = whole["depth"][j0 - w: j0] if d else None
+        avg, site = call_engine.window_average(whole["depth"][j0:j1], w, halo, base=j0)
+        assert torch.equal(avg, whole["avg"][j0:j1]) and torch.equal(site, whole["site"][j0:j1])
+        got = call_engine._enumerate_plain(row[j0:], get, k, whole["depth"][j0:j1], avg, site,
+                                           0, j1 - j0, base=j0, lead=int(padded[j0]))
+        for name, v in zip(NAMES[3:], got):
+            assert torch.equal(v, whole[name][j0:j1]), (d, name)
+        res = call_engine.call_scan_slice(padded[j0: j0 + Pl + k + 1], table, k, w, Pl, j0, halo)
+        for name in NAMES:
+            assert torch.equal(res[name][: j1 - j0], whole[name][j0:j1]), (d, name)
+    if n > 1:  # position 0 is a pad deletion site only in slice 0
+        assert not whole["del_call"][0].any()
+
+    import jax
+
+    from rkmh_tpu.parallel.mesh import make_mesh as jax_mesh, sharded_call_scan_fn
+    from rkmh_tpu_torch.parallel.mesh import ShardedCallScan, make_mesh
+
+    jm = jax_mesh(jax.devices()[:n], dp=n, tp=1)
+    codes, _ = jax_encode([ref], pad_to=n * Pl + k)
+    jpadded = np.concatenate([np.full(1, 4, np.uint8), codes[0]])
+    slices = np.stack([jpadded[d * Pl: d * Pl + Pl + k + 1] for d in range(n)])
+    want = {name: np.asarray(v)[:P] for name, v in
+            sharded_call_scan_fn(jm, k, w)(slices, m.device_arrays()).items()}
+    got = ShardedCallScan(make_mesh(GRID[:n], dp=n, tp=1), table, k, w)(row.numpy())
+    for name in NAMES:
+        assert np.array_equal(got[name], want[name]), name

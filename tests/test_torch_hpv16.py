@@ -138,7 +138,26 @@ def test_cli_hpv16_matches_jax(data, tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", [["--dist-coordinator", "h:1"], ["--devices", "2"],
                                   ["--devices", "4"], ["--tp", "2"], ["--dist-procs", "2"]])
-def test_cli_rejects_flags_not_yet_ported(flag, capsys):
+def test_cli_rejects_flags_not_yet_ported(flag, data, tmp_path, monkeypatch, capsys):
+    """--dist-* are rejected by name.  --devices and --tp run since they
+    were ported: ``--devices N --device cpu`` sees one device, logs
+    rkmh-tpu's fallback line and prints rkmh-tpu's bytes; ``--tp 2`` alone
+    runs on one device and logs nothing (tests/test_torch_hpv16_sharded.py
+    holds the grids)."""
+    if flag[0] in ("--devices", "--tp"):
+        monkeypatch.chdir(tmp_path)
+        assert cli.main(["hpv16", "-f", data["mixed"], "-R", data["full"], "-k", "16",
+                         "--device", "cpu", *flag]) == 0
+        got = capsys.readouterr()
+        want = io.StringIO()
+        jcmd.run(jcmd.Hpv16Config(read_files=[data["mixed"]], refpath=data["full"], ks=(16,),
+                                  tst_file=False), out=want)
+        assert got.out == want.getvalue() and got.out.count("\n") == 40
+        fallback = (f"hpv16 --devices ignored (--devices {flag[1]} > 1 visible device(s)); "
+                    "running single-device")
+        assert [ln for ln in got.err.splitlines() if "ignored" in ln] == (
+            [fallback] if flag[0] == "--devices" else [])
+        return
     with pytest.raises(SystemExit) as exc:
         cli.main(["hpv16", "-f", "reads.fq", "-R", "refs", *flag])
     assert exc.value.code == 2
@@ -146,8 +165,9 @@ def test_cli_rejects_flags_not_yet_ported(flag, capsys):
 
 
 def test_run_rejects_config_not_yet_ported():
-    with pytest.raises(ValueError, match="--devices, --tp not yet ported"):
-        hpv16_cmd.run(hpv16_cmd.Hpv16Config(min_kmer_occ=2, devices=2, tp=2, device="cpu"))
+    with pytest.raises(ValueError, match="--dist-procs not yet ported"):
+        hpv16_cmd.run(hpv16_cmd.Hpv16Config(min_kmer_occ=2, devices=2, tp=2, dist_procs=2,
+                                            device="cpu"))
 
 
 def test_hpv16_batch_comb_on_a_jax_built_table(data, tmp_path, monkeypatch):

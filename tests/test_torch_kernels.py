@@ -43,8 +43,11 @@ from rkmh_tpu_torch.ops.probe import (
 from rkmh_tpu_torch.parallel.mesh import build_sharded_tables, merge_tp_partials
 from rkmh_tpu_torch.ops.set_probe import (
     _set_probe_cuda,
+    merge_hpv16_partials,
     pack_set_table,
     set_probe,
+    set_probe_partial,
+    set_probe_partial_plain,
     set_probe_plain,
 )
 from rkmh_tpu_torch.ops.sketch import SENTINEL, bottom_s_sketch
@@ -452,6 +455,74 @@ def test_set_probe_kernel_batch_of_unequal_reads(cuda_device):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     assert (want[::50] == 0).all() and int(want[:, 1].max()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,U,tp", [(182, 14, 2), (182, 14, 4), (30, 10, 3), (5, 40, 4),
+                                    (3, 1, 2)])
+@pytest.mark.parametrize("width", [1500, 4000, 7000])  # reads of 1, 2 and 4 segments
+def test_set_probe_partial_kernel_matches_plain_and_merges(cuda_device, T, U, tp, width):
+    """K3's partial route on every tp shard against its plain version (the
+    logical shard table), the shards merged against the whole table's K3,
+    and the window (0, T + U) against rkmh_set_probe bit for bit; types 1
+    and 2 hold one set, so reads tie between them, across the shard border
+    at (3, 1, 2); (5, 40, 4) has shards without type columns."""
+    from rkmh_tpu_torch.ops.lookup import build_sharded_set_tables
+
+    table, pool, rows, rng = _set_table(T + tp + width, T, U, 200)
+    full, lens = _sorted_rows(rng, pool, 24, width)
+    lens[::5] = 0
+    x, ln = full.to(cuda_device), lens.to(cuda_device)
+    whole = set_probe(x, ln, pack_set_table(table.to(cuda_device), T + U), T, U)
+    tables, rps = build_sharded_set_tables(rows, tp)
+    before = kernels.SET_PROBE_PARTIAL.by_route.get("partial", 0)
+    parts = []
+    for j in range(tp):
+        shard = torch.from_numpy(np.ascontiguousarray(tables[j]).view(np.int32)).to(cuda_device)
+        got = set_probe_partial(x, ln, pack_set_table(shard, rps), j * rps, rps, T, U)
+        torch.cuda.synchronize()
+        assert torch.equal(got, set_probe_partial_plain(x, ln, shard, j * rps, rps, T, U)), j
+        parts.append(got)
+    assert kernels.SET_PROBE_PARTIAL.by_route["partial"] == before + tp
+    assert torch.equal(merge_hpv16_partials(torch.stack(parts)), whole)
+    assert torch.equal(set_probe_partial(x, ln, pack_set_table(table.to(cuda_device), T + U), 0,
+                                         T + U, T, U), whole)
+    assert int(whole[:, 1].max()) > 1 and (whole[::5] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [12, 16, 33])
+@pytest.mark.parametrize("n", [2, 4])
+def test_call_scan_kernel_slices_with_a_base(cuda_device, k, n):
+    """K9 with base > 0 on each slice of a reference (its deletions guarded
+    on the global index) against ``_enumerate_plain`` at the same base and
+    against the whole row's scan sliced."""
+    ref, table = _call_case(k, seed=n)
+    w = 100
+    whole = call_engine.call_scan_plain(ref, table, k, w)
+    P = ref.shape[0] - k + 1
+    Pl = -(-P // n)
+    padded = torch.full((n * Pl + k + 1,), 255, dtype=torch.uint8)
+    padded[0] = 4
+    padded[1: 1 + ref.shape[0]] = ref
+    t = table.to(cuda_device)
+    get = call_engine.plain_getter(table)
+    halo = None
+    for d in range(n):
+        j0, j1 = d * Pl, min((d + 1) * Pl, P)
+        pref = padded[j0: j0 + Pl + k + 1]
+        got = call_engine.call_scan_slice(pref.to(cuda_device), t, k, w, Pl, j0,
+                                          None if halo is None else halo.to(cuda_device))
+        torch.cuda.synchronize()
+        want = call_engine._enumerate_plain(pref[1:], get, k, got["depth"].cpu(),
+                                            got["avg"].cpu(), got["site"].cpu(), 0, Pl, j0,
+                                            int(pref[0]))
+        for name, v in zip(("snp_depth", "snp_call", "max_rescue", "del_depth", "del_call"),
+                           want):
+            assert torch.equal(got[name].cpu(), v), (d, name)
+        for name in whole:
+            assert torch.equal(got[name][: j1 - j0].cpu(), whole[name][j0:j1]), (d, name)
+        halo = got["depth"][-w:].cpu()
 
 
 @pytest.mark.cuda
@@ -1114,7 +1185,8 @@ def test_launch_counts_reset():
     assert kernels.launch_counts() == {"window_hash": 0, "panel_probe": 0,
                                        "panel_probe_filter": 0, "panel_probe_wide": 0,
                                        "panel_probe_partial": 0,
-                                       "set_probe": 0, "sorted_probe": 0,
+                                       "set_probe": 0, "set_probe_partial": 0,
+                                       "sorted_probe": 0,
                                        "lut_gather_rows": 0, "lut_gather_lanes": 0,
                                        "counter_add": 0, "counter_mask": 0,
                                        "hashmap_get": 0, "call_scan": 0,

@@ -15,7 +15,11 @@ exact (integer counts, flags and table bits):
   with and without the -M counter;
 * the dp-sharded counter equals rkmh-tpu's ``sharded_counter_add_codes_fn``
   (through ``convert``) and one device's counter, and the range forms of
-  the counter's plain add and mask partition the whole table's.
+  the counter's plain add and mask partition the whole table's;
+* ``sp_sketch`` over 8 chunks equals rkmh-tpu's ``sp_sketch_fn`` on the 8
+  virtual devices and one device's ``sketch_batch``, for one k and for
+  -k 12 -k 16 (invalid codes, a chunk shorter than a k-mer's halo);
+* ``ShardedSetPanel`` places each hpv16 shard once per (shard, device).
 """
 
 import numpy as np
@@ -55,6 +59,7 @@ from rkmh_tpu_torch.parallel.mesh import (
 )
 
 CPU = torch.device("cpu")
+CPU_GRID = (CPU,) * 8  # as many entries as JAX's virtual devices
 KS, S = (12,), 64
 GEOMETRIES = [(4, 1), (2, 2), (1, 4)]
 
@@ -313,3 +318,47 @@ def test_counter_ranges_partition_the_table(size, parts):
         assert torch.equal(out, counter.counter_mask(whole, h, lo, hi))
     with pytest.raises(ValueError, match="lie outside a table"):
         counter.HashCounter(size, CPU, base=n * parts - 1, n_slots=n)
+
+
+# ---- sequence parallelism (parallel/sp.py)
+
+
+@pytest.mark.parametrize("ks", [(16,), (12, 16)], ids=["k16", "k12-k16"])
+@pytest.mark.parametrize("s", [50, 1000, 5000])
+def test_sp_sketch_equals_jax_and_one_device(ks, s):
+    from rkmh_tpu.parallel import sp as jax_sp
+    from rkmh_tpu_torch.parallel.sp import make_sp_mesh, sp_sketch
+
+    rng = np.random.default_rng(len(ks) + s)
+    codes = rng.integers(0, 4, (3, 4096)).astype(np.uint8)
+    codes[1, 100:140] = 4  # a run of N
+    codes[2, -30:] = 255   # padding at the end
+    want, want_lens = jax_sp.sp_sketch_fn(jax_sp.make_sp_mesh(jax.devices()[:8]), ks, s)(codes)
+    got, lens = sp_sketch(make_sp_mesh(list(CPU_GRID)), codes, ks, s)
+    assert np.array_equal(got.numpy().view(np.uint64), np.asarray(want))
+    assert np.array_equal(lens.numpy(), np.asarray(want_lens))
+    one, one_lens = engine.sketch_batch(torch.from_numpy(codes), ks, s)
+    assert torch.equal(got[:, : one.shape[1]], one) and torch.equal(lens, one_lens)
+
+
+def test_sp_sketch_refuses_a_row_that_does_not_split():
+    from rkmh_tpu_torch.parallel.sp import make_sp_mesh, sp_sketch
+
+    with pytest.raises(ValueError, match="do not split into 8 chunks"):
+        sp_sketch(make_sp_mesh(list(CPU_GRID)), np.zeros((1, 100), np.uint8), (12,), 10)
+
+
+def test_sharded_set_panel_places_each_shard_once():
+    from rkmh_tpu_torch.ops.lookup import build_sharded_set_tables
+    from rkmh_tpu_torch.parallel.mesh import ShardedSetPanel
+
+    rng = np.random.default_rng(2)
+    rows = [rng.integers(1, 2**63, 50) for _ in range(26)]
+    tables, rps = build_sharded_set_tables(rows, 4)
+    panel = ShardedSetPanel(_grid(2, 4), tables, rps)
+    assert rps == 7 and len(panel._tables) == 4
+    for j in range(4):
+        assert panel.table(1, j) is panel.table(0, j)
+        assert np.array_equal(panel.table(0, j).numpy().view(np.uint32), tables[j])
+    with pytest.raises(ValueError, match="4 shard tables for tp 2"):
+        ShardedSetPanel(_grid(4, 2), tables, rps)

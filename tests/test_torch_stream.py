@@ -224,6 +224,7 @@ def test_port_never_imports_jax():
             "import rkmh_tpu_torch.ml.wabbit, rkmh_tpu_torch.ml.vw_model\n"
             "import rkmh_tpu_torch.classify.library, rkmh_tpu_torch.ops.sparse_margin\n"
             "import rkmh_tpu_torch.parallel.mesh, rkmh_tpu_torch.parallel.ep\n"
+            "import rkmh_tpu_torch.parallel.sp\n"
             "import pkgutil, importlib, rkmh_tpu_torch.scripts as s\n"
             "names = [m.name for m in pkgutil.iter_modules(s.__path__)]\n"
             "assert len(names) == 12, names\n"
