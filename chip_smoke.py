@@ -310,11 +310,24 @@ line) without CUDA or without the package beside it.  In order it:
     line on one card); (after 24) ``call --devices 4``: the workload's VCF
     and ``-d`` and the 1 Mbp reference's VCF; ``parallel/sp.sp_sketch`` of
     two 4.2 Mbp genomes over 4 chunks, k = 16 and -k 12 -k 16, against one
-    device's sketch.
+    device's sketch;
+38. ``--dist-*`` (after 35): two rank processes (this script with
+    ``--dist-rank-worker``, both on cuda:0, a gloo group whose rendezvous
+    is a file store), each with its launch counters zeroed before and read
+    after each job and written to a file this process reads, run over the
+    slice's 2**20 reads ``stream -o``, ``stream -M 2 -I 40 -o`` (2e8
+    slots: one 800 MB ``all_reduce``), ``filter -M 2 -I 40 -N 10 -o`` and
+    ``stream --tp 2`` on local grids of ``(cuda:0,) * 2``, then ``stream``
+    and ``filter`` again with --resume after rank 1's stripe (and filter's
+    idx) is cut at 40%; each merged by ``rkmh-tpu-torch-dist-merge`` and
+    held byte for byte against the one-process output of phases 6, 13 and
+    14; the pair's reads/s (the slower rank) beside one process's, each
+    rank's peak memory, and the -M reduction's bytes and seconds.  A rank
+    that fails or outlives its limit fails the run (the pair is killed).
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record (per kernel: launches on the driven paths, in all and by
-path, max_abs_err against the plain version, ms, eager_ms, plain_ms, bound_ms,
+path, phase 38's ranks' among them, max_abs_err against the plain version, ms, eager_ms, plain_ms, bound_ms,
 bound_by, bound_share = bound_ms / ms, and library_ms, one PyTorch call
 computing the same function where there is one: ``torch.gather`` for K4
 and K5, ``torch.searchsorted`` and the mask gather for K10,
@@ -3880,6 +3893,275 @@ def run_sp_sketch(dev, card: str) -> dict:
     return res
 
 
+# ---- phase 38: --dist-* (commands/dist_stream.py): two rank processes on the one card
+
+N_DIST_RANKS = 2
+DIST_GRID = 2             # (d): each rank's local grid, (cuda:0,) * 2 at tp = 2
+DIST_TIMEOUT_S = 420      # the pair's own limit; a failed rank's peer gets DIST_GRACE_S
+DIST_GRACE_S = 30
+DIST_CUT_SHARE = 0.4      # rank 1's stripe (and filter's idx) cut at 40%
+
+
+def _dist_cfg(job: dict):
+    """The StreamConfig / FilterConfig of a phase 38 job, with this rank's
+    --dist-* settings."""
+    import torch
+
+    from rkmh_tpu_torch.commands import filter_cmd, stream
+
+    cfg = dict(job["cfg"])
+    if job.get("grid"):
+        cfg["mesh_devices"] = (torch.device("cuda", 0),) * job["grid"]
+    make = stream.StreamConfig if job["run"] == "stream" else filter_cmd.FilterConfig
+    return make(**cfg), (stream.run if job["run"] == "stream" else filter_cmd.run)
+
+
+def _dist_cut(job: dict, rank: int) -> None:
+    """Copy this rank's stripe (and idx, and -M checkpoint) and the sidecar
+    from the job's ``src`` prefix to ``dst``; rank ``cut_rank`` then cuts its copy as an
+    interrupted run leaves it: a stream stripe inside the line at
+    DIST_CUT_SHARE of its bytes; a filter idx to DIST_CUT_SHARE of its lines
+    (the last one torn) and the stripe to the records those lines cover
+    plus half a line."""
+    import shutil
+
+    src, dst = job["src"], job["dst"]
+    suffixes = [f".{rank}"] + ([f".{rank}.idx"] if job["filter"] else [])
+    if os.path.exists(f"{src}.mctr.{rank}.npz"):
+        suffixes.append(f".mctr.{rank}.npz")  # the -M counter: --resume restores it
+    for suffix in suffixes:
+        shutil.copyfile(src + suffix, dst + suffix)
+    tmp = f"{dst}.dist.json.{rank}.tmp"
+    shutil.copyfile(src + ".dist.json", tmp)
+    os.replace(tmp, dst + ".dist.json")
+    if rank != job["cut_rank"]:
+        return
+    stripe = f"{dst}.{rank}"
+    if not job["filter"]:
+        cut_mid_line(stripe, DIST_CUT_SHARE)
+        return
+    with open(stripe + ".idx") as fh:
+        counts = fh.read().split()
+    keep = int(len(counts) * DIST_CUT_SHARE)
+    with open(stripe + ".idx", "w") as fh:
+        fh.write("".join(f"{c}\n" for c in counts[:keep]) + counts[keep][:1])
+    lines = 4 * sum(int(c) for c in counts[:keep])
+    with open(stripe, "rb") as fh:
+        data = fh.readlines()
+    torn = data[lines][: len(data[lines]) // 2] if lines < len(data) else b""
+    with open(stripe, "wb") as fh:
+        fh.write(b"".join(data[:lines]) + torn)
+
+
+def dist_rank_worker(spec_path: str) -> int:
+    """A rank of phase 38 (``chip_smoke.py --dist-rank-worker SPEC``): the
+    spec's jobs in order, each run with the launch counters zeroed just
+    before and read just after; writes each job's seconds, launches (in all
+    and over slot ranges), peak memory and -M counter reduction to the
+    spec's result file for this rank as it goes."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from rkmh_tpu_torch.commands import dist_stream
+    from rkmh_tpu_torch.ops import kernels
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    rank = int(os.environ["RKMH_SMOKE_RANK"])
+    dist = dict(dist_coordinator=spec["coordinator"], dist_procs=N_DIST_RANKS,
+                dist_rank=rank)
+    results = []
+    for job in spec["jobs"]:
+        if "src" in job:
+            _dist_cut(job, rank)
+            results.append({"label": job["label"]})
+        else:
+            cfg, run = _dist_cfg({**job, "cfg": {**job["cfg"], **dist}})
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = run(cfg)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            results.append({
+                "label": job["label"], "rc": rc, "seconds": seconds,
+                "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+                "by_range": {k: kernels.KERNELS[k].by_route.get("range", 0)
+                             for k in ("counter_add", "counter_mask")},
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "counter_reduce": dict(dist_stream.last_counter_reduce)})
+        with open(f"{spec['results']}.{rank}", "w") as fh:
+            json.dump(results, fh)
+        if results[-1].get("rc") not in (None, 0):
+            return 1
+    return 0
+
+
+def _run_rank_pair(spec: dict, work: str) -> list:
+    """Start the two ranks (this script in worker mode, each on cuda:0,
+    the gloo group's rendezvous a file store in ``work``, its connections
+    on the loopback interface) and wait for them; a rank that fails gets
+    its peer killed after DIST_GRACE_S, a pair past DIST_TIMEOUT_S is
+    killed; either raises.  -> each rank's results."""
+    import subprocess
+
+    store = os.path.join(work, "dist_store")
+    if os.path.exists(store):
+        os.remove(store)
+    spec["coordinator"] = f"file://{store}"
+    spec["results"] = os.path.join(work, "dist_results")
+    spec_path = os.path.join(work, "dist_spec.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    logs = [os.path.join(work, f"dist_rank.{r}.log") for r in range(N_DIST_RANKS)]
+    env = {**os.environ, "RKMH_TPU_INPUT_INDEX": os.path.join(work, "idx"),
+           "GLOO_SOCKET_IFNAME": "lo"}
+    ranks = []
+    ok = False
+    try:
+        for r in range(N_DIST_RANKS):
+            with open(logs[r], "w") as log_fh:
+                ranks.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--dist-rank-worker", spec_path],
+                    cwd=REPO, env={**env, "RKMH_SMOKE_RANK": str(r)}, stdout=log_fh,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        while any(p.poll() is None for p in ranks):
+            if any(p.poll() not in (None, 0) for p in ranks):
+                deadline = min(deadline, time.monotonic() + DIST_GRACE_S)
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 38: the rank pair did not end in time (exit "
+                                     f"codes {[p.poll() for p in ranks]})")
+            time.sleep(0.1)
+        ok = all(p.returncode == 0 for p in ranks)
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for r, p in enumerate(ranks):
+            if not ok:
+                with open(logs[r]) as fh:
+                    say(f"phase 38 rank {r} (exit {p.returncode}) log tail:\n{fh.read()[-2000:]}")
+    if not ok:
+        raise AssertionError(f"phase 38: rank exit codes {[p.returncode for p in ranks]}")
+    got = []
+    for r in range(N_DIST_RANKS):
+        with open(f"{spec['results']}.{r}") as fh:
+            got.append(json.load(fh))
+    return got
+
+
+def _merge_stripes(prefix: str, dst: str) -> str:
+    """rkmh-tpu-torch-dist-merge (``python -m rkmh_tpu_torch.commands.
+    dist_stream``) of the two stripes into dst."""
+    import subprocess
+
+    with open(dst, "w") as out:
+        subprocess.run([sys.executable, "-m", "rkmh_tpu_torch.commands.dist_stream",
+                        *[f"{prefix}.{r}" for r in range(N_DIST_RANKS)]],
+                       cwd=REPO, stdout=out, check=True, timeout=300)
+    return dst
+
+
+def run_dist_paths(card: str, zika: dict, single: dict) -> dict:
+    """Phase 38: two rank processes on the one card (each on cuda:0, a gloo
+    group on the loopback) run, over the slice's 2**20 reads, (a) ``stream
+    -o``, (b) ``stream -M 2 -I 40 -o`` (2e8 slots), (c) ``filter -M 2 -I 40
+    -N 10 -o`` and (d) ``stream --tp 2`` on local grids of ``(cuda:0,) *
+    2``; then (a) and (c) again with --resume after rank 1's stripe (and
+    filter's idx) is cut at 40%.  Each merged output
+    (``rkmh-tpu-torch-dist-merge``) must equal one process's (phases 6, 13,
+    14) byte for byte; every rank must launch its path's kernels (a
+    resumed rank whose stripe is whole classifies nothing).  ->
+    per path: the pair's reads/s (the slower rank's seconds) beside one
+    process's, each rank's launches, peak memory and -M reduction."""
+    tmp = zika["dir"]
+    one = {"stream": os.path.join(tmp, "gpu.tsv"),
+           "stream -M -I": os.path.join(tmp, "stream_mi.tsv"),
+           "filter": os.path.join(tmp, "filter.fq")}
+    base = dict(ref_files=[zika["refs"]], read_files=[zika["reads"]], ks=[12],
+                sketch_size=1000, device="cuda")
+    mi = dict(min_kmer_occ=MIN_OCC, max_samples=MAX_SAMPLES)
+    out = {k: os.path.join(tmp, f"dist_{k}") for k in ("a", "b", "c", "d", "ar", "cr")}
+    probe = ("window_hash", "panel_probe")
+    counted = ("window_hash", "counter_add", "counter_mask")
+    runs = [  # label, job, one process's output, its seconds, the kernels a rank needs
+        # (one tuple for every rank, or a tuple a rank)
+        ("a", {"run": "stream", "cfg": {**base, "out_file": out["a"]}},
+         one["stream"], single["stream"]["e2e_s"], probe),
+        ("b", {"run": "stream", "cfg": {**base, **mi, "out_file": out["b"]}},
+         one["stream -M -I"], single["stream -M -I"]["e2e_s"], counted + ("panel_probe",)),
+        ("c", {"run": "filter", "cfg": {**base, **mi, "min_matches": FILTER_MIN_MATCHES,
+                                        "out_file": out["c"]}},
+         one["filter"], single["filter"]["e2e_s"], counted + ("panel_probe_filter",)),
+        ("d", {"run": "stream", "cfg": {**base, "tp": 2, "out_file": out["d"]},
+               "grid": DIST_GRID},
+         one["stream"], single["stream"]["e2e_s"], ("window_hash", "panel_probe_partial")),
+    ]
+    jobs = [dict(job, label=label) for label, job, *_ in runs]
+    for label, src, filt in (("ar", "a", False), ("cr", "c", True)):
+        jobs.append({"label": f"cut {src}", "src": out[src], "dst": out[label], "filter": filt,
+                     "cut_rank": 1})
+    # resumed, rank 0 (its stripe whole) classifies nothing: K1 hashes the panel
+    runs += [
+        ("ar", {"run": "stream", "cfg": {**base, "out_file": out["ar"], "resume": True}},
+         one["stream"], single["stream"]["e2e_s"], [("window_hash",), probe]),
+        ("cr", {"run": "filter", "cfg": {**base, **mi, "min_matches": FILTER_MIN_MATCHES,
+                                         "out_file": out["cr"], "resume": True}},
+         one["filter"], single["filter"]["e2e_s"],
+         [("window_hash",), ("window_hash", "panel_probe_filter")]),
+    ]
+    jobs += [dict(job, label=label) for label, job, *_ in runs[-2:]]
+    names = {"a": "stream", "b": "stream -M 2 -I 40", "c": "filter -M 2 -I 40 -N 10",
+             "d": f"stream --tp 2 on (cuda:0,) * {DIST_GRID}", "ar": "stream --resume",
+             "cr": "filter -M 2 -I 40 -N 10 --resume"}
+    t0 = time.perf_counter()
+    ranks = _run_rank_pair({"jobs": jobs}, tmp)
+    say(f"phase 38: the rank pair ran {len(jobs)} jobs in {time.perf_counter() - t0:.1f} s "
+        "(both processes' start-up included)")
+    by_label = [{res["label"]: res for res in results} for results in ranks]
+    res = {}
+    for label, job, want, single_s, needed in runs:
+        per_rank = [by[label] for by in by_label]
+        for r, got in enumerate(per_rank):
+            if got["rc"] != 0:
+                raise AssertionError(f"phase 38 {names[label]}: rank {r} exited {got['rc']}")
+            mine = needed[r] if isinstance(needed, list) else needed
+            require_launches({k: got["launches"].get(k, 0) for k in mine}, mine,
+                             f"dist {names[label]} (rank {r})")
+        same_file(_merge_stripes(out[label], out[label] + ".merged"), want,
+                  f"dist {names[label]}")
+        seconds = max(got["seconds"] for got in per_rank)
+        launches = {}
+        for got in per_rank:
+            for k, v in got["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        by_range = {k: sum(got["by_range"][k] for got in per_rank)
+                    for k in ("counter_add", "counter_mask")}
+        reduce = [got["counter_reduce"] for got in per_rank]
+        peaks = [got["peak_bytes"] / 2**30 for got in per_rank]
+        res[f"dist {names[label]}"] = {
+            "e2e_s": seconds, "e2e_reads_per_s": N_SLICE_READS / seconds,
+            "one_process_reads_per_s": N_SLICE_READS / single_s,
+            "launches": {**launches, "by_range": by_range},
+            "launches_by_rank": [got["launches"] for got in per_rank],
+            "rank_seconds": [got["seconds"] for got in per_rank],
+            "peak_gib_by_rank": peaks, "counter_reduce_by_rank": reduce}
+        reduced = "".join(f"; rank {r} -M all_reduce {x['bytes']} bytes in {x['seconds']:.4f} s"
+                          f" (checkpoint saved in {x.get('checkpoint_seconds', 0):.4f} s)"
+                          for r, x in enumerate(reduce) if x)
+        rank_s = ", ".join(f"{got['seconds']:.3f}" for got in per_rank)
+        peak_s = ", ".join(f"{p:.3f}" for p in peaks)
+        say(f"dist {names[label]} on {card}, {N_DIST_RANKS} ranks sharing one card (the "
+            f"machinery's cost, not scaling): {N_SLICE_READS / seconds:.1f} reads/s (ranks "
+            f"{rank_s} s); one process {N_SLICE_READS / single_s:.1f} reads/s (ratio "
+            f"{single_s / seconds:.2f}); merged output byte-identical to one process's; peak "
+            f"{peak_s} GiB by rank{reduced}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3947,6 +4229,8 @@ def main() -> int:
         cached = run_panel_cache(dev, card_smi, zika)
         sharded = run_sharded_paths(dev, card_smi, zika,
                                     {"stream": sl, "stream -M -I": st_mi, "filter": fl}, hashed)
+        dist = run_dist_paths(card_smi, zika, {"stream": sl, "stream -M -I": st_mi,
+                                               "filter": fl})
     hpm = run_hpv16_counter(dev, card_smi)
     with tempfile.TemporaryDirectory() as work:
         from rkmh_tpu_torch.bench import call_inputs
@@ -3981,7 +4265,7 @@ def main() -> int:
                 if k not in ("accuracy", "stats")},
              **{k: {"launches": v} for k, v in cached.items() if k != "setup_s"},
              **sharded, "stream 12,288 refs --devices 4 --tp 2": wide.pop("sharded"),
-             **hp.pop("sharded"), **sharded_call, **sp}
+             **hp.pop("sharded"), **sharded_call, **sp, **dist}
     by_range = {name: sum(r["launches"].get("by_range", {}).get(name, 0) for r in paths.values())
                 for name in ("counter_add", "counter_mask")}
 
@@ -4086,4 +4370,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank-worker"]:
+        sys.exit(dist_rank_worker(sys.argv[2]))
     sys.exit(main())

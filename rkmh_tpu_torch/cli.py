@@ -29,9 +29,12 @@ machine (``parallel/``), with rkmh-tpu's defaults (0 and 1) and its
 logged fallback to one device where the geometry cannot apply;
 ``hpv16 --devices N --tp T`` shards its reads over dp = N / T and its set
 table over T of them, and ``call --devices N`` its reference positions
-over N, with their own fallback lines.  Every other flag of rkmh-tpu
-(``--dist-*``) is parsed and rejected with an error naming it (for
-``hpv16``: when it would change what runs,
+over N, with their own fallback lines.  ``--dist-coordinator HOST:PORT
+--dist-procs N --dist-rank R`` run one rank of a multi-process
+``stream``, ``classify`` or ``filter`` (``commands/dist_stream.py``; merge
+the stripes with ``rkmh-tpu-torch-dist-merge``).  For ``hash``, ``count``,
+``search`` and ``call`` they are parsed and rejected with an error naming
+them (for ``hpv16``: when they would change what runs,
 ``commands.hpv16_cmd.not_ported``), so an rkmh-tpu command line never
 runs with a flag silently dropped.
 """
@@ -44,7 +47,7 @@ import sys
 from rkmh_tpu_torch.device import DEFAULT_DEVICE
 
 # (flags, dest, argparse keywords) of rkmh-tpu flags the port does not
-# run yet: --dist-* everywhere
+# run yet: --dist-* of hash, count, search and call
 _DIST = (
     (("--dist-coordinator",), "dist_coordinator", {}),
     (("--dist-procs",), "dist_procs", {"type": int}),
@@ -72,6 +75,18 @@ def _add_dead_flags(p, stream: bool) -> None:
 def _add_not_ported(p) -> None:
     for flags, dest, kw in _DIST:
         p.add_argument(*flags, dest=dest, help=argparse.SUPPRESS, **{"default": None, **kw})
+
+
+def _add_dist(p) -> None:
+    """--dist-* with rkmh-tpu's defaults (rkmh_tpu/cli.py:91-100)."""
+    p.add_argument("--dist-coordinator", default="", dest="dist_coordinator",
+                   help="host:port of rank 0's rendezvous (multi-process; or "
+                        "JAX_COORDINATOR_ADDRESS)")
+    p.add_argument("--dist-procs", type=int, default=0, dest="dist_procs",
+                   help="the number of processes (or JAX_NUM_PROCESSES)")
+    p.add_argument("--dist-rank", type=int, default=-1, dest="dist_rank",
+                   help="this process's rank (or JAX_PROCESS_ID); -o FILE writes "
+                        "FILE.<rank>, merge with rkmh-tpu-torch-dist-merge")
 
 
 def _add_devices(p, tp: bool) -> None:
@@ -149,7 +164,7 @@ def _add_classify_parser(sub, name: str):
     p.add_argument("-i", "--in-stream", action="store_true", dest="in_stream",
                    help="classify reads from stdin (ignored with -f, as in rkmh)")
     _add_devices(p, tp=True)
-    _add_not_ported(p)
+    _add_dist(p)
 
 
 def _add_hpv16_parser(sub):
@@ -306,6 +321,8 @@ def _run_stream(args):
         batch_size=args.batch_size, chunk_reads=args.chunk_reads,
         ref_sketches=args.ref_sketches, out_file=args.out_file, resume=args.resume,
         in_stream=args.in_stream, devices=args.devices, tp=args.tp, device=args.device,
+        dist_coordinator=args.dist_coordinator, dist_procs=args.dist_procs,
+        dist_rank=args.dist_rank,
     ))
 
 
@@ -321,7 +338,8 @@ def _run_filter(args):
         counter_size=args.counter_size, batch_size=args.batch_size,
         chunk_reads=args.chunk_reads, ref_sketches=args.ref_sketches,
         out_file=args.out_file, resume=args.resume, devices=args.devices, tp=args.tp,
-        device=args.device,
+        device=args.device, dist_coordinator=args.dist_coordinator,
+        dist_procs=args.dist_procs, dist_rank=args.dist_rank,
     ))
 
 
@@ -405,9 +423,11 @@ def main(argv=None) -> int:
 
         cfg = _hpv16_config(args)
         given = not_ported(cfg)
-    else:
+    elif args.command in ("hash", "count", "search", "call"):
         given = [flags[0] for flags, dest, _ in _DIST
                  if getattr(args, dest, None) is not None]  # given (--dist-rank 0 too)
+    else:
+        given = []
     if given:
         ap.error(f"{args.command}: {', '.join(given)} not yet ported to rkmh-tpu-torch")
     run = {"hpv16": lambda: _run_hpv16(cfg), "filter": lambda: _run_filter(args),

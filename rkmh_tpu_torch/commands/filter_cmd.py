@@ -35,7 +35,10 @@ the counter stays empty and every streamed read fails, as in rkmh.
 (rkmh_tpu/commands/filter_cmd.py:158-176, 226-240: ``commands.common
 .ShardedCtx``), in file mode and -i, with the -M counter dp-sharded; pad
 rows have keep 0 and fall off; a geometry that cannot apply logs rkmh-tpu's
-line and runs on one device.  Not ported yet: --dist-*.
+line and runs on one device.  ``--dist-*`` runs one rank of a
+multi-process drain (``commands/dist_stream.run_distributed_filter``;
+rkmh_tpu/commands/filter_cmd.py:68-75): its passing records and an
+``.idx`` of their count for every global batch.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ from rkmh_tpu_torch.commands.recovery import Progress, fail_after_chunks, skip_r
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.io.fastx import iter_batches
 from rkmh_tpu_torch.io.packing import encode_seqs
+from rkmh_tpu_torch.parallel import distributed
 
 DEFAULT_COUNTER_SIZE = 10_000_000  # rkmh.cpp:1187-1188
 # results fetched per host sync: smaller than stream's because every
@@ -102,12 +106,20 @@ class FilterConfig:
     tp: int = 1                     # --tp: panel shards (devices = dp * tp)
     device: str = DEFAULT_DEVICE
     mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
+    dist_coordinator: str = ""      # --dist-coordinator host:port
+    dist_procs: int = 0             # --dist-procs: the number of processes
+    dist_rank: int = -1             # --dist-rank: this process's rank
 
 
 def run(cfg: FilterConfig, out=None, stdin=None, stats: dict | None = None) -> int:
     """Run filter; ``stdin`` is the -i source (a binary file object; the
     process's stdin when None).  ``stats``, when given, receives the
-    number of file-mode reads run (``reads``) and of those kept (``kept``)."""
+    number of file-mode reads run (``reads``) and of those kept (``kept``);
+    a --dist-* rank leaves it empty."""
+    if distributed.requested(cfg.dist_procs, cfg.dist_coordinator):
+        from rkmh_tpu_torch.commands.dist_stream import run_distributed_filter
+
+        return run_distributed_filter(cfg, out)
     if cfg.resume and not cfg.out_file:
         log("filter --resume requires -o <file>; refusing to re-filter "
             "to stdout")

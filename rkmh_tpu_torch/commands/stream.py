@@ -30,7 +30,10 @@ in two passes (:489-498).  ``--devices N [--tp T]`` runs the step over a
 (dp, tp) grid of devices (``_ShardedClassify``, :242-305, :518-543): the
 reads dp-sharded, the panel tp-sharded, the -M counter dp-sharded, the
 output byte-identical; a geometry that cannot apply logs rkmh-tpu's line
-and runs on one device.  Not ported yet: --dist-*.
+and runs on one device.  ``--dist-procs N --dist-rank R
+--dist-coordinator HOST:PORT`` (or rkmh-tpu's ``JAX_*`` variables) runs
+one rank of a multi-process drain (``commands/dist_stream.py``, :431-439),
+each rank writing its stripe of the output.
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ from rkmh_tpu_torch.io.fastx import iter_fastx
 from rkmh_tpu_torch.io.native import format_lines_block
 from rkmh_tpu_torch.io.packing import encode_seqs
 from rkmh_tpu_torch.observability import count
+from rkmh_tpu_torch.parallel import distributed
 
 # the most lines dispatched but not yet written at once in the last -i run
 # (at most 3 batches: the bound on what a live stream holds back)
@@ -96,6 +100,9 @@ class StreamConfig:
     tp: int = 1                  # --tp: panel shards (devices = dp * tp)
     device: str = DEFAULT_DEVICE
     mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
+    dist_coordinator: str = ""   # --dist-coordinator host:port
+    dist_procs: int = 0          # --dist-procs: the number of processes
+    dist_rank: int = -1          # --dist-rank: this process's rank
 
 
 # the 8 possible "\t<sketch>[FAIL:DEPTH]\t[FAIL:MATCHES]\t[FAIL:DIFF]\n"
@@ -245,6 +252,10 @@ def _validate_devices(cfg: StreamConfig, num_refs: int, n_visible: int) -> str |
 def run(cfg: StreamConfig, out=None, stdin=None) -> int:
     """``stdin``: the stream -i reads (a binary file object; default the
     process's stdin)."""
+    if distributed.requested(cfg.dist_procs, cfg.dist_coordinator):
+        from rkmh_tpu_torch.commands.dist_stream import run_distributed
+
+        return run_distributed(cfg, out)
     if cfg.resume and not cfg.out_file:
         log("stream --resume requires -o <file> (resume state is the "
             "partial output itself); refusing to reclassify to stdout")

@@ -206,27 +206,34 @@ def test_cli_filter_matches_jax(workload, tmp_path, capsys, monkeypatch):
                                   ["--dist-coordinator", "h:1"], ["--dist-procs", "2"],
                                   ["--dist-rank", "0"]])
 def test_cli_filter_rejects_flags_not_yet_ported(flag, workload, capsys):
-    """--dist-* are rejected by name.  --devices and --tp run since they
-    were ported: ``--devices N --device cpu`` sees one device, logs
-    rkmh-tpu's fallback line and prints rkmh-tpu's bytes; ``--tp N`` alone
-    runs on one device and logs nothing."""
-    if flag[0] in ("--devices", "--tp"):
-        argv = ["filter", "-r", workload["refs"], "-f", workload["short"], "-k", "12", "-N",
-                "45", *flag]
-        assert jax_main(argv) == 0
-        want = capsys.readouterr().out
-        assert cli.main([*argv, "--device", "cpu"]) == 0
+    """Every flag here runs since it was ported, as rkmh-tpu runs it.
+    ``--devices N --device cpu`` sees one device, logs rkmh-tpu's fallback
+    line and prints rkmh-tpu's bytes; ``--tp N`` alone and ``--dist-rank 0``
+    alone run in one process and log nothing.  ``--dist-coordinator`` and
+    ``--dist-procs N`` take the multi-process drain, which refuses (before
+    any process group) ``-i``, ``--resume`` without ``-o`` and stdin as a
+    ``-f`` file with rkmh-tpu's lines and exit code."""
+    argv = ["filter", "-r", workload["refs"], "-f", workload["short"], "-k", "12", "-N",
+            "45", *flag]
+    if flag[0] in ("--dist-coordinator", "--dist-procs"):
+        argv += {"--dist-coordinator": ["--resume"], "4": ["-i"], "2": ["-f", "-"]}[
+            flag[0] if flag[0] == "--dist-coordinator" else flag[1]]
+        assert jax_main(argv) == 1
+        want = capsys.readouterr()
+        assert cli.main([*argv, "--device", "cpu"]) == 1
         got = capsys.readouterr()
-        assert got.out == want and 0 < want.count("\n") < 4 * 160
-        fallback = (f"filter --devices ignored (--devices {flag[1]} > 1 visible device(s)); "
-                    "running single-device")
-        assert [ln for ln in got.err.splitlines() if "ignored" in ln] == (
-            [fallback] if flag[0] == "--devices" else [])
+        assert got.out == want.out == "" and got.err == want.err
+        assert got.err.startswith("filter --dist-* ") and got.err.count("\n") == 1
         return
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["filter", "-r", "refs.fa", "-f", "reads.fq", *flag])
-    assert exc.value.code == 2
-    assert f"{flag[0]} not yet ported" in capsys.readouterr().err
+    assert jax_main(argv) == 0
+    want = capsys.readouterr().out
+    assert cli.main([*argv, "--device", "cpu"]) == 0
+    got = capsys.readouterr()
+    assert got.out == want and 0 < want.count("\n") < 4 * 160
+    fallback = (f"filter --devices ignored (--devices {flag[1]} > 1 visible device(s)); "
+                "running single-device")
+    assert [ln for ln in got.err.splitlines() if "ignored" in ln or "dist" in ln] == (
+        [fallback] if flag[0] == "--devices" else [])
 
 
 @pytest.mark.parametrize("flag", ["-z", "-m"])

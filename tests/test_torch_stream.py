@@ -133,28 +133,34 @@ def test_cli_accepts_dead_parity_flags_as_jax_does(workload, tmp_path, capsys):
                                   ["--devices", "2"], ["--dist-rank", "0"],
                                   ["--dist-procs", "2"]])
 def test_cli_rejects_flags_not_yet_ported(flag, workload, capsys):
-    """--dist-* are rejected by name.  --devices and --tp run since they
-    were ported: ``--devices 2 --device cpu`` sees one device, logs
-    rkmh-tpu's fallback line and prints rkmh-tpu's bytes; ``--tp 2`` alone
-    runs on one device and logs nothing."""
+    """Every flag here runs since it was ported, as rkmh-tpu runs it.
+    ``--devices 2 --device cpu`` sees one device, logs rkmh-tpu's fallback
+    line and prints rkmh-tpu's bytes; ``--tp 2`` alone and ``--dist-rank 0``
+    alone run in one process and log nothing.  ``--dist-coordinator`` and
+    ``--dist-procs 2`` take the multi-process drain, which refuses (before
+    any process group) ``--resume`` without ``-o`` and ``-i`` with rkmh-tpu's
+    lines and exit code."""
     from rkmh_tpu.cli import main as jax_main
 
-    if flag[0] in ("--devices", "--tp"):
-        argv = ["stream", "-r", workload["refs"], "-f", workload["short"], "-k", "12", *flag]
-        assert jax_main(argv) == 0
-        want = capsys.readouterr().out
-        assert cli.main([*argv, "--device", "cpu"]) == 0
+    argv = ["stream", "-r", workload["refs"], "-f", workload["short"], "-k", "12", *flag]
+    if flag[0] in ("--dist-coordinator", "--dist-procs"):
+        argv.append("--resume" if flag[0] == "--dist-coordinator" else "-i")
+        assert jax_main(argv) == 1
+        want = capsys.readouterr()
+        assert cli.main([*argv, "--device", "cpu"]) == 1
         got = capsys.readouterr()
-        assert got.out == want and len(want.splitlines()) == 200
-        fallback = ("stream --devices ignored (--devices 2 > 1 visible device(s)); running "
-                    "single-device")
-        assert [ln for ln in got.err.splitlines() if "ignored" in ln] == (
-            [fallback] if flag[0] == "--devices" else [])
+        assert got.out == want.out == "" and got.err == want.err
+        assert got.err.startswith("stream --dist-* ") and got.err.count("\n") == 1
         return
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["stream", "-r", "refs.fa", "-f", "reads.fq", *flag])
-    assert exc.value.code == 2
-    assert f"{flag[0]} not yet ported" in capsys.readouterr().err
+    assert jax_main(argv) == 0
+    want = capsys.readouterr().out
+    assert cli.main([*argv, "--device", "cpu"]) == 0
+    got = capsys.readouterr()
+    assert got.out == want and len(want.splitlines()) == 200
+    fallback = ("stream --devices ignored (--devices 2 > 1 visible device(s)); running "
+                "single-device")
+    assert [ln for ln in got.err.splitlines() if "ignored" in ln or "dist" in ln] == (
+        [fallback] if flag[0] == "--devices" else [])
 
 
 IGNORED_I = ("stream -i ignored: -f inputs were given (rkmh classified the files here too "
@@ -224,7 +230,8 @@ def test_port_never_imports_jax():
             "import rkmh_tpu_torch.ml.wabbit, rkmh_tpu_torch.ml.vw_model\n"
             "import rkmh_tpu_torch.classify.library, rkmh_tpu_torch.ops.sparse_margin\n"
             "import rkmh_tpu_torch.parallel.mesh, rkmh_tpu_torch.parallel.ep\n"
-            "import rkmh_tpu_torch.parallel.sp\n"
+            "import rkmh_tpu_torch.parallel.sp, rkmh_tpu_torch.parallel.distributed\n"
+            "import rkmh_tpu_torch.io.input_index, rkmh_tpu_torch.commands.dist_stream\n"
             "import pkgutil, importlib, rkmh_tpu_torch.scripts as s\n"
             "names = [m.name for m in pkgutil.iter_modules(s.__path__)]\n"
             "assert len(names) == 12, names\n"
