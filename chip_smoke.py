@@ -324,6 +324,22 @@ line) without CUDA or without the package beside it.  In order it:
     14; the pair's reads/s (the slower rank) beside one process's, each
     rank's peak memory, and the -M reduction's bytes and seconds.  A rank
     that fails or outlives its limit fails the run (the pair is killed).
+39. the rest of ``--dist-*`` (after 24 and 37, whose inputs and one-process
+    outputs it keeps): the same rank pair runs ``hash`` and ``hash -s
+    1000`` over phase 17's 2**18 reads, ``count`` (640,000 slots, ``-o``
+    and ``--dump``: one 2.56 MB ``all_reduce``) and ``search`` (phase
+    19's 12-mers) over the slice's 2**20 reads, ``hpv16`` at the published
+    shape over phase 37's 3,200-read head, ``hpv16 --tp 2`` on local grids
+    of ``(cuda:0,) * 2``, ``hpv16 -M 2`` at the default 8e8 slots (one 3.2
+    GB ``all_reduce`` and a 1.6 GB checkpoint a rank), ``call`` on phase
+    22's workload and ``call --resume`` after rank 1's stripe is cut inside
+    its section; each merged output held byte for byte against one
+    process's of phases 17-19, 37 and 24 (count: rank 0's npz arrays and
+    dump lines), every rank's kernels required, and the same figures as
+    38's.
+
+Before them, one line gives the host seconds of each phase (or group of
+phases) in the order they ran, which add up to the run.
 
 The last three lines are the card's name and power limit, the kernels'
 JSON record (per kernel: launches on the driven paths, in all and by
@@ -352,11 +368,14 @@ and the batch's reads by segments; K9 its base mode's time and error) and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
 import tempfile
 import time
+
+T_START = time.perf_counter()
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_SLICE_READS = 1 << 20
@@ -380,6 +399,27 @@ N_HASH_CPU_LINES = 4096
 COUNT_SLOTS = 640_000   # count's default table (rkmh.cpp:2322)
 N_COUNT_CPU_READS = 65536
 N_SEARCH_KMERS = 50_000
+
+
+class PhaseClock:
+    """Host seconds by phase: each ``lap`` closes the interval since the
+    last one (the first since the clock was made), so the laps add up to
+    the run."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps: dict[str, float] = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps[name] = self.laps.get(name, 0.0) + now - self.t
+        self.t = now
+
+    def report(self) -> None:
+        total = time.perf_counter() - T_START
+        say(f"seconds by phase: {json.dumps({k: round(v, 3) for k, v in self.laps.items()})}; "
+            f"the record and the rest {time.perf_counter() - self.t:.3f} s; since the script "
+            f"started {total:.3f} s")
 
 
 def say(msg: str) -> None:
@@ -1070,8 +1110,9 @@ def check_k3(dev, tb, packed, panel) -> tuple[int, dict, object]:
     return max(worst, err), times, batch_hashes
 
 
-def run_hpv16(dev, card: str) -> dict:
-    """Table build + K3 check + the hpv16 slice (see the module doc)."""
+def run_hpv16(dev, card: str, keep: str) -> dict:
+    """Table build + K3 check + the hpv16 slice (see the module doc);
+    ``keep``: where phase 37 leaves phase 39's input."""
     import numpy as np
     import torch
 
@@ -1159,7 +1200,7 @@ def run_hpv16(dev, card: str) -> dict:
         typed = float(np.mean([ln.split("\t")[1] == t for ln, t in zip(gpu_lines, truth)]))
         capped = run_hpv16_capped(tmp, cfg, gpu_lines)
         sharded = run_sharded_hpv16(dev, card, tmp, cfg, reads, gpu_lines, e2e_s, mbp,
-                                    tb.probe_table.nbytes)
+                                    tb.probe_table.nbytes, keep)
 
     # device step over resident batches (parse, table build and format excluded)
     batches = [(torch.from_numpy(codes).to(dev),
@@ -1679,7 +1720,7 @@ def run_hash_lines(dev, card: str, zika: dict) -> dict:
     1000`` and ``-k 12 -k 16``, each with its bytes and seconds, and its
     first N_HASH_CPU_LINES lines against the CPU plain path on the same
     reads; then one default run under cProfile.  The default output stays
-    for the resume phase."""
+    for the resume phase, it and the -s output for phase 39."""
     from rkmh_tpu_torch.commands import hash_cmd
 
     tmp = zika["dir"]
@@ -1701,6 +1742,8 @@ def run_hash_lines(dev, card: str, zika: dict) -> dict:
         say(f"{label}: first {N_HASH_CPU_LINES} lines byte-identical to the CPU plain path")
         if label == "hash":
             res["out"] = out
+        elif label == "hash -s 1000":
+            res["out -s"] = out
         else:
             os.remove(out)
     prof_out = os.path.join(tmp, "hash_profiled.txt")
@@ -1714,7 +1757,8 @@ def run_count(dev, card: str, zika: dict) -> dict:
     """``count --counter-size 640000 -o T.npz --dump`` over the slice's
     2**20 reads (K1 + K6), with the K6 route the counter took; then the
     table of the first N_COUNT_CPU_READS reads, counted on the card and on
-    the CPU plain path with the same flags, must be equal."""
+    the CPU plain path with the same flags, must be equal.  The table and
+    the dump stay for phase 39."""
     import numpy as np
 
     from rkmh_tpu_torch import convert
@@ -1747,11 +1791,9 @@ def run_count(dev, card: str, zika: dict) -> dict:
                                  "differs on the card and the CPU")
     say(f"count: the table of the first {N_COUNT_CPU_READS} reads equal on the card and the CPU "
         f"plain path; K6 route of the 2**20-read run: binned={stats['binned']}")
-    res = {**report("count --counter-size 640000 -o --dump", card, N_SLICE_READS, seconds,
-                    f", {n_dump} occupied slots dumped"), "launches": launches,
-           "k6_binned": stats["binned"]}
-    os.remove(dump)
-    return res
+    return {**report("count --counter-size 640000 -o --dump", card, N_SLICE_READS, seconds,
+                     f", {n_dump} occupied slots dumped"), "launches": launches,
+            "k6_binned": stats["binned"], "npz": npz, "dump": dump}
 
 
 def write_search_refs(tmp: str, n: int = N_SEARCH_KMERS) -> str:
@@ -1786,7 +1828,7 @@ def run_search(dev, card: str, zika: dict, hashes) -> dict:
     """``search`` of N_SEARCH_KMERS reference 12-mers over the slice's 2**20
     reads; the first N_HASH_CPU_LINES lines against the CPU plain path;
     the membership step's device ms on one 16,384-read batch (``hashes``);
-    one run under cProfile."""
+    one run under cProfile.  The k-mers and the output stay for phase 39."""
     from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms
     from rkmh_tpu_torch.commands import search_cmd
 
@@ -1820,13 +1862,12 @@ def run_search(dev, card: str, zika: dict, hashes) -> dict:
         f"{tuple(hashes.shape)} batch")
     res = {**report("search", card, N_SLICE_READS, seconds,
                     f", {keys.numel()} reference hashes"), "launches": launches,
-           "membership_ms": member_ms, "hits": n_hits}
+           "membership_ms": member_ms, "hits": n_hits, "refs": refs, "out": out}
     prof_out = os.path.join(tmp, "search_profiled.txt")
     res["profile"] = profile_run(lambda: search_cmd.run(search_cmd.SearchConfig(
         ref_files=[refs], read_files=[zika["reads"]], ks=(12,), out_file=prof_out,
         device="cuda")), "search")
     os.remove(prof_out)
-    os.remove(out)
     return res
 
 
@@ -3696,7 +3737,7 @@ def reckon_peak(step_rows: int, width: int, extra: dict) -> str:
 
 
 def run_sharded_hpv16(dev, card: str, tmp: str, cfg: dict, reads: str, one_lines: list,
-                      one_s: float, mbp: float, table_bytes: int) -> dict:
+                      one_s: float, mbp: float, table_bytes: int, keep: str) -> dict:
     """Phase 37a (inside phase 10, on its input): hpv16 on a grid of
     (cuda:0,) * 4, each run driven with the counters zeroed just before and
     read just after, byte for byte against one device on the card: (2, 2)
@@ -3706,7 +3747,10 @@ def run_sharded_hpv16(dev, card: str, tmp: str, cfg: dict, reads: str, one_lines
     sorted panel replicated, K10 on each dp slice) over the same head, each
     beside its one-device run; the peak memory reckoned before each run and
     measured; then ``rkmh-tpu-torch hpv16 --devices 2`` through the CLI: on
-    one card the fallback line on stderr and one device's stdout."""
+    one card the fallback line on stderr and one device's stdout.  Phase
+    39's input goes to ``keep``: the refpath, the head, and the one-device
+    runs' lines and seconds."""
+    import shutil
     import subprocess
 
     import torch
@@ -3763,6 +3807,14 @@ def run_sharded_hpv16(dev, card: str, tmp: str, cfg: dict, reads: str, one_lines
         m_s, _, m_text = one_run("hpv16 -M one device head", [head],
                                  ("window_hash", "counter_add", "counter_mask", "set_probe"),
                                  min_kmer_occ=MIN_OCC)
+        for name in ("all_pave_ref.fa", "new_refs.fa"):
+            shutil.copyfile(os.path.join(tmp, name), os.path.join(keep, name))
+        shutil.copyfile(head, os.path.join(keep, "head.fq"))
+        for name, text in (("one.tsv", head_text), ("m.tsv", m_text)):
+            with open(os.path.join(keep, name), "w") as fh:
+                fh.write(text)
+        with open(os.path.join(keep, "one.json"), "w") as fh:
+            json.dump({"hpv16": head_s, "hpv16 -M 2": m_s, "mbp": head_mbp}, fh)
         r = grid_run("hpv16 -M 2 --devices 4 --tp 2", [head], m_text, m_s, head_mbp, 2,
                      part + ("counter_add", "counter_mask"),
                      {**shards, "counter (2 slot ranges)": 4 * HPV16_COUNTER},
@@ -3903,17 +3955,25 @@ DIST_CUT_SHARE = 0.4      # rank 1's stripe (and filter's idx) cut at 40%
 
 
 def _dist_cfg(job: dict):
-    """The StreamConfig / FilterConfig of a phase 38 job, with this rank's
+    """The config and the ``run`` of a phase 38 or 39 job, with this rank's
     --dist-* settings."""
     import torch
 
-    from rkmh_tpu_torch.commands import filter_cmd, stream
+    from rkmh_tpu_torch.commands import (
+        call_cmd, count_cmd, filter_cmd, hash_cmd, hpv16_cmd, search_cmd, stream,
+    )
 
     cfg = dict(job["cfg"])
     if job.get("grid"):
         cfg["mesh_devices"] = (torch.device("cuda", 0),) * job["grid"]
-    make = stream.StreamConfig if job["run"] == "stream" else filter_cmd.FilterConfig
-    return make(**cfg), (stream.run if job["run"] == "stream" else filter_cmd.run)
+    mod, make = {"stream": (stream, stream.StreamConfig),
+                 "filter": (filter_cmd, filter_cmd.FilterConfig),
+                 "hash": (hash_cmd, hash_cmd.HashConfig),
+                 "count": (count_cmd, count_cmd.CountConfig),
+                 "search": (search_cmd, search_cmd.SearchConfig),
+                 "hpv16": (hpv16_cmd, hpv16_cmd.Hpv16Config),
+                 "call": (call_cmd, call_cmd.CallConfig)}[job["run"]]
+    return make(**cfg), mod.run
 
 
 def _dist_cut(job: dict, rank: int) -> None:
@@ -3954,10 +4014,12 @@ def _dist_cut(job: dict, rank: int) -> None:
 
 
 def dist_rank_worker(spec_path: str) -> int:
-    """A rank of phase 38 (``chip_smoke.py --dist-rank-worker SPEC``): the
-    spec's jobs in order, each run with the launch counters zeroed just
-    before and read just after; writes each job's seconds, launches (in all
-    and over slot ranges), peak memory and -M counter reduction to the
+    """A rank of phase 38 or 39 (``chip_smoke.py --dist-rank-worker SPEC``):
+    the spec's jobs in order, each run with the launch counters zeroed just
+    before and read just after (in ``<cwd>/<rank>`` where the job names a
+    ``cwd``; what it writes to its output stream into ``<stdout>.<rank>``
+    where it names a ``stdout``); writes each job's seconds, launches (in
+    all and over slot ranges), peak memory and counter reduction to the
     spec's result file for this rank as it goes."""
     import torch
 
@@ -3977,12 +4039,22 @@ def dist_rank_worker(spec_path: str) -> int:
             results.append({"label": job["label"]})
         else:
             cfg, run = _dist_cfg({**job, "cfg": {**job["cfg"], **dist}})
+            cwd = os.getcwd()
+            if job.get("cwd"):
+                os.makedirs(os.path.join(job["cwd"], str(rank)), exist_ok=True)
+                os.chdir(os.path.join(job["cwd"], str(rank)))  # hpv16's .tst lands here
+            out = open(f"{job['stdout']}.{rank}", "w") if job.get("stdout") else None
             kernels.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            rc = run(cfg)
-            torch.cuda.synchronize()
+            try:
+                rc = run(cfg) if out is None else run(cfg, out)
+                torch.cuda.synchronize()
+            finally:
+                os.chdir(cwd)
+                if out is not None:
+                    out.close()
             seconds = time.perf_counter() - t0
             results.append({
                 "label": job["label"], "rc": rc, "seconds": seconds,
@@ -3998,12 +4070,12 @@ def dist_rank_worker(spec_path: str) -> int:
     return 0
 
 
-def _run_rank_pair(spec: dict, work: str) -> list:
+def _run_rank_pair(spec: dict, work: str, phase: str = "phase 38") -> list:
     """Start the two ranks (this script in worker mode, each on cuda:0,
     the gloo group's rendezvous a file store in ``work``, its connections
     on the loopback interface) and wait for them; a rank that fails gets
     its peer killed after DIST_GRACE_S, a pair past DIST_TIMEOUT_S is
-    killed; either raises.  -> each rank's results."""
+    killed; either raises, naming the ``phase``.  -> each rank's results."""
     import subprocess
 
     store = os.path.join(work, "dist_store")
@@ -4031,7 +4103,7 @@ def _run_rank_pair(spec: dict, work: str) -> list:
             if any(p.poll() not in (None, 0) for p in ranks):
                 deadline = min(deadline, time.monotonic() + DIST_GRACE_S)
             if time.monotonic() > deadline:
-                raise AssertionError(f"phase 38: the rank pair did not end in time (exit "
+                raise AssertionError(f"{phase}: the rank pair did not end in time (exit "
                                      f"codes {[p.poll() for p in ranks]})")
             time.sleep(0.1)
         ok = all(p.returncode == 0 for p in ranks)
@@ -4043,9 +4115,9 @@ def _run_rank_pair(spec: dict, work: str) -> list:
         for r, p in enumerate(ranks):
             if not ok:
                 with open(logs[r]) as fh:
-                    say(f"phase 38 rank {r} (exit {p.returncode}) log tail:\n{fh.read()[-2000:]}")
+                    say(f"{phase} rank {r} (exit {p.returncode}) log tail:\n{fh.read()[-2000:]}")
     if not ok:
-        raise AssertionError(f"phase 38: rank exit codes {[p.returncode for p in ranks]}")
+        raise AssertionError(f"{phase}: rank exit codes {[p.returncode for p in ranks]}")
     got = []
     for r in range(N_DIST_RANKS):
         with open(f"{spec['results']}.{r}") as fh:
@@ -4054,14 +4126,15 @@ def _run_rank_pair(spec: dict, work: str) -> list:
 
 
 def _merge_stripes(prefix: str, dst: str) -> str:
-    """rkmh-tpu-torch-dist-merge (``python -m rkmh_tpu_torch.commands.
-    dist_stream``) of the two stripes into dst."""
-    import subprocess
+    """rkmh-tpu-torch-dist-merge (``dist_stream.merge_main``, which the
+    console script and ``python -m rkmh_tpu_torch.commands.dist_stream``
+    call) of the two stripes into dst, in this process: a process of its
+    own would spend seconds on imports for each merge."""
+    from rkmh_tpu_torch.commands import dist_stream
 
-    with open(dst, "w") as out:
-        subprocess.run([sys.executable, "-m", "rkmh_tpu_torch.commands.dist_stream",
-                        *[f"{prefix}.{r}" for r in range(N_DIST_RANKS)]],
-                       cwd=REPO, stdout=out, check=True, timeout=300)
+    with open(dst, "w") as out, contextlib.redirect_stdout(out):
+        if dist_stream.merge_main([f"{prefix}.{r}" for r in range(N_DIST_RANKS)]) != 0:
+            raise AssertionError(f"the merge of {prefix}.* failed")
     return dst
 
 
@@ -4162,6 +4235,152 @@ def run_dist_paths(card: str, zika: dict, single: dict) -> dict:
     return res
 
 
+# ---- phase 39: the rest of --dist-* (hash, count, search, hpv16, call)
+
+
+def _same_arrays(a: str, b: str, what: str) -> None:
+    import numpy as np
+
+    with np.load(a) as x, np.load(b) as y:
+        if sorted(x.files) != sorted(y.files) or not all(
+                x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]) for k in x.files):
+            raise AssertionError(f"{what}: the arrays of {a} and {b} differ")
+
+
+def run_dist_rest(card: str, p39: dict) -> dict:
+    """Phase 39: the rank pair of phase 38 (two processes on cuda:0, a gloo
+    group) runs ``hash`` and ``hash -s 1000`` over phase 17's 2**18 reads,
+    ``count`` (640,000 slots, ``-o`` and ``--dump``) and ``search`` (the
+    50,000 12-mers) over the slice's 2**20 reads, ``hpv16`` at the
+    published shape over phase 37's 3,200-read head (182 types, 512-read
+    batches), ``hpv16 --tp 2`` on local grids of ``(cuda:0,) * 2``, ``hpv16
+    -M 2`` at the default 8e8 slots, ``call`` on phase 22's workload, and
+    ``call --resume`` after rank 1's stripe is cut inside its section.
+    Each merged output (``rkmh-tpu-torch-dist-merge``) must equal one
+    process's of phases 17-19, 37 and 24 byte for byte (count: rank 0's
+    npz arrays and ``--dump`` lines; rank 1 prints none); every rank must
+    launch its path's kernels.  -> per path: the pair's rate (the slower
+    rank) beside one process's, each rank's launches, peak memory and
+    counter reduction (bytes, seconds, the checkpoint's seconds)."""
+    work, hp = p39["dir"], p39["hpv16"]
+    with open(os.path.join(hp, "one.json")) as fh:
+        hp_one = json.load(fh)
+    out = {k: os.path.join(work, f"d39_{k}") for k in ("h", "hs", "c", "s", "p", "pt", "pm",
+                                                       "v", "vr")}
+    hcfg = dict(read_files=[p39["hash_reads"]], ks=[12], device="cuda")
+    pcfg = dict(read_files=[os.path.join(hp, "head.fq")], refpath=hp, ks=[HPV16_K],
+                batch_size=HPV16_BATCH, device="cuda")
+    vcfg = dict(ref_files=[p39["call_ref"]], read_files=[p39["call_reads"]], ks=[16],
+                window_len=100, device="cuda")
+    cwd = os.path.join(work, "d39_cwd")
+    scan = ("window_hash", "hashmap_get", "call_scan")
+    # label, job, one process's output, its seconds, the work (reads or Mbp), the kernels
+    # a rank needs (one tuple for every rank, or a tuple a rank)
+    runs = [
+        ("hash", {"run": "hash", "cfg": {**hcfg, "out_file": out["h"]}},
+         p39["hash_out"], p39["hash_s"], N_HASH_READS, ("window_hash",)),
+        ("hash -s 1000", {"run": "hash", "cfg": {**hcfg, "sketch_size": 1000,
+                                                 "out_file": out["hs"]}},
+         p39["hash_s_out"], p39["hash_s_s"], N_HASH_READS, ("window_hash",)),
+        ("count", {"run": "count", "cfg": dict(read_files=[p39["reads"]], ks=[12],
+                                               counter_size=COUNT_SLOTS, out_file=out["c"],
+                                               dump=True, device="cuda"),
+                   "stdout": out["c"] + ".dump"},
+         p39["count_npz"], p39["count_s"], N_SLICE_READS, ("window_hash", "counter_add")),
+        ("search", {"run": "search", "cfg": dict(ref_files=[p39["search_refs"]],
+                                                 read_files=[p39["reads"]], ks=[12],
+                                                 out_file=out["s"], device="cuda")},
+         p39["search_out"], p39["search_s"], N_SLICE_READS, ("window_hash",)),
+        ("hpv16", {"run": "hpv16", "cfg": {**pcfg, "out_file": out["p"]}, "cwd": cwd},
+         os.path.join(hp, "one.tsv"), hp_one["hpv16"], hp_one["mbp"],
+         ("window_hash", "set_probe")),
+        ("hpv16 --tp 2", {"run": "hpv16", "cfg": {**pcfg, "tp": 2, "out_file": out["pt"]},
+                          "grid": DIST_GRID, "cwd": cwd},
+         os.path.join(hp, "one.tsv"), hp_one["hpv16"], hp_one["mbp"],
+         ("window_hash", "set_probe_partial")),
+        ("hpv16 -M 2", {"run": "hpv16", "cfg": {**pcfg, "min_kmer_occ": MIN_OCC,
+                                                "out_file": out["pm"]}, "cwd": cwd},
+         os.path.join(hp, "m.tsv"), hp_one["hpv16 -M 2"], hp_one["mbp"],
+         ("window_hash", "counter_add", "counter_mask", "set_probe")),
+        ("call", {"run": "call", "cfg": {**vcfg, "out_file": out["v"]}},
+         p39["call_vcf"], p39["call_s"], None, scan),
+    ]
+    jobs = [dict(job, label=label) for label, job, *_ in runs]
+    jobs.append({"label": "cut call", "src": out["v"], "dst": out["vr"], "filter": False,
+                 "cut_rank": 1})
+    # resumed, rank 0 (its section whole) scans nothing: K1 builds the depth map
+    runs.append(("call --resume", {"run": "call", "cfg": {**vcfg, "out_file": out["vr"],
+                                                          "resume": True}},
+                 p39["call_vcf"], p39["call_s"], None, [("window_hash",), scan]))
+    jobs.append(dict(runs[-1][1], label="call --resume"))
+    t0 = time.perf_counter()
+    ranks = _run_rank_pair({"jobs": jobs}, work, "phase 39")
+    say(f"phase 39: the rank pair ran {len(jobs)} jobs in {time.perf_counter() - t0:.1f} s "
+        "(both processes' start-up included)")
+    by_label = [{res["label"]: res for res in results} for results in ranks]
+    res = {}
+    for label, job, want, single_s, work_done, needed in runs:
+        per_rank = [by[label] for by in by_label]
+        for r, got in enumerate(per_rank):
+            if got["rc"] != 0:
+                raise AssertionError(f"phase 39 {label}: rank {r} exited {got['rc']}")
+            mine = needed[r] if isinstance(needed, list) else needed
+            require_launches({k: got["launches"].get(k, 0) for k in mine}, mine,
+                             f"dist {label} (rank {r})")
+        prefix = out[{"hash": "h", "hash -s 1000": "hs", "count": "c", "search": "s",
+                      "hpv16": "p", "hpv16 --tp 2": "pt", "hpv16 -M 2": "pm", "call": "v",
+                      "call --resume": "vr"}[label]]
+        t0 = time.perf_counter()
+        if label == "count":
+            _same_arrays(prefix + ".npz", want, "dist count")
+            same_file(prefix + ".dump.0", p39["count_dump"], "dist count --dump (rank 0)")
+            if os.path.getsize(prefix + ".dump.1"):
+                raise AssertionError("dist count: rank 1 printed a dump")
+        else:
+            same_file(_merge_stripes(prefix, prefix + ".merged"), want, f"dist {label}")
+            os.remove(prefix + ".merged")
+        check_s = time.perf_counter() - t0
+        seconds = max(got["seconds"] for got in per_rank)
+        launches: dict = {}
+        for got in per_rank:
+            for k, v in got["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        by_range = {k: sum(got["by_range"][k] for got in per_rank)
+                    for k in ("counter_add", "counter_mask")}
+        reduce = [got["counter_reduce"] for got in per_rank]
+        peaks = [got["peak_bytes"] / 2**30 for got in per_rank]
+        r_res = {"e2e_s": seconds, "one_process_s": single_s, "ratio": single_s / seconds,
+                 "merge_and_check_s": check_s,
+                 "launches": {**launches, "by_range": by_range},
+                 "launches_by_rank": [got["launches"] for got in per_rank],
+                 "rank_seconds": [got["seconds"] for got in per_rank],
+                 "peak_gib_by_rank": peaks, "counter_reduce_by_rank": reduce}
+        if label.startswith("hpv16"):
+            unit, rate, one_rate = "Mbp/s", work_done / seconds, work_done / single_s
+        elif work_done:
+            unit, rate, one_rate = "reads/s", work_done / seconds, work_done / single_s
+        else:
+            unit = rate = one_rate = None
+        if unit:
+            r_res.update(unit=unit, rate=rate, one_process_rate=one_rate)
+        res[f"dist {label}"] = r_res
+        reduced = "".join(
+            f"; rank {r} all_reduce {x['bytes']} bytes in {x['seconds']:.4f} s"
+            + (f" (checkpoint saved in {x['checkpoint_seconds']:.4f} s)"
+               if "checkpoint_seconds" in x else "")
+            for r, x in enumerate(reduce) if x)
+        rank_s = ", ".join(f"{got['seconds']:.3f}" for got in per_rank)
+        peak_s = ", ".join(f"{p:.3f}" for p in peaks)
+        speed = (f"{rate:.1f} {unit} (ranks {rank_s} s); one process {one_rate:.1f} {unit}"
+                 if unit else f"{seconds:.3f} s (ranks {rank_s} s); one process "
+                              f"{single_s:.3f} s")
+        say(f"dist {label} on {card}, {N_DIST_RANKS} ranks sharing one card (the machinery's "
+            f"cost, not scaling): {speed} (ratio {single_s / seconds:.2f}); merged output "
+            f"byte-identical to one process's (merged and compared in {check_s:.2f} s); peak "
+            f"{peak_s} GiB by rank{reduced}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4185,6 +4404,7 @@ def main() -> int:
     say(f"device: {card} (torch {torch.__version__}, CUDA {torch.version.cuda}); "
         f"nvidia-smi: {smi}")
 
+    clock = PhaseClock()
     t0 = time.perf_counter()
     lib = kernels.build()
     say(f"built {lib.name} from {[p.name for p in kernels.sources()]} in "
@@ -4194,49 +4414,74 @@ def main() -> int:
     native.load()
     say(f"built {io_lib.name} from {native.SOURCE.name} with {native.CXX} "
         f"{' '.join(native.CXX_FLAGS)} in {time.perf_counter() - t0:.2f} s")
-
+    clock.lap("1-2 start-up, builds")
     err_k1 = check_k1(dev)
     panel, genomes = zika_panel(dev)
     err_k2, (codes, hashes), k2_stats = check_k2(dev, panel, genomes)
     err_k2 = max(err_k2, check_k2_variants(dev))
+    clock.lap("3-4 K1, K2 checked")
     times, bound = time_kernels(panel, codes, hashes, k2_stats)
+    clock.lap("5 K1, K2 timed")
     card_smi = f"{card} ({smi})"
-    with tempfile.TemporaryDirectory() as work:
+    # the zika slice's and the call workload's directories, and what phase 39
+    # takes from phase 37, stay until phase 39 has run
+    with contextlib.ExitStack() as dirs:
+        work = dirs.enter_context(tempfile.TemporaryDirectory())
+        keep39 = os.path.join(work, "hpv16_39")
+        os.makedirs(keep39)
         zika = write_zika(work)
         check_native_io(zika)
+        clock.lap("6 input written, native reader")
         sl = run_slice(dev, card_smi, panel, zika)
         profile_stream(zika)
+        clock.lap("6 stream slice")
         gathers, gathers_by_n = check_gathers(dev)
         gathers["lut_gather_lanes"], k5_extra = check_k5(dev)
         gather_launches = run_gather_path()
-        hp = run_hpv16(dev, card_smi)
+        clock.lap("7-8 K4, K5, gather path")
+        hp = run_hpv16(dev, card_smi, keep39)
+        clock.lap("9-10 hpv16 (36, 37 inside)")
         counters, k7_hpv16 = check_counters(dev, hashes, hp.pop("batch_hashes"))
         filt = check_k2_filter(dev, panel, hashes)
         err_partial, partial_t = check_partials(dev, panel, hashes)
         err_ranges, ranges_t = check_counter_ranges(dev, hashes)
+        clock.lap("11-12, 34 K6, K7, K2 filter, partials, ranges")
         st_mi = run_stream_counters(dev, card_smi, zika)
+        clock.lap("13 stream -M -I")
         fl = run_filter(dev, card_smi, zika)
+        clock.lap("14 filter")
         sketches = run_ref_sketches(dev, card_smi, zika)
+        clock.lap("16 sketch round trip")
         hashed = run_hash_lines(dev, card_smi, zika)
+        clock.lap("17 hash")
         counted = run_count(dev, card_smi, zika)
+        clock.lap("18 count")
         searched = run_search(dev, card_smi, zika, hashes)
+        clock.lap("19 search")
         resumed = run_resume(dev, card_smi, zika, hashed)
+        clock.lap("20 --resume")
         k1_hash = time_slice_library_calls(codes, hashes, card_smi)
         k6_count = time_k6_count_shape(dev, hashes, card_smi)
+        clock.lap("17-18 K1, sort, K6 at hash/count shapes")
         run_stream_stdin(card_smi, zika)
+        clock.lap("21 stream -i")
         metrics = run_metrics(zika)
         check_library(panel, hashes)
         cached = run_panel_cache(dev, card_smi, zika)
+        clock.lap("29, 33 --metrics, library, panel cache")
         sharded = run_sharded_paths(dev, card_smi, zika,
                                     {"stream": sl, "stream -M -I": st_mi, "filter": fl}, hashed)
+        clock.lap("35 --devices paths")
         dist = run_dist_paths(card_smi, zika, {"stream": sl, "stream -M -I": st_mi,
                                                "filter": fl})
-    hpm = run_hpv16_counter(dev, card_smi)
-    with tempfile.TemporaryDirectory() as work:
+        clock.lap("38 --dist-* stream, filter")
+        hpm = run_hpv16_counter(dev, card_smi)
+        clock.lap("15 hpv16 -M")
         from rkmh_tpu_torch.bench import call_inputs
 
+        call_work = dirs.enter_context(tempfile.TemporaryDirectory())
         t0 = time.perf_counter()
-        cw = call_inputs.call_workload(dev, work)
+        cw = call_inputs.call_workload(dev, call_work)
         cw["big_map"], cw["big_queries"] = call_inputs.big_map(dev)
         say(f"call input: 1,100 reads, map {cw['map_stats']}, a 1 Mbp reference, a map of "
             f"{cw['big_map'].n} keys ({cw['big_map'].part_bytes()}); made in "
@@ -4246,15 +4491,37 @@ def main() -> int:
         err_k9_base, k9_base = check_k9_base(dev, cw)
         call_times = time_call_kernels(
             cw, card_smi, codes.shape[0] * (codes.shape[1] - 11) / (times["window_hash"] / 1e3))
+        clock.lap("22-23, 36 call input, K8, K9")
         called = run_call(dev, card_smi, cw)
+        clock.lap("24 call")
         sharded_call = run_sharded_call(dev, card_smi, cw)
+        clock.lap("37 call --devices")
+        del cw["big_map"], cw["big_queries"], cw["big"]
+        torch.cuda.empty_cache()  # the ranks share the card with this process
+        dist_rest = run_dist_rest(card_smi, {
+            "dir": work, "reads": zika["reads"], "hash_reads": hashed["reads"],
+            "hash_out": hashed["out"], "hash_s": hashed["hash"]["e2e_s"],
+            "hash_s_out": hashed["out -s"], "hash_s_s": hashed["hash -s 1000"]["e2e_s"],
+            "count_npz": counted["npz"], "count_dump": counted["dump"],
+            "count_s": counted["e2e_s"], "search_refs": searched["refs"],
+            "search_out": searched["out"], "search_s": searched["e2e_s"], "hpv16": keep39,
+            "call_ref": cw["ref"], "call_reads": cw["reads"],
+            "call_vcf": os.path.join(call_work, "gpu.vcf"),
+            "call_s": called["call"]["e2e_s"]})
+        clock.lap("39 --dist-* hash, count, search, hpv16, call")
     sp = run_sp_sketch(dev, card_smi)
+    clock.lap("37 sp_sketch")
     fallback, k10 = run_hpv16_fallback(dev, card_smi)
+    clock.lap("25-26 hpv16 past the cap")
     err_k11, k2_sweep = check_k11(dev)
     wide, k11 = run_wide_stream(dev, card_smi)
+    clock.lap("27-28 K11, 12,288 references")
     err_k12, k12 = check_k12(dev)
+    clock.lap("30 K12")
     pipeline = run_model_pipeline(dev, card_smi)
+    clock.lap("31 model pipeline")
     per_read = run_per_read_training(dev, card_smi)
+    clock.lap("32 per-read training")
     paths = {"stream": sl, "hpv16": hp, "stream -M -I": st_mi, "filter": fl, "hpv16 -M": hpm,
              "hpv16 capped": hp.pop("capped"), "hpv16 fallback": fallback,
              "hpv16 -M fallback": k10.pop("m"), "stream 12,288 refs": wide,
@@ -4265,7 +4532,7 @@ def main() -> int:
                 if k not in ("accuracy", "stats")},
              **{k: {"launches": v} for k, v in cached.items() if k != "setup_s"},
              **sharded, "stream 12,288 refs --devices 4 --tp 2": wide.pop("sharded"),
-             **hp.pop("sharded"), **sharded_call, **sp, **dist}
+             **hp.pop("sharded"), **sharded_call, **sp, **dist, **dist_rest}
     by_range = {name: sum(r["launches"].get("by_range", {}).get(name, 0) for r in paths.values())
                 for name in ("counter_add", "counter_mask")}
 
@@ -4362,6 +4629,7 @@ def main() -> int:
     ]}
     say(f"stream --metrics and the profile hook: {json.dumps(metrics)}")
     say(f"panel cache set-up seconds: {json.dumps(cached['setup_s'])}")
+    clock.report()
     say(smi)
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

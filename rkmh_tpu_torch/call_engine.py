@@ -151,6 +151,16 @@ def _enumerate_plain(ref_codes, get, k, depth, avg, site, j0, j1, base: int = 0,
     return snp_depth, snp_call, max_rescue.to(torch.int32), del_depth, del_call
 
 
+def positional_depths(ref_codes: torch.Tensor, table: SortedMap, k: int,
+                      get=None) -> torch.Tensor:
+    """[L] uint8 codes -> the depth in the map of each of their L - k + 1
+    windows: K1 and K8 on a CUDA tensor; with ``get`` (``plain_getter``)
+    the plain hash and lookup."""
+    if get is not None:
+        return get(kmer_window_hashes_plain(ref_codes[None], k)[0])
+    return hashmap_get(table, positional_hashes(ref_codes, k))
+
+
 def plain_getter(table: SortedMap):
     """The plain lookup of a map, its keys decoded once."""
     flipped, values = sorted_keys(table)
@@ -222,11 +232,8 @@ def call_scan_slice(pref: torch.Tensor, table: SortedMap, k: int, window_len: in
             raise ValueError(f"no call-scan path for device {pref.device}")
         plain = pref.device.type == "cpu"
     ref = pref[1:]
-    if plain:
-        get = plain_getter(table)
-        depth = get(kmer_window_hashes_plain(ref[None], k)[0][:P])
-    else:
-        depth = hashmap_get(table, positional_hashes(ref, k)[:P])
+    get = plain_getter(table) if plain else None
+    depth = positional_depths(ref[: P + k - 1], table, k, get)
     avg, site = window_average(depth, window_len, halo, base)
     if not plain:
         mut = _call_scan_pref_cuda(pref, table, k, depth, avg, site, base=base)

@@ -30,13 +30,9 @@ logged fallback to one device where the geometry cannot apply;
 ``hpv16 --devices N --tp T`` shards its reads over dp = N / T and its set
 table over T of them, and ``call --devices N`` its reference positions
 over N, with their own fallback lines.  ``--dist-coordinator HOST:PORT
---dist-procs N --dist-rank R`` run one rank of a multi-process
-``stream``, ``classify`` or ``filter`` (``commands/dist_stream.py``; merge
-the stripes with ``rkmh-tpu-torch-dist-merge``).  For ``hash``, ``count``,
-``search`` and ``call`` they are parsed and rejected with an error naming
-them (for ``hpv16``: when they would change what runs,
-``commands.hpv16_cmd.not_ported``), so an rkmh-tpu command line never
-runs with a flag silently dropped.
+--dist-procs N --dist-rank R`` run one rank of a multi-process run of
+any command (``commands/dist_stream.py``; merge the stripes with
+``rkmh-tpu-torch-dist-merge``; ``count``'s rank 0 writes the one table).
 """
 
 from __future__ import annotations
@@ -46,13 +42,7 @@ import sys
 
 from rkmh_tpu_torch.device import DEFAULT_DEVICE
 
-# (flags, dest, argparse keywords) of rkmh-tpu flags the port does not
-# run yet: --dist-* of hash, count, search and call
-_DIST = (
-    (("--dist-coordinator",), "dist_coordinator", {}),
-    (("--dist-procs",), "dist_procs", {"type": int}),
-    (("--dist-rank",), "dist_rank", {"type": int}),
-)
+_MERGE = ", merge with rkmh-tpu-torch-dist-merge"  # the --dist-rank help's end
 
 
 def _add_dead_flags(p, stream: bool) -> None:
@@ -72,21 +62,16 @@ def _add_dead_flags(p, stream: bool) -> None:
         p.add_argument("-m", "--merge-sketch", action="store_true", help=hidden)
 
 
-def _add_not_ported(p) -> None:
-    for flags, dest, kw in _DIST:
-        p.add_argument(*flags, dest=dest, help=argparse.SUPPRESS, **{"default": None, **kw})
-
-
-def _add_dist(p) -> None:
-    """--dist-* with rkmh-tpu's defaults (rkmh_tpu/cli.py:91-100)."""
+def _add_dist(p, writes: str = "-o FILE writes FILE.<rank>" + _MERGE) -> None:
+    """--dist-* with rkmh-tpu's defaults (rkmh_tpu/cli.py:91-100, 121-128,
+    162-168, 183-189, 208-214, 232-235, 264-270)."""
     p.add_argument("--dist-coordinator", default="", dest="dist_coordinator",
                    help="host:port of rank 0's rendezvous (multi-process; or "
                         "JAX_COORDINATOR_ADDRESS)")
     p.add_argument("--dist-procs", type=int, default=0, dest="dist_procs",
                    help="the number of processes (or JAX_NUM_PROCESSES)")
     p.add_argument("--dist-rank", type=int, default=-1, dest="dist_rank",
-                   help="this process's rank (or JAX_PROCESS_ID); -o FILE writes "
-                        "FILE.<rank>, merge with rkmh-tpu-torch-dist-merge")
+                   help=f"this process's rank (or JAX_PROCESS_ID); {writes}")
 
 
 def _add_devices(p, tp: bool) -> None:
@@ -192,11 +177,7 @@ def _add_hpv16_parser(sub):
     p.add_argument("--tp", type=int, default=1,
                    help="shard the combined type + group set table over T of the "
                         "--devices (devices = dp x tp)")
-    # rkmh-tpu hpv16 flags with rkmh-tpu's defaults, not run by the port yet
-    hidden = argparse.SUPPRESS
-    p.add_argument("--dist-coordinator", default="", help=hidden)
-    p.add_argument("--dist-procs", type=int, default=0, help=hidden)
-    p.add_argument("--dist-rank", type=int, default=-1, help=hidden)
+    _add_dist(p)
 
 
 def _add_hash_parsers(sub) -> None:
@@ -230,7 +211,7 @@ def _add_hash_parsers(sub) -> None:
     p.add_argument("--resume", action="store_true",
                    help="go on with an interrupted --out run")
     _add_devices(p, tp=False)
-    _add_not_ported(p)
+    _add_dist(p, "--out FILE writes FILE.<rank>" + _MERGE)
 
     p = sub.add_parser("count")
     p.add_argument("-f", "--fasta", action="append", default=[], dest="reads")
@@ -242,7 +223,7 @@ def _add_hash_parsers(sub) -> None:
     p.add_argument("--dump", action="store_true", help="print the occupied slots")
     _add_run_flags(p)
     _add_devices(p, tp=False)
-    _add_not_ported(p)
+    _add_dist(p, "rank 0 writes -o and --dump")
 
     p = sub.add_parser("search")
     p.add_argument("-f", "--fasta", action="append", default=[], dest="reads")
@@ -255,7 +236,7 @@ def _add_hash_parsers(sub) -> None:
                    help="write the match lines here")
     p.add_argument("--resume", action="store_true", help="go on with an interrupted -o run")
     _add_devices(p, tp=False)
-    _add_not_ported(p)
+    _add_dist(p, "-o FILE writes FILE.<rank> and FILE.<rank>.idx" + _MERGE)
 
 
 def _add_call_parser(sub):
@@ -280,7 +261,7 @@ def _add_call_parser(sub):
     p.add_argument("--devices", type=int, default=0,
                    help="shard the positional scan over N local devices (reference "
                         "positions data-parallel); 0 = one device")
-    _add_not_ported(p)
+    _add_dist(p, "-o FILE writes partial sections to FILE.<rank>" + _MERGE)
 
 
 def build_parser():
@@ -366,6 +347,11 @@ def _run_hpv16(cfg):
     return run(cfg)
 
 
+def _dist_kw(args) -> dict:
+    return dict(dist_coordinator=args.dist_coordinator, dist_procs=args.dist_procs,
+                dist_rank=args.dist_rank)
+
+
 def _run_hash(args):
     if args.min_kmer_occ or args.max_samples is not None:
         print("warning: hash -M/-I are dead in rkmh (empty branch, "
@@ -382,6 +368,7 @@ def _run_hash(args):
         output_counts=args.output_counts, json_out=args.json, sourmash_out=args.sourmash,
         out_prefix=args.out_prefix, batch_size=args.batch_size, chunk_reads=args.chunk_reads,
         out_file=args.out_file, resume=args.resume, devices=args.devices, device=args.device,
+        **_dist_kw(args),
     ))
 
 
@@ -392,6 +379,7 @@ def _run_count(args):
         read_files=args.reads, ks=tuple(args.ks), counter_size=args.counter_size,
         batch_size=args.batch_size, out_file=args.out_file, dump=args.dump,
         chunk_reads=args.chunk_reads, devices=args.devices, device=args.device,
+        **_dist_kw(args),
     ))
 
 
@@ -401,7 +389,7 @@ def _run_search(args):
     return run(SearchConfig(
         ref_files=args.refs, read_files=args.reads, ks=tuple(args.ks),
         batch_size=args.batch_size, chunk_reads=args.chunk_reads, out_file=args.out_file,
-        resume=args.resume, devices=args.devices, device=args.device,
+        resume=args.resume, devices=args.devices, device=args.device, **_dist_kw(args),
     ))
 
 
@@ -411,26 +399,14 @@ def _run_call(args):
     return run(CallConfig(
         ref_files=args.refs, read_files=args.reads, ks=tuple(args.ks),
         window_len=args.window_len, show_depth=args.show_depth, out_file=args.out_file,
-        resume=args.resume, devices=args.devices, device=args.device,
+        resume=args.resume, devices=args.devices, device=args.device, **_dist_kw(args),
     ))
 
 
 def main(argv=None) -> int:
-    ap = build_parser()
-    args = ap.parse_args(argv)
-    if args.command == "hpv16":
-        from rkmh_tpu_torch.commands.hpv16_cmd import not_ported
-
-        cfg = _hpv16_config(args)
-        given = not_ported(cfg)
-    elif args.command in ("hash", "count", "search", "call"):
-        given = [flags[0] for flags, dest, _ in _DIST
-                 if getattr(args, dest, None) is not None]  # given (--dist-rank 0 too)
-    else:
-        given = []
-    if given:
-        ap.error(f"{args.command}: {', '.join(given)} not yet ported to rkmh-tpu-torch")
-    run = {"hpv16": lambda: _run_hpv16(cfg), "filter": lambda: _run_filter(args),
+    args = build_parser().parse_args(argv)
+    run = {"hpv16": lambda: _run_hpv16(_hpv16_config(args)),
+           "filter": lambda: _run_filter(args),
            "hash": lambda: _run_hash(args), "count": lambda: _run_count(args),
            "search": lambda: _run_search(args),
            "call": lambda: _run_call(args)}.get(args.command, lambda: _run_stream(args))

@@ -22,8 +22,10 @@ only the rest, so the VCF equals an uninterrupted run's.
 reference's positions in N slices over a grid of N devices
 (``parallel/mesh.ShardedCallScan``); with more devices than visible, or
 for a reference too short for a window's width a slice, rkmh-tpu's line is
-logged and that work runs on one device.  Not ported yet: ``--dist-*``
-(rejected by the CLI).
+logged and that work runs on one device.  ``--dist-*`` runs one rank of a
+multi-process call (``commands/dist_stream.run_distributed_call``); as in
+rkmh-tpu (rkmh_tpu/commands/call_cmd.py:228), any of its three flags given
+takes it, and no environment variable does.
 """
 
 from __future__ import annotations
@@ -64,6 +66,9 @@ class CallConfig:
     devices: int = 0         # --devices: the positional scan over N devices; 0 = one
     device: str = DEFAULT_DEVICE
     mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
+    dist_coordinator: str = ""   # --dist-coordinator host:port
+    dist_procs: int = 0          # --dist-procs: the number of processes
+    dist_rank: int = -1          # --dist-rank: this process's rank
 
 
 def _code_char(c: int) -> str:
@@ -247,6 +252,10 @@ def run(cfg: CallConfig, out=None, stats: dict | None = None) -> int:
     (parse, read hashing, the map's unique, layout and copy, scan, record
     extraction, write) and the depth map's keys and bytes on the device."""
     out = out or sys.stdout
+    if cfg.dist_procs or cfg.dist_coordinator or cfg.dist_rank >= 0:
+        from rkmh_tpu_torch.commands.dist_stream import run_distributed_call
+
+        return run_distributed_call(cfg, out=None if out is sys.stdout else out)
     if not cfg.ks:
         log("No kmer size(s) provided. Will use a default kmer size of 16.")
         ks = (16,)

@@ -17,7 +17,9 @@ the kernel), and the table comes back in one device-to-host copy.
 ``--devices N`` (``commands.common.DpCtx``, rkmh_tpu/commands/
 count_cmd.py:69-73) hashes each of a batch's N row slices on its own
 device and adds them into the one table (addition commutes: the same
-bits).  Not ported: --dist-*.
+bits).  ``--dist-*`` runs one rank of a multi-process count
+(``commands/dist_stream.run_distributed_count``, rkmh_tpu/commands/
+count_cmd.py:55-59).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from rkmh_tpu_torch.commands.common import (
     resolve_chunk_reads,
 )
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from rkmh_tpu_torch.parallel import distributed
 
 DEFAULT_COUNTER_SIZE = 640_000  # rkmh.cpp:2322
 
@@ -53,12 +56,19 @@ class CountConfig:
     devices: int = 0                # --devices: hash over N devices (dp); 0 = one device
     device: str = DEFAULT_DEVICE
     mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
+    dist_coordinator: str = ""      # --dist-coordinator host:port
+    dist_procs: int = 0             # --dist-procs: the number of processes
+    dist_rank: int = -1             # --dist-rank: this process's rank
 
 
 def run(cfg: CountConfig, out=None, stats: dict | None = None) -> int:
     """Run count; ``stats``, when given, receives the K6 route the counter
     took (``binned``: True, False, or None where no call went through the
     bins)."""
+    if distributed.requested(cfg.dist_procs, cfg.dist_coordinator):
+        from rkmh_tpu_torch.commands.dist_stream import run_distributed_count
+
+        return run_distributed_count(cfg, out)
     out = out or sys.stdout
     device = resolve_device(cfg.device)
     batch_size = resolve_batch_size(cfg.batch_size, device)
@@ -89,7 +99,12 @@ def run(cfg: CountConfig, out=None, stats: dict | None = None) -> int:
     occupied = int((table > 0).sum())
     log(f"Counted {total_kmers} kmers from {total_reads} reads into "
         f"{cfg.counter_size}-slot table ({occupied} slots occupied).")
+    write_table(cfg, table, ks, out)
+    return 0
 
+
+def write_table(cfg: CountConfig, table: np.ndarray, ks, out) -> None:
+    """``-o`` (the npz) and ``--dump`` (a line for each occupied slot)."""
     if cfg.out_file:
         np.savez_compressed(cfg.out_file, table=table, size=cfg.counter_size,
                             ks=np.asarray(ks))
@@ -98,4 +113,3 @@ def run(cfg: CountConfig, out=None, stats: dict | None = None) -> int:
         (nz,) = np.nonzero(table)
         out.write("".join(f"{slot}\t{count}\n"
                           for slot, count in zip(nz.tolist(), table[nz].tolist())))
-    return 0

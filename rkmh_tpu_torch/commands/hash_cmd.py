@@ -26,8 +26,10 @@ are formatted a batch at a time by the native formatter
 come back as int64 bit patterns and are read as uint64 before any of them
 becomes text.  ``--devices N`` (``commands.common.DpCtx``,
 rkmh_tpu/commands/hash_cmd.py:138-142) hashes each of a batch's N row
-slices on its own device and fetches them in row order.  Not ported:
---dist-*.
+slices on its own device and fetches them in row order.  ``--dist-*``
+runs one rank of a multi-process drain
+(``commands/dist_stream.run_distributed_hash``, rkmh_tpu/commands/
+hash_cmd.py:90-94).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from rkmh_tpu_torch.commands.recovery import count_complete_lines, skip_reads
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.io.native import format_hash_lines_block
 from rkmh_tpu_torch.io.sketch_json import SketchRecord, dump_sketches, dump_sourmash
+from rkmh_tpu_torch.parallel import distributed
 
 
 @dataclass
@@ -76,6 +79,9 @@ class HashConfig:
     devices: int = 0              # --devices: hash over N devices (dp); 0 = one device
     device: str = DEFAULT_DEVICE
     mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
+    dist_coordinator: str = ""    # --dist-coordinator host:port
+    dist_procs: int = 0           # --dist-procs: the number of processes
+    dist_rank: int = -1           # --dist-rank: this process's rank
 
 
 def _wabbit_line(name: str, mins: list[int], ks, sketch_size: int,
@@ -116,7 +122,32 @@ class _HashChunk(LinesChunk):
         self.records = [None] * self.n
 
 
+def hash_lines(cfg: HashConfig, ks, vals: np.ndarray, second: np.ndarray, names) -> str:
+    """The default, -s and -w lines of a batch's rows: ``vals`` int64 [n,
+    W] (hashes, or with -s the sketches), ``second`` the [n, W] window mask
+    or, with -s, the [n] sketch lengths; ``names`` the rows' names (or,
+    without -w, their (blob, n + 1 offsets)).  The native block formatter
+    writes the default and -s lines."""
+    vals = vals.view(np.uint64)
+    sketch = cfg.sketch_size > 0
+    mask = np.arange(vals.shape[1])[None, :] < second[:, None] if sketch else second
+    if not cfg.wabbitize:
+        blob = names if isinstance(names, tuple) else _names_blob(names)
+        return format_hash_lines_block(vals, mask, *blob).decode()
+    lines = []
+    for j, name in enumerate(names):
+        row = vals[j][mask[j]]
+        mins = row.tolist() if sketch else np.sort(row[row != 0]).tolist()
+        counts = _multiset_counts(mins) if cfg.output_counts else None
+        lines.append(_wabbit_line(name, mins, ks, cfg.sketch_size, counts))
+    return "".join(lines)
+
+
 def run(cfg: HashConfig, out=None) -> int:
+    if distributed.requested(cfg.dist_procs, cfg.dist_coordinator):
+        from rkmh_tpu_torch.commands.dist_stream import run_distributed_hash
+
+        return run_distributed_hash(cfg, out)
     if cfg.resume and not cfg.out_file:
         log("hash --resume requires -o/--out (resume state is the partial "
             "output itself); refusing to re-hash to stdout")
@@ -184,39 +215,22 @@ def _run(cfg: HashConfig, out, resume_skip: int) -> int:
     def on_result(st, meta, arrs):
         rows, lens = meta
         arrs = [a[: len(rows)] for a in arrs]  # the pad rows of a dp split off
-        vals = arrs[0].view(np.uint64)
-        if sketch:  # the first sk_lens columns of each row are its sketch
-            mask = np.arange(vals.shape[1])[None, :] < arrs[1][:, None]
-        else:
-            mask = arrs[1]
         contiguous = rows[-1] - rows[0] == len(rows) - 1
-        if not (cfg.wabbitize or want_json):
-            if st.chunk.blob is not None and contiguous:
-                block = format_hash_lines_block(
-                    vals, mask, st.chunk.blob, st.chunk.offs[rows[0]: rows[-1] + 2])
-            else:
-                block = format_hash_lines_block(
-                    vals, mask, *_names_blob(st.chunk.names[i] for i in rows))
-            text = block.decode()
-            if contiguous:
-                st.parts.append((int(rows[0]), text))
-            else:
-                st.parts.append((rows.tolist(), [line + "\n" for line in text.split("\n")[:-1]]))
+        if not want_json:
+            names = ((st.chunk.blob, st.chunk.offs[rows[0]: rows[-1] + 2])
+                     if st.chunk.blob is not None and contiguous and not cfg.wabbitize
+                     else [st.chunk.names[i] for i in rows])
+            text = hash_lines(cfg, ks, arrs[0], arrs[1], names)
+            st.parts.append((int(rows[0]), text) if contiguous else
+                            (rows.tolist(), [line + "\n" for line in text.split("\n")[:-1]]))
             st.filled += len(rows)
             return
-        lines = []
+        vals = arrs[0].view(np.uint64)
         for j, r in enumerate(rows.tolist()):
-            row = vals[j][mask[j]]
+            row = vals[j][: arrs[1][j]] if sketch else vals[j][arrs[1][j]]
             mins = row.tolist() if sketch else np.sort(row[row != 0]).tolist()
-            name = st.chunk.names[r]
-            if cfg.wabbitize:
-                counts = _multiset_counts(mins) if cfg.output_counts else None
-                lines.append(_wabbit_line(name, mins, ks, cfg.sketch_size, counts))
-            else:
-                st.records[r] = SketchRecord(name, mins, list(ks), cfg.sketch_size,
-                                             int(lens[j]))
-        if lines:
-            st.parts.append((rows.tolist(), lines))
+            st.records[r] = SketchRecord(st.chunk.names[r], mins, list(ks), cfg.sketch_size,
+                                         int(lens[j]))
         st.filled += len(rows)
 
     records: list[SketchRecord] = []

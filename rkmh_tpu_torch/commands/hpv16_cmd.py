@@ -36,8 +36,10 @@ combined table into tp shards of contiguous columns, pad columns last
 (``parallel/ep.ShardedCounter``); past the cap the sorted panel
 replicated, K10 on each dp slice.  Where the geometry cannot apply,
 rkmh-tpu's line is logged and the run takes one device; ``--tp`` without
-``--devices`` > 1 runs on one device, as in rkmh-tpu.  Not ported yet:
---dist-* and the device-side table build.
+``--devices`` > 1 runs on one device, as in rkmh-tpu.  ``--dist-*`` runs
+one rank of a multi-process drain (``commands/dist_stream.
+run_distributed_hpv16``, rkmh_tpu/commands/hpv16_cmd.py:129-133).  Not
+ported: the device-side table build.
 """
 
 from __future__ import annotations
@@ -79,6 +81,7 @@ from rkmh_tpu_torch.ops.lookup import (
 from rkmh_tpu_torch.ops.set_probe import pack_set_table
 from rkmh_tpu_torch.ops.sketch import INT64_MIN, SENTINEL
 from rkmh_tpu_torch.ops.sorted_probe import build_directory
+from rkmh_tpu_torch.parallel import distributed
 from rkmh_tpu_torch.parallel.ep import ShardedCounter
 from rkmh_tpu_torch.parallel.mesh import (
     ShardedHpv16Comb,
@@ -107,19 +110,11 @@ class Hpv16Config:
     resume: bool = False           # --resume: go on with a partial -o file
     devices: int = 0               # --devices: a (dp, tp) grid of N devices; 0 = one device
     tp: int = 1                    # --tp: set-table shards (devices = dp * tp)
-    dist_coordinator: str = ""     # not ported yet
-    dist_procs: int = 0            # not ported yet
-    dist_rank: int = -1            # not ported yet
+    dist_coordinator: str = ""     # --dist-coordinator host:port
+    dist_procs: int = 0            # --dist-procs: the number of processes
+    dist_rank: int = -1            # --dist-rank: this process's rank
     device: str = DEFAULT_DEVICE
     mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
-
-
-def not_ported(cfg: Hpv16Config) -> list[str]:
-    """The rkmh-tpu hpv16 flags set in cfg that this port does not run yet."""
-    return [flag for flag, given in (
-        ("--dist-coordinator", bool(cfg.dist_coordinator)),
-        ("--dist-procs", cfg.dist_procs > 1),
-    ) if given]
 
 
 def devices_reason(cfg: Hpv16Config, n_visible: int) -> str | None:
@@ -341,9 +336,10 @@ def format_read_lines(tb: Hpv16Tables, ks: tuple, row_names, lens, packed) -> li
 
 
 def run(cfg: Hpv16Config, out=None) -> int:
-    missing = not_ported(cfg)
-    if missing:
-        raise ValueError(f"hpv16: {', '.join(missing)} not yet ported to rkmh-tpu-torch")
+    if distributed.requested(cfg.dist_procs, cfg.dist_coordinator):
+        from rkmh_tpu_torch.commands.dist_stream import run_distributed_hpv16
+
+        return run_distributed_hpv16(cfg, out)
     if cfg.resume and not cfg.out_file:
         log("hpv16 --resume requires -o <file> (resume state is the "
             "partial output itself); refusing to reclassify to stdout")
@@ -388,6 +384,31 @@ def make_sharded_hpv16_step(mesh, tb: Hpv16Tables, ks: tuple, counter=None,
     return step
 
 
+def make_step(tb: Hpv16Tables, ks: tuple, device: torch.device, mesh=None, counter=None,
+              min_occ: int = 0):
+    """-> ``step(codes [n, L] host uint8, lens [n])``: int64 [n, 2+U] on the
+    device, on one device (K3, or past the cap K10; ``counter`` the -M
+    table) or over ``mesh`` (``make_sharded_hpv16_step``; ``counter`` a
+    ``ShardedCounter``).  The probe width comes from the unpadded lengths
+    (``engine.hpv16_compact_width``)."""
+    num_types, num_uniq = len(tb.type_names), tb.n_lin + tb.n_sub
+    sharded = (make_sharded_hpv16_step(mesh, tb, ks, counter, min_occ)
+               if mesh is not None else None)
+
+    def step(codes: np.ndarray, lens) -> torch.Tensor:
+        Wc = engine.hpv16_compact_width(lens, codes.shape[1], ks)
+        if sharded is not None:
+            return sharded(pad_rows(codes, None, mesh.dp)[0], Wc)[: len(codes)]
+        batch = torch.from_numpy(codes).to(device, non_blocking=True)
+        if tb.comb_sorted is not None:
+            return engine.hpv16_sorted_batch(batch, tb.comb_sorted, ks, num_types, num_uniq,
+                                             Wc, counter, min_occ)
+        return engine.hpv16_batch_comb(batch, tb.probe_table, ks, num_types, num_uniq, Wc,
+                                       counter, min_occ)
+
+    return step
+
+
 def _run(cfg: Hpv16Config, out, resume_skip: int = 0) -> int:
     device = resolve_device(cfg.device)
     batch_size = resolve_batch_size(cfg.batch_size, device)
@@ -407,7 +428,6 @@ def _run(cfg: Hpv16Config, out, resume_skip: int = 0) -> int:
             mesh = make_mesh(candidates[: cfg.devices], dp=cfg.devices // cfg.tp, tp=cfg.tp)
 
     tb = build_tables(cfg, ks, device, tp_shards=cfg.tp if mesh is not None else 0)
-    num_types, num_uniq = len(tb.type_names), tb.n_lin + tb.n_sub
     counter = None
     if cfg.min_kmer_occ > 0:
         pass1, pass2 = two_pass_chunks(cfg.read_files, chunk_reads)
@@ -421,20 +441,10 @@ def _run(cfg: Hpv16Config, out, resume_skip: int = 0) -> int:
         chunks = iter_packed_chunks(cfg.read_files, chunk_reads)
     if resume_skip:  # the -M counter pass above counted every read
         chunks = skip_reads(chunks, resume_skip)
-    sharded = (make_sharded_hpv16_step(mesh, tb, ks, counter, cfg.min_kmer_occ)
-               if mesh is not None else None)
+    step = make_step(tb, ks, device, mesh, counter, cfg.min_kmer_occ)
 
     def dispatch(st, rows, codes, lens):
-        # the probe width comes from the UNPADDED lengths (engine docstring)
-        Wc = engine.hpv16_compact_width(lens, codes.shape[1], ks)
-        if sharded is not None:
-            return (rows, lens), sharded(pad_rows(codes, None, mesh.dp)[0], Wc)[: len(rows)]
-        batch = torch.from_numpy(codes).to(device, non_blocking=True)
-        if tb.comb_sorted is not None:
-            return (rows, lens), engine.hpv16_sorted_batch(
-                batch, tb.comb_sorted, ks, num_types, num_uniq, Wc, counter, cfg.min_kmer_occ)
-        return (rows, lens), engine.hpv16_batch_comb(batch, tb.probe_table, ks, num_types,
-                                                     num_uniq, Wc, counter, cfg.min_kmer_occ)
+        return (rows, lens), step(codes, lens)
 
     def on_result(st, meta, arr):
         rows, lens = meta

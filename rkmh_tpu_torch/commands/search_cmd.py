@@ -19,7 +19,9 @@ lines already in FILE are dropped as they are made again
 ``--devices N`` (``commands.common.DpCtx``, rkmh_tpu/commands/
 search_cmd.py:102-106) runs each of a batch's N row slices on its own
 device, against a copy of the keys there, and fetches them in row order.
-Not ported: --dist-*.
+``--dist-*`` runs one rank of a multi-process search
+(``commands/dist_stream.run_distributed_search``, rkmh_tpu/commands/
+search_cmd.py:73-77).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from rkmh_tpu_torch.commands.recovery import open_line_resume
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from rkmh_tpu_torch.ops.hashing import kmer_window_hashes
 from rkmh_tpu_torch.ops.sketch import INT64_MIN
+from rkmh_tpu_torch.parallel import distributed
 
 
 @dataclass
@@ -61,6 +64,9 @@ class SearchConfig:
     devices: int = 0                # --devices: search over N devices (dp); 0 = one device
     device: str = DEFAULT_DEVICE
     mesh_devices: tuple | None = None  # the devices --devices takes (None: the visible ones)
+    dist_coordinator: str = ""      # --dist-coordinator host:port
+    dist_procs: int = 0             # --dist-procs: the number of processes
+    dist_rank: int = -1             # --dist-rank: this process's rank
 
 
 def load_ref_kmers(paths) -> np.ndarray:
@@ -153,6 +159,10 @@ class _SearchChunk(ChunkState):
 
 
 def run(cfg: SearchConfig, out=None) -> int:
+    if distributed.requested(cfg.dist_procs, cfg.dist_coordinator):
+        from rkmh_tpu_torch.commands.dist_stream import run_distributed_search
+
+        return run_distributed_search(cfg, out)
     if cfg.resume and not cfg.out_file:
         log("search --resume requires -o/--out (resume state is the "
             "partial output itself); refusing to re-search to stdout")

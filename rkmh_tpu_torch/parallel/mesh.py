@@ -47,7 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rkmh_tpu_torch.call_engine import call_scan_slice
+from rkmh_tpu_torch.call_engine import call_scan_slice, plain_getter, positional_depths
 from rkmh_tpu_torch.classify.engine import probe_rows
 from rkmh_tpu_torch.io.packing import PAD_CODE
 from rkmh_tpu_torch.ops.counter import INT32_MAX
@@ -383,7 +383,8 @@ class ShardedCallScan:
     from the codes [d * Pl - 1, (d + 1) * Pl + k) (one code before, a
     pad code for d = 0, and the k-halo), the window average reading the
     previous slice's last w depths (zeros for d = 0), K9's deletions
-    guarded on the global index.  Needs Pl >= w (callers fall back below)."""
+    guarded on the global index.  Needs Pl >= w (callers fall back below).
+    ``scan`` runs a run of the slices of a finer cut (a --dist-* rank's)."""
 
     def __init__(self, mesh: Mesh, table, k: int, window_len: int):
         self.mesh, self.k, self.window_len = mesh, k, window_len
@@ -397,22 +398,43 @@ class ShardedCallScan:
     def __call__(self, ref_codes: np.ndarray) -> dict:
         """[L] uint8 codes -> ``call_scan_ref``'s dict as host arrays of P
         = L - k + 1 positions."""
+        P = ref_codes.shape[0] - self.k + 1
+        return {name: v[:P] for name, v in self.scan(ref_codes, self.mesh.dp, 0).items()}
+
+    def scan(self, ref_codes: np.ndarray, n_slices: int, first: int) -> dict:
+        """Slices [first, first + dp) of the reference's P positions cut in
+        ``n_slices`` slices of Pl = ceil(P / n_slices), slice first + d on
+        device (d, 0) -> ``call_scan_ref``'s dict for the positions [first
+        * Pl, (first + dp) * Pl) as host arrays (those past P are padding).
+        The halo of slice ``first`` > 0 is made here from the whole map (the
+        depths of its w positions before, K1 and K8, as slice first - 1 would
+        have given them); each later slice takes the previous one's."""
         n, k, w = self.mesh.dp, self.k, self.window_len
         L = ref_codes.shape[0]
         P = L - k + 1
-        Pl = self.slice_len(P)
+        Pl = -(-P // n_slices)
         if Pl < w:
-            raise ValueError(f"{P} positions over {n} slices leave {Pl} a slice, < window {w}")
-        padded = np.full(n * Pl + k + 1, PAD_CODE, dtype=np.uint8)
+            raise ValueError(f"{P} positions over {n_slices} slices leave {Pl} a slice, "
+                             f"< window {w}")
+        if not 0 <= first <= n_slices - n:
+            raise ValueError(f"slices [{first}, {first + n}) of {n_slices}")
+        padded = np.full(n_slices * Pl + k + 1, PAD_CODE, dtype=np.uint8)
         padded[0] = 4          # row j reaches ref[j - 1] for the deletion (k+1)-mers
         padded[1: 1 + L] = ref_codes
         parts, halo = [], None
+        if first:
+            dev = self.mesh[0, 0]
+            lo = first * Pl  # the window codes of positions [lo - w, lo)
+            codes = torch.from_numpy(padded[lo - w + 1: lo + k]).to(dev)
+            table = self.maps[dev]
+            halo = positional_depths(codes, table, k,
+                                     plain_getter(table) if dev.type == "cpu" else None)
         for d in range(n):
             dev = self.mesh[d, 0]
-            pref = torch.from_numpy(padded[d * Pl: d * Pl + Pl + k + 1]).to(dev)
-            res = call_scan_slice(pref, self.maps[dev], k, w, Pl, base=d * Pl,
+            s = first + d
+            pref = torch.from_numpy(padded[s * Pl: s * Pl + Pl + k + 1]).to(dev)
+            res = call_scan_slice(pref, self.maps[dev], k, w, Pl, base=s * Pl,
                                   halo=None if halo is None else halo.to(dev))
             halo = res["depth"][-w:]
             parts.append(res)
-        return {name: torch.cat([p[name].cpu() for p in parts])[:P].numpy()
-                for name in parts[0]}
+        return {name: torch.cat([p[name].cpu() for p in parts]).numpy() for name in parts[0]}

@@ -335,22 +335,21 @@ def test_cli_call_matches_jax(workload, tmp_path, capsys):
 def test_cli_parses_rkmh_tpu_flags_and_defaults(argv):
     want = vars(jax_parser().parse_args(argv))
     got = vars(cli.build_parser().parse_args(argv))
-    not_ported = {"dist_coordinator", "dist_procs", "dist_rank"}
     assert set(got) - {"device"} == set(want)
-    for key, value in want.items():
-        if key in not_ported:
-            assert got[key] is None  # set only when given, and then rejected
-        else:
-            assert got[key] == value, key
+    for key, value in want.items():  # --dist-* too, with rkmh-tpu's defaults
+        assert got[key] == value, key
     assert got["device"] == "cuda"
 
 
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--dist-coordinator", "h:1"],
                                   ["--dist-procs", "2"], ["--dist-rank", "0"]])
 def test_cli_rejects_flags_not_yet_ported(flag, workload, capsys):
-    """--dist-* are rejected by name.  --devices runs since it was ported:
-    ``--devices 2 --device cpu`` sees one device, logs rkmh-tpu's fallback
-    line and prints rkmh-tpu's VCF."""
+    """--devices and --dist-* run since they were ported.  ``--devices 2
+    --device cpu`` sees one device, logs rkmh-tpu's fallback line and
+    prints rkmh-tpu's VCF; any --dist-* flag takes the --dist-* drain (as
+    in rkmh-tpu, whatever the environment), which without -o refuses with
+    rkmh-tpu's line before anything else (tests/test_torch_dist*.py run
+    the groups)."""
     if flag[0] == "--devices":
         argv = ["call", "-r", workload["ref"], "-f", workload["reads"], "-k", "16", *flag]
         assert cli.main([*argv, "--device", "cpu"]) == 0
@@ -361,10 +360,12 @@ def test_cli_rejects_flags_not_yet_ported(flag, workload, capsys):
         assert ("call --devices ignored (--devices 2 > 1 visible device(s)); running "
                 "single-device") in got.err.splitlines()
         return
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["call", "-r", "ref.fa", "-f", "reads.fq", *flag])
-    assert exc.value.code == 2
-    assert f"{flag[0]} not yet ported" in capsys.readouterr().err
+    argv = ["call", "-r", "ref.fa", "-f", "reads.fq", *flag]
+    assert jax_main(argv) == 1
+    want = capsys.readouterr().err.splitlines()
+    assert cli.main(argv) == 1
+    assert capsys.readouterr().err.splitlines() == want == [
+        "call --dist-* requires -o <file> (per-rank partials merge with rkmh-tpu-dist-merge)"]
 
 
 def test_cli_call_on_cuda_without_a_gpu_fails(workload, monkeypatch):

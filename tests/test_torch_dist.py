@@ -9,9 +9,12 @@ batch), ``stream`` and ``filter`` at tp = 2 on local grids of 4 and 2 CPU
 entries, a refusal (the ranks see different device counts), and both
 --resume paths: stream's stripes cut (rank 1 mid-line) with its -M
 checkpoint restored, filter's idx torn on rank 0 and over-claiming a cut
-stripe on rank 1.  Each merged output (``rkmh-tpu-torch-dist-merge``, and
-rkmh-tpu's merge tool on the same stripes) must equal rkmh-tpu's
-one-process output byte for byte.  Tolerance: none; outputs are text.
+stripe on rank 1; then ``count -o`` through the CLI (rank 0 writes the
+table) and a count the group refuses (a 100,001-slot table over dp = 8).
+Each merged output (``rkmh-tpu-torch-dist-merge``, and rkmh-tpu's merge
+tool on the same stripes) must equal rkmh-tpu's one-process output byte for
+byte, and count's table rkmh-tpu's one-process table.  Tolerance: none;
+outputs are text and integer arrays.
 """
 
 import contextlib
@@ -19,6 +22,7 @@ import io
 import json
 import os
 
+import numpy as np
 import pytest
 
 import torch_dist_worker
@@ -45,7 +49,8 @@ def pair(tmp_path_factory):
     long = os.path.join(d, "long.fq")
     synth.write_fastq(long, synth.make_reads(genomes, 30, 700, seed=9)[0], first=300)
     base = dict(ref_files=[refs], read_files=[reads], ks=[12], sketch_size=200, device="cpu")
-    out = {name: os.path.join(d, name + ".out") for name in (*FRESH, "nope", "sr", "fr")}
+    out = {name: os.path.join(d, name + ".out")
+           for name in (*FRESH, "nope", "sr", "fr", "count", "cnope")}
     m2 = dict(min_kmer_occ=2, counter_size=COUNTER)
     jobs = [
         {"cli": ["stream", "-r", refs, "-f", reads, "-k", "12", "-s", "200", "--batch-size",
@@ -73,6 +78,11 @@ def pair(tmp_path_factory):
         {"cut": out["fr"] + ".1", "rank": 1, "lines": 6},
         {"run": "filter", "cfg": {**base, "batch_size": 128, "min_matches": 3,
                                   "out_file": out["fr"], **m2, "resume": True}},
+        {"cli": ["count", "-f", reads, "-k", "12", "--batch-size", "64", "--counter-size",
+                 str(COUNTER), "-o", out["count"] + ".npz", "--device", "cpu"]},
+        {"run": "count", "cfg": dict(read_files=[reads], ks=[12], batch_size=64,
+                                     counter_size=COUNTER + 1, out_file=out["cnope"] + ".npz",
+                                     device="cpu"), "mesh": 4},
     ]
     snapshots = {}
     ranks = torch_dist_worker.run_pair(jobs, d, store="tcp")
@@ -102,7 +112,7 @@ def test_every_job_ran(pair):
     for r, (results, _) in enumerate(pair["ranks"]):
         assert len(results) == len(pair["jobs"]), (r, results)
         rcs = [res["rc"] for res in results]
-        assert rcs == [0] * 5 + [1] + [0] * 8, (r, results)
+        assert rcs == [0] * 5 + [1] + [0] * 9 + [1], (r, results)
 
 
 @pytest.mark.parametrize("name", list(FRESH))
@@ -179,3 +189,23 @@ def test_filter_resume_torn_idx_and_overclaim(pair):
             "this rank's stripe from scratch") in errs[1]
     for r in range(2):
         assert len(open(f"{out}.{r}.idx").read().split()) == 3
+
+
+def test_cli_count_table_equals_jax_one_process(pair, tmp_path):
+    """count through the CLI with the ranks' --dist-* flags: rank 0 writes
+    the table of every rank's reads, rkmh-tpu's one-process table."""
+    want = str(tmp_path / "one.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert jax_main(["count", "-f", pair["reads"], "-k", "12", "--counter-size",
+                         str(COUNTER), "-o", want]) == 0
+    with np.load(pair["out"]["count"] + ".npz") as got, np.load(want) as one:
+        for key in ("table", "size", "ks"):
+            np.testing.assert_array_equal(got[key], one[key])
+        assert int(got["table"].sum()) == 300 * 139
+
+
+def test_count_refused_after_the_group(pair):
+    line = f"count --dist-*: counter size {COUNTER + 1} is not divisible by the 8 dp shards"
+    for _, err in pair["ranks"]:
+        assert line in err.splitlines()
+    assert not os.path.exists(pair["out"]["cnope"] + ".npz")

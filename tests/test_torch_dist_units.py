@@ -22,15 +22,25 @@ import numpy as np
 import pytest
 import torch
 
+from rkmh_tpu.commands import call_cmd as jax_call_cmd
+from rkmh_tpu.commands import count_cmd as jax_count_cmd
 from rkmh_tpu.commands import dist_stream as jax_ds
+from rkmh_tpu.commands import hash_cmd as jax_hash_cmd
+from rkmh_tpu.commands import hpv16_cmd as jax_hpv16_cmd
+from rkmh_tpu.commands import search_cmd as jax_search_cmd
 from rkmh_tpu.commands.filter_cmd import FilterConfig as JaxFilterConfig
 from rkmh_tpu.commands.stream import StreamConfig as JaxStreamConfig
 from rkmh_tpu.parallel import distributed as jax_distributed
 from rkmh_tpu_torch import synth
+from rkmh_tpu_torch.call_engine import plain_getter, positional_depths
+from rkmh_tpu_torch.classify import engine
+from rkmh_tpu_torch.commands import call_cmd, count_cmd, hash_cmd, hpv16_cmd, search_cmd
 from rkmh_tpu_torch.commands import dist_stream as ds
 from rkmh_tpu_torch.commands.filter_cmd import FilterConfig
 from rkmh_tpu_torch.commands.stream import StreamConfig
+from rkmh_tpu_torch.io.packing import encode_seqs
 from rkmh_tpu_torch.parallel import distributed
+from rkmh_tpu_torch.parallel.mesh import ShardedCallScan, make_mesh
 
 CPU8 = (torch.device("cpu"),) * 8
 
@@ -283,15 +293,6 @@ def test_merge_tool_equal_jax(tmp_path, case):
         assert port[1]
 
 
-def test_merge_refuses_call_stripes(tmp_path, capsys):
-    files = _stripes(tmp_path, "c", [2, 2], meta={"global_batch": 8, "procs": 2,
-                                                 "format": "call", "reference": "ref.fa"})
-    with pytest.raises(SystemExit) as exc:
-        ds.merge_main(files)
-    assert exc.value.code == 2
-    assert "call --dist-* stripes (format 'call') are not ported" in capsys.readouterr().err
-
-
 def test_merge_refuses_idx_files_that_disagree(tmp_path):
     files = _stripes(tmp_path, "f", [12, 24], idx=[[1, 2], [1, 2, 3]])
     with pytest.raises(RuntimeError, match="ended early"):
@@ -312,13 +313,205 @@ def test_counter_checkpoint_round_trip(tmp_path, workload):
         assert bytes(z["fp"]).decode() == fp and z["rows"].dtype == np.int32
 
 
-@pytest.mark.parametrize("command", ["hash", "count", "search", "call", "hpv16"])
-def test_other_commands_still_reject_dist_by_name(capsys, command):
-    """--dist-* of hash, count and search (9b), call and hpv16 (9c) is not
-    ported yet: the CLI refuses it by name, before reading any file."""
-    from rkmh_tpu_torch import cli
+# ---- hash, count, search, hpv16 and call (ROADMAP item 4: 9b, 9c)
 
-    with pytest.raises(SystemExit) as exc:
-        cli.main([command, "-f", "reads.fq", "--dist-procs", "2", "--device", "cpu"])
-    assert exc.value.code == 2
-    assert f"{command}: --dist-procs not yet ported" in capsys.readouterr().err
+
+def _map_cfgs(workload, cmd, **kw):
+    """The port's and rkmh-tpu's config of a hash / count / search drain."""
+    reads = [workload["reads"]]
+    if cmd == "hash":
+        return (hash_cmd.HashConfig(read_files=reads, ks=(12,), device="cpu", **kw),
+                jax_hash_cmd.HashConfig(read_files=reads, ks=(12,), **kw))
+    if cmd == "count":
+        return (count_cmd.CountConfig(read_files=reads, ks=(12,), device="cpu", **kw),
+                jax_count_cmd.CountConfig(read_files=reads, ks=(12,), **kw))
+    refs = [workload["refs"]]
+    return (search_cmd.SearchConfig(ref_files=refs, read_files=reads, ks=(12,), device="cpu",
+                                    **kw),
+            jax_search_cmd.SearchConfig(ref_files=refs, read_files=reads, ks=(12,), **kw))
+
+
+def _hpv16_cfgs(data, **kw):
+    kw = dict(read_files=[data["reads"]], refpath=data["refs"], ks=(16,), batch_size=8, **kw)
+    return hpv16_cmd.Hpv16Config(device="cpu", **kw), jax_hpv16_cmd.Hpv16Config(**kw)
+
+
+def _call_cfgs(data, **kw):
+    kw = dict(ref_files=[data["ref"]], read_files=[data["reads"]], **kw)
+    return call_cmd.CallConfig(device="cpu", **kw), jax_call_cmd.CallConfig(**kw)
+
+
+@pytest.fixture(scope="module")
+def hpv16_data(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("units_hpv16"))
+    panel = synth.write_hpv16_refpath(d + "/refs", seed=3, num_types=12, genome_len=2000)
+    reads, _ = synth.make_nanopore_reads(24, 5, panel, mean_len=1200, min_len=300,
+                                         max_len=3000, n_rate=0.01)
+    synth.write_fastq_records(d + "/reads.fq", reads)
+    return {"dir": d, "refs": d + "/refs", "reads": d + "/reads.fq"}
+
+
+@pytest.fixture(scope="module")
+def call_data(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("units_call"))
+    ref, reads, _, _ = synth.write_call_workload(d, n_reads=120)
+    return {"dir": d, "ref": ref, "reads": reads}
+
+
+BEFORE_GROUP = [  # (command, case): refused before the group comes up
+    ("hash", "-K"), ("hash", "--json"), ("hash", "--sourmash"), ("hash", "-o"),
+    ("hash", "not-rereadable"), ("count", "not-rereadable"), ("search", "not-rereadable"),
+    ("hpv16", "resume-no-o"), ("hpv16", "not-rereadable"),
+    ("call", "-d"), ("call", "no-o"), ("call", "not-rereadable"), ("call", "two-ks"),
+]
+
+
+@pytest.mark.parametrize("cmd,case", BEFORE_GROUP)
+def test_new_refusals_before_the_group_equal_jax(workload, hpv16_data, call_data, capsys,
+                                                 cmd, case):
+    """Each line equals rkmh-tpu's, and no group, file or device work
+    comes before it."""
+    kw = {}
+    if case == "-K":
+        kw["output_kmers"] = True
+    elif case == "--json":
+        kw["json_out"] = True
+    elif case == "--sourmash":
+        kw["sourmash_out"] = True
+    elif case == "-o":
+        kw["out_prefix"] = workload["dir"] + "/prefix"
+    elif case == "resume-no-o":
+        kw["resume"] = True
+    elif case == "-d":
+        kw.update(show_depth=True, out_file=call_data["dir"] + "/v")
+    elif case == "two-ks":
+        kw.update(ks=(16, 18), out_file=call_data["dir"] + "/v")
+    if cmd in ("hash", "count", "search"):
+        port, jax = _map_cfgs(workload, cmd, **kw)
+    elif cmd == "hpv16":
+        port, jax = _hpv16_cfgs(hpv16_data, **kw)
+    else:
+        port, jax = _call_cfgs(call_data, **kw)
+    if case == "not-rereadable":
+        port.read_files = jax.read_files = [port.read_files[0], "-"]
+        if cmd == "call":
+            port.out_file = jax.out_file = call_data["dir"] + "/v"
+    run = {"hash": "run_distributed_hash", "count": "run_distributed_count",
+           "search": "run_distributed_search", "hpv16": "run_distributed_hpv16",
+           "call": "run_distributed_call"}[cmd]
+    line = _both_refuse(capsys, getattr(ds, run), port, getattr(jax_ds, run), jax)
+    assert line.startswith(f"{cmd} --dist-*" if case != "two-ks" else "Only a single kmer")
+
+
+@pytest.mark.parametrize("case", ["count-dp", "hpv16-tp", "hpv16-counter-dp"])
+def test_new_refusals_after_the_group_equal_jax(workload, hpv16_data, capsys, case):
+    """One process over 8 devices: rkmh-tpu's log, every line of it, up to
+    and with the refusal."""
+    if case == "count-dp":
+        port, jax = _map_cfgs(workload, "count", counter_size=100_001, batch_size=64)
+        port.mesh_devices = CPU8
+        fns = ds.run_distributed_count, jax_ds.run_distributed_count
+    else:
+        kw = dict(tp=3) if case == "hpv16-tp" else dict(tp=2, min_kmer_occ=2,
+                                                         counter_size=4097)
+        port, jax = _hpv16_cfgs(hpv16_data, **kw)
+        port.mesh_devices = CPU8
+        fns = ds.run_distributed_hpv16, jax_ds.run_distributed_hpv16
+    assert fns[1](jax) == 1
+    want = capsys.readouterr().err.splitlines()
+    assert fns[0](port) == 1
+    got = capsys.readouterr().err.splitlines()
+    assert got == want
+    assert got[-1].startswith(f"{case.split('-')[0]} --dist-*: ")
+    assert ("divisible" in got[-1]) == (case != "hpv16-tp")
+
+
+def _sections(path, sections):
+    with open(path, "w") as fh:
+        for name, entries in sections:
+            for key, c in entries:
+                fh.write(json.dumps({"key": key, "c": c, "m": c + 1, "a": 7, "o": 2}) + "\n")
+            fh.write(json.dumps({"ref_done": name, "n": len(entries)}) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("case", ["refs-total", "disagree", "all-short", "complete"])
+def test_call_merge_refuses_incomplete_stripes_as_jax(tmp_path, case):
+    """``tests/test_distributed.py:480``'s cases on both packages' merge."""
+    full = _sections(tmp_path / "c.0", [("r1", [("r1\t5\t.\tA\tC", 1)]), ("r2", [])])
+    short = _sections(tmp_path / "c.1", [("r1", [("r1\t9\t.\tG\t-", 2)])])
+    files, total, match = {"refs-total": ([full, short], 2, "ended early"),
+                           "disagree": ([full, short], None, "disagree"),
+                           "all-short": ([short, short], 2, "ended early"),
+                           "complete": ([full, full], 2, None)}[case]
+    got = []
+    for merge in (ds.merge_outputs_call, jax_ds.merge_outputs_call):
+        buf = io.StringIO()
+        if match is None:
+            assert merge(files, "ref.fa", out=buf, refs_total=total) == 0
+        else:
+            with pytest.raises(RuntimeError, match=match) as exc:
+                merge(files, "ref.fa", out=buf, refs_total=total)
+            buf.write(str(exc.value))
+        got.append(buf.getvalue())
+    assert got[0] == got[1]
+
+
+def test_merge_tool_call_stripes_equal_jax(tmp_path):
+    files = [_sections(tmp_path / "v.0", [("r1", [("r1\t5\t.\tA\tC", 1),
+                                                  ("r1\t10\t.\tT\t-", 1)])]),
+             _sections(tmp_path / "v.1", [("r1", [("r1\t5\t.\tA\tC", 2),
+                                                  ("r1\t7\t.\tG\tA", 3)])])]
+    with open(tmp_path / "v.dist.json", "w") as fh:
+        json.dump({"global_batch": 0, "procs": 2, "format": "call", "reference": "ref.fa",
+                   "devices": 8, "refs_total": 1}, fh)
+    port, jax = _merge_both(files)
+    assert port == jax and port[0] == 0
+    assert port[1].startswith("##fileformat=VCF4.2\n") and "KC=3;MD=3" in port[1]
+
+
+def test_hpv16_rank_width_gives_full_width_bytes(hpv16_data, monkeypatch, tmp_path):
+    """A rank (one process, 4 CPU entries at tp 2, -M 2) cuts its sorted
+    rows at its own rows' window count; at rkmh-tpu's full width
+    (``W_full``, :974) the lines are the same bytes."""
+    widths = []
+    real = engine.hpv16_compact_width
+
+    def recorded(lens, L, ks):
+        widths.append((real(lens, L, ks), sum(max(L - k + 1, 0) for k in ks)))
+        return widths[-1][0]
+
+    outs = []
+    for fn in (recorded, lambda lens, L, ks: sum(max(L - k + 1, 0) for k in ks)):
+        monkeypatch.setattr(engine, "hpv16_compact_width", fn)
+        monkeypatch.chdir(tmp_path)
+        port, _ = _hpv16_cfgs(hpv16_data, tp=2, min_kmer_occ=2, counter_size=4096)
+        port.mesh_devices = (torch.device("cpu"),) * 4
+        buf = io.StringIO()
+        assert ds.run_distributed_hpv16(port, out=buf) == 0
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] and len(outs[0].splitlines()) == 24
+    assert any(wc < full for wc, full in widths)
+
+
+def test_call_local_halo_equals_carried_halo(call_data):
+    """A rank's first slice (here 2 of 4) takes its halo from the whole map:
+    the depths of the w positions before it equal those the scan over all
+    4 slices carries from slice 1, and so do the slices' results."""
+    cpu = torch.device("cpu")
+    reads = call_cmd.load_packed([call_data["reads"]])
+    table = call_cmd.build_depth_map(reads, (16,), 64, cpu)
+    seq = call_cmd.load_records([call_data["ref"]])[0].seq
+    row = encode_seqs([seq])[0][0, : len(seq)]
+    k, w = 16, 100
+    P = len(seq) - k + 1
+    Pl = -(-P // 4)
+    assert P % 4 and Pl >= w  # slices of one length, the last one padded
+    whole = ShardedCallScan(make_mesh([cpu] * 4, dp=4), table, k, w)(row)
+    part = ShardedCallScan(make_mesh([cpu] * 2, dp=2), table, k, w).scan(row, 4, 2)
+    for name, v in whole.items():
+        np.testing.assert_array_equal(part[name][: P - 2 * Pl], v[2 * Pl:], err_msg=name)
+    halo = positional_depths(torch.from_numpy(row[2 * Pl - w: 2 * Pl + k - 1]), table, k,
+                             plain_getter(table))
+    np.testing.assert_array_equal(halo.numpy(), whole["depth"][2 * Pl - w: 2 * Pl])
+    assert halo.any()

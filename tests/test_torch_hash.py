@@ -154,13 +154,9 @@ def test_hash_resume_needs_an_out_file(capsys):
 def test_cli_parses_rkmh_tpu_flags_and_defaults(argv):
     want = vars(jax_parser().parse_args(argv))
     got = vars(cli.build_parser().parse_args(argv))
-    not_ported = {"dist_coordinator", "dist_procs", "dist_rank"}
     assert set(got) - {"device"} == set(want)
-    for key, value in want.items():
-        if key in not_ported:
-            assert got[key] is None  # set only when given, and then rejected
-        else:
-            assert got[key] == value, key
+    for key, value in want.items():  # --dist-* too, with rkmh-tpu's defaults
+        assert got[key] == value, key
     assert got["device"] == "cuda"
 
 
@@ -179,11 +175,16 @@ def test_cli_hash_dead_flags_warn_as_jax(workload, capsys, flags):
 @pytest.mark.parametrize("command", ["hash", "count", "search"])
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--dist-coordinator", "h:1"],
                                   ["--dist-procs", "2"], ["--dist-rank", "0"]])
-def test_cli_rejects_flags_not_yet_ported(command, flag, workload, capsys):
-    """--dist-* are rejected by name.  --devices runs since it was ported:
-    with ``--device cpu`` the port sees one device, logs rkmh-tpu's
-    fallback line and prints rkmh-tpu's bytes."""
-    if flag[0] == "--devices":
+def test_cli_rejects_flags_not_yet_ported(command, flag, workload, capsys, monkeypatch):
+    """--devices and --dist-* run since they were ported.  With ``--device
+    cpu`` --devices sees one device, logs rkmh-tpu's fallback line and
+    prints rkmh-tpu's bytes; --dist-rank 0 alone is one process, as in
+    rkmh-tpu (its bytes); a coordinator without a process count, or a count
+    without a coordinator, names no group: the drain logs why and exits 1
+    before it reads a file or opens a socket (tests/test_torch_dist*.py run
+    the groups)."""
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    if flag[0] in ("--devices", "--dist-rank"):
         kmers = str(workload["dir"] / "kmers.txt")
         seq = "".join(open(workload["refs"]).read().split(">")[1].split("\n")[1:])
         with open(kmers, "w") as fh:
@@ -197,11 +198,13 @@ def test_cli_rejects_flags_not_yet_ported(command, flag, workload, capsys):
         assert cli.main([*argv, "--device", "cpu"]) == 0
         got = capsys.readouterr()
         assert got.out == want and want
-        assert ("--devices ignored (--devices 2 > 1 visible device(s)); running single-device"
-                in got.err.splitlines())
+        assert (("--devices ignored (--devices 2 > 1 visible device(s)); running single-device"
+                 in got.err.splitlines()) == (flag[0] == "--devices"))
         return
-    with pytest.raises(SystemExit) as exc:
-        cli.main([command, "-r", "k.txt", "-f", "reads.fq", *flag] if command == "search"
-                 else [command, "-f", "reads.fq", *flag])
-    assert exc.value.code == 2
-    assert f"{flag[0]} not yet ported" in capsys.readouterr().err
+    assert cli.main([command, "-r", "k.txt", "-f", "reads.fq", *flag, "--device", "cpu"]
+                    if command == "search" else
+                    [command, "-f", "reads.fq", *flag, "--device", "cpu"]) == 1
+    reason = ("--dist-coordinator h:1 needs --dist-procs (or JAX_NUM_PROCESSES)"
+              if flag[0] == "--dist-coordinator" else
+              "--dist-procs 2 needs --dist-coordinator host:port (or JAX_COORDINATOR_ADDRESS)")
+    assert capsys.readouterr().err.splitlines() == [f"{command} --dist-*: {reason}"]

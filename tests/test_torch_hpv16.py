@@ -139,8 +139,11 @@ def test_cli_hpv16_matches_jax(data, tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("flag", [["--dist-coordinator", "h:1"], ["--devices", "2"],
                                   ["--devices", "4"], ["--tp", "2"], ["--dist-procs", "2"]])
 def test_cli_rejects_flags_not_yet_ported(flag, data, tmp_path, monkeypatch, capsys):
-    """--dist-* are rejected by name.  --devices and --tp run since they
-    were ported: ``--devices N --device cpu`` sees one device, logs
+    """--devices, --tp and --dist-* run since they were ported: a
+    coordinator without a process count, or a count without a coordinator,
+    names no group, and the --dist-* drain logs why and exits 1 before it
+    reads a file or opens a socket (tests/test_torch_dist*.py run the
+    groups); ``--devices N --device cpu`` sees one device, logs
     rkmh-tpu's fallback line and prints rkmh-tpu's bytes; ``--tp 2`` alone
     runs on one device and logs nothing (tests/test_torch_hpv16_sharded.py
     holds the grids)."""
@@ -158,16 +161,26 @@ def test_cli_rejects_flags_not_yet_ported(flag, data, tmp_path, monkeypatch, cap
         assert [ln for ln in got.err.splitlines() if "ignored" in ln] == (
             [fallback] if flag[0] == "--devices" else [])
         return
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["hpv16", "-f", "reads.fq", "-R", "refs", *flag])
-    assert exc.value.code == 2
-    assert f"{flag[0]} not yet ported" in capsys.readouterr().err
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    assert cli.main(["hpv16", "-f", "reads.fq", "-R", "refs", *flag, "--device", "cpu"]) == 1
+    reason = ("--dist-coordinator h:1 needs --dist-procs (or JAX_NUM_PROCESSES)"
+              if flag[0] == "--dist-coordinator" else
+              "--dist-procs 2 needs --dist-coordinator host:port (or JAX_COORDINATOR_ADDRESS)")
+    assert capsys.readouterr().err.splitlines() == [f"hpv16 --dist-*: {reason}"]
 
 
-def test_run_rejects_config_not_yet_ported():
-    with pytest.raises(ValueError, match="--dist-procs not yet ported"):
-        hpv16_cmd.run(hpv16_cmd.Hpv16Config(min_kmer_occ=2, devices=2, tp=2, dist_procs=2,
-                                            device="cpu"))
+def test_run_rejects_config_not_yet_ported(capsys):
+    """--dist-procs 2 runs the --dist-* drain since it was ported; with no
+    -f file it refuses with rkmh-tpu's line (rkmh_tpu/commands/
+    dist_stream.py:901-905)."""
+    cfg = dict(min_kmer_occ=2, devices=2, tp=2, dist_procs=2)
+    assert jcmd.run(jcmd.Hpv16Config(**cfg)) == 1
+    want = capsys.readouterr().err.splitlines()
+    assert hpv16_cmd.run(hpv16_cmd.Hpv16Config(**cfg, device="cpu")) == 1
+    assert capsys.readouterr().err.splitlines() == want == [
+        "hpv16 --dist-* requires re-readable -f files on every host (the counting pre-pass "
+        "and the classify pass each read the input; stdin/FIFOs would be consumed by the "
+        "first)"]
 
 
 def test_hpv16_batch_comb_on_a_jax_built_table(data, tmp_path, monkeypatch):

@@ -6,10 +6,12 @@ Runs a list of jobs, in order, as one rank of a group of ``procs``
 processes (``rkmh_tpu_torch.parallel.distributed``: the group comes up at
 the first drain and serves every later one).  A job is one of
 
-* ``{"run": "stream" | "filter", "cfg": {...}, "mesh": n | [n per rank] | null}``:
-  ``stream.run`` / ``filter_cmd.run`` of a config with this rank's
-  --dist-* settings; ``mesh`` lays the rank's grid over n entries of the
-  config's device (the ``mesh_devices`` seam);
+* ``{"run": command, "cfg": {...}, "mesh": n | [n per rank] | null,
+  "stdout": path | null}``: the ``run`` of a command's config (stream,
+  filter, hash, count, search, hpv16, call) with this rank's --dist-*
+  settings; ``mesh`` lays the rank's grid over n entries of the config's
+  device (the ``mesh_devices`` seam); ``stdout`` takes what the drain
+  writes to its output stream into ``<path>.<rank>``;
 * ``{"cli": [args]}``: ``rkmh-tpu-torch`` with these arguments and this
   rank's --dist-* flags;
 * ``{"cut": path, "rank": r, "lines": n, "torn": bool}``: rank r keeps the
@@ -51,7 +53,9 @@ def _run(job: dict, coordinator: str, procs: int, rank: int) -> int:
     import torch
 
     from rkmh_tpu_torch import cli
-    from rkmh_tpu_torch.commands import filter_cmd, stream
+    from rkmh_tpu_torch.commands import (
+        call_cmd, count_cmd, filter_cmd, hash_cmd, hpv16_cmd, search_cmd, stream,
+    )
 
     if "cli" in job:
         return cli.main([*job["cli"], "--dist-coordinator", coordinator, "--dist-procs",
@@ -63,9 +67,17 @@ def _run(job: dict, coordinator: str, procs: int, rank: int) -> int:
     if mesh:
         cfg["mesh_devices"] = (torch.device(cfg.get("device", "cpu")),) * mesh
     cfg.update(dist_coordinator=coordinator, dist_procs=procs, dist_rank=rank)
-    if job["run"] == "stream":
-        return stream.run(stream.StreamConfig(**cfg))
-    return filter_cmd.run(filter_cmd.FilterConfig(**cfg))
+    mod, config = {"stream": (stream, stream.StreamConfig),
+                   "filter": (filter_cmd, filter_cmd.FilterConfig),
+                   "hash": (hash_cmd, hash_cmd.HashConfig),
+                   "count": (count_cmd, count_cmd.CountConfig),
+                   "search": (search_cmd, search_cmd.SearchConfig),
+                   "hpv16": (hpv16_cmd, hpv16_cmd.Hpv16Config),
+                   "call": (call_cmd, call_cmd.CallConfig)}[job["run"]]
+    if not job.get("stdout"):
+        return mod.run(config(**cfg))
+    with open(f"{job['stdout']}.{rank}", "w") as out:
+        return mod.run(config(**cfg), out)
 
 
 def main(argv) -> int:
@@ -131,10 +143,11 @@ def wait_all(procs, timeout: float, grace: float = 20) -> None:
 
 
 def run_pair(jobs: list, tmp: str, procs: int = 2, timeout: float = 240,
-             store: str = "file") -> list:
-    """Run ``jobs`` on ``procs`` port ranks, their group's rendezvous a
-    ``file://`` store in ``tmp`` or (``store="tcp"``) a free loopback port;
-    -> each rank's (results, stderr).  Raises if a rank fails or hangs."""
+             store: str = "file", cwd: str | None = None) -> list:
+    """Run ``jobs`` on ``procs`` port ranks in ``cwd`` (None: this
+    process's), their group's rendezvous a ``file://`` store in ``tmp`` or
+    (``store="tcp"``) a free loopback port; -> each rank's (results,
+    stderr).  Raises if a rank fails or hangs."""
     jobs_path = os.path.join(tmp, "jobs.json")
     with open(jobs_path, "w") as fh:
         json.dump(jobs, fh)
@@ -148,8 +161,8 @@ def run_pair(jobs: list, tmp: str, procs: int = 2, timeout: float = 240,
             with open(logs[r], "w") as err:
                 ranks.append(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__), coordinator, str(procs), str(r),
-                     jobs_path, results[r]], env=rank_env(tmp), stdout=subprocess.DEVNULL,
-                    stderr=err))
+                     jobs_path, results[r]], cwd=cwd, env=rank_env(tmp),
+                    stdout=subprocess.DEVNULL, stderr=err))
         wait_all(ranks, timeout)
     finally:
         for p in ranks:
@@ -167,10 +180,12 @@ def run_pair(jobs: list, tmp: str, procs: int = 2, timeout: float = 240,
     return got
 
 
-def run_jax_pair(argv: list, tmp: str, procs: int = 2, timeout: float = 300) -> list:
+def run_jax_pair(argv: list, tmp: str, procs: int = 2, timeout: float = 300,
+                 stdout: str | None = None, cwd: str = REPO) -> list:
     """``python -m rkmh_tpu.cli <argv> --dist-*`` on ``procs`` processes
-    of 4 virtual CPU devices each; -> each rank's stderr.  Raises if one
-    fails or hangs."""
+    of 4 virtual CPU devices each, in ``cwd``, each rank's stdout into
+    ``<stdout>.<rank>`` (dropped without ``stdout``); -> each rank's
+    stderr.  Raises if one fails or hangs."""
     env = {**rank_env(tmp), "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
     coordinator = f"127.0.0.1:{free_port()}"
@@ -178,11 +193,12 @@ def run_jax_pair(argv: list, tmp: str, procs: int = 2, timeout: float = 300) -> 
     ranks = []
     try:
         for r in range(procs):
-            with open(logs[r], "w") as err:
+            with open(logs[r], "w") as err, \
+                    open(f"{stdout}.{r}" if stdout else os.devnull, "w") as out:
                 ranks.append(subprocess.Popen(
                     [sys.executable, "-m", "rkmh_tpu.cli", *argv, "--dist-coordinator",
                      coordinator, "--dist-procs", str(procs), "--dist-rank", str(r)],
-                    cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=err))
+                    cwd=cwd, env=env, stdout=out, stderr=err))
         wait_all(ranks, timeout)
     finally:
         for p in ranks:
