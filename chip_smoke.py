@@ -337,6 +337,24 @@ line) without CUDA or without the package beside it.  In order it:
     process's of phases 17-19, 37 and 24 (count: rank 0's npz arrays and
     dump lines), every rank's kernels required, and the same figures as
     38's.
+40. the device table builds (``ops/lookup.py`` section (d)): (inside 9) on
+    the 182-type panel's window hashes, K13 (``rkmh_set_table_fill`` in
+    ``csrc/set_table.cu``: the fill of a device-built bucket table) exactly
+    against ``set_table_fill_plain`` on the same sorted entries at the
+    path's geometry, at 1/64 of its buckets (an overflow) and with a row of
+    two hashes that collide in a bucket, every lane and ``max_rank``; the
+    path's table equal to K13's and to the same build on the CPU, K3's
+    counts on the 512-read batch equal on it and on the numpy
+    ``build_set_table``, the tp = 2 shard stack equal to the CPU's and its
+    merged K3 partials to the numpy table's K3; K13 timed (graph, eager)
+    beside its plain version, its bound (the table written once, the
+    entries read once) and the sorts before it, with the set-up laps; every
+    hpv16 path that builds a bucket table (10, 15, 37, 39) must launch K13;
+    (after 28) ``stream`` over 2,048 references at s = 1000 (2,048,000
+    sketch elements: the table built on the card) and 2**17 reads (K1, K13,
+    K2), the first 16,384 lines against the CPU's; (after 22)
+    ``parallel/mesh.ShardedCallEnum`` on ``(cuda:0,) * 4`` (K1, K8) against
+    one device's K1 + K8 depths.
 
 Before them, one line gives the host seconds of each phase (or group of
 phases) in the order they ran, which add up to the run.
@@ -361,7 +379,8 @@ times, its plan's build time and size, phase 32's numbers and phase 31's
 accuracies; K6 and K7 their launches over a slot range and their times on
 one; the partial epilogue its shape; K3 its launches by route, whole table
 and partial; K3's partial epilogue its shape, the whole table's K3 time
-and the batch's reads by segments; K9 its base mode's time and error) and
+and the batch's reads by segments; K9 its base mode's time and error; K13 the time of the sorts before it,
+their bound and its shape) and
 ``{"ok": true, "device":
 {...}}``.  Any failure raises.
 """
@@ -1148,6 +1167,7 @@ def run_hpv16(dev, card: str, keep: str) -> dict:
             + ", ".join(f"{k} {v:.3f}" for k, v in tb.setup_s.items()))
         err_k3, times, batch_hashes = check_k3(dev, tb, packed, panel)
         err_partial3, partial3_t = check_set_probe_partial(dev, tb, cfg, packed)
+        k13 = check_device_builds(dev, card, cfg, tb, packed)
 
         gpu_dir, cpu_dir = os.path.join(tmp, "gpu"), os.path.join(tmp, "cpu")
         os.makedirs(gpu_dir)
@@ -1163,7 +1183,7 @@ def run_hpv16(dev, card: str, keep: str) -> dict:
             e2e_s = time.perf_counter() - t0
             launches = kernels.launch_counts()
             say(f"hpv16 slice launches: {launches}")
-            require_launches(launches, ("window_hash", "set_probe"), "hpv16")
+            require_launches(launches, ("window_hash", "set_table_fill", "set_probe"), "hpv16")
 
             head = os.path.join(tmp, "head.fq")
             with open(reads) as src_fh, open(head, "w") as dst:
@@ -1228,7 +1248,7 @@ def run_hpv16(dev, card: str, keep: str) -> dict:
            "device_step_mbp_per_s": mbp / (step_ms / 1e3),
            "device_step_reads_per_s": N_HPV16_READS / (step_ms / 1e3),
            "typed_share": typed, "launches": launches, "err_k3": err_k3, **times,
-           "capped": capped, "sharded": sharded, "err_partial": err_partial3,
+           "capped": capped, "sharded": sharded, "err_partial": err_partial3, "k13": k13,
            "partial_t": partial3_t,
            "batch_hashes": batch_hashes}  # K7's hpv16 -M shape, for check_counters
     say(f"hpv16 slice on {card}: e2e {res['e2e_mbp_per_s']:.3f} Mbp/s, "
@@ -1582,7 +1602,8 @@ def run_hpv16_counter(dev, card: str) -> dict:
                 lambda: hpv16_cmd.run(hpv16_cmd.Hpv16Config(
                     read_files=[reads], out_file=os.path.join(run_dir, "out.tsv"),
                     device="cuda", **cfg)),
-                "hpv16 -M", ("window_hash", "counter_add", "counter_mask", "set_probe"))
+                "hpv16 -M", ("window_hash", "set_table_fill", "counter_add", "counter_mask",
+                             "set_probe"))
             n_lines = read_text(os.path.join(run_dir, "out.tsv")).count("\n")
             if n_lines != N_HPV16_READS:
                 raise AssertionError(f"hpv16 -M: {n_lines} lines for {N_HPV16_READS} reads")
@@ -3635,8 +3656,7 @@ def check_set_probe_partial(dev, tb, cfg: dict, packed) -> tuple[int, dict]:
                                      (HPV16_K,), dev, tp_shards=tp)
         rps, parts = stb.rps, []
         for j in range(tp):
-            logical = torch.from_numpy(np.ascontiguousarray(stb.shard_tables[j])
-                                       .view(np.int32)).to(dev)
+            logical = stb.shard_tables[j]
             shard = pack_set_table(logical, rps)
             got = _set_probe_partial_cuda(rows, sk_lens, shard, j * rps, rps, T, U)
             want = set_probe_partial_plain(rows, sk_lens, logical, j * rps, rps, T, U)
@@ -3793,9 +3813,10 @@ def run_sharded_hpv16(dev, card: str, tmp: str, cfg: dict, reads: str, one_lines
         res[label] = r
         return r
 
-    part = ("window_hash", "set_probe_partial")
+    part = ("window_hash", "set_table_fill", "set_probe_partial")
     try:
         head_s, _, head_text = one_run("hpv16 one device head", [head], ("window_hash",
+                                                                        "set_table_fill",
                                                                         "set_probe"))
         require_same(head_text, "".join(one_lines[:N_SHARDED_HEAD]), "hpv16 head")
         shards = {"shard tables (about the whole table's)": table_bytes}
@@ -3805,7 +3826,8 @@ def run_sharded_hpv16(dev, card: str, tmp: str, cfg: dict, reads: str, one_lines
             grid_run(f"hpv16 --devices 4 --tp {tp}", [head], head_text, head_s, head_mbp, tp,
                      part, shards)
         m_s, _, m_text = one_run("hpv16 -M one device head", [head],
-                                 ("window_hash", "counter_add", "counter_mask", "set_probe"),
+                                 ("window_hash", "set_table_fill", "counter_add", "counter_mask",
+                                  "set_probe"),
                                  min_kmer_occ=MIN_OCC)
         for name in ("all_pave_ref.fa", "new_refs.fa"):
             shutil.copyfile(os.path.join(tmp, name), os.path.join(keep, name))
@@ -4293,15 +4315,15 @@ def run_dist_rest(card: str, p39: dict) -> dict:
          p39["search_out"], p39["search_s"], N_SLICE_READS, ("window_hash",)),
         ("hpv16", {"run": "hpv16", "cfg": {**pcfg, "out_file": out["p"]}, "cwd": cwd},
          os.path.join(hp, "one.tsv"), hp_one["hpv16"], hp_one["mbp"],
-         ("window_hash", "set_probe")),
+         ("window_hash", "set_table_fill", "set_probe")),
         ("hpv16 --tp 2", {"run": "hpv16", "cfg": {**pcfg, "tp": 2, "out_file": out["pt"]},
                           "grid": DIST_GRID, "cwd": cwd},
          os.path.join(hp, "one.tsv"), hp_one["hpv16"], hp_one["mbp"],
-         ("window_hash", "set_probe_partial")),
+         ("window_hash", "set_table_fill", "set_probe_partial")),
         ("hpv16 -M 2", {"run": "hpv16", "cfg": {**pcfg, "min_kmer_occ": MIN_OCC,
                                                 "out_file": out["pm"]}, "cwd": cwd},
          os.path.join(hp, "m.tsv"), hp_one["hpv16 -M 2"], hp_one["mbp"],
-         ("window_hash", "counter_add", "counter_mask", "set_probe")),
+         ("window_hash", "set_table_fill", "counter_add", "counter_mask", "set_probe")),
         ("call", {"run": "call", "cfg": {**vcfg, "out_file": out["v"]}},
          p39["call_vcf"], p39["call_s"], None, scan),
     ]
@@ -4381,6 +4403,235 @@ def run_dist_rest(card: str, p39: dict) -> dict:
     return res
 
 
+N_DEVICE_PANEL_REFS = 2048   # phase 40: 2,048 x s = 1000 sketch elements, the device build
+DEVICE_PANEL_LEN = 1500
+N_DEVICE_PANEL_READS = 1 << 17
+COLLIDE_ROW = 64             # phase 40: the collision case's extra row (two hashes)
+
+
+def _colliding_pair(dev, nb: int):
+    """Two hashes of one lo word, of other hi words, in one bucket at nb
+    buckets: a (lo, occ) collision for K13 to report."""
+    import torch
+
+    from rkmh_tpu_torch.ops.lookup import bucket_indices
+
+    lo = 0x2545F491
+    hi = (torch.arange(1, 8 * nb + 1, dtype=torch.int64, device=dev) * 2654435761) & 0xFFFFFFFF
+    b = bucket_indices(torch.full_like(hi, lo), hi, torch.zeros_like(hi), nb)
+    j = int(torch.nonzero(b[1:] == b[0])[0, 0]) + 1
+    return [(int(x) << 32 | lo) - ((int(x) >> 31) << 64) for x in (hi[0], hi[j])]  # as int64
+
+
+def check_device_builds(dev, card: str, cfg: dict, tb, packed) -> dict:
+    """Phase 40a (inside 9): the device table builds.  On the 182-type
+    panel's window hashes (``hpv16_cmd.panel_rows`` on the card): the sorts
+    and K13's inputs (``ops/lookup._unique_entries``, ``fill_inputs``), K13
+    (``csrc/set_table.cu``) against ``set_table_fill_plain`` on the same
+    inputs at the path's geometry (and its output against the path's table),
+    at 1/64 of its buckets (an overflow) and with a row of two hashes that
+    collide in a bucket; every lane and max_rank equal.  The path's table
+    against the same build on the CPU, bit for bit; K3's counts on the
+    512-read batch against those on the numpy ``build_set_table``; the tp =
+    2 shard stack against the CPU's, and its merged K3 partials against the
+    numpy table's K3.  Times K13 (graph, eager) beside its plain version
+    and its bound (the table written once, the entries read once), and the
+    library calls before it.  -> K13's record."""
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch.bench import bounds
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
+    from rkmh_tpu_torch.classify import engine
+    from rkmh_tpu_torch.commands import hpv16_cmd
+    from rkmh_tpu_torch.ops import lookup
+    from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
+    from rkmh_tpu_torch.ops.set_probe import (
+        _set_probe_cuda,
+        _set_probe_partial_cuda,
+        merge_hpv16_partials,
+        pack_set_table,
+    )
+    from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
+
+    conf = hpv16_cmd.Hpv16Config(**cfg, tst_file=False)
+    rows = hpv16_cmd.panel_rows(conf, HPV16_K, dev)
+    h, m = rows.hashes, rows.mask
+    R = h.shape[0]
+    T, U = len(tb.type_names), tb.n_lin + tb.n_sub
+    nb, width = tb.comb_table.shape
+    S = lookup.table_slots(width, R)
+
+    def prepare(nb_):
+        return lookup.fill_inputs(lookup._unique_entries(h, m, R), nb_, False)
+
+    inputs = prepare(nb)
+    n = inputs[0].numel()
+    cases = {"path": (inputs, nb), "overflow": (prepare(nb // 64), nb // 64)}
+    pair = torch.tensor(_colliding_pair(dev, nb), dtype=torch.int64, device=dev)
+    h2 = torch.cat([h, torch.zeros((1, h.shape[1]), dtype=h.dtype, device=dev)])
+    m2 = torch.cat([m, torch.zeros((1, h.shape[1]), dtype=torch.bool, device=dev)])
+    h2[R, :2], m2[R, :2] = pair, True
+    cases["collision"] = (lookup.fill_inputs(lookup._unique_entries(h2, m2, R + 1), nb, False),
+                          nb)
+    worst = 0
+    for label, (inp, nb_) in cases.items():
+        got, rank = lookup.set_table_fill(*inp, nb_, S)
+        want, want_rank = lookup.set_table_fill_plain(*inp, nb_, S)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err or not torch.equal(got, want) or int(rank) != int(want_rank):
+            raise AssertionError(f"K13 disagrees with its plain version on the {label} case "
+                                 f"(max_rank {int(rank)} vs {int(want_rank)})")
+        worst = max(worst, err)
+        expect_over = label != "path"
+        if (int(rank) >= S) != expect_over:
+            raise AssertionError(f"K13's {label} case: max_rank {int(rank)} at S = {S}")
+        if label == "path" and not torch.equal(got, tb.comb_table):
+            raise AssertionError("K13's table differs from the hpv16 path's table")
+        say(f"K13 {label}: {n} entries into [{nb_}, {width}] (S = {S}), max_rank "
+            f"{int(rank)}, exact against set_table_fill_plain")
+        del got, want
+
+    # the path's builds against the CPU's, and K3 on the numpy host table
+    t0 = time.perf_counter()
+    tb_cpu = hpv16_cmd.build_tables(conf, (HPV16_K,), torch.device("cpu"))
+    cpu_s, cpu_laps = time.perf_counter() - t0, tb_cpu.setup_s
+    if not torch.equal(tb.comb_table.cpu(), tb_cpu.comb_table):
+        raise AssertionError("the device-built hpv16 table differs from the CPU build")
+    t0 = time.perf_counter()
+    host = lookup.build_set_table(hpv16_cmd._host_rows(h, m), num_refs=R).table
+    numpy_s = time.perf_counter() - t0
+    host = pack_set_table(torch.from_numpy(host.view(np.int32)).to(dev), R)
+    lens = packed.lens[:HPV16_BATCH]
+    x = torch.from_numpy(np.ascontiguousarray(
+        packed.codes[:HPV16_BATCH, : -(-int(lens.max()) // 128) * 128])).to(dev)
+    full, sk_lens = bottom_s_sketch(multi_k_window_hashes(x, [HPV16_K]),
+                                    x.shape[1] - HPV16_K + 1)
+    br = full[:, : engine.hpv16_compact_width(lens, x.shape[1], (HPV16_K,))]
+    whole = _set_probe_cuda(br, sk_lens, tb.probe_table, T, U)
+    if not torch.equal(whole, _set_probe_cuda(br, sk_lens, host, T, U)):
+        raise AssertionError("K3's counts on the device table differ from the numpy table's")
+    del host, tb_cpu
+    stb = hpv16_cmd.build_tables(conf, (HPV16_K,), dev, tp_shards=2)
+    stb_cpu = hpv16_cmd.build_tables(conf, (HPV16_K,), torch.device("cpu"), tp_shards=2)
+    if not torch.equal(stb.shard_tables.cpu(), stb_cpu.shard_tables):
+        raise AssertionError("the device-built tp = 2 shard stack differs from the CPU build")
+    parts = [_set_probe_partial_cuda(br, sk_lens, pack_set_table(stb.shard_tables[j], stb.rps),
+                                     j * stb.rps, stb.rps, T, U) for j in range(2)]
+    if not torch.equal(merge_hpv16_partials(torch.stack(parts)), whole):
+        raise AssertionError("merged K3 partials on the device-built shards differ from K3 on "
+                             "the numpy table")
+    say(f"device builds: the hpv16 table {tuple(tb.comb_table.shape)} and the tp = 2 stack "
+        f"{tuple(stb.shard_tables.shape)} bit-equal to the CPU builds (the CPU's whole "
+        f"build {cpu_s:.2f} s, laps {json.dumps({k: round(v, 3) for k, v in cpu_laps.items()})}); "
+        f"K3 on the 512-read "
+        f"batch equal on the device table and the numpy build_set_table ({numpy_s:.2f} s on "
+        f"the host), and on the merged shards; set-up laps on the card: "
+        f"{json.dumps({k: round(v, 4) for k, v in tb.setup_s.items()})}")
+    del stb, stb_cpu
+
+    fill = lambda: lookup.set_table_fill(*inputs, nb, S)  # noqa: E731
+    t = {"ms": cuda_graph_time_ms(fill, 5), "eager_ms": cuda_time_ms(fill, 10),
+         "plain_ms": cuda_time_ms(lambda: lookup.set_table_fill_plain(*inputs, nb, S), 3,
+                                  warmup=1),
+         "sorts_ms": cuda_time_ms(lambda: prepare(nb), 5, warmup=1),
+         "bound_ms": bounds.bound_ms(4 * nb * width + bounds.tensor_bytes(*inputs[:5])
+                                     + 4 * n * inputs[5].shape[1] + 4),
+         "shape": {"entries": n, "buckets": nb, "slots": S, "mask_words": inputs[5].shape[1],
+                   "table_bytes": 4 * nb * width},
+         "max_abs_err": worst}
+    t["sorts_bound_ms"] = bounds.bound_ms(bounds.tensor_bytes(h, m) + bounds.tensor_bytes(
+        *inputs))
+    say(f"time set_table_fill (K13) on {card}: {t['ms']:.4f} ms ({t['eager_ms']:.4f} eager) "
+        f"vs {t['plain_ms']:.4f} ms plain for {n} entries into [{nb}, {width}]; bound "
+        f"{t['bound_ms']:.4f} ms (share {t['bound_ms'] / t['ms']:.3f}); the sorts and glue "
+        f"before it {t['sorts_ms']:.4f} ms eager (bound {t['sorts_bound_ms']:.4f} ms)")
+    return t
+
+
+def run_device_panel_stream(dev, card: str) -> dict:
+    """Phase 40b: ``stream`` over 2,048 synthetic references at s = 1000
+    (2,048,000 sketch elements: ``common._panel_from_sketches`` builds the
+    table on the card, K13's fill) and 2**17 reads of 150 bp, counters
+    zeroed just before and read just after (K1, K13, K2); the first
+    16,384 lines against the CPU plain path's (whose table is built by the
+    same device build on the CPU)."""
+    from rkmh_tpu_torch import synth
+    from rkmh_tpu_torch.commands import common, stream
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        refs, reads, _, _ = synth.write_workload(
+            tmp, N_DEVICE_PANEL_READS, num_refs=N_DEVICE_PANEL_REFS,
+            genome_len=DEVICE_PANEL_LEN, seed=40)
+        say(f"device-build stream input: {N_DEVICE_PANEL_REFS} refs x {DEVICE_PANEL_LEN} bp "
+            f"(s = 1000: {N_DEVICE_PANEL_REFS * 1000} sketch elements, the device build from "
+            f"{common.DEVICE_BUILD_MIN_ELEMENTS}), {N_DEVICE_PANEL_READS} reads, made in "
+            f"{time.perf_counter() - t0:.2f} s")
+        cfg = dict(ref_files=[refs], ks=(12,), sketch_size=1000)
+        out_gpu = os.path.join(tmp, "gpu.tsv")
+        label = "stream 2,048 refs (device build)"
+        e2e_s, launches = driven(
+            lambda: stream.run(stream.StreamConfig(read_files=[reads], out_file=out_gpu,
+                                                   device="cuda", **cfg)),
+            label, ("window_hash", "set_table_fill", "panel_probe"))
+        gpu = read_text(out_gpu)
+        if gpu.count("\n") != N_DEVICE_PANEL_READS:
+            raise AssertionError(f"{label}: {gpu.count(chr(10))} lines")
+        head = head_file(reads, os.path.join(tmp, "head.fq"), N_CPU_LINES)
+        out_cpu = os.path.join(tmp, "cpu.tsv")
+        t0 = time.perf_counter()
+        stream.run(stream.StreamConfig(read_files=[head], out_file=out_cpu, device="cpu",
+                                       batch_size=512, **cfg))
+        cpu_s = time.perf_counter() - t0
+        require_same("".join(gpu.splitlines(keepends=True)[:N_CPU_LINES]), read_text(out_cpu),
+                     label)
+    res = {"e2e_s": e2e_s, "e2e_reads_per_s": N_DEVICE_PANEL_READS / e2e_s,
+           "launches": launches}
+    say(f"{label} on {card}: e2e {res['e2e_reads_per_s']:.1f} reads/s ({e2e_s:.2f} s, the "
+        f"panel's hashing, sketching and device build and the parse included); first "
+        f"{N_CPU_LINES} lines byte-identical to the CPU plain path ({cpu_s:.2f} s)")
+    return res
+
+
+def check_call_enum(dev, card: str, cw: dict) -> dict:
+    """Phase 40c (after 22): ``parallel/mesh.ShardedCallEnum`` on a grid of
+    ``(cuda:0,) * 4`` over the call workload's reference, cut as
+    ``__graft_entry__.py:282-297`` cuts it (Pl = (L - k) // 4 positions a
+    slice, a k-code halo), counters zeroed just before and read just after
+    (K1, K8), against one device's K1 + K8 over the whole reference: the
+    window depths, the substitution depths and the global max."""
+    import torch
+
+    from rkmh_tpu_torch.call_engine import positional_hashes, snp_codes
+    from rkmh_tpu_torch.ops.hashing import kmer_window_hashes
+    from rkmh_tpu_torch.ops.hashmap import hashmap_get
+    from rkmh_tpu_torch.parallel.mesh import ShardedCallEnum, make_mesh
+
+    k = 16
+    ref = cw["codes"]
+    L = ref.shape[0]
+    Pl = (L - k) // GRID
+    slices = torch.stack([ref[d * Pl: d * Pl + Pl + k] for d in range(GRID)]).cpu().numpy()
+    enum = ShardedCallEnum(make_mesh((torch.device("cuda", 0),) * GRID, dp=GRID), cw["table"], k)
+    out = {}
+    seconds, launches = driven(lambda: out.update(r=enum(slices)), "call enumeration",
+                               ("window_hash", "hashmap_get"))
+    depth, snp, gmax = out["r"]
+    P = GRID * Pl
+    want_depth = hashmap_get(cw["table"], positional_hashes(ref, k))[:P]
+    alt = snp_codes(ref[: P + k - 1].unfold(0, k, 1)).reshape(-1, k)
+    want_snp = hashmap_get(cw["table"], kmer_window_hashes(alt, k)[:, 0]).reshape(P, k, 3)
+    if not (torch.equal(depth, want_depth) and torch.equal(snp, want_snp)
+            and torch.equal(gmax, want_snp.amax().repeat(GRID))):
+        raise AssertionError("ShardedCallEnum on (cuda:0,) * 4 differs from one device's K1 + K8")
+    say(f"call enumeration on (cuda:0,) * {GRID} ({card}): {P} positions in {GRID} slices of "
+        f"{Pl}, depths [{P}], substitution depths {tuple(snp.shape)}, max {int(gmax[0])}: equal "
+        f"to one device's K1 + K8 ({seconds:.3f} s)")
+    return {"e2e_s": seconds, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4440,7 +4691,7 @@ def main() -> int:
         gather_launches = run_gather_path()
         clock.lap("7-8 K4, K5, gather path")
         hp = run_hpv16(dev, card_smi, keep39)
-        clock.lap("9-10 hpv16 (36, 37 inside)")
+        clock.lap("9-10 hpv16 (36, 37, 40a inside)")
         counters, k7_hpv16 = check_counters(dev, hashes, hp.pop("batch_hashes"))
         filt = check_k2_filter(dev, panel, hashes)
         err_partial, partial_t = check_partials(dev, panel, hashes)
@@ -4489,9 +4740,10 @@ def main() -> int:
         err_k8 = check_k8(dev, cw)
         err_k9 = check_k9(dev, cw)
         err_k9_base, k9_base = check_k9_base(dev, cw)
+        enum = check_call_enum(dev, card_smi, cw)
         call_times = time_call_kernels(
             cw, card_smi, codes.shape[0] * (codes.shape[1] - 11) / (times["window_hash"] / 1e3))
-        clock.lap("22-23, 36 call input, K8, K9")
+        clock.lap("22-23, 36, 40c call input, K8, K9, enumeration")
         called = run_call(dev, card_smi, cw)
         clock.lap("24 call")
         sharded_call = run_sharded_call(dev, card_smi, cw)
@@ -4516,6 +4768,8 @@ def main() -> int:
     err_k11, k2_sweep = check_k11(dev)
     wide, k11 = run_wide_stream(dev, card_smi)
     clock.lap("27-28 K11, 12,288 references")
+    device_panel = run_device_panel_stream(dev, card_smi)
+    clock.lap("40 stream over 2,048 references (the device build)")
     err_k12, k12 = check_k12(dev)
     clock.lap("30 K12")
     pipeline = run_model_pipeline(dev, card_smi)
@@ -4532,7 +4786,8 @@ def main() -> int:
                 if k not in ("accuracy", "stats")},
              **{k: {"launches": v} for k, v in cached.items() if k != "setup_s"},
              **sharded, "stream 12,288 refs --devices 4 --tp 2": wide.pop("sharded"),
-             **hp.pop("sharded"), **sharded_call, **sp, **dist, **dist_rest}
+             **hp.pop("sharded"), **sharded_call, **sp, **dist, **dist_rest,
+             "stream 2,048 refs (device build)": device_panel, "call enumeration": enum}
     by_range = {name: sum(r["launches"].get("by_range", {}).get(name, 0) for r in paths.values())
                 for name in ("counter_add", "counter_mask")}
 
@@ -4626,6 +4881,10 @@ def main() -> int:
          "per_read_training": per_read["stats"], "pipeline_accuracy": pipeline["accuracy"]},
         {**k12_entry("sparse_margin_grad", "rkmh_tpu/ml/wabbit.py:195", "backward"),
          "plan_ms": k12["plan_ms"], "plan": k12["plan"]},
+        {**entry("set_table_fill", "set_table.cu", "rkmh_tpu/ops/lookup.py:489",
+                 hp["k13"]["max_abs_err"], hp["k13"]["ms"], hp["k13"]["eager_ms"],
+                 hp["k13"]["plain_ms"], hp["k13"]["bound_ms"]),
+         **{key: hp["k13"][key] for key in ("sorts_ms", "sorts_bound_ms", "shape")}},
     ]}
     say(f"stream --metrics and the profile hook: {json.dumps(metrics)}")
     say(f"panel cache set-up seconds: {json.dumps(cached['setup_s'])}")

@@ -106,6 +106,16 @@ def window_average(depth: torch.Tensor, window_len: int, halo: torch.Tensor | No
     return avg, site
 
 
+def snp_codes(win: torch.Tensor) -> torch.Tensor:
+    """Windows [n, k] uint8 -> every 1-bp substitution of each, [n, k, 3, k]:
+    position p of window j takes ROT's three alternatives of its code (an
+    invalid code's as T's), as ``rkmh_tpu/call_engine.py:80-90`` builds them."""
+    k = win.shape[1]
+    alts = torch.from_numpy(ROT).to(win.device)[win.clamp(max=3).long()]  # [n, k, 3]
+    eye = torch.eye(k, dtype=torch.bool, device=win.device)
+    return torch.where(eye[None, :, None, :], alts[:, :, :, None], win[:, None, None, :])
+
+
 def mutation_hashes(ref_codes: torch.Tensor, k: int, j0: int, j1: int, lead: int = _PAD):
     """The mutated k-mers of positions [j0, j1), built as the JAX chain
     builds them (call_engine.py:79-93, 106-114) and hashed as [N, k] rows
@@ -115,12 +125,7 @@ def mutation_hashes(ref_codes: torch.Tensor, k: int, j0: int, j1: int, lead: int
     n = j1 - j0
     dev = ref_codes.device
     win = ref_codes[j0 : j1 + k - 1].unfold(0, k, 1)                # [n, k]
-    rot = torch.from_numpy(ROT).to(dev)
-    alts = rot[win.clamp(max=3).long()]                               # [n, k, 3]
-    eye = torch.eye(k, dtype=torch.bool, device=dev)
-    alt_codes = torch.where(eye[None, :, None, :], alts[:, :, :, None],
-                            win[:, None, None, :])                    # [n, k, 3, k]
-    snp_hash = kmer_window_hashes_plain(alt_codes.reshape(-1, k), k)[:, 0].reshape(n, k, 3)
+    snp_hash = kmer_window_hashes_plain(snp_codes(win).reshape(-1, k), k)[:, 0].reshape(n, k, 3)
     # d_alt = ref[j-1 .. j+k] (k+1 codes, a pad code before ref[0]); drop
     # position ap in 1..k
     padded = torch.cat([torch.full((1,), lead, dtype=torch.uint8, device=dev), ref_codes])

@@ -40,7 +40,7 @@ from rkmh_tpu_torch.io.packing import PAD_CODE, encode_seqs, length_buckets
 from rkmh_tpu_torch.observability import count
 from rkmh_tpu_torch.ops.counter import HashCounter
 from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
-from rkmh_tpu_torch.ops.lookup import build_panel_table
+from rkmh_tpu_torch.ops.lookup import build_panel_table, build_panel_table_device
 from rkmh_tpu_torch.ops.probe import device_table
 from rkmh_tpu_torch.parallel.ep import ShardedCounter
 from rkmh_tpu_torch.parallel.mesh import (
@@ -57,6 +57,9 @@ DEFAULT_COUNTER_SIZE = 200_000_000  # stream's counters, rkmh.cpp:739-742
 DEFAULT_BATCH_CPU = 2048
 DEFAULT_BATCH_CUDA = 16384
 DEFAULT_CHUNK_READS = 65536
+# sketch elements (R * s) from which a panel's table is built on the device,
+# below them on the host (rkmh_tpu/commands/common.py:98)
+DEVICE_BUILD_MIN_ELEMENTS = 2_000_000
 FETCH_GROUP = 4            # results fetched per host sync; not tuned yet
 READ_AHEAD = 1             # parsed chunks a reader thread may hold ahead of their consumer
 MAX_LENGTH_BUCKETS = 4     # padded-length buckets per chunk
@@ -100,8 +103,10 @@ def build_ref_panel(ref_packed, ks, sketch_size: int, device: torch.device,
                     counter_size: int = DEFAULT_COUNTER_SIZE,
                     distinct_counter: bool = False) -> RefPanel:
     """Hash and sketch a parsed panel on ``device``, then build its table
-    on the host (numpy, identical to the JAX package's builder); past
-    MAX_REFS on a GPU only its packed form goes to the device.
+    (``_panel_from_sketches``: a panel of DEVICE_BUILD_MIN_ELEMENTS sketch
+    elements or more on the device, a smaller one on the host, each
+    identical to the JAX package's build of that size); past MAX_REFS on
+    a GPU the probe takes the table's packed form.
 
     With max_samples set (-I), the panel's k-mers are counted first in a
     ``hash % counter_size`` counter on the device (every occurrence for
@@ -121,17 +126,25 @@ def build_ref_panel(ref_packed, ks, sketch_size: int, device: torch.device,
         sk, sk_lens = engine.sketch_batch_informative(codes, counter.table, ks, sketch_size,
                                                       max_samples)
         del counter
-    return _panel_from_sketches(ref_packed.names, sk, sk_lens, sk.cpu().numpy(),
-                                sk_lens.cpu().numpy(), device)
+    return _panel_from_sketches(ref_packed.names, sk, sk_lens, None, None, device)
 
 
-def _panel_from_sketches(names, sk: torch.Tensor, sk_lens: torch.Tensor, sk_np: np.ndarray,
-                         lens_np: np.ndarray, device: torch.device) -> RefPanel:
-    """A RefPanel of sketches on ``device`` and their host copies: the table
-    built on the host, then copied (the build and cache-hit paths share it)."""
-    pt = build_panel_table(sk_np, lens_np)
-    table = device_table(pt.table.view(np.int32), pt.num_refs, device)
-    return RefPanel(names, sk, sk_lens, table)
+def _panel_from_sketches(names, sk: torch.Tensor, sk_lens: torch.Tensor,
+                         sk_np: np.ndarray | None, lens_np: np.ndarray | None,
+                         device: torch.device) -> RefPanel:
+    """A RefPanel of sketches on ``device`` and their host copies (None:
+    fetched where needed): as rkmh-tpu decides (``_panel_table_arrays``,
+    rkmh_tpu/commands/common.py:93-107), a panel of fewer than
+    DEVICE_BUILD_MIN_ELEMENTS sketch elements gets its table built on the
+    host and copied, a larger one on the device (``build_panel_table_device``);
+    the build and cache-hit paths share it."""
+    if sk.numel() < DEVICE_BUILD_MIN_ELEMENTS:
+        if sk_np is None:
+            sk_np, lens_np = sk.cpu().numpy(), sk_lens.cpu().numpy()
+        table = build_panel_table(sk_np, lens_np).table.view(np.int32)
+    else:
+        table = build_panel_table_device(sk, sk_lens)
+    return RefPanel(names, sk, sk_lens, device_table(table, len(names), device))
 
 
 _PANEL_CACHE_VERSION = 2  # v2: pickle-free payload, length-framed key

@@ -203,6 +203,10 @@ HASHMAP_GET = Kernel("rkmh_hashmap_get", [_p, _i64, *_MAP, _p])
 CALL_SCAN = Kernel("rkmh_call_scan", [_p, _i64, _i, _p, _p, _p, *_MAP, _p, _p, _p, _p, _p, _i64,
                                       _i])
 
+# rkmh_set_table_fill(bucket, lo, occ, hi, idx, masks, n, nb, slots, mask_words, table,
+#                     max_rank, stream)
+SET_TABLE_FILL = Kernel("rkmh_set_table_fill", [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _p, _p])
+
 # rkmh_sparse_margin(Wp, idx, val, m, N, F, C, Cp, stream)
 SPARSE_MARGIN = Kernel("rkmh_sparse_margin", [_p, _p, _p, _p, _i, _i, _i, _i])
 # rkmh_sparse_margin_grad(dm, rows, vals, keys, chunk_run, chunk_slot, cross_keys, cross_slot,
@@ -218,6 +222,7 @@ KERNELS = {"window_hash": WINDOW_HASH, "panel_probe": PANEL_PROBE,
            "lut_gather_rows": LUT_GATHER_ROWS, "lut_gather_lanes": LUT_GATHER_LANES,
            "counter_add": COUNTER_ADD, "counter_mask": COUNTER_MASK,
            "hashmap_get": HASHMAP_GET, "call_scan": CALL_SCAN,
+           "set_table_fill": SET_TABLE_FILL,
            "sparse_margin": SPARSE_MARGIN, "sparse_margin_grad": SPARSE_MARGIN_GRAD}
 
 

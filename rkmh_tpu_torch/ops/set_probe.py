@@ -91,7 +91,8 @@ def pack_set_table(table: torch.Tensor, num_refs: int) -> PackedSetTable:
     S = table_slots(width, num_refs)
     Wm = width // S - 3
     if S > MAX_SLOTS:
-        raise ValueError(f"a packed set table holds at most {MAX_SLOTS} slots per bucket, got {S}")
+        raise ValueError(f"the set-probe kernel (K3) takes a packed set table of at most "
+                         f"{MAX_SLOTS} slots per bucket, got {S} (RKMH_TPU_SLOTS?)")
     lanes = table.view(nb, 3 + Wm, S)
     occ = lanes[:, 2]
     if not bool(((occ == 0) | (occ == _EMPTY_OCC)).all()):

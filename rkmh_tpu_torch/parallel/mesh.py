@@ -29,7 +29,7 @@ where the caller fetches.
 
 hpv16 (``rkmh_tpu/parallel/mesh.py:261-504``): ``ShardedSetPanel`` holds
 the combined type + group set table in tp shards of contiguous columns
-(``ops/lookup.build_sharded_set_tables``, pad columns last);
+(``ops/lookup.build_sharded_set_tables_device``, pad columns last);
 ``ShardedHpv16Comb`` runs on device (i, j) K1 on slice i, the -M mask,
 the full-width sort cut to Wc and K3's partial epilogue against shard j
 (``ops/set_probe.set_probe_partial``), and merges the tp partials on (i, 0)
@@ -39,7 +39,9 @@ the replicated sorted panel with K10 on each dp slice, with no tp split.
 ``call`` (``:553-660``): ``ShardedCallScan`` splits the positions of a
 reference into dp slices, each scanned on its device from a host-built
 slice of the codes with its (k+1)-code halo (K1, K8, the window average
-over the previous slice's last w depths, K9 at the slice's global offset).
+over the previous slice's last w depths, K9 at the slice's global offset);
+``ShardedCallEnum`` (``:507-551``, which no command calls) the depths of
+every window and of its 1-bp substitutions over dp slices (K1, K8).
 """
 
 from __future__ import annotations
@@ -47,11 +49,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rkmh_tpu_torch.call_engine import call_scan_slice, plain_getter, positional_depths
+from rkmh_tpu_torch.call_engine import (
+    call_scan_slice,
+    plain_getter,
+    positional_depths,
+    snp_codes,
+)
 from rkmh_tpu_torch.classify.engine import probe_rows
 from rkmh_tpu_torch.io.packing import PAD_CODE
 from rkmh_tpu_torch.ops.counter import INT32_MAX
-from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
+from rkmh_tpu_torch.ops.hashing import kmer_window_hashes, multi_k_window_hashes
+from rkmh_tpu_torch.ops.hashmap import hashmap_get
 from rkmh_tpu_torch.ops.lookup import build_panel_table, table_slots
 from rkmh_tpu_torch.ops.probe import (
     device_table,
@@ -280,8 +288,9 @@ class ShardedSetPanel:
     holds each shard there once; on a GPU in K3's packed layout, packed
     once with ``rps`` references."""
 
-    def __init__(self, mesh: Mesh, tables: np.ndarray, rps: int):
-        """``tables``: [tp, NB, width] uint32 (``build_sharded_set_tables``)."""
+    def __init__(self, mesh: Mesh, tables: torch.Tensor, rps: int):
+        """``tables``: [tp, NB, width] int32 on any device
+        (``ops/lookup.build_sharded_set_tables_device``)."""
         if tables.shape[0] != mesh.tp:
             raise ValueError(f"{tables.shape[0]} shard tables for tp {mesh.tp}")
         self.mesh, self.rps = mesh, rps
@@ -290,8 +299,7 @@ class ShardedSetPanel:
             for j in range(mesh.tp):
                 key = (j, mesh[i, j])
                 if key not in self._tables:
-                    t = torch.from_numpy(np.ascontiguousarray(tables[j]).view(np.int32))
-                    t = t.to(mesh[i, j])
+                    t = tables[j].to(mesh[i, j])
                     self._tables[key] = pack_set_table(t, rps) if t.device.type == "cuda" else t
 
     def table(self, i: int, j: int):
@@ -375,6 +383,16 @@ class ShardedHpv16Sorted:
 # ---- call (rkmh_tpu/parallel/mesh.py:553-660)
 
 
+def _on_first_column(mesh: Mesh, table) -> dict:
+    """The depth map copied once to each distinct device of the grid's first
+    column, by device."""
+    maps = {}
+    for d in range(mesh.dp):
+        if mesh[d, 0] not in maps:
+            maps[mesh[d, 0]] = table.to(mesh[d, 0])
+    return maps
+
+
 class ShardedCallScan:
     """``call``'s positional scan with the positions over the grid's dp
     rows (``sharded_call_scan_fn``): the depth map copied once to each
@@ -388,9 +406,7 @@ class ShardedCallScan:
 
     def __init__(self, mesh: Mesh, table, k: int, window_len: int):
         self.mesh, self.k, self.window_len = mesh, k, window_len
-        self.maps = {}
-        for d in range(mesh.dp):
-            self.maps.setdefault(mesh[d, 0], table.to(mesh[d, 0]))
+        self.maps = _on_first_column(mesh, table)
 
     def slice_len(self, P: int) -> int:
         return -(-P // self.mesh.dp)
@@ -438,3 +454,41 @@ class ShardedCallScan:
             halo = res["depth"][-w:]
             parts.append(res)
         return {name: torch.cat([p[name].cpu() for p in parts]).numpy() for name in parts[0]}
+
+
+class ShardedCallEnum:
+    """``call``'s mutation enumeration with the positions over the grid's
+    dp rows (``sharded_call_enum_fn``, ``rkmh_tpu/parallel/mesh.py:
+    507-551``): the depth map (``ops/hashmap.SortedMap``) copied once to
+    each distinct device of the grid's first column; slice d, host codes
+    [Pl + k] with a k-code halo, on device (d, 0): K1 over its Pl windows
+    and K8 (their depths), the [Pl, k, 3] substitutions of each window
+    (``call_engine.snp_codes``), K1 over them as [Pl * k * 3, k] rows and
+    K8.  The JAX ``pmax`` is one max over the slices' maxima.  No command
+    calls it, as in rkmh-tpu."""
+
+    def __init__(self, mesh: Mesh, table, k: int):
+        self.mesh, self.k = mesh, k
+        self.maps = _on_first_column(mesh, table)
+
+    def __call__(self, slices: np.ndarray):
+        """[dp, Pl + k] uint8 codes -> ([dp * Pl] int32 window depths, [dp *
+        Pl, k, 3] int32 substitution depths, [dp] int32 global max of the
+        latter), on device (0, 0)."""
+        mesh, k = self.mesh, self.k
+        if slices.shape[0] != mesh.dp or slices.shape[1] <= k:
+            raise ValueError(f"call enumeration takes [{mesh.dp}, Pl + {k}] slices, got "
+                             f"{tuple(slices.shape)}")
+        Pl = slices.shape[1] - k
+        first = mesh[0, 0]
+        depths, snps = [], []
+        for d in range(mesh.dp):
+            dev = mesh[d, 0]
+            codes = torch.from_numpy(np.ascontiguousarray(slices[d])).to(dev)
+            table = self.maps[dev]
+            depths.append(hashmap_get(table, kmer_window_hashes(codes[None], k)[0][:Pl]))
+            alt = snp_codes(codes.unfold(0, k, 1)[:Pl]).reshape(-1, k)
+            snps.append(hashmap_get(table, kmer_window_hashes(alt, k)[:, 0]).reshape(Pl, k, 3))
+        gmax = torch.stack([s.amax().to(first) for s in snps]).amax()
+        return (torch.cat([x.to(first) for x in depths]), torch.cat([x.to(first) for x in snps]),
+                gmax.repeat(mesh.dp))

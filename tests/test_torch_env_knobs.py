@@ -12,6 +12,11 @@
 * ``RKMH_TPU_SET_TABLE_MAX_MB``: hpv16 takes the sorted-key panel past
   the cap (0), the bucket table under it (unset: 2,048 MB; 1,000,000), as
   rkmh-tpu does, with its log line.
+* ``RKMH_TPU_SLOTS`` and ``RKMH_TPU_TABLE_BUDGET_MB``, read at import (in a
+  subprocess each): the port's device set table and panel table equal
+  rkmh-tpu's under them, at another width than without them, and a bad
+  value raises rkmh-tpu's error text; the set-probe kernel's packing
+  refuses a forced width past its 31 slots with the kernel's name.
 
 Inputs are synthetic (rkmh_tpu_torch.synth, made from a seed); the port
 runs its plain path on the CPU.  Tolerance: none.
@@ -19,6 +24,8 @@ runs its plain path on the CPU.  Tolerance: none.
 
 import os
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +41,8 @@ from rkmh_tpu.commands import recovery as jrecovery
 from rkmh_tpu.commands import search_cmd as jsearch
 from rkmh_tpu.commands import stream as jstream
 from rkmh_tpu_torch import synth
+from rkmh_tpu_torch.ops import lookup
+from rkmh_tpu_torch.ops.set_probe import pack_set_table
 from rkmh_tpu_torch.commands import (
     call_cmd,
     common,
@@ -222,3 +231,70 @@ def test_set_table_cap_picks_the_path_as_jax(data, in_tmp, monkeypatch, capsys, 
         assert np.array_equal(tb.comb_sorted.masks.numpy().view(np.uint32), np.asarray(masks))
         assert got == [f"hpv16 panel: projected bucket table exceeds RKMH_TPU_SET_TABLE_MAX_MB=0;"
                        f" using the sorted-key panel (0 MB)"]
+
+
+_KNOB_SCRIPT = """
+import numpy as np, torch
+import rkmh_tpu, jax.numpy as jnp
+try:
+    from rkmh_tpu.ops import lookup as jl
+except ValueError as e:
+    want_err = str(e)
+    try:
+        from rkmh_tpu_torch.ops import lookup as tl
+    except ValueError as e2:
+        assert str(e2) == want_err, (str(e2), want_err)
+        print("refused", want_err)
+    raise SystemExit(0)
+from rkmh_tpu_torch.ops import lookup as tl
+rng = np.random.default_rng(4)
+h = rng.integers(1, 2**64 - 1, size=(40, 300), dtype=np.uint64)
+m = rng.random(h.shape) < 0.9
+want = np.asarray(jl.build_set_table_device(jnp.asarray(h), jnp.asarray(m), 40))
+got = tl.build_set_table_device(torch.from_numpy(h.view(np.int64)), torch.from_numpy(m), 40)
+assert np.array_equal(got.numpy(), want.view(np.int32)), (tuple(got.shape), want.shape)
+sk = np.sort(h[:, :200], axis=1)
+lens = np.full(40, 200, np.int32)
+want_p = np.asarray(jl.build_panel_table_device(jnp.asarray(sk), jnp.asarray(lens)))
+got_p = tl.build_panel_table_device(torch.from_numpy(sk.view(np.int64)), torch.from_numpy(lens))
+assert np.array_equal(got_p.numpy(), want_p.view(np.int32)), (tuple(got_p.shape), want_p.shape)
+print("widths", got.shape[1], got_p.shape[1])
+"""
+
+
+def _knob_widths():
+    """The set and panel table widths of _KNOB_SCRIPT's rows with no knob set."""
+    rng = np.random.default_rng(4)
+    h = torch.from_numpy(rng.integers(1, 2**64 - 1, size=(40, 300), dtype=np.uint64).view(
+        np.int64))
+    m = torch.from_numpy(rng.random(tuple(h.shape)) < 0.9)
+    sk = torch.from_numpy(np.sort(h.numpy().view(np.uint64)[:, :200], axis=1).view(np.int64))
+    return (lookup.build_set_table_device(h, m, 40).shape[1],
+            lookup.build_panel_table_device(sk, torch.full((40,), 200)).shape[1])
+
+
+@pytest.mark.parametrize("env,value", [("RKMH_TPU_SLOTS", "6"), ("RKMH_TPU_TABLE_BUDGET_MB", "0"),
+                                       ("RKMH_TPU_SLOTS", "0"), ("RKMH_TPU_SLOTS", "six")])
+def test_table_knobs_read_at_import_as_jax(env, value):
+    env_vars = {k: v for k, v in os.environ.items()
+                if k not in ("RKMH_TPU_SLOTS", "RKMH_TPU_TABLE_BUDGET_MB")}
+    proc = subprocess.run([sys.executable, "-c", _KNOB_SCRIPT], capture_output=True, text=True,
+                          env={**env_vars, env: value, "JAX_PLATFORMS": "cpu"},
+                          cwd=Path(__file__).resolve().parent.parent, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    words = proc.stdout.split()
+    if value in ("0", "six") and env == "RKMH_TPU_SLOTS":
+        assert words[0] == "refused" and env in proc.stdout
+        return
+    assert words[0] == "widths"
+    got = (int(words[1]), int(words[2]))
+    assert got != _knob_widths()
+    if env == "RKMH_TPU_SLOTS":  # 40 references: Wm = 2, a row of S * 5 lanes
+        assert got == (30, 30)
+
+
+def test_set_probe_packing_refuses_a_width_past_its_slots():
+    h = torch.arange(1, 201, dtype=torch.int64).reshape(4, 50)
+    table, _ = lookup.device_set_table(h, torch.ones(h.shape, dtype=torch.bool), 64, 4, slots=32)
+    with pytest.raises(ValueError, match=r"set-probe kernel \(K3\).* at most 31 slots.* got 32"):
+        pack_set_table(table, 4)

@@ -13,9 +13,9 @@ must be equal byte for byte.
   sizes 4096 and 4104; the sorted-key fallback (RKMH_TPU_SET_TABLE_MAX_MB=0)
   at (2, 2); -o --resume at (2, 2); each fallback reason's logged line;
   --tp 2 without --devices (one device, as in rkmh-tpu);
-* ``build_sharded_set_tables`` against ``build_sharded_set_tables_device``:
-  the same [tp, NB, width] shape and the same counts per shard on the same
-  queries (rkmh-tpu's slots inside a bucket may lie in another order);
+* the port's ``build_sharded_set_tables_device`` against rkmh-tpu's: the
+  same [tp, NB, width] tables bit for bit, and so the same counts per shard
+  on the same queries;
 * ``set_probe_partial_plain`` on every shard merged by
   ``merge_hpv16_partials`` against ``set_probe_plain`` on the whole table
   (hypothesis: tied types on both sides of a shard border, reads that share
@@ -35,7 +35,7 @@ from rkmh_tpu.commands import hpv16_cmd as jcmd
 from rkmh_tpu.ops import lookup as jlookup
 from rkmh_tpu_torch import synth
 from rkmh_tpu_torch.commands import hpv16_cmd
-from rkmh_tpu_torch.ops.lookup import build_set_table, build_sharded_set_tables
+from rkmh_tpu_torch.ops.lookup import build_set_table, build_sharded_set_tables_device
 from rkmh_tpu_torch.ops.set_probe import (
     _logical_counts,
     _set_probe_partial_cuda,
@@ -166,6 +166,24 @@ def _rows(seed, R, pool_size=3000, n=400):
     return rng, pool, [rng.choice(pool, int(rng.integers(0, n))) for _ in range(R)]
 
 
+def _padded(rows, tp):
+    """Per-reference hash arrays -> ([R', W] int64 hashes, mask), R' the
+    next multiple of tp (pad rows masked, at the end, as hpv16 pads)."""
+    R = len(rows) + (-len(rows)) % tp
+    W = max([1, *map(len, rows)])
+    h = np.zeros((R, W), np.uint64)
+    m = np.zeros(h.shape, bool)
+    for i, r in enumerate(rows):
+        h[i, : len(r)], m[i, : len(r)] = r, True
+    return h, m
+
+
+def _sharded(rows, tp):
+    h, m = _padded(rows, tp)
+    return build_sharded_set_tables_device(torch.from_numpy(h.view(np.int64)),
+                                           torch.from_numpy(m), tp)
+
+
 def _queries(rng, pool, B=24, width=300):
     sk = np.full((B, width), SENT, dtype=np.uint64)
     lens = rng.integers(0, width + 1, B).astype(np.int32)
@@ -178,18 +196,15 @@ def _queries(rng, pool, B=24, width=300):
 @pytest.mark.parametrize("R,tp", [(26, 1), (26, 2), (26, 4), (40, 3)])
 def test_sharded_set_tables_match_jax(R, tp):
     rng, pool, rows = _rows(R + tp, R)
-    W = max(len(r) for r in rows)
-    h = np.zeros((R + (-R) % tp, W), np.uint64)
-    m = np.zeros(h.shape, bool)
-    for i, r in enumerate(rows):
-        h[i, : len(r)], m[i, : len(r)] = r, True
+    h, m = _padded(rows, tp)
     want, want_rps = jlookup.build_sharded_set_tables_device(jnp.asarray(h), jnp.asarray(m), tp)
     want = np.array(want)
-    got, rps = build_sharded_set_tables(rows, tp)
-    assert (rps, got.shape, got.dtype) == (want_rps, want.shape, np.uint32)
+    got, rps = _sharded(rows, tp)
+    assert (rps, tuple(got.shape), got.dtype) == (want_rps, want.shape, torch.int32)
+    assert np.array_equal(got.numpy(), want.view(np.int32))
     q, ql = _queries(rng, pool)
     for j in range(tp):
-        counts = _logical_counts(q, ql, torch.from_numpy(got[j].view(np.int32)), rps)
+        counts = _logical_counts(q, ql, got[j], rps)
         assert torch.equal(counts, _logical_counts(
             q, ql, torch.from_numpy(want[j].view(np.int32)), rps))
         assert counts.any() or j * rps >= R
@@ -219,10 +234,10 @@ def test_partials_merge_equals_the_whole_table(case):
     q, ql = _queries(rng, pool, B=12, width=16)
     whole = set_probe_plain(q, ql, torch.from_numpy(
         build_set_table(rows, num_refs=T + U).table.view(np.int32)), T, U)
-    tables, rps = build_sharded_set_tables(rows, tp)
+    tables, rps = _sharded(rows, tp)
     parts, packed_parts = [], []
     for j in range(tp):
-        shard = torch.from_numpy(np.ascontiguousarray(tables[j]).view(np.int32))
+        shard = tables[j]
         part = set_probe_partial_plain(q, ql, shard, j * rps, rps, T, U)
         if j * rps >= T:  # a shard without type columns
             assert (part[:, :2] == -1).all()

@@ -467,18 +467,24 @@ def test_set_probe_partial_kernel_matches_plain_and_merges(cuda_device, T, U, tp
     and the window (0, T + U) against rkmh_set_probe bit for bit; types 1
     and 2 hold one set, so reads tie between them, across the shard border
     at (3, 1, 2); (5, 40, 4) has shards without type columns."""
-    from rkmh_tpu_torch.ops.lookup import build_sharded_set_tables
+    from rkmh_tpu_torch.ops.lookup import build_sharded_set_tables_device
 
     table, pool, rows, rng = _set_table(T + tp + width, T, U, 200)
     full, lens = _sorted_rows(rng, pool, 24, width)
     lens[::5] = 0
     x, ln = full.to(cuda_device), lens.to(cuda_device)
     whole = set_probe(x, ln, pack_set_table(table.to(cuda_device), T + U), T, U)
-    tables, rps = build_sharded_set_tables(rows, tp)
+    R = T + U + (-(T + U)) % tp
+    h = torch.zeros((R, max(map(len, rows))), dtype=torch.int64)
+    m = torch.zeros(h.shape, dtype=torch.bool)
+    for i, r in enumerate(rows):
+        h[i, : len(r)] = torch.from_numpy(np.asarray(r).view(np.int64))
+        m[i, : len(r)] = True
+    tables, rps = build_sharded_set_tables_device(h.to(cuda_device), m.to(cuda_device), tp)
     before = kernels.SET_PROBE_PARTIAL.by_route.get("partial", 0)
     parts = []
     for j in range(tp):
-        shard = torch.from_numpy(np.ascontiguousarray(tables[j]).view(np.int32)).to(cuda_device)
+        shard = tables[j]
         got = set_probe_partial(x, ln, pack_set_table(shard, rps), j * rps, rps, T, U)
         torch.cuda.synchronize()
         assert torch.equal(got, set_probe_partial_plain(x, ln, shard, j * rps, rps, T, U)), j
@@ -1165,7 +1171,7 @@ def test_library_is_keyed_by_sources_and_flags(monkeypatch):
     assert {p.name for p in kernels.sources()} == {"window_hash.cu", "panel_probe.cu",
                                                    "set_probe.cu", "lut_gather.cu",
                                                    "counter.cu", "hashmap.cu", "call_scan.cu",
-                                                   "sparse_margin.cu"}
+                                                   "sparse_margin.cu", "set_table.cu"}
     assert {p.name for p in kernels.headers()} == {"murmur3.cuh", "hashmap.cuh",
                                                    "packed_kmer.cuh"}
     monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-lineinfo",))
@@ -1190,4 +1196,38 @@ def test_launch_counts_reset():
                                        "lut_gather_rows": 0, "lut_gather_lanes": 0,
                                        "counter_add": 0, "counter_mask": 0,
                                        "hashmap_get": 0, "call_scan": 0,
+                                       "set_table_fill": 0,
                                        "sparse_margin": 0, "sparse_margin_grad": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,nb,slots", [(1, None, None), (33, None, None), (70, 16, 2),
+                                        (200, None, None)])
+def test_set_table_fill_kernel_matches_plain_and_builds(cuda_device, R, nb, slots):
+    """K13 against ``set_table_fill_plain`` on the same sorted entries (the
+    fitting geometry, and a forced small one that overflows), every lane and
+    max_rank; then the device builds on the card against the same builds on
+    the CPU, bit for bit, for a set table and a sketch-panel table."""
+    rng = np.random.default_rng(R)
+    pool = rng.integers(1, 2**63, size=60 * R, dtype=np.int64)
+    pool[::3] |= np.int64(-(2**63))
+    h = torch.from_numpy(rng.choice(pool, (R, 120)))
+    h[:, ::13] = 0
+    m = torch.from_numpy(rng.random((R, 120)) < 0.9)
+    entries = lookup._unique_entries(h, m, R)
+    n = entries[0].numel()
+    S = slots or lookup.pick_slots(n, (R + 31) // 32, policy="compact")
+    nb = nb or lookup.predicted_buckets(n, S)
+    inputs = lookup.fill_inputs(entries, nb, False)
+    want, want_rank = lookup.set_table_fill_plain(*inputs, nb, S)
+    before = kernels.SET_TABLE_FILL.launches
+    got, rank = lookup.set_table_fill(*(t.to(cuda_device) for t in inputs), nb, S)
+    torch.cuda.synchronize()
+    assert kernels.SET_TABLE_FILL.launches == before + 1
+    assert torch.equal(got.cpu(), want) and int(rank) == int(want_rank)
+    assert (int(rank) >= S) == (slots is not None)
+    on_card = lookup.build_set_table_device(h.to(cuda_device), m.to(cuda_device), R)
+    assert torch.equal(on_card.cpu(), lookup.build_set_table_device(h, m, R))
+    sk, lens = bottom_s_sketch(torch.where(m, h, 0), 100)
+    assert torch.equal(lookup.build_panel_table_device(sk.to(cuda_device), lens.to(cuda_device))
+                       .cpu(), lookup.build_panel_table_device(sk, lens))

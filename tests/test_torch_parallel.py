@@ -349,16 +349,18 @@ def test_sp_sketch_refuses_a_row_that_does_not_split():
 
 
 def test_sharded_set_panel_places_each_shard_once():
-    from rkmh_tpu_torch.ops.lookup import build_sharded_set_tables
+    from rkmh_tpu_torch.ops.lookup import build_sharded_set_tables_device
     from rkmh_tpu_torch.parallel.mesh import ShardedSetPanel
 
     rng = np.random.default_rng(2)
-    rows = [rng.integers(1, 2**63, 50) for _ in range(26)]
-    tables, rps = build_sharded_set_tables(rows, 4)
+    rows = torch.from_numpy(rng.integers(1, 2**63, (28, 50)))
+    mask = torch.ones(rows.shape, dtype=torch.bool)
+    mask[26:] = False  # 26 references padded to 28
+    tables, rps = build_sharded_set_tables_device(rows, mask, 4)
     panel = ShardedSetPanel(_grid(2, 4), tables, rps)
     assert rps == 7 and len(panel._tables) == 4
     for j in range(4):
         assert panel.table(1, j) is panel.table(0, j)
-        assert np.array_equal(panel.table(0, j).numpy().view(np.uint32), tables[j])
+        assert torch.equal(panel.table(0, j), tables[j])
     with pytest.raises(ValueError, match="4 shard tables for tp 2"):
         ShardedSetPanel(_grid(4, 2), tables, rps)

@@ -86,8 +86,9 @@ def test_build_sorted_panel_equals_jax(case):
     if case == "high-keys":
         assert (got_k >= HIGH).any() and (got_k < HIGH).any()
     every = np.concatenate(rows) if rows else np.zeros(0, np.uint64)
-    assert lookup.count_unique_keys(rows) == int(jlookup._count_unique_keys(
-        jnp.asarray(every[None]), jnp.ones((1, every.size), bool)))
+    assert lookup.count_unique_keys_device(
+        torch.from_numpy(every[None].view(np.int64)), torch.ones((1, every.size), dtype=torch.bool)
+    ) == int(jlookup._count_unique_keys(jnp.asarray(every[None]), jnp.ones((1, every.size), bool)))
 
 
 def _panel_and_rows(seed, R=40, n_rows=24, width=48):
