@@ -3296,21 +3296,28 @@ def check_partials(dev, panel, hashes) -> tuple[int, dict]:
     and of ``bench/wide_inputs.straddling_panel`` at R = 20,000, tp = 2 (K11's
     route: 10,000 references a shard); the merged shards
     (``parallel/mesh.merge_tp_partials``) must equal the unsharded K2 or K11
-    output word for word, stream and filter, with and without -D/-N.  Then
-    times the partial epilogue on one zika shard (tp = 2, raw rows)."""
+    output word for word, stream and filter, with and without -D/-N.  K2's
+    S = 2 route in the stream, filter and partial epilogues against their
+    plain versions, on shard 0 of 2 (Wm = 1) and on the zika panel built at
+    S = 2 (Wm = 2).  Then times, in turns, the partial epilogue on one zika
+    shard (tp = 2, raw rows), the whole table's K2 and K2 on the S = 2
+    panel."""
     import numpy as np
     import torch
 
     from rkmh_tpu_torch.bench import bounds
     from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
     from rkmh_tpu_torch.bench.wide_inputs import straddling_panel
+    from rkmh_tpu_torch.ops import lookup
     from rkmh_tpu_torch.ops.lookup import build_panel_table
     from rkmh_tpu_torch.ops.probe import (
         _panel_probe_cuda,
         _panel_probe_filter_cuda,
         _panel_probe_partial_cuda,
         device_table,
+        panel_probe_filter_plain,
         panel_probe_partial_plain,
+        panel_probe_plain,
     )
     from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
     from rkmh_tpu_torch.parallel.mesh import build_sharded_tables, merge_tp_partials
@@ -3367,19 +3374,59 @@ def check_partials(dev, panel, hashes) -> tuple[int, dict]:
     check("straddling panel", ref_sk, ref_lens, full, torch.from_numpy(set_lens).to(dev),
           (("raw", raw, None), ("sorted s=32", sk, ln)), 2)
 
+    # K2's S = 2 route in all three epilogues: shard 0 of 2 as a 30-reference panel
+    # (Wm = 1: the whole 32-byte row in one trip) and the zika panel built at S = 2
+    # (Wm = 2: lo and occ pairs, then hi and the mask words as pairs)
     logical, shards, rps = timed
+    s2 = torch.from_numpy(build_panel_table(sk_np, lens_np, slots=2).table.view(np.int32)).to(dev)
+    for label, table, R, ref_lens in (("zika shard 0 of 2", logical[0], rps, panel.lens[:rps]),
+                                      ("zika panel at S = 2", s2, panel.num_refs, panel.lens)):
+        if lookup.table_slots(table.shape[1], R) != 2:
+            raise AssertionError(f"{label}: not an S = 2 table")
+        for mode, rows, ln in zika_rows:
+            for md, mm in ((0, -1), (1, 9)):
+                got = (_panel_probe_cuda(rows, ln, table, R, md, mm),
+                       _panel_probe_filter_cuda(rows, ln, table, R, ref_lens, md, mm))
+                want = (panel_probe_plain(rows, ln, table, R, md, mm),
+                        panel_probe_filter_plain(rows, ln, table, R, ref_lens, md, mm))
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"K2's S = 2 route disagrees with the plain versions: "
+                                         f"{label}, {mode} rows, -D {md} -N {mm}")
+            for init in (-1, 0):
+                if not torch.equal(_panel_probe_partial_cuda(rows, ln, table, R, init),
+                                   panel_probe_partial_plain(rows, ln, table, R, init)):
+                    raise AssertionError(f"K2's S = 2 partial disagrees with its plain version: "
+                                         f"{label}, {mode} rows, init {init}")
+    say(f"K2's S = 2 route (Wm = 1 and 2): stream, filter and partial epilogues exact against "
+        f"their plain versions on raw and sorted rows")
+
     run = lambda: _panel_probe_partial_cuda(hashes, None, shards[0], rps, -1)  # noqa: E731
+    whole = lambda: _panel_probe_cuda(hashes, None, panel.table, panel.num_refs, 0, -1)  # noqa: E731
+    s2_run = lambda: _panel_probe_cuda(hashes, None, s2, panel.num_refs, 0, -1)  # noqa: E731
+    runs = {"partial": [], "whole": [], "s2": []}
+    for name in ("partial", "whole", "s2", "s2", "whole", "partial"):  # in turns
+        runs[name].append(cuda_graph_time_ms({"partial": run, "whole": whole, "s2": s2_run}[name],
+                                             20))
     st = bounds.panel_probe_stats(hashes, None, logical[0], rps)
-    t = {"ms": cuda_graph_time_ms(run, 20), "eager_ms": cuda_time_ms(run, 50),
+    st_s2 = bounds.panel_probe_stats(hashes, None, s2, panel.num_refs)
+    t = {"ms": float(np.mean(runs["partial"])), "runs_ms": runs["partial"],
+         "eager_ms": cuda_time_ms(run, 50),
          "plain_ms": cuda_time_ms(lambda: panel_probe_partial_plain(
              hashes, None, logical[0], rps, -1), 5),
          "bound_ms": bounds.bound_ms(bounds.tensor_bytes(hashes) + st.table_bytes
                                      + bounds.PARTIAL_OUT * hashes.shape[0]),
-         "shape": list(hashes.shape), "shard_refs": rps}
+         "shape": list(hashes.shape), "shard_refs": rps,
+         "whole_ms": float(np.mean(runs["whole"])), "whole_runs_ms": runs["whole"],
+         "s2_stream": {"ms": float(np.mean(runs["s2"])), "runs_ms": runs["s2"],
+                       "table": list(s2.shape),
+                       "bound_ms": bounds.bound_ms(bounds.tensor_bytes(hashes)
+                                                   + st_s2.table_bytes + 12 * hashes.shape[0])}}
     say(f"time panel_probe_partial (zika shard 0 of 2, raw rows {tuple(hashes.shape)}): "
         f"{t['ms']:.4f} ms ({t['eager_ms']:.4f} eager) vs {t['plain_ms']:.4f} ms plain; bound "
         f"{t['bound_ms']:.4f} ms (rows, {st.table_bytes} B of the shard table's sectors, "
-        f"{bounds.PARTIAL_OUT} B a read out)")
+        f"{bounds.PARTIAL_OUT} B a read out); in turns beside the whole table's K2 "
+        f"{t['whole_ms']:.4f} ms and K2 on the zika panel at S = 2 {t['s2_stream']['ms']:.4f} ms "
+        f"(bound {t['s2_stream']['bound_ms']:.4f}); runs {json.dumps(runs)}")
     return worst, t
 
 
@@ -4423,6 +4470,72 @@ def _colliding_pair(dev, nb: int):
     return [(int(x) << 32 | lo) - ((int(x) >> 31) << 64) for x in (hi[0], hi[j])]  # as int64
 
 
+# phase 40a: K13 at the geometries of its tiles, timed at table sizes a build meets: a
+# tp shard's S = 2 rows over 4M buckets (128 MiB), phase 40b's 2,048 references at S = 8
+# (140 MiB) and rows wider than a tile, two windows a row (138 MiB)
+FILL_TIMED = {"S2-Wm1": (2, 1, (1 << 22) + 5), "S8-Wm64": (8, 64, (1 << 16) + 5),
+              "windows-S12-Wm700": (12, 700, 4096 + 5)}
+
+
+def check_fill_geometries(dev) -> dict:
+    """Phase 40a: K13 (``csrc/set_table.cu``) against ``set_table_fill_plain``
+    on ``bench/fill_cases``: every S x Wm of its tiles at 1,029 buckets (the
+    last tile partial), with a crowded bucket, a collision and left-out
+    entries and without (a table that fits), no entries, rows of 8,436
+    lanes (two windows a row), and 64 k + 5 buckets at S = 2 and 12; every
+    lane and max_rank.  Then K13 at FILL_TIMED (graph, eager, plain, bound).
+    -> {geometry: times}."""
+    import torch
+
+    from rkmh_tpu_torch.bench import bounds, fill_cases
+    from rkmh_tpu_torch.bench.timing import cuda_graph_time_ms, cuda_time_ms
+    from rkmh_tpu_torch.ops import lookup
+
+    def inputs(S, Wm, nb, n=None, crowd=True):
+        return [torch.from_numpy(a).to(dev)
+                for a in fill_cases.fill_case(S, Wm, nb, n, seed=40, crowd=crowd)]
+
+    cases = 0
+    for S, Wm in [*fill_cases.GEOMETRIES, fill_cases.WIDE]:
+        nbs = [7] if (S, Wm) == fill_cases.WIDE else [fill_cases.NB] + (
+            [64 * 1024 + 5] if S in (2, 12) and Wm < 64 else [])
+        for nb in nbs:
+            for n, crowd in ((None, True), (None, False), (0, True)):
+                inp = inputs(S, Wm, nb, n, crowd)
+                got, rank = lookup.set_table_fill(*inp, nb, S)
+                want, want_rank = lookup.set_table_fill_plain(*inp, nb, S)
+                if not torch.equal(got, want) or int(rank) != int(want_rank) or (
+                        int(rank) >= S) != (crowd and n is None):
+                    raise AssertionError(f"K13 disagrees with its plain version at S = {S}, "
+                                         f"Wm = {Wm}, {nb} buckets, n {n}, crowd {crowd} "
+                                         f"(max_rank {int(rank)} vs {int(want_rank)})")
+                cases += 1
+    say(f"K13 at its tile geometries: {cases} cases exact against set_table_fill_plain")
+    res = {}
+    for label, (S, Wm, nb) in FILL_TIMED.items():
+        inp = inputs(S, Wm, nb, crowd=False)
+        fill = lambda: lookup.set_table_fill(*inp, nb, S)  # noqa: E731
+        got, _ = fill()
+        if not torch.equal(got, lookup.set_table_fill_plain(*inp, nb, S)[0]):
+            raise AssertionError(f"K13 disagrees with its plain version at {label}")
+        del got
+        n, width = inp[0].numel(), S * (3 + Wm)
+        t = {"ms": cuda_graph_time_ms(fill, 5), "eager_ms": cuda_time_ms(fill, 10),
+             "plain_ms": cuda_time_ms(lambda: lookup.set_table_fill_plain(*inp, nb, S), 3,
+                                      warmup=1),
+             "bound_ms": bounds.bound_ms(4 * nb * width + bounds.tensor_bytes(*inp[:5])
+                                         + 4 * n * Wm + 4),
+             "shape": {"entries": n, "buckets": nb, "slots": S, "mask_words": Wm,
+                       "table_bytes": 4 * nb * width}}
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        res[label] = t
+        say(f"time set_table_fill (K13) at {label}: {n} entries into [{nb}, {width}]: "
+            f"{t['ms']:.4f} ms ({t['eager_ms']:.4f} eager) vs {t['plain_ms']:.4f} ms plain; "
+            f"bound {t['bound_ms']:.4f} ms (share {t['bound_share']:.3f})")
+        del inp
+    return res
+
+
 def check_device_builds(dev, card: str, cfg: dict, tb, packed) -> dict:
     """Phase 40a (inside 9): the device table builds.  On the 182-type
     panel's window hashes (``hpv16_cmd.panel_rows`` on the card): the sorts
@@ -4543,6 +4656,8 @@ def check_device_builds(dev, card: str, cfg: dict, tb, packed) -> dict:
          "max_abs_err": worst}
     t["sorts_bound_ms"] = bounds.bound_ms(bounds.tensor_bytes(h, m) + bounds.tensor_bytes(
         *inputs))
+    del inputs, cases
+    t["geometries"] = check_fill_geometries(dev)
     say(f"time set_table_fill (K13) on {card}: {t['ms']:.4f} ms ({t['eager_ms']:.4f} eager) "
         f"vs {t['plain_ms']:.4f} ms plain for {n} entries into [{nb}, {width}]; bound "
         f"{t['bound_ms']:.4f} ms (share {t['bound_ms'] / t['ms']:.3f}); the sorts and glue "
@@ -4869,8 +4984,9 @@ def main() -> int:
               k10["ms"], k10["eager_ms"], k10["plain_ms"], k10["bound_ms"], k10["library_ms"]),
         {**entry("panel_probe_partial", "panel_probe.cu", "rkmh_tpu/parallel/mesh.py:157",
                  err_partial, partial_t["ms"], partial_t["eager_ms"], partial_t["plain_ms"],
-                 partial_t["bound_ms"]), "shape": partial_t["shape"],
-         "shard_refs": partial_t["shard_refs"]},
+                 partial_t["bound_ms"]),
+         **{key: partial_t[key] for key in ("shape", "shard_refs", "runs_ms", "whole_ms",
+                                            "whole_runs_ms", "s2_stream")}},
         {**entry("panel_probe_wide", "panel_probe.cu", "rkmh_tpu/ops/lookup.py:341", err_k11,
                  k11["raw"]["ms"], k11["raw"]["eager_ms"], k11["raw"]["plain_ms"],
                  k11["raw"]["bound_ms"]),
@@ -4884,7 +5000,8 @@ def main() -> int:
         {**entry("set_table_fill", "set_table.cu", "rkmh_tpu/ops/lookup.py:489",
                  hp["k13"]["max_abs_err"], hp["k13"]["ms"], hp["k13"]["eager_ms"],
                  hp["k13"]["plain_ms"], hp["k13"]["bound_ms"]),
-         **{key: hp["k13"][key] for key in ("sorts_ms", "sorts_bound_ms", "shape")}},
+         **{key: hp["k13"][key] for key in ("sorts_ms", "sorts_bound_ms", "shape",
+                                            "geometries")}},
     ]}
     say(f"stream --metrics and the profile hook: {json.dumps(metrics)}")
     say(f"panel cache set-up seconds: {json.dumps(cached['setup_s'])}")

@@ -6,7 +6,7 @@ turns, in one process on one card.
 
 ``--old-csrc`` DIR holds earlier versions of some of ``window_hash.cu``,
 ``panel_probe.cu``, ``counter.cu``, ``set_probe.cu``, ``lut_gather.cu``,
-``hashmap.cu`` and ``call_scan.cu`` (headers they include that DIR lacks
+``hashmap.cu``, ``call_scan.cu`` and ``set_table.cu`` (headers they include that DIR lacks
 come from this checkout's ``csrc/``),
 for example an earlier commit's (``git show REV:rkmh_tpu_torch/csrc/counter.cu
 > DIR/counter.cu``), whose entry points have this checkout's parameter
@@ -24,7 +24,12 @@ measures the Python launch path), at:
   k=12, the synthetic zika panel (60 references, s=1000, table [131072,
   20] int32): K1 (and K1 at k=21, a k none of the repo's configurations
   uses); K2 on the raw rows, on sorted s=50 sketches and in its filter
-  mode; the device step (K1 + K2); K6 into a 2e8-slot counter as the
+  mode; K2 on the raw rows and in its filter mode against the same panel
+  built at S = 2 (``k2_raw_s2``, ``k2_filter_raw_s2``: K2's S = 2 route,
+  Wm = 2); K2's partial epilogue (``rkmh_panel_probe_partial``) on the raw
+  rows against shard 0 of the panel at tp = 2 (30 references, rkmh-tpu's
+  S = 2 geometry: ``k2_partial_shard0``, beside ``k2_raw``, the whole
+  table's); the device step (K1 + K2); K6 into a 2e8-slot counter as the
   counter pass calls it (the window mask from the read lengths), through
   the bins and as one atomic per element, and with a mask tensor; K7 on
   the batch's hashes against a 2e8-slot counter that holds the batch, as
@@ -34,7 +39,10 @@ measures the Python launch path), at:
   padding zeros included, against an 8e8-slot counter that holds the
   batch, as hpv16 -M 2 calls it (``k7_hpv16``); K3 on the sorted rows
   against the 182-type + 14-group set table (480 MiB), also with other
-  segment sizes; the hpv16 step (K1, sort, K3);
+  segment sizes; the hpv16 step (K1, sort, K3); K13, the set-table fill,
+  on the 182-type panel's 1,445,268 entries into its [1048576, 120] table,
+  the entries made as ``chip_smoke.py`` phase 40 makes them
+  (``k13_hpv16``);
 * the gather sweep's [N, 128] int32 LUTs and [N, 128] indices at N = 512,
   4096 and 16384: K4 by the route the shape takes (``k4_N``);
 * K5 at the sweep's [512, 128] with indices in 0..127, by the route the
@@ -98,7 +106,7 @@ from rkmh_tpu_torch.bench.timing import (
 )
 from rkmh_tpu_torch.classify import engine
 from rkmh_tpu_torch.io.packing import CODE_LUT, encode_seqs
-from rkmh_tpu_torch.ops import counter, gather, hashmap, kernels
+from rkmh_tpu_torch.ops import counter, gather, hashmap, kernels, lookup
 from rkmh_tpu_torch.ops.hashing import (
     _window_hashes_cuda,
     kmer_window_hashes_plain,
@@ -107,18 +115,20 @@ from rkmh_tpu_torch.ops.hashing import (
 from rkmh_tpu_torch.ops.probe import (
     _panel_probe_cuda,
     _panel_probe_filter_cuda,
+    _panel_probe_partial_cuda,
     panel_probe_filter_plain,
+    panel_probe_partial_plain,
     panel_probe_plain,
 )
 from rkmh_tpu_torch.ops.set_probe import _set_probe_cuda, set_probe_plain
 from rkmh_tpu_torch.ops.sketch import bottom_s_sketch
 
 SOURCES = ("window_hash.cu", "panel_probe.cu", "counter.cu", "set_probe.cu", "lut_gather.cu",
-           "hashmap.cu", "call_scan.cu")
+           "hashmap.cu", "call_scan.cu", "set_table.cu")
 SWAPPED = (kernels.WINDOW_HASH, kernels.PANEL_PROBE, kernels.PANEL_PROBE_FILTER,
-           kernels.COUNTER_ADD, kernels.COUNTER_MASK, kernels.SET_PROBE,
-           kernels.LUT_GATHER_ROWS, kernels.LUT_GATHER_LANES, kernels.HASHMAP_GET,
-           kernels.CALL_SCAN)
+           kernels.PANEL_PROBE_PARTIAL, kernels.COUNTER_ADD, kernels.COUNTER_MASK,
+           kernels.SET_PROBE, kernels.LUT_GATHER_ROWS, kernels.LUT_GATHER_LANES,
+           kernels.HASHMAP_GET, kernels.CALL_SCAN, kernels.SET_TABLE_FILL)
 _p, _i64 = ctypes.c_void_p, ctypes.c_int64
 DIAG_ADD_SLOTS = kernels.Kernel("rkmh_diag_add_slots", [_p, _i64, _p])
 DIAG_SOURCE = Path(__file__).resolve().parent / "diag_atomics.cu"
@@ -269,13 +279,20 @@ def hpv16_batch(dev):
 
 
 def hpv16_tables(dev):
-    """The full-width synthetic hpv16 tables, as ``chip_smoke.py`` builds them."""
+    """The full-width synthetic hpv16 tables, as ``chip_smoke.py`` builds
+    them, and K13's inputs for the set table (the panel's entries at its
+    bucket count, as phase 40 makes them)."""
     from rkmh_tpu_torch.commands import hpv16_cmd
 
     with tempfile.TemporaryDirectory() as tmp:
         synth.write_hpv16_refpath(tmp, 0)
-        return hpv16_cmd.build_tables(
-            hpv16_cmd.Hpv16Config(refpath=tmp, ks=(HPV16_K,), tst_file=False), (HPV16_K,), dev)
+        conf = hpv16_cmd.Hpv16Config(refpath=tmp, ks=(HPV16_K,), tst_file=False)
+        tb = hpv16_cmd.build_tables(conf, (HPV16_K,), dev)
+        rows = hpv16_cmd.panel_rows(conf, HPV16_K, dev)
+    R = rows.hashes.shape[0]
+    nb, width = tb.comb_table.shape
+    fill = lookup.fill_inputs(lookup._unique_entries(rows.hashes, rows.mask, R), nb, False)
+    return tb, (fill, nb, lookup.table_slots(width, R))
 
 
 class Case:
@@ -458,6 +475,17 @@ def main(argv=None) -> int:
     libs = build_libraries(args.old_csrc, args.variant)
     panel, codes = stream_batch(dev)
     R = panel.num_refs
+    # the zika panel at S = 2 (K2's S = 2 route, Wm = 2), and its shard 0 of 2
+    # (30 references: rkmh-tpu's S = 2 geometry, Wm = 1)
+    from rkmh_tpu_torch.parallel.mesh import build_sharded_tables
+
+    sk_np, lens_np = panel.sketches.cpu().numpy(), panel.lens.cpu().numpy()
+    s2_table = torch.from_numpy(lookup.build_panel_table(sk_np, lens_np, slots=2).table
+                                .view(np.int32)).to(dev)
+    shards, rps = build_sharded_tables(sk_np, lens_np, 2)
+    shard0 = torch.from_numpy(np.ascontiguousarray(shards[0]).view(np.int32)).to(dev)
+    say(f"zika panel at S = 2: {tuple(s2_table.shape)}; shard 0 of 2: {tuple(shard0.shape)}, "
+        f"{rps} references")
     hashes = _window_hashes_cuda(codes, [K], 42)
     sk, lens = bottom_s_sketch(hashes, 50)
     hp, hp_lens = hpv16_batch(dev)
@@ -490,7 +518,7 @@ def main(argv=None) -> int:
                      .to(dev)) for key, (N, M) in K5_SHAPES.items()}
 
     # K3: the sorted rows of the hpv16 batch against the full-width tables
-    tb = hpv16_tables(dev)
+    tb, (k13_in, k13_nb, k13_S) = hpv16_tables(dev)
     T, U = len(tb.type_names), tb.n_lin + tb.n_sub
     Wc = engine.hpv16_compact_width(hp_lens.cpu().numpy(), hp.shape[1], (HPV16_K,))
     full, hp_sk_lens = bottom_s_sketch(hp_hashes, hp_hashes.shape[1])
@@ -502,6 +530,7 @@ def main(argv=None) -> int:
 
     K1, K2, K2F = (kernels.WINDOW_HASH,), (kernels.PANEL_PROBE,), (kernels.PANEL_PROBE_FILTER,)
     K6, K3 = (kernels.COUNTER_ADD,), (kernels.SET_PROBE,)
+    K2P, K13 = (kernels.PANEL_PROBE_PARTIAL,), (kernels.SET_TABLE_FILL,)
     K7, K4, K5 = (kernels.COUNTER_MASK,), (kernels.LUT_GATHER_ROWS,), (kernels.LUT_GATHER_LANES,)
     K8, K9 = (kernels.HASHMAP_GET,), (kernels.CALL_SCAN,)
     ck = call_inputs.CALL_K
@@ -572,6 +601,19 @@ def main(argv=None) -> int:
             K2F, lambda: _panel_probe_filter_cuda(hashes, None, panel.table, R, panel.lens, 0, 10),
             check=equals(lambda: panel_probe_filter_plain(hashes, None, panel.table, R,
                                                           panel.lens, 0, 10))),
+        "k2_raw_s2": Case(K2, lambda: _panel_probe_cuda(hashes, None, s2_table, R, 0, -1),
+                          check=equals(lambda: panel_probe_plain(hashes, None, s2_table, R, 0,
+                                                                 -1))),
+        "k2_filter_raw_s2": Case(
+            K2F, lambda: _panel_probe_filter_cuda(hashes, None, s2_table, R, panel.lens, 0, 10),
+            check=equals(lambda: panel_probe_filter_plain(hashes, None, s2_table, R,
+                                                          panel.lens, 0, 10))),
+        "k2_partial_shard0": Case(
+            K2P, lambda: _panel_probe_partial_cuda(hashes, None, shard0, rps, -1),
+            check=equals(lambda: panel_probe_partial_plain(hashes, None, shard0, rps, -1))),
+        "k13_hpv16": Case(K13, lambda: lookup.set_table_fill(*k13_in, k13_nb, k13_S),
+                          check=equals(lambda: lookup.set_table_fill_plain(*k13_in, k13_nb,
+                                                                           k13_S))),
         "device_step": Case(K1 + K2,
                             lambda: engine.classify_codes_table(codes, panel, (K,), S, 0, -1)),
         "k6_stream": k6_case(stream_table, hashes, windows, mask),
@@ -606,6 +648,9 @@ def main(argv=None) -> int:
         cases = {c: v for c, v in cases.items() if c.startswith(tuple(args.only))}
 
     raw_stats = bounds.panel_probe_stats(hashes, None, panel.table, R)
+    s2_stats = bounds.panel_probe_stats(hashes, None, s2_table, R)
+    shard_stats = bounds.panel_probe_stats(hashes, None, shard0, rps)
+    k13_n, k13_wm = k13_in[0].numel(), k13_in[5].shape[1]
     sk_stats = bounds.panel_probe_stats(sk, lens, panel.table, R)
     k3_stats = bounds.set_probe_stats(hp_rows, hp_sk_lens, tb.comb_table, T + U)
     k1_bytes = {"k1_stream": bounds.tensor_bytes(codes, hashes),
@@ -625,6 +670,17 @@ def main(argv=None) -> int:
     bound = {**{c: bounds.bound_ms(b) for c, b in k1_bytes.items()},
              "k2_raw": bounds.bound_ms(k2_bytes + 3 * 4 * B),
              "k2_filter_raw": bounds.bound_ms(k2_bytes + 5 * 4 * B + 4 * R),
+             "k2_raw_s2": bounds.bound_ms(bounds.tensor_bytes(hashes) + s2_stats.table_bytes
+                                          + 3 * 4 * B),
+             "k2_filter_raw_s2": bounds.bound_ms(bounds.tensor_bytes(hashes)
+                                                 + s2_stats.table_bytes + 5 * 4 * B + 4 * R),
+             "k2_partial_shard0": bounds.bound_ms(bounds.tensor_bytes(hashes)
+                                                  + shard_stats.table_bytes
+                                                  + bounds.PARTIAL_OUT * B),
+             # the table written once, the entries and their mask rows read once
+             "k13_hpv16": bounds.bound_ms(4 * k13_nb * k13_S * (3 + k13_wm)
+                                          + bounds.tensor_bytes(*k13_in[:5])
+                                          + 4 * k13_n * k13_wm + 4),
              "k2_sorted_s50": bounds.bound_ms(bounds.read_row_bytes(sk, lens) + 4 * B
                                               + sk_stats.table_bytes + 3 * 4 * B),
              "k6_stream": k6_bound(hashes, mask, read_lens, STREAM_COUNTER),
@@ -647,12 +703,15 @@ def main(argv=None) -> int:
         bound["k9_call_bytewise"] = bound["k9_call"]
     say(f"K2 raw rows: {raw_stats.probes / B:.2f} probes, {raw_stats.hits / B:.2f} hits per "
         f"read, {raw_stats.mask_bits / max(raw_stats.hits, 1):.2f} of {R} mask bits set per "
-        f"hit, {raw_stats.table_bytes} table bytes reached; K3: {vars(k3_stats)}; "
+        f"hit, {raw_stats.table_bytes} table bytes reached (at S = 2 "
+        f"{s2_stats.table_bytes}, shard 0 of 2 {shard_stats.table_bytes}); K3: "
+        f"{vars(k3_stats)}; K13: {k13_n} entries into [{k13_nb}, {k13_S * (3 + k13_wm)}]; "
         f"bounds (ms): {bound}")
     names = [name for name, _ in args.variant]
     order = ("old", "new", *names, *names[::-1], "new", "old")
     res = {"card": card, "iters": ITERS, "order": list(order), "bound_ms": bound,
-           "k2_raw_probe_stats": vars(raw_stats), "k3_probe_stats": vars(k3_stats),
+           "k2_raw_probe_stats": vars(raw_stats), "k2_s2_probe_stats": vars(s2_stats),
+           "k2_shard0_probe_stats": vars(shard_stats), "k3_probe_stats": vars(k3_stats),
            "ms": {}, "eager_ms": {}}
     timed = [n for n in libs if n != "diag"]
     for name, case in cases.items():

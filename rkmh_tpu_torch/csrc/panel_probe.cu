@@ -56,7 +56,18 @@
 // the read's ranks table is the warp's own, and the next 32 elements load
 // while this step runs.  The probe takes two dependent trips: the S lo and
 // S occ lanes of the bucket row (as uint4s where S % 4 == 0), then hi and
-// the mask words of the matching slot together.  For R <= 256 (Wm <= 8)
+// the mask words of the matching slot together.  At S = 2, the narrow slot
+// policy's first choice and the geometry of a tp shard of few references
+// (30 a shard of the zika panel at tp = 2), the row is [hi0 hi1 | lo0 lo1 |
+// occ0 occ1 | mask words in pairs] with every pair 8-byte aligned: the lo
+// and occ pairs come as two uint2s issued together, both slots compared at
+// once, and hi and the mask words of a match as pairs in the second trip;
+// at S = 2 and Wm = 1 the row is 32 bytes, one sector, and comes whole as
+// two uint4s in the first trip, so a probe is one L2 trip, hit or miss.
+// Other S, which only RKMH_TPU_SLOTS gives a K2 table, compare lane by
+// lane.  The partial epilogue costs what
+// the stream one does (the same running max over the lane's counters and
+// warp shuffles) and one more word out a read.  For R <= 256 (Wm <= 8)
 // lane r keeps the counts of references r, r+32, ... in registers (2 or 8,
 // by Wm); a ballot names the lanes that hit, and for each hit the warp
 // broadcasts its Wm mask words by shuffles and lane r adds bit r of each.
@@ -318,7 +329,12 @@ constexpr int STREAM = 0;
 constexpr int FILTER = 1;
 constexpr int PARTIAL = 2;
 
-template <int MODE, int MAXW>
+// PAIRS: the launch's table may have S = 2 (K2's S = 2 route).  Without it
+// the S = 2 branches are compiled out and the kernel is the other widths'
+// code as it was; with it every route stays and S picks one at run time (a
+// variant holding the S = 2 routes alone ran 1.95x slower on zika shard 0
+// of 2, with the same loads in its SASS: PERF.md §5).
+template <int MODE, int MAXW, bool PAIRS>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
 panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict__ lens, int B,
                    int n, const uint32_t* __restrict__ table,
@@ -387,7 +403,9 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
     my_valid += valid;
 
     // first trip: the S lo and S occ lanes of the bucket row; second: hi
-    // and (register counters) the Wm mask words of the matching slot
+    // and (register counters) the Wm mask words of the matching slot.  At
+    // S = 2 and Wm = 1 the first trip is the whole row, and there is no
+    // second
     const uint32_t* trow = table;
     uint32_t bucket = 0;
     int slot = -1;
@@ -395,6 +413,7 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
 #pragma unroll
     for (int w = 0; w < NW; ++w) m[w] = 0;
     int entry = -1;  // LIST: the hit's entry id
+    uint32_t row_hi = 0, row_m0 = 0;  // PAIRS, Wm = 1: the slot's hi and mask word
     if (valid) {
       const uint32_t lo = (uint32_t)h, hi = (uint32_t)(h >> 32), o = (uint32_t)occ;
       const uint32_t x = (lo ^ (hi * MIX) ^ (o * MIX)) * MUL;
@@ -430,7 +449,17 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
                  : l.w == lo && c.w == o ? s4 + 3
                                          : -1;
         }
-      } else {
+      } else if (PAIRS && S == 2 && Wm == 1) {  // the 32-byte row: two 16-byte loads
+        const uint4 a = __ldg(reinterpret_cast<const uint4*>(trow));      // hi0 hi1 lo0 lo1
+        const uint4 c = __ldg(reinterpret_cast<const uint4*>(trow) + 1);  // occ0 occ1 m0 m1
+        slot = a.z == lo && c.x == o ? 0 : a.w == lo && c.y == o ? 1 : -1;
+        row_hi = slot == 1 ? a.y : a.x;
+        row_m0 = slot == 1 ? c.w : c.z;
+      } else if (PAIRS && S == 2) {  // width 2 (3 + Wm) is even: 8-byte aligned lane pairs
+        const uint2* pair = reinterpret_cast<const uint2*>(trow);
+        const uint2 l = __ldg(pair + 1), c = __ldg(pair + 2);
+        slot = l.x == lo && c.x == o ? 0 : l.y == lo && c.y == o ? 1 : -1;
+      } else {  // other S (RKMH_TPU_SLOTS): lane by lane
         for (int s = 0; s < S; ++s) {
           if (__ldg(trow + S + s) == lo && __ldg(trow + 2 * S + s) == o) {
             slot = s;
@@ -439,11 +468,30 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
         }
       }
       if (!LIST && slot >= 0) {
-        const uint32_t slot_hi = __ldg(trow + slot);
-        if constexpr (REGS) {
+        uint32_t slot_hi;
+        if (PAIRS && S == 2 && Wm == 1) {  // already in registers
+          slot_hi = row_hi;
+          m[0] = row_m0;
+        } else if (PAIRS && S == 2) {  // hi and the mask words as pairs, this slot's half
+          const uint2* pair = reinterpret_cast<const uint2*>(trow);
+          const uint2 hv = __ldg(pair);
+          slot_hi = slot ? hv.y : hv.x;
+          if constexpr (REGS) {
 #pragma unroll
-          for (int w = 0; w < NW; ++w)
-            if (w < Wm) m[w] = __ldg(trow + (3 + w) * S + slot);
+            for (int w = 0; w < NW; ++w) {
+              if (w < Wm) {
+                const uint2 mv = __ldg(pair + 3 + w);
+                m[w] = slot ? mv.y : mv.x;
+              }
+            }
+          }
+        } else {
+          slot_hi = __ldg(trow + slot);
+          if constexpr (REGS) {
+#pragma unroll
+            for (int w = 0; w < NW; ++w)
+              if (w < Wm) m[w] = __ldg(trow + (3 + w) * S + slot);
+          }
         }
         if (slot_hi != hi) slot = -1;
       }
@@ -551,16 +599,16 @@ panel_probe_kernel(const uint64_t* __restrict__ rows, const int32_t* __restrict_
   }
 }
 
-template <int MODE, int MAXW>
+template <int MODE, int MAXW, bool PAIRS>
 int launch_variant(int warps, size_t smem, const int64_t* rows, const int32_t* lens, int B,
                    int n, const int32_t* table, const int32_t* mask_rows, int row_words,
                    int log2nb, int S, int Wm, int R, const int32_t* ref_lens, int min_diff,
                    int min_matches, int init, int nslots, int32_t* out, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(panel_probe_kernel<MODE, MAXW>,
+    cudaFuncSetAttribute(panel_probe_kernel<MODE, MAXW, PAIRS>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   }
-  panel_probe_kernel<MODE, MAXW><<<(B + warps - 1) / warps, 32 * warps, smem, stream>>>(
+  panel_probe_kernel<MODE, MAXW, PAIRS><<<(B + warps - 1) / warps, 32 * warps, smem, stream>>>(
       reinterpret_cast<const uint64_t*>(rows), lens, B, n,
       reinterpret_cast<const uint32_t*>(table), reinterpret_cast<const uint32_t*>(mask_rows),
       row_words, log2nb, S, Wm, R, ref_lens, min_diff, min_matches, init, nslots, out);
@@ -580,6 +628,7 @@ int launch(const int64_t* rows, const int32_t* lens, int B, int n, const int32_t
            const int32_t* mask_rows = nullptr, int row_words = 0, int init = 0) {
   const bool wide = mask_rows != nullptr || row_words > 0;
   if (lens == nullptr && n >= (1 << (32 - FP_BITS)) - 1) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(table) & 15) return (int)cudaErrorInvalidValue;  // 16-byte loads
   if (wide && (n >= (1 << 16) || row_words < Wm || row_words % WPL))
     return (int)cudaErrorInvalidValue;
   const size_t cnt_bytes = wide ? (size_t)n * 4 : Wm <= 8 ? 0 : (size_t)Wm * 128;
@@ -590,23 +639,27 @@ int launch(const int64_t* rows, const int32_t* lens, int B, int n, const int32_t
   const int warps =
       per_warp == 0 ? MAX_WARPS : (int)std::min<size_t>(MAX_WARPS, SMEM_MAX / per_warp);
   const size_t smem = per_warp * warps;
-  auto go = [&](auto maxw) {
-    return launch_variant<MODE, decltype(maxw)::value>(
+  auto go = [&](auto maxw, auto pairs) {
+    return launch_variant<MODE, decltype(maxw)::value, decltype(pairs)::value>(
         warps, smem, rows, lens, B, n, table, mask_rows, row_words, log2nb, S, Wm, R, ref_lens,
         min_diff, min_matches, init, nslots, out, stream);
   };
-  return wide      ? (n < 256 ? go(std::integral_constant<int, WIDE>())
-                              : go(std::integral_constant<int, WIDE16>()))
-         : Wm <= 2 ? go(std::integral_constant<int, 2>())
-         : Wm <= 8 ? go(std::integral_constant<int, 8>())
-                   : go(std::integral_constant<int, 0>());
+  auto logical = [&](auto maxw) {  // K2: the S = 2 route or the others
+    return S == 2 ? go(maxw, std::true_type()) : go(maxw, std::false_type());
+  };
+  return wide      ? (n < 256 ? go(std::integral_constant<int, WIDE>(), std::false_type())
+                              : go(std::integral_constant<int, WIDE16>(), std::false_type()))
+         : Wm <= 2 ? logical(std::integral_constant<int, 2>())
+         : Wm <= 8 ? logical(std::integral_constant<int, 8>())
+                   : logical(std::integral_constant<int, 0>());
 }
 
 }  // namespace
 
 // rows [B, n] uint64, lens [B] int32 or NULL, table [2^log2nb, S*(3+Wm)]
-// uint32 -> out [3, B] int32.  Requires B >= 1, 1 <= R <= 32 * Wm and, in
-// raw mode, n * 8 (+ Wm * 128 when Wm > 8) bytes within the block limit.
+// uint32, 16-byte aligned -> out [3, B] int32.  Requires B >= 1, 1 <= R <=
+// 32 * Wm and, in raw mode, n * 8 (+ Wm * 128 when Wm > 8) bytes within the
+// block limit.
 extern "C" int rkmh_panel_probe(const int64_t* rows, const int32_t* lens, int B, int n,
                                 const int32_t* table, int log2nb, int S, int Wm, int R,
                                 int min_diff, int min_matches, int32_t* out,

@@ -497,16 +497,15 @@ def set_table_fill_plain(bucket: torch.Tensor, lo: torch.Tensor, occ: torch.Tens
 
 def _set_table_fill_cuda(bucket, lo, occ, hi, idx, masks, nb: int, slots: int):
     """K13 wrapper."""
-    n = bucket.numel()
+    n, Wm = bucket.numel(), masks.shape[-1]
     words = [bucket, lo, occ, hi, idx]
     if any(t.dtype != torch.int32 or t.dim() != 1 or t.numel() != n or t.device != bucket.device
            for t in words) or masks.dtype != torch.int32 or masks.dim() != 2 \
             or masks.device != bucket.device:
         raise ValueError("set-table fill kernel takes [n] int32 bucket, lo, occ, hi, idx and "
                          "[*, Wm] int32 masks on one device")
-    if nb < 1 or slots < 1 or n >= 2**31:
+    if nb < 1 or slots < 1 or n > 2**31 - 2**17 or Wm >= 2**16 - 3:
         raise ValueError(f"set-table fill kernel: nb={nb}, slots={slots}, n={n}")
-    Wm = masks.shape[1]
     table = torch.empty((nb, slots * (3 + Wm)), dtype=torch.int32, device=bucket.device)
     max_rank = torch.full((1,), -1, dtype=torch.int32, device=bucket.device)
     kernels.SET_TABLE_FILL(*(t.contiguous() for t in words), masks.contiguous(), n, nb, slots,

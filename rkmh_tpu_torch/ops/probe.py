@@ -19,8 +19,8 @@ replaces the tp ``all_gather`` of the shards' counts and the argmax after
 it (``rkmh_tpu/parallel/mesh.py:157-160``) and is bound as K2 is, by the
 bucket rows its probes load: on a shard's own table, whose geometry is
 rkmh-tpu's (S = 2 at 30 references, where the whole zika panel takes 4),
-the slot loads are scalar and it takes 1.26x the whole table's K2
-(PERF.md §6).
+K2's S = 2 route loads each 32-byte bucket row whole in one trip, and the
+shard's epilogue takes 0.92x the whole table's K2 (PERF.md §6).
 
 Rows are [B, n] int64 hashes in one of two modes:
 
@@ -292,6 +292,9 @@ def _cuda_args(rows, lens, table, num_refs, wide: bool):
             raise ValueError("K2 takes the logical table, not a WideTable")
         if table.dtype != torch.int32 or table.dim() != 2 or table.device != rows.device:
             raise ValueError("panel probe takes an int32 [NB, width] table on the rows' device")
+        if table.is_contiguous() and table.data_ptr() % 16:
+            raise ValueError("K2 loads bucket rows 16 bytes at a time: the table must be "
+                             "16-byte aligned")
         nb = table.shape[0]
         S = table_slots(table.shape[1], num_refs)
         Wm = table.shape[1] // S - 3

@@ -104,7 +104,7 @@ def test_kernel_ab_times_a_library_only_on_its_kernels():
 def test_kernel_ab_takes_the_counter_and_set_probe_sources(tmp_path):
     assert set(kernel_ab.SOURCES) == {"window_hash.cu", "panel_probe.cu", "counter.cu",
                                       "set_probe.cu", "lut_gather.cu", "hashmap.cu",
-                                      "call_scan.cu"}
+                                      "call_scan.cu", "set_table.cu"}
     assert kernel_ab.held_sources(tmp_path) == []
     for name in ("set_probe.cu", "counter.cu", "notes.txt"):
         (tmp_path / name).write_text("")

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from rkmh_tpu_torch import call_engine, convert
+from rkmh_tpu_torch.bench import fill_cases
 from rkmh_tpu_torch.bench.margin_inputs import check_margins, edge_cases, margin_case
 from rkmh_tpu_torch.bench.wide_inputs import PAST, straddling_panel
 from rkmh_tpu_torch.ops import counter, gather, hashmap, kernels, lookup
@@ -1231,3 +1232,54 @@ def test_set_table_fill_kernel_matches_plain_and_builds(cuda_device, R, nb, slot
     sk, lens = bottom_s_sketch(torch.where(m, h, 0), 100)
     assert torch.equal(lookup.build_panel_table_device(sk.to(cuda_device), lens.to(cuda_device))
                        .cpu(), lookup.build_panel_table_device(sk, lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crowd", [True, False], ids=["crowded", "fits"])
+@pytest.mark.parametrize("geometry", [*fill_cases.GEOMETRIES, fill_cases.WIDE],
+                         ids=lambda g: f"S{g[0]}-Wm{g[1]}")
+def test_set_table_fill_kernel_tile_geometries(cuda_device, geometry, crowd):
+    """K13 against ``set_table_fill_plain`` at the geometries of its tiles
+    (``bench/fill_cases``): 1,029 buckets (a partial last tile), 64 k + 5
+    buckets at S = 2 and 12, no entries, and rows cut into windows; every
+    lane and max_rank."""
+    S, Wm = geometry
+    nbs = [7] if geometry == fill_cases.WIDE else [fill_cases.NB] + (
+        [64 * 1024 + 5] if S in (2, 12) and Wm < 64 else [])
+    for nb in nbs:
+        for n in (None, 0):
+            inputs = [torch.from_numpy(a) for a in fill_cases.fill_case(S, Wm, nb, n, seed=20,
+                                                                         crowd=crowd)]
+            want, want_rank = lookup.set_table_fill_plain(*inputs, nb, S)
+            got, rank = lookup.set_table_fill(*(t.to(cuda_device) for t in inputs), nb, S)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want) and int(rank) == int(want_rank), (nb, n)
+            assert (int(rank) >= S) == (crowd and n is None), (nb, n, int(rank))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,slots", [(30, 2), (15, 2), (40, 2), (60, 2), (200, 2), (30, 3),
+                                     (60, 5)])
+def test_panel_probe_kernel_narrow_slot_routes(cuda_device, R, slots):
+    """K2's S = 2 route (the whole 32-byte row at Wm = 1, pairs at Wm = 2
+    and 7) and the lane-by-lane route of odd S, in all three epilogues,
+    against the plain versions: raw and sorted rows, several -D/-N."""
+    sk, lens, reads, set_lens = _sketches(R + slots, R)
+    table = torch.from_numpy(build_panel_table(sk, lens, slots=slots).table.view(np.int32))
+    assert lookup.table_slots(table.shape[1], R) == slots
+    table = table.to(cuda_device)
+    raw = torch.from_numpy(reads).to(cuda_device)
+    set_lens = torch.from_numpy(set_lens).to(cuda_device)
+    sk_rows, sk_lens = bottom_s_sketch(raw, 32)
+    for rows, ln in ((raw, None), (sk_rows, sk_lens)):
+        for md, mm in ((0, -1), (1, 3)):
+            got = panel_probe(rows, ln, table, R, md, mm)
+            torch.cuda.synchronize()
+            want = panel_probe_plain(rows, ln, table, R, md, mm)
+            assert torch.equal(got, want), (R, slots, ln is None, md, mm)
+            assert torch.equal(panel_probe_filter(rows, ln, table, R, set_lens, md, mm),
+                               panel_probe_filter_plain(rows, ln, table, R, set_lens, md, mm))
+        for init in (-1, 0):
+            assert torch.equal(panel_probe_partial(rows, ln, table, R, init),
+                               panel_probe_partial_plain(rows, ln, table, R, init))
+    assert int(want[1].max()) > 0

@@ -10,6 +10,9 @@ exact (integer counts, flags and table bits):
   ``argmax_stream`` / ``argmax_filter`` on the whole counts (hypothesis:
   ties across shards, all-zero rows, tp from 1 to 8);
 * ``build_sharded_tables`` gives rkmh-tpu's table bits at tp 1, 2 and 4;
+* on shards of rkmh-tpu's S = 2 geometry (30 and 40 references a shard:
+  one and two mask words), the stream, filter and partial plain probes
+  equal rkmh-tpu's counts and argmax, raw and sorted rows;
 * the sharded classify and filter steps equal ``sharded_classify_table_fn``
   / ``sharded_filter_table_fn`` at (dp, tp) = (4, 1), (2, 2) and (1, 4),
   with and without the -M counter;
@@ -43,8 +46,10 @@ from rkmh_tpu_torch.ops.probe import (
     pack_filter_result,
     pack_result,
     pack_wide_table,
+    panel_probe_filter_plain,
     panel_probe_partial,
     panel_probe_partial_plain,
+    panel_probe_plain,
     partial_from_counts,
 )
 from rkmh_tpu_torch.parallel.ep import ShardedCounter
@@ -179,6 +184,91 @@ def test_partial_plain_on_the_wide_table_equals_the_logical_table(data):
             assert torch.equal(panel_probe_partial(r, ln, logical, 16, init), want)
     with pytest.raises(ValueError, match="-1 or 0"):
         panel_probe_partial(rows, None, logical, 16, 3)
+
+
+def _jax_counts(table: np.ndarray, num_refs: int, rows: torch.Tensor, lens):
+    """rkmh-tpu's [B, R] counts of read rows against a table, and the
+    sketch lengths: raw window hashes with prefix-equality ranks (the
+    short-read path, engine.py:306-311), or sorted rows."""
+    from rkmh_tpu.ops import lookup as jlookup
+
+    r = rows.numpy().view(np.uint64)
+    if lens is None:
+        valid = r != 0
+        W = r.shape[1]
+        occ = ((r[:, None, :] == r[:, :, None]) & np.tril(np.ones((W, W), bool), -1)).sum(-1)
+        c = jlookup.lookup_intersection_counts_masked(
+            jnp.asarray(r), jnp.asarray(valid), jnp.asarray(occ.astype(np.uint32)),
+            (jnp.asarray(table),), num_refs)
+        return np.array(c), valid.sum(-1).astype(np.int32)
+    ln = lens.numpy()
+    return np.array(jlookup.lookup_intersection_counts(jnp.asarray(r), jnp.asarray(ln),
+                                                         (jnp.asarray(table),), num_refs)), ln
+
+
+@pytest.mark.parametrize("rps", [30, 40], ids=["Wm1", "Wm2"])
+def test_s2_shard_probes_equal_jax(rps):
+    """K2's S = 2 geometry (rkmh-tpu's shard of 30 or 40 references, one or
+    two mask words): on each tp = 2 shard's table, the stream and filter
+    plain probes equal rkmh-tpu's counts and argmax, each shard's partial
+    equals the running max of rkmh-tpu's counts, and the merged partials
+    equal rkmh-tpu's argmax over the all-gathered counts; raw and sorted
+    rows."""
+    from rkmh_tpu.classify.engine import argmax_filter, argmax_stream
+
+    rng = np.random.default_rng(rps)
+    R = 2 * rps
+    refs = [_random_dna(rng, 1500) for _ in range(R)]
+    reads = []
+    for i in range(96):
+        r = refs[int(rng.integers(0, R))]
+        at = int(rng.integers(0, len(r) - 128))
+        reads.append(r[at: at + 128] if i % 2 else _random_dna(rng, 128))
+    read_codes, _ = jax_encode(reads, pad_to=128)
+    ref_codes, _ = jax_encode(refs, pad_to=1536)
+    sk, lens = engine.sketch_batch(torch.from_numpy(ref_codes), KS, S)
+    tables, got_rps = jax_mesh.build_sharded_tables(sk.numpy().view(np.uint64), lens.numpy(), 2)
+    tables = np.asarray(tables)
+    assert got_rps == rps and tables.shape[2] == 2 * (3 + (rps + 31) // 32)  # S = 2
+    raw = engine.multi_k_window_hashes(torch.from_numpy(read_codes), KS)
+    sk_rows, sk_lens = engine.bottom_s_sketch(raw, 32)
+    for rows, ln in ((raw, None), (sk_rows, sk_lens)):
+        counts, shard_tables = [], []
+        for j in range(2):
+            t = torch.from_numpy(np.ascontiguousarray(tables[j]).view(np.int32))
+            c, sl = _jax_counts(tables[j], rps, rows, ln)
+            shard_lens = lens[j * rps: (j + 1) * rps]
+            for md, mm in ((0, -1), (1, 3)):
+                best, shared, diff_ok, depth, match = (np.asarray(a) for a in argmax_stream(
+                    jnp.asarray(c), md, mm, jnp.asarray(sl)))
+                assert np.array_equal(panel_probe_plain(rows, ln, t, rps, md, mm).numpy(),
+                                      np.stack([best, shared, diff_ok | depth << 1 | match << 2]))
+                f = [np.asarray(a) for a in argmax_filter(jnp.asarray(c), md, mm, jnp.asarray(sl),
+                                                          jnp.asarray(shard_lens.numpy()))]
+                assert np.array_equal(
+                    panel_probe_filter_plain(rows, ln, t, rps, shard_lens, md, mm).numpy(),
+                    np.stack([*f[:4], f[4] | f[5] << 1 | f[6] << 2]).astype(np.int64))
+            counts.append(c)
+            shard_tables.append(t)
+        whole = jnp.asarray(np.concatenate(counts, axis=1))
+        assert int(whole.sum()) > 0
+        sl = torch.from_numpy(sl)
+        for init, ref in ((-1, None), (0, lens)):
+            parts = torch.stack([panel_probe_partial_plain(rows, ln, t, rps, init)
+                                 for t in shard_tables])
+            for j in range(2):
+                assert torch.equal(parts[j], partial_from_counts(torch.from_numpy(counts[j]), sl,
+                                                                 init))
+            got = merge_tp_partials(parts, rps, 1, 3, ref).numpy()
+            if ref is None:
+                best, shared, diff_ok, depth, match = (np.asarray(a) for a in argmax_stream(
+                    whole, 1, 3, jnp.asarray(sl.numpy())))
+                want = np.stack([best, shared, diff_ok | depth << 1 | match << 2])
+            else:
+                f = [np.asarray(a) for a in argmax_filter(whole, 1, 3, jnp.asarray(sl.numpy()),
+                                                          jnp.asarray(lens.numpy()))]
+                want = np.stack([*f[:4], f[4] | f[5] << 1 | f[6] << 2])
+            assert np.array_equal(got, want.astype(np.int64))
 
 
 # ---- the grid and the shard tables

@@ -16,7 +16,9 @@ Inputs are made from a seed with numpy.  Tolerance: none, the tables' bits,
   table it gives), and a (lo, occ) collision in one bucket found by search;
 * ``set_table_fill_plain`` against rkmh-tpu's chain (:489-516, run below as
   JAX ops on the same sorted entries), with left-out entries, ranks past S
-  and collisions;
+  and collisions, and at the geometries of K13's tiles
+  (``bench/fill_cases``: S 2-12 by Wm 1-64 at a bucket count no tile
+  divides, no entries, rows wider than a tile);
 * the device table and the numpy ``build_set_table``: equal counts on the
   same queries (their slots lie in another order in a bucket);
 * ``hpv16_cmd.build_tables``'s combined table against rkmh-tpu's;
@@ -36,6 +38,7 @@ from rkmh_tpu.commands import hpv16_cmd as jhpv16
 from rkmh_tpu.commands import stream as jstream
 from rkmh_tpu.ops import lookup as jlookup
 from rkmh_tpu_torch import synth
+from rkmh_tpu_torch.bench import fill_cases
 from rkmh_tpu_torch.commands import common, hpv16_cmd, stream
 from rkmh_tpu_torch.ops import lookup
 
@@ -172,8 +175,32 @@ def _jax_chain(sb, sl, soc, shi, sm_i, maskbuf, nb, slots):
     return table[:nb], max_rank
 
 
-@pytest.mark.parametrize("case", ["fits", "overflow", "collision", "left-out", "empty"])
+# K13's tile geometries (``bench/fill_cases``): each S x Wm at 1,029 buckets
+# (no tile divides it), with a crowded bucket, a collision and left-out
+# entries; no entries at the widest of them; rows cut into two windows
+FILL_GEOMETRIES = {f"S{S}-Wm{Wm}": dict(S=S, Wm=Wm) for S, Wm in fill_cases.GEOMETRIES}
+FILL_GEOMETRIES["empty-S12-Wm64"] = dict(S=12, Wm=64, n=0)
+FILL_GEOMETRIES["windows-S12-Wm700"] = dict(S=fill_cases.WIDE[0], Wm=fill_cases.WIDE[1], nb=7)
+
+
+@pytest.mark.parametrize("case", ["fits", "overflow", "collision", "left-out", "empty",
+                                  *FILL_GEOMETRIES])
 def test_fill_plain_equals_the_jax_chain(case):
+    if case in FILL_GEOMETRIES:
+        g = dict(FILL_GEOMETRIES[case])
+        S, nb = g.pop("S"), g.pop("nb", fill_cases.NB)
+        inputs = fill_cases.fill_case(S, nb=nb, seed=11, **g)
+        n = inputs[0].size
+        got, rank = lookup.set_table_fill_plain(*map(torch.from_numpy, inputs), nb, S)
+        if n:
+            want, want_rank = _jax_chain(*(jnp.asarray(a.view(np.uint32)) for a in inputs), nb, S)
+        else:
+            want, want_rank = np.zeros(tuple(got.shape), np.uint32), -1
+            want[:, 2 * S: 3 * S] = 0xFFFFFFFF
+        assert int(rank) == int(want_rank) and np.array_equal(got.numpy(), _bits(want))
+        if n:
+            assert int(rank) >= S and int((inputs[0] == nb).sum()) == 5
+        return
     rng = np.random.default_rng(len(case))
     nb, slots, Wm, n = 16, 3, 2, 40
     if case == "empty":
