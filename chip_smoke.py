@@ -4088,14 +4088,30 @@ def dist_rank_worker(spec_path: str) -> int:
     before and read just after (in ``<cwd>/<rank>`` where the job names a
     ``cwd``; what it writes to its output stream into ``<stdout>.<rank>``
     where it names a ``stdout``); writes each job's seconds, launches (in
-    all and over slot ranges), peak memory and counter reduction to the
-    spec's result file for this rank as it goes."""
+    all and over slot ranges), peak memory and counter reduction (timed
+    here around ``dist_stream._reduce_counter`` and ``_save_counter_ckpt``)
+    to the spec's result file for this rank as it goes."""
     import torch
 
     sys.path.insert(0, REPO)
     from rkmh_tpu_torch.commands import dist_stream
     from rkmh_tpu_torch.ops import kernels
 
+    reduce: dict = {}
+    reduce_counter, save_ckpt = dist_stream._reduce_counter, dist_stream._save_counter_ckpt
+
+    def timed_reduce(tables):
+        t0 = time.perf_counter()
+        host = reduce_counter(tables)
+        reduce.update(bytes=host.nbytes, seconds=time.perf_counter() - t0)
+        return host
+
+    def timed_save(*args):
+        t0 = time.perf_counter()
+        save_ckpt(*args)
+        reduce["checkpoint_seconds"] = time.perf_counter() - t0
+
+    dist_stream._reduce_counter, dist_stream._save_counter_ckpt = timed_reduce, timed_save
     with open(spec_path) as fh:
         spec = json.load(fh)
     rank = int(os.environ["RKMH_SMOKE_RANK"])
@@ -4114,6 +4130,7 @@ def dist_rank_worker(spec_path: str) -> int:
                 os.chdir(os.path.join(job["cwd"], str(rank)))  # hpv16's .tst lands here
             out = open(f"{job['stdout']}.{rank}", "w") if job.get("stdout") else None
             kernels.reset_launch_counts()
+            reduce.clear()
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4131,7 +4148,7 @@ def dist_rank_worker(spec_path: str) -> int:
                 "by_range": {k: kernels.KERNELS[k].by_route.get("range", 0)
                              for k in ("counter_add", "counter_mask")},
                 "peak_bytes": torch.cuda.max_memory_allocated(),
-                "counter_reduce": dict(dist_stream.last_counter_reduce)})
+                "counter_reduce": dict(reduce)})
         with open(f"{spec['results']}.{rank}", "w") as fh:
             json.dump(results, fh)
         if results[-1].get("rc") not in (None, 0):

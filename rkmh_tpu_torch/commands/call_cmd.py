@@ -33,7 +33,6 @@ from __future__ import annotations
 import json
 import os
 import sys
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -45,8 +44,9 @@ from rkmh_tpu_torch.commands.common import (
     bucketed_batches, load_packed, load_records, log, mesh_candidates, resolve_batch_size,
 )
 from rkmh_tpu_torch.commands.recovery import InjectedFailure, fail_after_chunks
-from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device, to_device
 from rkmh_tpu_torch.io.packing import encode_seqs
+from rkmh_tpu_torch.observability import span, traced
 from rkmh_tpu_torch.ops.hashmap import SortedMap, build_sorted_map, unique_counts
 from rkmh_tpu_torch.parallel.mesh import ShardedCallScan, make_mesh
 
@@ -189,24 +189,29 @@ def build_depth_map(reads, ks: tuple, batch_size: int, device: torch.device,
     included (rkmh.cpp:1616-1623), on ``device``: K1 over bucketed
     batches, the existing windows' hashes fetched to the host,
     ``np.unique``, the sorted map laid out from its keys and counts, then
-    one copy to the device.  ``stats`` (a dict) gets the seconds of the
-    hashing, the unique and the layout, the map's keys and its bytes by
-    part."""
-    t0 = time.perf_counter()
-    parts = []
-    for _, codes, lens in bucketed_batches(reads, batch_size):
-        batch = torch.from_numpy(codes).to(device)
-        hashes, mask = engine.hash_batch_with_mask(batch, torch.from_numpy(lens).to(device), ks)
-        parts.append(hashes[mask].cpu().numpy())
-    t1 = time.perf_counter()
-    keys, counts = unique_counts(np.concatenate(parts) if parts else np.zeros(0, np.int64))
-    t2 = time.perf_counter()
-    sm = build_sorted_map(keys, counts)
-    t3 = time.perf_counter()
-    sm = sm.to(device)
+    one copy to the device, each phase a span ``call.depth_map.<phase>``.
+    ``stats`` (a dict) gets the seconds of the hashing, the unique, the
+    layout and the copy, the map's keys and its bytes by part."""
+    with span("call.depth_map.hash") as hashing:
+        parts = []
+        for _, codes, lens in bucketed_batches(reads, batch_size):
+            hashes, mask = engine.hash_batch_with_mask(
+                to_device(codes, device, non_blocking=False),
+                to_device(lens, device, non_blocking=False), ks)
+            found = hashes[mask]
+            with span("device.fetch", found.numel() * found.element_size()):
+                parts.append(found.cpu().numpy())
+    with span("call.depth_map.unique") as uniq:
+        keys, counts = unique_counts(np.concatenate(parts) if parts else np.zeros(0, np.int64))
+    with span("call.depth_map.layout") as layout:
+        sm = build_sorted_map(keys, counts)
+    with span("call.depth_map.copy") as copy, \
+            span("device.h2d", sm.buf.numel() * sm.buf.element_size()):
+        sm = sm.to(device)
     if stats is not None:
-        stats.update(read_hashing_s=t1 - t0, map_unique_s=t2 - t1, map_layout_s=t3 - t2,
-                     map_copy_s=time.perf_counter() - t3, map_keys=sm.n, map_bits=sm.bits,
+        stats.update(read_hashing_s=hashing.seconds, map_unique_s=uniq.seconds,
+                     map_layout_s=layout.seconds, map_copy_s=copy.seconds, map_keys=sm.n,
+                     map_bits=sm.bits,
                      map_overflow=sm.m, map_bytes=sm.buf.numel() * 8,
                      map_part_bytes=sm.part_bytes())
     return sm
@@ -247,10 +252,13 @@ def load_partials(path: str, truncate: bool = False):
     return done, agg
 
 
+@traced("call")
 def run(cfg: CallConfig, out=None, stats: dict | None = None) -> int:
     """``stats`` (a dict), if given, gets the seconds of each phase
     (parse, read hashing, the map's unique, layout and copy, scan, record
-    extraction, write) and the depth map's keys and bytes on the device."""
+    extraction, write), from their spans (``call.parse``,
+    ``call.depth_map.*``, ``call.scan``, ``output.format``,
+    ``output.emit``), and the depth map's keys and bytes on the device."""
     out = out or sys.stdout
     if cfg.dist_procs or cfg.dist_coordinator or cfg.dist_rank >= 0:
         from rkmh_tpu_torch.commands.dist_stream import run_distributed_call
@@ -277,11 +285,11 @@ def run(cfg: CallConfig, out=None, stats: dict | None = None) -> int:
     device = resolve_device(cfg.device)
     stats = {} if stats is None else stats
     phase = {"parse_s": 0.0, "scan_s": 0.0, "extract_s": 0.0, "write_s": 0.0}
-    t0 = time.perf_counter()
     log("Parsing sequences...")
-    refs = load_records(cfg.ref_files)
-    reads = load_packed(cfg.read_files)
-    phase["parse_s"] = time.perf_counter() - t0
+    with span("call.parse") as parse:
+        refs = load_records(cfg.ref_files)
+        reads = load_packed(cfg.read_files)
+    phase["parse_s"] = parse.seconds
     if not refs or not len(reads):
         log("call requires at least one reference and one read file.")
         return 1
@@ -334,38 +342,41 @@ def run(cfg: CallConfig, out=None, stats: dict | None = None) -> int:
                 pending_done = next(done_iter, None)
                 continue  # --resume: this ref's section is already merged
             P = len(ref.seq) - k + 1
-            t0 = time.perf_counter()
-            codes, _ = encode_seqs([ref.seq])
-            row = codes[0, : len(ref.seq)]
-            if scan_sharded is not None and scan_sharded.slice_len(P) >= cfg.window_len:
-                res = scan_sharded(row)
-            else:
-                if scan_sharded is not None:
-                    log(f"call --devices: {ref.name} spans only {P} positions "
-                        f"(< window {cfg.window_len} per device); single-device")
-                res = call_engine.call_scan_ref(torch.from_numpy(row).to(device), table, k,
-                                                cfg.window_len)
-                res = {name: v.cpu().numpy() for name, v in res.items()}
-            t1 = time.perf_counter()
-            phase["scan_s"] += t1 - t0
+            with span("call.scan") as scan:
+                codes, _ = encode_seqs([ref.seq])
+                row = codes[0, : len(ref.seq)]
+                if scan_sharded is not None and scan_sharded.slice_len(P) >= cfg.window_len:
+                    res = scan_sharded(row)
+                else:
+                    if scan_sharded is not None:
+                        log(f"call --devices: {ref.name} spans only {P} positions "
+                            f"(< window {cfg.window_len} per device); single-device")
+                    res = call_engine.call_scan_ref(to_device(row, device, non_blocking=False),
+                                                    table, k, cfg.window_len)
+                    with span("device.fetch") as fetch:
+                        res = {name: v.cpu().numpy() for name, v in res.items()}
+                        fetch.nbytes = sum(v.nbytes for v in res.values())
+            phase["scan_s"] += scan.seconds
 
             if cfg.show_depth:
-                depth, avg, rescue = res["depth"], res["avg"], res["max_rescue"]
-                shown = np.where(rescue > 0, rescue, depth)
-                for j in range(P):
-                    out.write(f"{j}\t{avg[j]}\t{depth[j]}\t{shown[j]}\n")
-                phase["write_s"] += time.perf_counter() - t1
+                with span("output.emit") as emit:
+                    depth, avg, rescue = res["depth"], res["avg"], res["max_rescue"]
+                    shown = np.where(rescue > 0, rescue, depth)
+                    for j in range(P):
+                        out.write(f"{j}\t{avg[j]}\t{depth[j]}\t{shown[j]}\n")
+                phase["write_s"] += emit.seconds
                 continue
 
-            ref_agg = CallAggregator()
-            extract_records(ref.name, row, res, P, k, ref_agg.record)
-            if progress_fh is not None:
-                lines = ref_agg.dump_lines()
-                progress_fh.writelines(lines)
-                progress_fh.write(json.dumps({"ref_done": ref.name, "n": len(lines)}) + "\n")
-                progress_fh.flush()
-            agg.merge_from(ref_agg)
-            phase["extract_s"] += time.perf_counter() - t1
+            with span("output.format") as fmt:
+                ref_agg = CallAggregator()
+                extract_records(ref.name, row, res, P, k, ref_agg.record)
+                if progress_fh is not None:
+                    lines = ref_agg.dump_lines()
+                    progress_fh.writelines(lines)
+                    progress_fh.write(json.dumps({"ref_done": ref.name, "n": len(lines)}) + "\n")
+                    progress_fh.flush()
+                agg.merge_from(ref_agg)
+            phase["extract_s"] += fmt.seconds
             # fault injection: RKMH_TPU_FAIL_AFTER_CHUNKS counts scanned
             # references here (call's checkpoint granularity)
             scanned += 1
@@ -376,14 +387,14 @@ def run(cfg: CallConfig, out=None, stats: dict | None = None) -> int:
             progress_fh.close()
 
     if output_vcf:
-        t0 = time.perf_counter()
-        dest = open(cfg.out_file, "w") if cfg.out_file else out
-        try:
-            dest.write(vcf_header(cfg.ref_files[0]))
-            agg.emit_vcf_records(dest)
-        finally:
-            if cfg.out_file:
-                dest.close()
-        phase["write_s"] += time.perf_counter() - t0
+        with span("output.emit") as emit:
+            dest = open(cfg.out_file, "w") if cfg.out_file else out
+            try:
+                dest.write(vcf_header(cfg.ref_files[0]))
+                agg.emit_vcf_records(dest)
+            finally:
+                if cfg.out_file:
+                    dest.close()
+        phase["write_s"] += emit.seconds
     stats.update(phase)
     return 0

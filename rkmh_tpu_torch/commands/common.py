@@ -37,7 +37,8 @@ from rkmh_tpu_torch.commands.recovery import InjectedFailure
 from rkmh_tpu_torch.io import native
 from rkmh_tpu_torch.io.fastx import iter_batches, read_fastx
 from rkmh_tpu_torch.io.packing import PAD_CODE, encode_seqs, length_buckets
-from rkmh_tpu_torch.observability import count
+from rkmh_tpu_torch.device import to_device
+from rkmh_tpu_torch.observability import count, span
 from rkmh_tpu_torch.ops.counter import HashCounter
 from rkmh_tpu_torch.ops.hashing import multi_k_window_hashes
 from rkmh_tpu_torch.ops.lookup import build_panel_table, build_panel_table_device
@@ -340,18 +341,28 @@ def read_ahead(items, depth: int = READ_AHEAD):
     releases the interpreter lock (the native parser runs in C, outside
     it), so the parse of the next chunk overlaps the work on this one.  An
     exception of ``items`` is raised here, in order; closing this
-    generator stops the thread and closes ``items``."""
+    generator stops the thread and closes ``items``.  The consumer's wait
+    is an ``input.wait`` span, the thread's wait on a full queue an
+    ``input.handoff`` span."""
     done = object()
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
 
     def put(entry) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(entry, timeout=0.05)
-                return True
-            except queue.Full:
-                pass
+        if stop.is_set():
+            return False
+        try:
+            q.put_nowait(entry)
+            return True
+        except queue.Full:
+            pass
+        with span("input.handoff"):
+            while not stop.is_set():
+                try:
+                    q.put(entry, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
         return False
 
     def produce():
@@ -371,7 +382,8 @@ def read_ahead(items, depth: int = READ_AHEAD):
     thread.start()
     try:
         while True:
-            item, error = q.get()
+            with span("input.wait"):
+                item, error = q.get()
             if error is not None:
                 raise error
             if item is done:
@@ -432,16 +444,17 @@ def count_read_kmers(chunks, ks, counter_size: int, batch_size: int,
     invalid k-mer included, padding excluded) into a new ``hash %
     counter_size`` counter on ``device`` (rkmh.cpp:903-910).  With ``dpc``
     (count --devices) each dp slice is hashed on its own device and added
-    into the one table on the first."""
+    into the one table on the first.  A ``counter.pass`` span, the wait for
+    the input included."""
     counter = HashCounter(counter_size, dpc.mesh[0, 0] if dpc is not None else device)
     at = counter.table.device
-    for chunk in chunks:
-        for _, codes, lens in bucketed_batches(chunk, batch_size):
-            for c, n in (dpc.put(codes, lens) if dpc is not None else
-                         [(torch.from_numpy(codes).to(device, non_blocking=True),
-                           torch.from_numpy(lens).to(device, non_blocking=True))]):
-                counter.add_windows(multi_k_window_hashes(c, ks).to(at, non_blocking=True),
-                                    n.to(at, non_blocking=True), codes.shape[1], ks)
+    with span("counter.pass"):
+        for chunk in chunks:
+            for _, codes, lens in bucketed_batches(chunk, batch_size):
+                for c, n in (dpc.put(codes, lens) if dpc is not None else
+                             [(to_device(codes, device), to_device(lens, device))]):
+                    counter.add_windows(multi_k_window_hashes(c, ks).to(at, non_blocking=True),
+                                        n.to(at, non_blocking=True), codes.shape[1], ks)
     return counter
 
 
@@ -527,6 +540,13 @@ class LinesChunk(ChunkState):
         return "".join(lines)
 
 
+def _nbytes(x) -> int:
+    """The bytes of a fetched result: an array, or lists and tuples of them."""
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(a) for a in x)
+    return int(getattr(x, "nbytes", 0))
+
+
 class ChunkedPipeline:
     """Dispatch -> grouped fetch -> in-order emit.
 
@@ -537,9 +557,11 @@ class ChunkedPipeline:
     size.
 
     on_result(state, meta, host_array): record one batch's fetched result
-        into its chunk state and advance state.filled.
-    emit(state): write one completed chunk's output.
-    fetch(device_results) -> host arrays, in order.
+        into its chunk state and advance state.filled (an ``output.format``
+        span a batch).
+    emit(state): write one completed chunk's output (``output.emit``).
+    fetch(device_results) -> host arrays, in order (``device.fetch``, of
+        the arrays' bytes).
     fail_after: raise ``InjectedFailure`` right after the chunk of that
         number is emitted (0: never); the commands whose rkmh-tpu
         pipeline does so pass ``recovery.fail_after_chunks()``.
@@ -558,16 +580,20 @@ class ChunkedPipeline:
 
     def _drain(self):
         while self.emit_q and self.emit_q[0].complete:
-            self.emit(self.emit_q.popleft())
+            with span("output.emit"):
+                self.emit(self.emit_q.popleft())
             self.emitted += 1
             if self.fail_after and self.emitted >= self.fail_after:
                 raise InjectedFailure(f"RKMH_TPU_FAIL_AFTER_CHUNKS={self.fail_after} tripped")
 
     def _flush(self, n: int):
         group = [self.pending.popleft() for _ in range(min(n, len(self.pending)))]
-        fetched = self.fetch([res for *_, res in group])
+        with span("device.fetch") as s:
+            fetched = self.fetch([res for *_, res in group])
+            s.nbytes = _nbytes(fetched)
         for (st, meta, _), arr in zip(group, fetched):
-            self.on_result(st, meta, arr)
+            with span("output.format"):
+                self.on_result(st, meta, arr)
         self._drain()
 
     def run(self, chunk_iter, make_state, dispatch, batch_size: int):
@@ -623,10 +649,11 @@ def pad_rows(codes: np.ndarray, lens, dp: int):
 
 def count_read_kmers_sharded(chunks, ks, counter: ShardedCounter, batch_size: int) -> None:
     """The -M counter pass into a dp-sharded counter: bit-equal to one
-    device's ``count_read_kmers``."""
-    for chunk in chunks:
-        for _, codes, lens in bucketed_batches(chunk, batch_size):
-            counter.add_codes(*pad_rows(codes, lens, counter.mesh.dp), ks)
+    device's ``count_read_kmers`` (a ``counter.pass`` span)."""
+    with span("counter.pass"):
+        for chunk in chunks:
+            for _, codes, lens in bucketed_batches(chunk, batch_size):
+                counter.add_codes(*pad_rows(codes, lens, counter.mesh.dp), ks)
 
 
 class ShardedCtx:
@@ -704,10 +731,8 @@ class DpCtx:
         pad = (-codes.shape[0]) % self.devices
         if pad:
             codes = np.concatenate([codes, np.full((pad, codes.shape[1]), 255, np.uint8)])
-        out = [torch.from_numpy(c).to(self.mesh[i, 0], non_blocking=True)
-               for i, c in enumerate(np.split(codes, self.devices))]
+        out = [to_device(c, self.mesh[i, 0]) for i, c in enumerate(np.split(codes, self.devices))]
         if lens is None:
             return out
         lens = np.concatenate([np.asarray(lens, np.int32), np.zeros(pad, np.int32)])
-        return [(c, torch.from_numpy(n).to(c.device, non_blocking=True))
-                for c, n in zip(out, np.split(lens, self.devices))]
+        return [(c, to_device(n, c.device)) for c, n in zip(out, np.split(lens, self.devices))]

@@ -39,6 +39,7 @@ from rkmh_tpu_torch.commands.common import (
     resolve_chunk_reads,
 )
 from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from rkmh_tpu_torch.observability import traced
 from rkmh_tpu_torch.parallel import distributed
 
 DEFAULT_COUNTER_SIZE = 640_000  # rkmh.cpp:2322
@@ -61,6 +62,7 @@ class CountConfig:
     dist_rank: int = -1             # --dist-rank: this process's rank
 
 
+@traced("count")
 def run(cfg: CountConfig, out=None, stats: dict | None = None) -> int:
     """Run count; ``stats``, when given, receives the K6 route the counter
     took (``binned``: True, False, or None where no call went through the

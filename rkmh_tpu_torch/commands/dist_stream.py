@@ -71,7 +71,6 @@ from __future__ import annotations
 import json
 import os
 import sys
-import time
 from collections import deque
 
 import numpy as np
@@ -96,9 +95,9 @@ from rkmh_tpu_torch.commands.common import (
     rows_in_order,
 )
 from rkmh_tpu_torch.commands.recovery import count_complete_lines
-from rkmh_tpu_torch.device import resolve_device
+from rkmh_tpu_torch.device import resolve_device, to_device
 from rkmh_tpu_torch.io.packing import PAD_CODE, bucket_length, encode_seqs
-from rkmh_tpu_torch.observability import count
+from rkmh_tpu_torch.observability import count, span
 from rkmh_tpu_torch.ops.counter import HashCounter
 from rkmh_tpu_torch.ops.hashing import kmer_window_hashes, multi_k_window_hashes
 from rkmh_tpu_torch.parallel import distributed
@@ -106,11 +105,6 @@ from rkmh_tpu_torch.parallel.ep import ShardedCounter
 from rkmh_tpu_torch.parallel.mesh import ShardedCallScan, make_mesh
 
 IN_FLIGHT = 3  # batches dispatched before the oldest one's output is written
-
-# the last drain's counter reduction in this process (-M, count): bytes
-# through the group, seconds (fetch, all_reduce, copy back) and the
-# checkpoint's save seconds; empty without one
-last_counter_reduce: dict = {}
 
 
 def _rereadable_inputs(read_files) -> bool:
@@ -465,9 +459,9 @@ def _count_rows(ctx: _DistCtx, cfg, counter) -> tuple[int, int]:
         if isinstance(counter, ShardedCounter):
             counter.add_codes(*pad_rows(codes[:n], lens[:n], counter.mesh.dp), ctx.ks)
         else:
-            c = torch.from_numpy(codes[:n]).to(ctx.device, non_blocking=True)
-            counter.add_windows(multi_k_window_hashes(c, ctx.ks),
-                                torch.from_numpy(lens[:n]).to(ctx.device), ctx.L, ctx.ks)
+            counter.add_windows(multi_k_window_hashes(to_device(codes[:n], ctx.device), ctx.ks),
+                                to_device(lens[:n], ctx.device, non_blocking=False), ctx.L,
+                                ctx.ks)
     return reads, windows
 
 
@@ -481,17 +475,15 @@ def _fill(tables, host: torch.Tensor) -> None:
 
 def _reduce_counter(tables) -> np.ndarray:
     """Sum every rank's counts: the tables fetched to the host as one
-    [size] array, one ``all_reduce`` over the group, the sums copied back.
-    -> the global counter on the host."""
-    global last_counter_reduce
-    t0 = time.perf_counter()
-    host = torch.cat([t.cpu() for t in tables])
-    distributed.all_reduce_sum_(host)
-    _fill(tables, host)
-    if tables[0].device.type == "cuda":
-        torch.cuda.synchronize(tables[0].device)
-    last_counter_reduce = {"bytes": host.numel() * host.element_size(),
-                           "seconds": time.perf_counter() - t0}
+    [size] array, one ``all_reduce`` over the group, the sums copied back
+    (a ``dist.counter_reduce`` span of the table's bytes).  -> the global
+    counter on the host."""
+    with span("dist.counter_reduce", sum(t.numel() * t.element_size() for t in tables)):
+        host = torch.cat([t.cpu() for t in tables])
+        distributed.all_reduce_sum_(host)
+        _fill(tables, host)
+        if tables[0].device.type == "cuda":
+            torch.cuda.synchronize(tables[0].device)
     return host.numpy()
 
 
@@ -513,9 +505,8 @@ def _counter_pass_ckpt(ctx: _DistCtx, cfg):
     _count_rows(ctx, cfg, counter)
     table = _reduce_counter(tables)
     if cfg.out_file:
-        t0 = time.perf_counter()
-        _save_counter_ckpt(table, cfg.out_file, fp, ctx.H, ctx.rank)
-        last_counter_reduce["checkpoint_seconds"] = time.perf_counter() - t0
+        with span("dist.counter_checkpoint"):
+            _save_counter_ckpt(table, cfg.out_file, fp, ctx.H, ctx.rank)
     return counter
 
 
@@ -545,8 +536,6 @@ def _join_group(cfg, cmd: str) -> _DistCtx | None:
     must see as many: each owns an equal block of every global batch, and
     rkmh-tpu assumes the same of its processes); None after a logged
     refusal."""
-    global last_counter_reduce
-    last_counter_reduce = {}
     device = resolve_device(cfg.device)
     try:
         distributed.initialize(cfg.dist_coordinator or None, cfg.dist_procs or None,
@@ -665,7 +654,7 @@ def _step(ctx: _DistCtx, cfg, codes: np.ndarray, filter_mode: bool) -> torch.Ten
     if ctx.sharded is not None:
         return ctx.sharded.step(codes, cfg.sketch_size, cfg.min_diff, cfg.min_matches,
                                 cfg.min_kmer_occ, filter_mode=filter_mode)
-    batch = torch.from_numpy(codes).to(ctx.device, non_blocking=True)
+    batch = to_device(codes, ctx.device)
     fn = engine.filter_codes_table if filter_mode else engine.classify_codes_table
     return fn(batch, ctx.panel, ctx.ks, cfg.sketch_size, cfg.min_diff, cfg.min_matches,
               ctx.counter.table if ctx.sharded is None and ctx.counter is not None else None,
@@ -831,9 +820,8 @@ def _put(ctx: _DistCtx, codes: np.ndarray, lens=None) -> list:
     grid (``commands/common.DpCtx``)."""
     if ctx.dpc is not None:
         return ctx.dpc.put(codes, lens)
-    c = torch.from_numpy(codes).to(ctx.device, non_blocking=True)
-    return [c] if lens is None else [(c, torch.from_numpy(lens).to(ctx.device,
-                                                                    non_blocking=True))]
+    c = to_device(codes, ctx.device)
+    return [c] if lens is None else [(c, to_device(lens, ctx.device))]
 
 
 def run_distributed_hash(cfg, out=None) -> int:
@@ -1145,8 +1133,8 @@ def run_distributed_call(cfg, out=None) -> int:
             else:  # a short genome: rank 0 owns every position
                 j_lo, j_hi, row_off = 0, (P if rank == 0 else 0), 0
                 if rank == 0:
-                    res = call_scan_ref(torch.from_numpy(row).to(ctx.device), table, k,
-                                        cfg.window_len)
+                    res = call_scan_ref(to_device(row, ctx.device, non_blocking=False), table,
+                                        k, cfg.window_len)
                     mine = {name: v.cpu().numpy() for name, v in res.items()}
             ref_agg = CallAggregator()
             extract_records(ref.name, row, mine, P, k, ref_agg.record,

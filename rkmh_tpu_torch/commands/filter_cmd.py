@@ -71,9 +71,10 @@ from rkmh_tpu_torch.commands.common import (
     two_pass_chunks,
 )
 from rkmh_tpu_torch.commands.recovery import Progress, fail_after_chunks, skip_reads
-from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device, to_device
 from rkmh_tpu_torch.io.fastx import iter_batches
 from rkmh_tpu_torch.io.packing import encode_seqs
+from rkmh_tpu_torch.observability import traced
 from rkmh_tpu_torch.parallel import distributed
 
 DEFAULT_COUNTER_SIZE = 10_000_000  # rkmh.cpp:1187-1188
@@ -111,6 +112,7 @@ class FilterConfig:
     dist_rank: int = -1             # --dist-rank: this process's rank
 
 
+@traced("filter")
 def run(cfg: FilterConfig, out=None, stdin=None, stats: dict | None = None) -> int:
     """Run filter; ``stdin`` is the -i source (a binary file object; the
     process's stdin when None).  ``stats``, when given, receives the
@@ -213,9 +215,9 @@ def _run(cfg: FilterConfig, out, stdin, stats, progress: Progress | None = None,
         if sharded is not None:
             return sharded.step(codes, cfg.sketch_size, cfg.min_diff, cfg.min_matches,
                                 cfg.min_kmer_occ, filter_mode=True)
-        batch = torch.from_numpy(codes).to(device, non_blocking=True)
-        return engine.filter_codes_table(batch, panel, ks, cfg.sketch_size, cfg.min_diff,
-                                         cfg.min_matches, counter, cfg.min_kmer_occ)
+        return engine.filter_codes_table(to_device(codes, device), panel, ks, cfg.sketch_size,
+                                         cfg.min_diff, cfg.min_matches, counter,
+                                         cfg.min_kmer_occ)
 
     def fetch(results):
         return [r.cpu().numpy() for r in results]

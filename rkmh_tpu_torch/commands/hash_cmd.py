@@ -55,9 +55,10 @@ from rkmh_tpu_torch.commands.common import (
     rows_in_order,
 )
 from rkmh_tpu_torch.commands.recovery import count_complete_lines, skip_reads
-from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device, to_device
 from rkmh_tpu_torch.io.native import format_hash_lines_block
 from rkmh_tpu_torch.io.sketch_json import SketchRecord, dump_sketches, dump_sourmash
+from rkmh_tpu_torch.observability import traced
 from rkmh_tpu_torch.parallel import distributed
 
 
@@ -143,6 +144,7 @@ def hash_lines(cfg: HashConfig, ks, vals: np.ndarray, second: np.ndarray, names)
     return "".join(lines)
 
 
+@traced("hash")
 def run(cfg: HashConfig, out=None) -> int:
     if distributed.requested(cfg.dist_procs, cfg.dist_coordinator):
         from rkmh_tpu_torch.commands.dist_stream import run_distributed_hash
@@ -202,8 +204,7 @@ def _run(cfg: HashConfig, out, resume_skip: int) -> int:
     def dispatch(st, rows, codes, lens):
         # the batch's row slices on their devices (one slice without --devices)
         parts = (dpc.put(codes, lens) if dpc is not None else
-                 [(torch.from_numpy(codes).to(device, non_blocking=True),
-                   torch.from_numpy(lens).to(device, non_blocking=True))])
+                 [(to_device(codes, device), to_device(lens, device))])
         if sketch:
             return (rows, lens), [engine.sketch_batch(c, ks, cfg.sketch_size) for c, _ in parts]
         return (rows, lens), [engine.hash_batch_with_mask(c, n, ks) for c, n in parts]

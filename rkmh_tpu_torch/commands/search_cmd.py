@@ -46,7 +46,8 @@ from rkmh_tpu_torch.commands.common import (
     rows_in_order,
 )
 from rkmh_tpu_torch.commands.recovery import open_line_resume
-from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device, to_device
+from rkmh_tpu_torch.observability import traced
 from rkmh_tpu_torch.ops.hashing import kmer_window_hashes
 from rkmh_tpu_torch.ops.sketch import INT64_MIN
 from rkmh_tpu_torch.parallel import distributed
@@ -158,6 +159,7 @@ class _SearchChunk(ChunkState):
         self.lines = [b""] * self.n
 
 
+@traced("search")
 def run(cfg: SearchConfig, out=None) -> int:
     if distributed.requested(cfg.dist_procs, cfg.dist_coordinator):
         from rkmh_tpu_torch.commands.dist_stream import run_distributed_search
@@ -196,7 +198,7 @@ def _run(cfg: SearchConfig, out) -> int:
 
     def dispatch(st, rows, codes, lens):
         parts = (dpc.put(codes) if dpc is not None
-                 else [torch.from_numpy(codes).to(device, non_blocking=True)])
+                 else [to_device(codes, device)])
         return (rows, lens), [member(c) for c in parts]
 
     def on_result(st, meta, found):

@@ -67,11 +67,11 @@ from rkmh_tpu_torch.commands.common import (
     two_pass_chunks,
 )
 from rkmh_tpu_torch.commands.recovery import count_complete_lines, fail_after_chunks, skip_reads
-from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from rkmh_tpu_torch.device import DEFAULT_DEVICE, resolve_device, to_device
 from rkmh_tpu_torch.io.fastx import iter_fastx
 from rkmh_tpu_torch.io.native import format_lines_block
 from rkmh_tpu_torch.io.packing import encode_seqs
-from rkmh_tpu_torch.observability import count
+from rkmh_tpu_torch.observability import count, traced
 from rkmh_tpu_torch.parallel import distributed
 
 # the most lines dispatched but not yet written at once in the last -i run
@@ -249,6 +249,7 @@ def _validate_devices(cfg: StreamConfig, num_refs: int, n_visible: int) -> str |
                                    cfg.min_kmer_occ, cfg.counter_size)
 
 
+@traced("stream")
 def run(cfg: StreamConfig, out=None, stdin=None) -> int:
     """``stdin``: the stream -i reads (a binary file object; default the
     process's stdin)."""
@@ -307,9 +308,9 @@ def _run(cfg: StreamConfig, out, resume_skip: int = 0, stdin=None) -> int:
         if sharded is not None:
             return sharded.step(codes, cfg.sketch_size, cfg.min_diff, cfg.min_matches,
                                 cfg.min_kmer_occ)
-        batch = torch.from_numpy(codes).to(device, non_blocking=True)
-        return engine.classify_codes_table(batch, panel, ks, cfg.sketch_size, cfg.min_diff,
-                                           cfg.min_matches, counter, cfg.min_kmer_occ)
+        return engine.classify_codes_table(to_device(codes, device), panel, ks,
+                                           cfg.sketch_size, cfg.min_diff, cfg.min_matches,
+                                           counter, cfg.min_kmer_occ)
 
     if in_stream:
         return _run_stdin(cfg, out, panel, batch_size, step, stdin)

@@ -1,8 +1,12 @@
-"""Explicit device selection: ``cuda`` (the default) or ``cpu``."""
+"""Explicit device selection: ``cuda`` (the default) or ``cpu``; and the
+host-to-device copy of a batch (``to_device``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from rkmh_tpu_torch.observability import span
 
 DEFAULT_DEVICE = "cuda"
 
@@ -24,3 +28,10 @@ def resolve_device(name: str | torch.device = DEFAULT_DEVICE) -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {str(name)!r}: use 'cuda' or 'cpu'")
+
+
+def to_device(arr: np.ndarray, device: torch.device, non_blocking: bool = True) -> torch.Tensor:
+    """A host array copied to ``device``: the one road of a batch's
+    host-to-device copy, in a ``device.h2d`` span of the array's bytes."""
+    with span("device.h2d", arr.nbytes):
+        return torch.from_numpy(arr).to(device, non_blocking=non_blocking)

@@ -29,6 +29,8 @@ from pathlib import Path
 
 import numpy as np
 
+from rkmh_tpu_torch.observability import span
+
 SOURCE = Path(__file__).resolve().parent / "fastx_native.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 CXX = "g++"
@@ -261,27 +263,29 @@ class PackedReads:
 
 
 def _batch_to_packed(lib, batch: _RkmhBatch) -> PackedReads:
-    """Copy an owned _RkmhBatch into numpy arrays and bytes, and free it."""
-    try:
-        n, pad = batch.n, batch.pad_len
+    """Copy an owned _RkmhBatch into numpy arrays and bytes, and free it
+    (an ``input.unpack`` span: the copies hold the interpreter lock)."""
+    with span("input.unpack"):
+        try:
+            n, pad = batch.n, batch.pad_len
 
-        def arr(ptr, count):
-            return np.ctypeslib.as_array(ptr, shape=(count,)).copy()
+            def arr(ptr, count):
+                return np.ctypeslib.as_array(ptr, shape=(count,)).copy()
 
-        codes = (np.ctypeslib.as_array(batch.codes, shape=(n, pad)).copy() if n
-                 else np.zeros((0, pad), np.uint8))
-        lens = arr(batch.lens, n) if n else np.zeros((0,), np.int32)
-        rec_offs = arr(batch.rec_offs, n) if n else np.zeros((0,), np.int64)
-        name_offs, seq_offs, qual_offs = (arr(p, n + 1) for p in (
-            batch.name_offs, batch.seq_offs, batch.qual_offs))
-        names_blob, seqs_blob, quals_blob = (
-            ctypes.string_at(p, int(o[n])) if n else b""
-            for p, o in ((batch.names, name_offs), (batch.seqs, seq_offs),
-                         (batch.quals, qual_offs)))
-    finally:
-        lib.rkmh_free(ctypes.byref(batch))
-    return PackedReads(codes, lens, names_blob, name_offs, seqs_blob, seq_offs, quals_blob,
-                       qual_offs, rec_offs)
+            codes = (np.ctypeslib.as_array(batch.codes, shape=(n, pad)).copy() if n
+                     else np.zeros((0, pad), np.uint8))
+            lens = arr(batch.lens, n) if n else np.zeros((0,), np.int32)
+            rec_offs = arr(batch.rec_offs, n) if n else np.zeros((0,), np.int64)
+            name_offs, seq_offs, qual_offs = (arr(p, n + 1) for p in (
+                batch.name_offs, batch.seq_offs, batch.qual_offs))
+            names_blob, seqs_blob, quals_blob = (
+                ctypes.string_at(p, int(o[n])) if n else b""
+                for p, o in ((batch.names, name_offs), (batch.seqs, seq_offs),
+                             (batch.quals, qual_offs)))
+        finally:
+            lib.rkmh_free(ctypes.byref(batch))
+        return PackedReads(codes, lens, names_blob, name_offs, seqs_blob, seq_offs, quals_blob,
+                           qual_offs, rec_offs)
 
 
 _PARSE_ERRORS = {1: "cannot read", 2: "malformed FASTA/FASTQ", 3: "out of memory"}
@@ -296,15 +300,16 @@ def _open_check(path) -> None:
 
 
 def read_fastx_packed(path) -> PackedReads:
-    """Parse and pack one whole file natively."""
+    """Parse and pack one whole file natively (an ``input.parse`` span)."""
     lib = load()
     _open_check(path)
-    batch = _RkmhBatch()
-    rc = lib.rkmh_read_fastx(os.fsencode(path), GRANULARITY, ctypes.byref(batch))
-    if rc != 0:
-        lib.rkmh_free(ctypes.byref(batch))
-        raise OSError(f"native fastx parse of {path} failed: {_PARSE_ERRORS.get(rc, rc)}")
-    return _batch_to_packed(lib, batch)
+    with span("input.parse"):
+        batch = _RkmhBatch()
+        rc = lib.rkmh_read_fastx(os.fsencode(path), GRANULARITY, ctypes.byref(batch))
+        if rc != 0:
+            lib.rkmh_free(ctypes.byref(batch))
+            raise OSError(f"native fastx parse of {path} failed: {_PARSE_ERRORS.get(rc, rc)}")
+        return _batch_to_packed(lib, batch)
 
 
 class FastxStream:
@@ -323,17 +328,20 @@ class FastxStream:
             raise OSError(f"cannot open {path}")
 
     def next_chunk(self, max_reads: int) -> PackedReads | None:
+        """The next chunk, in an ``input.parse`` span (the native parse, then
+        ``input.unpack``)."""
         if self._h is None:
             raise OSError(f"{self._path}: stream closed")
-        batch = _RkmhBatch()
-        n = self._lib.rkmh_stream_next(self._h, max_reads, GRANULARITY, ctypes.byref(batch))
-        if n <= 0:
-            self._lib.rkmh_free(ctypes.byref(batch))
-            if n < 0:
-                raise OSError(f"native fastx parse of {self._path} failed: "
-                              f"{_PARSE_ERRORS.get(-n, n)}")
-            return None
-        return _batch_to_packed(self._lib, batch)
+        with span("input.parse"):
+            batch = _RkmhBatch()
+            n = self._lib.rkmh_stream_next(self._h, max_reads, GRANULARITY, ctypes.byref(batch))
+            if n <= 0:
+                self._lib.rkmh_free(ctypes.byref(batch))
+                if n < 0:
+                    raise OSError(f"native fastx parse of {self._path} failed: "
+                                  f"{_PARSE_ERRORS.get(-n, n)}")
+                return None
+            return _batch_to_packed(self._lib, batch)
 
     def seek(self, offset: int) -> None:
         """Go to an absolute offset of the uncompressed stream, a record
