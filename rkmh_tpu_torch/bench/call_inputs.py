@@ -3,8 +3,8 @@
 
 * the synthetic call workload (``synth.write_call_workload``: HPV16REF,
   ~7.9 kb, and 1,100 nanopore-like reads of a sample with planted
-  variants), its depth map built as ``call`` builds it (K1, then
-  ``np.unique`` and the sorted map's layout) and the reference's codes,
+  variants), its depth map built as ``call`` builds it (K1, then the
+  device's sort and the sorted map's layout) and the reference's codes,
   k = 16;
 * the first 2**20 read k-mer hashes (every one in the map);
 * a 1 Mbp reference made from a seed (runs of N in it), scanned against

@@ -1,5 +1,5 @@
 """Exact uint64 -> int32 map: the keys sorted under a directory of their
-top bits, built straight from ``np.unique``.
+top bits, built straight from a sort's unique keys and counts.
 
 Counterpart of ``rkmh_tpu/ops/hashmap.py``: the same function, not its
 layout.  ``call`` needs rkmh's ``read_hash_to_depth`` map
@@ -29,6 +29,15 @@ the ~24 MB that every SM can read at random at the L2's rate
 (``bench/l2_sweep.py``; PERF.md).  A probe (``csrc/hashmap.cuh``) reads
 dir[b] and dir[b+1], then scans the bucket's words to the first one that
 is not below the key's.
+
+Two builds give the same buffer byte for byte: ``build_sorted_map`` in
+numpy from ``np.unique`` (``unique_counts``), the plain version, and
+``sorted_map_from_hashes`` in torch ops on the hashes' own device
+(``unique_counts_torch``: a library radix sort of the sign-flipped
+hashes with run-length counts, in groups whose keys and counts are
+merged; ``layout_sorted_map``: the words, the overflow, and the directory
+by a histogram of the top bits and a running sum), which ``call`` runs on
+the card.
 
 The map is one int64 tensor with views (one host-to-device copy).
 ``hashmap_get`` is K8 (``csrc/hashmap.cu``) on a CUDA tensor and
@@ -140,6 +149,74 @@ def unique_counts(hashes: np.ndarray, mask: np.ndarray | None = None):
 def depth_map_from_hashes(hashes: np.ndarray, mask: np.ndarray | None = None) -> SortedMap:
     """The read depth map of the hashes (``unique_counts``), on the CPU."""
     return build_sorted_map(*unique_counts(hashes, mask))
+
+
+# The hashes ``unique_counts_torch`` sorts at a time.  torch.unique's working
+# set is ~40-60 bytes a hash on an NVIDIA H100 (call's whole build peaked at
+# 42.3 on its workload, 60.4 where every read k-mer is distinct), so a group
+# holds it near 4 GB however many hashes a sample has; the groups' keys and
+# counts are merged.
+UNIQUE_GROUP = 1 << 26
+
+
+def unique_counts_torch(hashes: torch.Tensor,
+                        group: int = UNIQUE_GROUP) -> tuple[torch.Tensor, torch.Tensor]:
+    """``unique_counts`` in torch ops on the hashes' device: (keys [n]
+    int64, the uint64 bit patterns in unsigned order; counts [n] int64).
+    Each ``group`` of hashes is one library radix sort of the sign-flipped
+    hashes with run-length counts (``torch.unique``); a later group's keys
+    and counts are merged into the earlier ones' by a unique of the two key
+    lists and a ``scatter_add_`` of their counts.  The flip is undone at
+    the end."""
+    flat = hashes.reshape(-1).to(torch.int64)
+    keys = counts = None
+    for lo in range(0, max(flat.numel(), 1), group):
+        k, c = torch.unique(flat[lo : lo + group] ^ _FLIP, sorted=True, return_counts=True)
+        if keys is not None:
+            k, at = torch.unique(torch.cat([keys, k]), sorted=True, return_inverse=True)
+            c = torch.zeros_like(k).scatter_add_(0, at, torch.cat([counts, c]))
+        keys, counts = k, c
+    keys ^= _FLIP
+    return keys, counts
+
+
+def layout_sorted_map(keys: torch.Tensor, counts: torch.Tensor) -> SortedMap:
+    """``build_sorted_map`` in torch ops on the keys' device, the same
+    buffer byte for byte: keys [n] int64 (uint64 bit patterns, unique and
+    in unsigned order, as ``unique_counts_torch`` gives them; not
+    checked), counts [n] (taken as int32, as ``unique_counts`` takes
+    them).  ``n`` is the keys' length; the overflow's entries are the one
+    host sync."""
+    n = keys.numel()
+    if n >= 2**31:
+        raise ValueError(f"a map holds fewer than 2**31 keys, got {n}")
+    dev = keys.device
+    bits = bucket_bits(n)
+    nb = 1 << bits
+    sat = nb - 1
+    v = counts.to(torch.int32).to(torch.int64)
+    over = (v < 0) | (v >= sat)
+    ov = over.nonzero().squeeze(1)
+    m = ov.numel()
+    buf = torch.empty(buf_len(bits, n, m), dtype=torch.int64, device=dev)
+    words = torch.bitwise_left_shift(keys, bits, out=buf[:n])
+    words |= v.masked_fill(over, sat)
+    buf[n : n + m] = keys[ov]
+    i32 = buf[n + m :].view(torch.int32)
+    i32.zero_()
+    # the top bits by a logical shift: torch's int64 >> is arithmetic
+    bucket = (keys >> (64 - bits)) & sat
+    hist = torch.zeros(nb, dtype=torch.int32, device=dev).index_add_(
+        0, bucket, torch.ones(n, dtype=torch.int32, device=dev))
+    torch.cumsum(hist, 0, dtype=torch.int32, out=i32[1 : nb + 1])
+    i32[nb + 1 : nb + 1 + m] = v[ov].to(torch.int32)
+    return SortedMap(buf, bits, n, m)
+
+
+def sorted_map_from_hashes(hashes: torch.Tensor) -> SortedMap:
+    """The read depth map of the hashes (any shape, int64), built on their
+    device: ``depth_map_from_hashes``'s map, byte for byte."""
+    return layout_sorted_map(*unique_counts_torch(hashes))
 
 
 def check_map(sm: SortedMap) -> SortedMap:

@@ -15,6 +15,12 @@ overflow of counts that do not fit a word, and the kernel library's name
 following every source and header (a changed header builds anew), without
 nvcc.  K8 itself is held against the plain lookup on the card in
 test_torch_kernels.py.
+
+The map's build in torch ops (``sorted_map_from_hashes``, call's build
+on the card), whole and sorted in groups, is held to the numpy build's
+buffer element for element on ``bench/map_cases.py``'s hashes, and so is
+``call_cmd.build_depth_map``'s map of a read set; the same cases run on
+CUDA in test_torch_kernels.py.
 """
 
 import shutil
@@ -25,7 +31,10 @@ import pytest
 import torch
 
 from rkmh_tpu.ops import hashmap as jhashmap
-from rkmh_tpu_torch import convert
+from rkmh_tpu_torch import convert, synth
+from rkmh_tpu_torch.bench import map_cases
+from rkmh_tpu_torch.commands import call_cmd
+from rkmh_tpu_torch.commands.common import load_packed
 from rkmh_tpu_torch.ops import hashmap, kernels
 
 
@@ -227,3 +236,63 @@ def test_library_name_follows_every_source_and_header(tmp_path):
     assert kernels.library_path(csrc) == base
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert kernels.library_path(csrc) != base
+
+
+MAP_CASES = [(c, s) for c in map_cases.CASES for s in ((0, 1, 2) if c == "duplicates" else (0,))]
+
+
+@pytest.mark.parametrize("case,seed", MAP_CASES)
+def test_torch_build_matches_numpy_build(case, seed):
+    """The torch build's buffer, bits, n and m equal the numpy build's:
+    heavy duplication, key 0 in the overflow, keys at the sign boundary,
+    counts at sat - 1, sat and sat + 1 (B = 8), both sides of a
+    ``bucket_bits`` step, one hash, one key, none."""
+    h = map_cases.hash_case(case, seed)
+    want = hashmap.build_sorted_map(*hashmap.unique_counts(h))
+    got = hashmap.sorted_map_from_hashes(torch.from_numpy(h))
+    assert (got.bits, got.n, got.m) == (want.bits, want.n, want.m)
+    assert got.buf.dtype == torch.int64 and torch.equal(got.buf, want.buf)
+    hashmap.check_map(got)
+    if case == "saturation":
+        assert got.bits == 8 and got.m == 2 and sorted(got.ov_values.tolist()) == [255, 256]
+    if case in ("step_below", "step_at"):
+        assert got.bits == (8 if case == "step_below" else 9)
+    if case == "zeros":
+        assert int(hashmap.hashmap_get(got, torch.zeros(1, dtype=torch.int64))) == \
+            int((h == 0).sum()) > (1 << got.bits)
+
+
+GROUPED = ([(c, g) for c in map_cases.CASES for g in (1000, 1 << 14)]
+           + [("one", 1), ("all_equal", 1), ("sign_edges", 7), ("saturation", 3)])
+
+
+@pytest.mark.parametrize("case,group", GROUPED)
+def test_grouped_unique_merges_to_one_sort(case, group):
+    """Sorted in groups of ``group`` hashes, their keys and counts merged,
+    the hashes give ``unique_counts``' keys and counts and the numpy
+    build's buffer."""
+    h = map_cases.hash_case(case)
+    want_keys, want_counts = hashmap.unique_counts(h)
+    keys, counts = hashmap.unique_counts_torch(torch.from_numpy(h), group=group)
+    assert np.array_equal(keys.numpy().view(np.uint64), want_keys)
+    assert np.array_equal(counts.numpy(), want_counts)
+    got = hashmap.layout_sorted_map(keys, counts)
+    assert torch.equal(got.buf, hashmap.build_sorted_map(want_keys, want_counts).buf)
+
+
+def test_build_depth_map_matches_numpy_build(tmp_path):
+    """``build_depth_map`` on the CPU, over several batches, builds the
+    numpy build's map of the reads' hashes byte for byte and reports its
+    phases; every read window is sorted where the map is built."""
+    _, reads_path, _, _ = synth.write_call_workload(str(tmp_path), n_reads=60, seed=5)
+    reads = load_packed([reads_path])
+    stats = {}
+    got = call_cmd.build_depth_map(reads, (16,), 16, torch.device("cpu"), stats)
+    want = map_cases.reads_depth_map(reads, (16,))
+    assert (got.bits, got.n, got.m) == (want.bits, want.n, want.m)
+    assert torch.equal(got.buf, want.buf)
+    assert {"read_hashing_s", "map_unique_s", "map_layout_s"} <= set(stats)
+    assert stats["map_copy_s"] == 0.0
+    windows = int(np.maximum(reads.lens.astype(np.int64) - 15, 0).sum())
+    assert stats["map_hashes_sorted_on_device"] == windows > 0
+    assert int(hashmap.sorted_keys(got)[1].sum()) == windows

@@ -16,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from rkmh_tpu_torch import call_engine, convert
-from rkmh_tpu_torch.bench import fill_cases
+from rkmh_tpu_torch import call_engine, convert, synth
+from rkmh_tpu_torch.bench import fill_cases, map_cases
 from rkmh_tpu_torch.bench.margin_inputs import check_margins, edge_cases, margin_case
 from rkmh_tpu_torch.bench.wide_inputs import PAST, straddling_panel
+from rkmh_tpu_torch.commands import call_cmd
+from rkmh_tpu_torch.commands.common import load_packed
 from rkmh_tpu_torch.ops import counter, gather, hashmap, kernels, lookup
 from rkmh_tpu_torch.ops.hashing import (
     kmer_window_hashes_plain,
@@ -840,6 +842,39 @@ def test_hashmap_kernel_on_an_empty_map_and_a_cpu_map(cuda_device):
     assert torch.equal(hashmap.hashmap_get(empty, q).cpu(), torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError, match="on the map's device"):
         hashmap.hashmap_get(empty.to("cpu"), q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,seed", [(c, s) for c in map_cases.CASES
+                                       for s in ((0, 1, 2) if c == "duplicates" else (0,))])
+def test_device_map_build_matches_numpy_build(cuda_device, case, seed):
+    """call's depth map built on the card (``torch.unique`` and the layout
+    in torch ops) equals the numpy build's buffer element for element,
+    sorted whole and in groups whose keys and counts are merged."""
+    h = map_cases.hash_case(case, seed)
+    want = hashmap.build_sorted_map(*hashmap.unique_counts(h))
+    on_card = torch.from_numpy(h).to(cuda_device)
+    for group in (hashmap.UNIQUE_GROUP, 1000):
+        got = hashmap.layout_sorted_map(*hashmap.unique_counts_torch(on_card, group=group))
+        assert got.device.type == "cuda"
+        assert (got.bits, got.n, got.m) == (want.bits, want.n, want.m)
+        assert torch.equal(got.buf.cpu(), want.buf)
+
+
+@pytest.mark.cuda
+def test_build_depth_map_on_the_card_matches_numpy_build(cuda_device, tmp_path):
+    """call's depth map on the card, no hash fetched: the numpy build's map
+    of the reads' hashes (made on the CPU) byte for byte."""
+    _, reads_path, _, _ = synth.write_call_workload(str(tmp_path), n_reads=200, seed=7)
+    reads = load_packed([reads_path])
+    stats = {}
+    got = call_cmd.build_depth_map(reads, (16,), 64, cuda_device, stats)
+    want = map_cases.reads_depth_map(reads, (16,))
+    assert stats["map_hashes_sorted_on_device"] == \
+        int(np.maximum(reads.lens.astype(np.int64) - 15, 0).sum())
+    assert got.device.type == "cuda"
+    assert (got.bits, got.n, got.m) == (want.bits, want.n, want.m)
+    assert torch.equal(got.buf.cpu(), want.buf)
 
 
 def _call_case(k: int, seed: int = 5):

@@ -21,6 +21,7 @@ import math
 import threading
 from collections import Counter
 
+import numpy as np
 import pytest
 import torch
 
@@ -204,35 +205,38 @@ def test_hpv16_spans_and_setup_laps(data, tmp_path, monkeypatch):
 
 
 def test_call_spans_and_stats(data):
+    """call's spans and stats: its depth map keeps the hashes where they
+    are made (no fetch) and copies no map."""
     fn, cfg = _config("call", data)
     stats = {}
     run, out, _ = _traced(fn, cfg, stats=stats)
     assert run.command == "call" and out.startswith("##fileformat=VCF")
     assert {"parse_s", "scan_s", "extract_s", "write_s", "read_hashing_s", "map_unique_s",
             "map_layout_s", "map_copy_s", "map_keys", "map_bits", "map_overflow", "map_bytes",
-            "map_part_bytes"} <= set(stats)
+            "map_part_bytes", "map_hashes_sorted_on_device"} <= set(stats)
+    assert stats["map_copy_s"] == 0.0
     one = {s.name: s for s in run.spans}
     for key, name in (("parse_s", "call.parse"), ("read_hashing_s", "call.depth_map.hash"),
                       ("map_unique_s", "call.depth_map.unique"),
-                      ("map_layout_s", "call.depth_map.layout"),
-                      ("map_copy_s", "call.depth_map.copy"), ("scan_s", "call.scan"),
+                      ("map_layout_s", "call.depth_map.layout"), ("scan_s", "call.scan"),
                       ("extract_s", "output.format"), ("write_s", "output.emit")):
         assert len(_named(run, name)) == 1 and stats[key] == one[name].seconds
         assert one[name].parent == run.root
+    assert not _named(run, "call.depth_map.copy")
     reads = read_fastx_packed(data["call_reads"])
     batches = [(c, n) for _, c, n in common.bucketed_batches(reads, 16)]
+    assert stats["map_hashes_sorted_on_device"] == \
+        int(np.maximum(reads.lens.astype(np.int64) - 15, 0).sum())
     parents = _parents(run)
     assert parents[("input.parse", "call.parse")] == 1   # the reads, on this thread
     assert parents[("input.unpack", "input.parse")] == 1
     assert parents[("device.h2d", "call.depth_map.hash")] == 2 * len(batches)
-    assert parents[("device.fetch", "call.depth_map.hash")] == len(batches)
-    assert parents[("device.h2d", "call.depth_map.copy")] == 1
+    assert parents[("device.fetch", "call.depth_map.hash")] == 0
     assert parents[("device.h2d", "call.scan")] == parents[("device.fetch", "call.scan")] == 1
     h2d = {s.parent: [] for s in _named(run, "device.h2d")}
     for s in sorted(_named(run, "device.h2d"), key=lambda s: s.start_ns):
         h2d[s.parent].append(s.nbytes)
     assert h2d[one["call.depth_map.hash"].id] == [x.nbytes for b in batches for x in b]
-    assert h2d[one["call.depth_map.copy"].id] == [stats["map_bytes"]]
     with open(data["ref"]) as fh:
         ref_len = sum(len(ln.strip()) for ln in fh if not ln.startswith(">"))
     assert h2d[one["call.scan"].id] == [ref_len]
