@@ -354,7 +354,16 @@ line) without CUDA or without the package beside it.  In order it:
     sketch elements: the table built on the card) and 2**17 reads (K1, K13,
     K2), the first 16,384 lines against the CPU's; (after 22)
     ``parallel/mesh.ShardedCallEnum`` on ``(cuda:0,) * 4`` (K1, K8) against
-    one device's K1 + K8 depths.
+    one device's K1 + K8 depths;
+41. (after 38, on a host of four or more cards; else a line says it is
+    skipped) ``--dist-*`` ranks on cards of their own: four rank
+    processes (38's workers, no device seam) run ``stream -M 2 -I 40 -o``
+    over the slice's 2**20 reads; each must take one card, ``cuda:<rank>``
+    (its current device after the run, the ``dist.local_devices``
+    counter), launch K1, K6, K7 and K2, and the merged stripes must equal
+    phase 13's one-process output byte for byte; the four ranks' reads/s
+    (the slowest rank) beside one process's, each rank's peak memory on
+    its card and its -M reduction.
 
 Before them, one line gives the host seconds of each phase (or group of
 phases) in the order they ran, which add up to the run.
@@ -4017,6 +4026,7 @@ def run_sp_sketch(dev, card: str) -> dict:
 # ---- phase 38: --dist-* (commands/dist_stream.py): two rank processes on the one card
 
 N_DIST_RANKS = 2
+N_CARD_RANKS = 4          # phase 41: ranks on cards of their own
 DIST_GRID = 2             # (d): each rank's local grid, (cuda:0,) * 2 at tp = 2
 DIST_TIMEOUT_S = 420      # the pair's own limit; a failed rank's peer gets DIST_GRACE_S
 DIST_GRACE_S = 30
@@ -4094,6 +4104,7 @@ def dist_rank_worker(spec_path: str) -> int:
     import torch
 
     sys.path.insert(0, REPO)
+    from rkmh_tpu_torch import observability
     from rkmh_tpu_torch.commands import dist_stream
     from rkmh_tpu_torch.ops import kernels
 
@@ -4115,7 +4126,7 @@ def dist_rank_worker(spec_path: str) -> int:
     with open(spec_path) as fh:
         spec = json.load(fh)
     rank = int(os.environ["RKMH_SMOKE_RANK"])
-    dist = dict(dist_coordinator=spec["coordinator"], dist_procs=N_DIST_RANKS,
+    dist = dict(dist_coordinator=spec["coordinator"], dist_procs=spec["procs"],
                 dist_rank=rank)
     results = []
     for job in spec["jobs"]:
@@ -4131,8 +4142,10 @@ def dist_rank_worker(spec_path: str) -> int:
             out = open(f"{job['stdout']}.{rank}", "w") if job.get("stdout") else None
             kernels.reset_launch_counts()
             reduce.clear()
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
+            took = observability.COUNTERS.get("dist.local_devices", 0)
+            if torch.cuda.is_initialized():  # else the rank's first job places it on its card
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
                 rc = run(cfg) if out is None else run(cfg, out)
@@ -4148,7 +4161,8 @@ def dist_rank_worker(spec_path: str) -> int:
                 "by_range": {k: kernels.KERNELS[k].by_route.get("range", 0)
                              for k in ("counter_add", "counter_mask")},
                 "peak_bytes": torch.cuda.max_memory_allocated(),
-                "counter_reduce": dict(reduce)})
+                "counter_reduce": dict(reduce), "card": torch.cuda.current_device(),
+                "local_devices": observability.COUNTERS.get("dist.local_devices", 0) - took})
         with open(f"{spec['results']}.{rank}", "w") as fh:
             json.dump(results, fh)
         if results[-1].get("rc") not in (None, 0):
@@ -4156,12 +4170,14 @@ def dist_rank_worker(spec_path: str) -> int:
     return 0
 
 
-def _run_rank_pair(spec: dict, work: str, phase: str = "phase 38") -> list:
-    """Start the two ranks (this script in worker mode, each on cuda:0,
-    the gloo group's rendezvous a file store in ``work``, its connections
-    on the loopback interface) and wait for them; a rank that fails gets
-    its peer killed after DIST_GRACE_S, a pair past DIST_TIMEOUT_S is
-    killed; either raises, naming the ``phase``.  -> each rank's results."""
+def _run_rank_pair(spec: dict, work: str, phase: str = "phase 38",
+                   procs: int = N_DIST_RANKS) -> list:
+    """Start the ``procs`` ranks (this script in worker mode, each placed
+    by the program: on cuda:0 on a one-card machine, the gloo group's
+    rendezvous a file store in ``work``, its connections on the loopback
+    interface) and wait for them; a rank that fails gets its peers killed
+    after DIST_GRACE_S, ranks past DIST_TIMEOUT_S are killed; either
+    raises, naming the ``phase``.  -> each rank's results."""
     import subprocess
 
     store = os.path.join(work, "dist_store")
@@ -4169,16 +4185,17 @@ def _run_rank_pair(spec: dict, work: str, phase: str = "phase 38") -> list:
         os.remove(store)
     spec["coordinator"] = f"file://{store}"
     spec["results"] = os.path.join(work, "dist_results")
+    spec["procs"] = procs
     spec_path = os.path.join(work, "dist_spec.json")
     with open(spec_path, "w") as fh:
         json.dump(spec, fh)
-    logs = [os.path.join(work, f"dist_rank.{r}.log") for r in range(N_DIST_RANKS)]
+    logs = [os.path.join(work, f"dist_rank.{r}.log") for r in range(procs)]
     env = {**os.environ, "RKMH_TPU_INPUT_INDEX": os.path.join(work, "idx"),
            "GLOO_SOCKET_IFNAME": "lo"}
     ranks = []
     ok = False
     try:
-        for r in range(N_DIST_RANKS):
+        for r in range(procs):
             with open(logs[r], "w") as log_fh:
                 ranks.append(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__), "--dist-rank-worker", spec_path],
@@ -4205,21 +4222,21 @@ def _run_rank_pair(spec: dict, work: str, phase: str = "phase 38") -> list:
     if not ok:
         raise AssertionError(f"{phase}: rank exit codes {[p.returncode for p in ranks]}")
     got = []
-    for r in range(N_DIST_RANKS):
+    for r in range(procs):
         with open(f"{spec['results']}.{r}") as fh:
             got.append(json.load(fh))
     return got
 
 
-def _merge_stripes(prefix: str, dst: str) -> str:
+def _merge_stripes(prefix: str, dst: str, procs: int = N_DIST_RANKS) -> str:
     """rkmh-tpu-torch-dist-merge (``dist_stream.merge_main``, which the
     console script and ``python -m rkmh_tpu_torch.commands.dist_stream``
-    call) of the two stripes into dst, in this process: a process of its
-    own would spend seconds on imports for each merge."""
+    call) of the ``procs`` stripes into dst, in this process: a process of
+    its own would spend seconds on imports for each merge."""
     from rkmh_tpu_torch.commands import dist_stream
 
     with open(dst, "w") as out, contextlib.redirect_stdout(out):
-        if dist_stream.merge_main([f"{prefix}.{r}" for r in range(N_DIST_RANKS)]) != 0:
+        if dist_stream.merge_main([f"{prefix}.{r}" for r in range(procs)]) != 0:
             raise AssertionError(f"the merge of {prefix}.* failed")
     return dst
 
@@ -4319,6 +4336,61 @@ def run_dist_paths(card: str, zika: dict, single: dict) -> dict:
             f"{single_s / seconds:.2f}); merged output byte-identical to one process's; peak "
             f"{peak_s} GiB by rank{reduced}")
     return res
+
+
+def run_dist_cards(card: str, zika: dict, single_mi: dict) -> dict:
+    """Phase 41: on a host of N_CARD_RANKS or more cards, that many rank
+    processes, placed by the program (no device seam), run ``stream -M 2
+    -I 40 -o`` over the slice's 2**20 reads; each must take one card of its
+    own (``cuda:<rank>``: its current device and the ``dist.local_devices``
+    counter) and launch K1, K6, K7 and K2, and the merged stripes must
+    equal phase 13's one-process output byte for byte.  -> the ranks'
+    reads/s (the slowest rank's seconds) beside one process's, each rank's
+    card, peak memory and -M reduction; {} (a line says so) on fewer
+    cards."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < N_CARD_RANKS:
+        say(f"phase 41 skipped: {cards} card(s), {N_CARD_RANKS} ranks on cards of their own "
+            "need as many")
+        return {}
+    tmp = zika["dir"]
+    out = os.path.join(tmp, "dist_cards")
+    job = {"label": "cards", "run": "stream",
+           "cfg": dict(ref_files=[zika["refs"]], read_files=[zika["reads"]], ks=[12],
+                       sketch_size=1000, device="cuda", min_kmer_occ=MIN_OCC,
+                       max_samples=MAX_SAMPLES, out_file=out)}
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # rank 0 shares cuda:0 with this process
+    ranks = [res[0] for res in _run_rank_pair({"jobs": [job]}, tmp, "phase 41", N_CARD_RANKS)]
+    say(f"phase 41: {N_CARD_RANKS} ranks ran in {time.perf_counter() - t0:.1f} s (their "
+        "start-up included)")
+    for r, got in enumerate(ranks):
+        if got["rc"] != 0:
+            raise AssertionError(f"phase 41: rank {r} exited {got['rc']}")
+        if (got["card"], got["local_devices"]) != (r, 1):
+            raise AssertionError(f"phase 41: rank {r} took {got['local_devices']} device(s), "
+                                 f"current card {got['card']}; want cuda:{r} alone")
+        require_launches(got["launches"], ("window_hash", "counter_add", "counter_mask",
+                                           "panel_probe"), f"dist cards (rank {r})")
+    same_file(_merge_stripes(out, out + ".merged", N_CARD_RANKS),
+              os.path.join(tmp, "stream_mi.tsv"), "dist stream -M 2 -I 40 on cards of their own")
+    seconds = max(got["seconds"] for got in ranks)
+    res = {"e2e_s": seconds, "e2e_reads_per_s": N_SLICE_READS / seconds,
+           "one_process_reads_per_s": N_SLICE_READS / single_mi["e2e_s"],
+           "rank_seconds": [got["seconds"] for got in ranks],
+           "cards": [got["card"] for got in ranks],
+           "peak_gib_by_rank": [got["peak_bytes"] / 2**30 for got in ranks],
+           "counter_reduce_by_rank": [got["counter_reduce"] for got in ranks],
+           "launches_by_rank": [got["launches"] for got in ranks]}
+    say(f"dist stream -M 2 -I 40, {N_CARD_RANKS} ranks on cards {res['cards']} of {card}: "
+        f"{res['e2e_reads_per_s']:.1f} reads/s (ranks "
+        f"{', '.join(f'{s:.3f}' for s in res['rank_seconds'])} s); one process "
+        f"{res['one_process_reads_per_s']:.1f} reads/s; merged output byte-identical to one "
+        f"process's; peak {', '.join(f'{p:.3f}' for p in res['peak_gib_by_rank'])} GiB by "
+        f"rank; -M all_reduce by rank {res['counter_reduce_by_rank']}")
+    return {f"dist stream -M 2 -I 40 on {N_CARD_RANKS} cards": res}
 
 
 # ---- phase 39: the rest of --dist-* (hash, count, search, hpv16, call)
@@ -4858,6 +4930,8 @@ def main() -> int:
         dist = run_dist_paths(card_smi, zika, {"stream": sl, "stream -M -I": st_mi,
                                                "filter": fl})
         clock.lap("38 --dist-* stream, filter")
+        dist_cards = run_dist_cards(card_smi, zika, st_mi)
+        clock.lap("41 --dist-* on cards of their own")
         hpm = run_hpv16_counter(dev, card_smi)
         clock.lap("15 hpv16 -M")
         from rkmh_tpu_torch.bench import call_inputs
@@ -4918,7 +4992,7 @@ def main() -> int:
                 if k not in ("accuracy", "stats")},
              **{k: {"launches": v} for k, v in cached.items() if k != "setup_s"},
              **sharded, "stream 12,288 refs --devices 4 --tp 2": wide.pop("sharded"),
-             **hp.pop("sharded"), **sharded_call, **sp, **dist, **dist_rest,
+             **hp.pop("sharded"), **sharded_call, **sp, **dist, **dist_cards, **dist_rest,
              "stream 2,048 refs (device build)": device_panel, "call enumeration": enum}
     by_range = {name: sum(r["launches"].get("by_range", {}).get(name, 0) for r in paths.values())
                 for name in ("counter_add", "counter_mask")}

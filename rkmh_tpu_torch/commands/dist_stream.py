@@ -20,10 +20,19 @@ reassembles them into one process's output:
   hash, count and search); the global batch B rounds up to a multiple of
   dp * H, and rank r owns rows [r * Bl, (r + 1) * Bl) of each global batch
   (Bl = B / H), which it reads alone (seeking to them through the input
-  index) and works on its own grid of local devices
-  (``common.mesh_candidates``: one device, or a (n_local / tp, tp) grid:
-  ``ShardedCtx`` for stream and filter, ``DpCtx`` for hash and search,
-  ``ShardedHpv16Comb`` / ``ShardedHpv16Sorted`` for hpv16);
+  index) and works on its own grid of local devices (one device, or a
+  (n_local / tp, tp) grid: ``ShardedCtx`` for stream and filter, ``DpCtx``
+  for hash and search, ``ShardedHpv16Comb`` / ``ShardedHpv16Sorted`` for
+  hpv16);
+* a rank finds its local devices at the join (``_rank_devices``): on
+  CUDA its share of its host's visible cards
+  (``distributed.rank_devices`` of its host-local rank, found by one
+  gather of the ranks' host names), the first of them its current device
+  and the one its panel, counter and batches live on: four ranks on a
+  host of four cards take one card each, two ranks of a host of eight take
+  four each, and ranks on a one-card machine share ``cuda:0``.  The
+  ``mesh_devices`` seam (the tests', ``chip_smoke.py``'s) wins where it
+  is given; on the CPU a rank has the one CPU;
 * rank r writes its rows, in global order, to ``<out>.<r>`` (stream,
   hpv16 and hash: one line a read); filter and search also write
   ``<out>.<r>.idx``, their records in every global batch; count sums the
@@ -476,14 +485,19 @@ def _fill(tables, host: torch.Tensor) -> None:
 def _reduce_counter(tables) -> np.ndarray:
     """Sum every rank's counts: the tables fetched to the host as one
     [size] array, one ``all_reduce`` over the group, the sums copied back
-    (a ``dist.counter_reduce`` span of the table's bytes).  -> the global
-    counter on the host."""
-    with span("dist.counter_reduce", sum(t.numel() * t.element_size() for t in tables)):
-        host = torch.cat([t.cpu() for t in tables])
-        distributed.all_reduce_sum_(host)
-        _fill(tables, host)
-        if tables[0].device.type == "cuda":
-            torch.cuda.synchronize(tables[0].device)
+    (a ``dist.counter_reduce`` span of the table's bytes, its children
+    ``.fetch``, ``.allreduce`` and ``.fill``, each of those bytes).  ->
+    the global counter on the host."""
+    nbytes = sum(t.numel() * t.element_size() for t in tables)
+    with span("dist.counter_reduce", nbytes):
+        with span("dist.counter_reduce.fetch", nbytes):
+            host = torch.cat([t.cpu() for t in tables])
+        with span("dist.counter_reduce.allreduce", nbytes):
+            distributed.all_reduce_sum_(host)
+        with span("dist.counter_reduce.fill", nbytes):
+            _fill(tables, host)
+            if tables[0].device.type == "cuda":
+                torch.cuda.synchronize(tables[0].device)
     return host.numpy()
 
 
@@ -531,21 +545,36 @@ def _refused_resume_or_input(cfg, cmd: str, resume: bool = True, work: str = "cl
     return False
 
 
+def _rank_devices(device: torch.device, mesh_devices) -> list:
+    """The rank's local devices: ``mesh_devices`` where given; on CUDA the
+    rank's share of its host's visible cards (a collective: the host
+    names' gather); the one CPU."""
+    if mesh_devices is not None or device.type != "cuda":
+        return mesh_candidates(device, mesh_devices)
+    return distributed.rank_devices(mesh_candidates(device), *distributed.host_local_rank())
+
+
 def _join_group(cfg, cmd: str) -> _DistCtx | None:
-    """Bring up the group and take the rank's local devices (every rank
-    must see as many: each owns an equal block of every global batch, and
-    rkmh-tpu assumes the same of its processes); None after a logged
-    refusal."""
+    """Bring up the group and take the rank's local devices, the first its
+    current device on CUDA (a ``dist.join`` span; every rank must take as
+    many: each owns an equal block of every global batch, and rkmh-tpu
+    assumes the same of its processes); None after a logged refusal."""
     device = resolve_device(cfg.device)
-    try:
-        distributed.initialize(cfg.dist_coordinator or None, cfg.dist_procs or None,
-                               cfg.dist_rank if cfg.dist_rank >= 0 else None)
-    except ValueError as e:
-        log(f"{cmd} --dist-*: {e}")
-        return None
-    ctx = _DistCtx()
-    ctx.H, ctx.rank, ctx.device = distributed.process_count(), distributed.process_index(), device
-    ctx.local = mesh_candidates(device, cfg.mesh_devices)
+    with span("dist.join"):
+        try:
+            distributed.initialize(cfg.dist_coordinator or None, cfg.dist_procs or None,
+                                   cfg.dist_rank if cfg.dist_rank >= 0 else None)
+        except ValueError as e:
+            log(f"{cmd} --dist-*: {e}")
+            return None
+        ctx = _DistCtx()
+        ctx.H, ctx.rank = distributed.process_count(), distributed.process_index()
+        ctx.local = _rank_devices(device, cfg.mesh_devices)
+        if device.type == "cuda":
+            device = ctx.local[0]
+            torch.cuda.set_device(device)
+        ctx.device = device
+    count("dist.local_devices", len(ctx.local))
     ctx.mesh = ctx.dpc = ctx.sharded = ctx.counter = ctx.panel = None
     n_local = len(ctx.local)
     fewest, most = distributed.allmin(n_local), distributed.allmax(n_local)
@@ -1150,22 +1179,24 @@ def run_distributed_call(cfg, out=None) -> int:
 
 def merge_outputs(rank_files, batch_size: int, out=None) -> int:
     """Interleave one-line-per-read stripes back into one process's order:
-    a block of batch_size / H lines from each rank in turn."""
+    a block of batch_size / H lines from each rank in turn (a
+    ``dist.merge`` span of the stripes' bytes, which it writes whole)."""
     out = out or sys.stdout
     Bl = batch_size // len(rank_files)
     fhs = [open(p) for p in rank_files]
     try:
-        while True:
-            got = 0
-            for fh in fhs:
-                for _ in range(Bl):
-                    line = fh.readline()
-                    if not line:
-                        break
-                    out.write(line)
-                    got += 1
-            if not got:
-                return 0
+        with span("dist.merge", sum(os.fstat(fh.fileno()).st_size for fh in fhs)):
+            while True:
+                got = 0
+                for fh in fhs:
+                    for _ in range(Bl):
+                        line = fh.readline()
+                        if not line:
+                            break
+                        out.write(line)
+                        got += 1
+                if not got:
+                    return 0
     finally:
         for fh in fhs:
             fh.close()

@@ -35,7 +35,12 @@ Span names: ``run`` (the root), ``input.parse`` / ``input.unpack`` /
 ``device.fetch`` (copies, with their bytes), ``output.format`` /
 ``output.emit`` (host output), ``counter.pass``, ``hpv16.tables.<phase>``,
 ``call.parse`` / ``call.depth_map.<phase>`` / ``call.scan``,
-``dist.counter_reduce`` / ``dist.counter_checkpoint``.
+``dist.join`` (a --dist-* rank's group, host-name gather and placement),
+``dist.counter_reduce`` (children ``.fetch``, ``.allreduce``, ``.fill``,
+with the table's bytes) / ``dist.counter_checkpoint``, ``dist.collective``
+(``allmin`` / ``allmax``: the wait on the slowest rank), ``dist.merge``
+(the stripes merged, with their bytes).  Counters: ``reads``, ``bp``;
+``dist.local_devices`` (the devices a --dist-* rank took at its join).
 """
 
 from __future__ import annotations

@@ -4,8 +4,16 @@ Counterpart of ``rkmh_tpu/parallel/distributed.py:33-79``.  rkmh-tpu
 brings up ``jax.distributed`` and one global mesh over every process's
 devices; the port brings up a ``torch.distributed`` group, and each rank
 (process) works on its own grid of local devices (its share of rkmh-tpu's
-``global_mesh``: ``commands/common.mesh_candidates``).
-``commands/dist_stream.py`` drives the ranks.
+``global_mesh``).  ``commands/dist_stream.py`` drives the ranks.
+
+* A rank's devices (``rank_devices``): on CUDA, its share of its host's
+  visible cards.  ``host_local_rank`` finds the rank's index among the
+  ranks on its host, and their count L, from every rank's host name
+  gathered in one collective at the join; with n visible cards, local
+  rank l takes cards [l n / L, (l + 1) n / L) where L divides n, else
+  card l mod n alone.  So four ranks on a host of four cards take one
+  card each, and several ranks on a one-card machine share ``cuda:0``.
+  The tests' ``mesh_devices`` seam, where given, wins.
 
 * ``initialize`` reads the flags, or else the variables rkmh-tpu reads
   (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``),
@@ -17,25 +25,30 @@ devices; the port brings up a ``torch.distributed`` group, and each rank
   collective, ends after ``DEFAULT_TIMEOUT_S`` (300 s; ``timeout_s``) with
   an error, not after torch's default of 30 minutes, so a rank whose peer
   died fails instead of hanging.
-* The backend is gloo, on the host.  A machine with one card puts every
-  rank on ``cuda:0``, and NCCL refuses two ranks of one group on one
-  device.  No kernel moves to the host for it: each rank runs its kernels
-  on its own card, and every collective of ``dist_stream`` carries host
-  data (the ints of ``allmin`` / ``allmax``, the -M counter's one
-  reduction a run, the checkpoint's blocks).  ``--device cuda`` without a
-  card still raises.  A group on NCCL, for hosts with one card per rank,
-  has not run (ROADMAP).
+* The backend is gloo, on the host.  Ranks that share a card (a machine
+  with fewer cards than ranks) would be refused by NCCL, which takes one
+  rank a device.  No kernel moves to the host for it: each rank runs its
+  kernels on its own card, and every collective of ``dist_stream``
+  carries host data (the ints of ``allmin`` / ``allmax``, each a
+  ``dist.collective`` span: the wait on the slowest rank; the -M
+  counter's one reduction a run; the checkpoint's blocks; the host
+  names).  ``--device cuda`` without a card still raises.  A group on
+  NCCL, for hosts with one card per rank, has not run (ROADMAP).
 """
 
 from __future__ import annotations
 
 import os
+import socket
 from datetime import timedelta
 
 import numpy as np
 import torch
 
+from rkmh_tpu_torch.observability import span
+
 DEFAULT_TIMEOUT_S = 300
+HOST_NAME_BYTES = 256  # a host name's bytes in the gather (a DNS name has at most 253)
 
 
 def requested(dist_procs: int, dist_coordinator: str) -> bool:
@@ -123,7 +136,8 @@ def _reduce_int(value: int, op) -> int:
     import torch.distributed as dist
 
     t = torch.tensor([int(value)], dtype=torch.int64)
-    dist.all_reduce(t, op=op)
+    with span("dist.collective"):
+        dist.all_reduce(t, op=op)
     return int(t.item())
 
 
@@ -162,3 +176,26 @@ def all_gather_blocks(block: np.ndarray) -> np.ndarray:
     parts = [torch.empty_like(mine) for _ in range(process_count())]
     dist.all_gather(parts, mine)
     return torch.cat(parts).numpy()
+
+
+def host_local_rank() -> tuple[int, int]:
+    """(this rank's index among the group's ranks on its host, their
+    count): every rank's host name gathered in one collective, the ranks
+    on a host in rank order; (0, 1) without a group."""
+    me = socket.gethostname().encode()[:HOST_NAME_BYTES].ljust(HOST_NAME_BYTES, b"\0")
+    names = all_gather_blocks(np.frombuffer(bytearray(me), dtype=np.uint8))
+    names = names.reshape(-1, HOST_NAME_BYTES)
+    same = np.flatnonzero((names == names[process_index()]).all(1))
+    return int(np.searchsorted(same, process_index())), len(same)
+
+
+def rank_devices(visible: list, local_rank: int, local_size: int) -> list:
+    """The rank's share of its host's ``visible`` devices: where the
+    host's ``local_size`` ranks divide them, an equal block each (local
+    rank l takes [l n / L, (l + 1) n / L)); else device ``local_rank mod
+    n`` alone, so ranks beyond the devices share them."""
+    n = len(visible)
+    if n % local_size == 0:
+        per = n // local_size
+        return list(visible[local_rank * per:(local_rank + 1) * per])
+    return [visible[local_rank % n]]

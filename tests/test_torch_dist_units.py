@@ -111,6 +111,36 @@ def test_initialize_one_process_is_a_noop(monkeypatch):
     assert distributed.requested(0, "")
 
 
+@pytest.mark.parametrize("cards,hosts,mesh,want", [
+    (4, "aaaa", None, [[0], [1], [2], [3]]),
+    (4, "aa", None, [[0, 1], [2, 3]]),
+    (8, "aaaa", None, [[0, 1], [2, 3], [4, 5], [6, 7]]),
+    (1, "aa", None, [[0], [0]]),  # a one-card machine: the ranks share cuda:0
+    (3, "aa", None, [[0], [1]]),
+    (2, "abab", None, [[0], [0], [1], [1]]),  # two hosts, the ranks interleaved
+    (4, "aaaa", 2, [[3, 3]] * 4),  # the mesh_devices seam wins, no names gathered
+], ids=["4-cards-4-ranks", "4-2", "8-4", "1-2", "3-2", "2-hosts", "mesh-wins"])
+def test_rank_placement(monkeypatch, cards, hosts, mesh, want):
+    """A rank's CUDA devices at the join (``dist_stream._rank_devices``): its
+    host-local rank from every rank's host name (the gather stood in for),
+    then its share of the host's visible cards."""
+    from rkmh_tpu_torch.commands import common
+
+    monkeypatch.setattr(common, "visible_devices",
+                        lambda dev: [torch.device("cuda", i) for i in range(cards)])
+    names = np.concatenate([np.frombuffer(h.encode().ljust(distributed.HOST_NAME_BYTES, b"\0"),
+                                          dtype=np.uint8) for h in hosts])
+    monkeypatch.setattr(distributed, "all_gather_blocks", lambda block: names)
+    seam = (torch.device("cuda", 3),) * mesh if mesh else None
+    if mesh:
+        monkeypatch.setattr(distributed, "host_local_rank", pytest.fail)
+    for rank, cards_of_rank in enumerate(want):
+        monkeypatch.setattr(distributed, "process_index", lambda r=rank: r)
+        monkeypatch.setattr("socket.gethostname", lambda r=rank: hosts[r])
+        got = ds._rank_devices(torch.device("cuda"), seam)
+        assert [d.index for d in got] == cards_of_rank, rank
+
+
 @pytest.mark.parametrize("args,env,message", [
     ((None, 2, 0), {}, "--dist-procs 2 needs --dist-coordinator host:port "
                        "(or JAX_COORDINATOR_ADDRESS)"),
