@@ -58,13 +58,16 @@ Where the port departs from rkmh-tpu:
   queries and sums counts each batch of the classify pass (:69-85; count:
   one final gather).  Here each rank counts its own rows into the whole
   ``[size]`` int32 table (K1 + K6; over its grid's dp slot ranges with
-  ``parallel/ep.ShardedCounter``), one ``all_reduce(SUM)`` on the host
-  after the pass makes it the global counter (bit-equal: integer addition
+  ``parallel/ep.ShardedCounter``), one ``all_reduce(SUM)`` after the
+  pass makes it the global counter (bit-equal: integer addition
   commutes), and each rank masks with K7 on its own devices; no collective
-  runs per batch.  The price: ``size * 4`` bytes through gloo once a run
+  runs per batch.  The sum runs where the table lies (``_reduce_counter``):
+  on one NCCL group for ranks on cards of their own, on gloo for CPU
+  ranks; ranks that share a card or hold a grid of several stage it
+  through the host.  The price: ``size * 4`` bytes summed once a run
   (800 MB at stream's default 2e8 slots, 3.2 GB at hpv16's 8e8, 40 MB at
   filter's 1e7, 2.56 MB at count's 640,000) and the whole table on each
-  rank's card, where rkmh-tpu holds 1 / H of it.
+  rank's device, where rkmh-tpu holds 1 / H of it.
 * The checkpoint ``<out>.mctr.<rank>.npz`` keeps rkmh-tpu's content (``fp``
   the same JSON, ``rows`` this rank's contiguous [size / H] block of the
   global table); a restore all-gathers the blocks.  rkmh-tpu's int64
@@ -191,19 +194,20 @@ def _counter_fingerprint(read_files, ks, size: int, dp: int, H: int, rank: int) 
                        "size": size, "dp": dp, "H": H, "rank": rank})
 
 
-def _save_counter_ckpt(table: np.ndarray, out_file: str, fp: str, H: int, rank: int) -> None:
+def _save_counter_ckpt(table: torch.Tensor, out_file: str, fp: str, H: int, rank: int) -> None:
     """Write this rank's [size / H] block of the global counter ``table``
-    (atomically; best effort), so that --resume can skip the counting pass
-    (off with RKMH_TPU_MCTR_CKPT=0)."""
+    (on the host or a device: the block alone is fetched) atomically, best
+    effort, so that --resume can skip the counting pass (off with
+    RKMH_TPU_MCTR_CKPT=0)."""
     if not fp or os.environ.get("RKMH_TPU_MCTR_CKPT", "1") == "0":
         return
     per = table.shape[0] // H
+    rows = table[rank * per:(rank + 1) * per].cpu().numpy()
     path = _counter_ckpt_path(out_file, rank)
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, "wb") as fh:
-            np.savez_compressed(fh, fp=np.frombuffer(fp.encode(), np.uint8),
-                                rows=table[rank * per:(rank + 1) * per])
+            np.savez_compressed(fh, fp=np.frombuffer(fp.encode(), np.uint8), rows=rows)
         os.replace(tmp, path)
     except OSError as e:
         log(f"dist rank {rank}: -M counter checkpoint skipped ({e})")
@@ -482,14 +486,28 @@ def _fill(tables, host: torch.Tensor) -> None:
         at += t.numel()
 
 
-def _reduce_counter(tables) -> np.ndarray:
-    """Sum every rank's counts: the tables fetched to the host as one
-    [size] array, one ``all_reduce`` over the group, the sums copied back
-    (a ``dist.counter_reduce`` span of the table's bytes, its children
-    ``.fetch``, ``.allreduce`` and ``.fill``, each of those bytes).  ->
-    the global counter on the host."""
+def _reduce_counter(tables) -> torch.Tensor:
+    """Sum every rank's counts (a ``dist.counter_reduce`` span of the
+    table's bytes).  In place where the ranks agreed so at their join
+    (``distributed.agree_in_place``): one ``all_reduce`` of the rank's one
+    table on the group that serves its device, NCCL for a card and gloo for
+    the CPU (the child span ``.allreduce``, the card synchronized inside it;
+    counter ``dist.counter_reduce.in_place``).  Else through the host
+    (``dist.counter_reduce.staged``): the tables fetched as one [size] host
+    table (``.fetch``), one ``all_reduce`` over the default group
+    (``.allreduce``), the sums copied back (``.fill``).  -> the global
+    counter: the rank's table in place, else the host table."""
     nbytes = sum(t.numel() * t.element_size() for t in tables)
+    group = distributed.in_place_group()
     with span("dist.counter_reduce", nbytes):
+        if group is not None:
+            (table,) = tables
+            with span("dist.counter_reduce.allreduce", nbytes):
+                distributed.all_reduce_sum_(table, group)
+                if table.device.type == "cuda":
+                    torch.cuda.synchronize(table.device)
+            count("dist.counter_reduce.in_place", 1)
+            return table
         with span("dist.counter_reduce.fetch", nbytes):
             host = torch.cat([t.cpu() for t in tables])
         with span("dist.counter_reduce.allreduce", nbytes):
@@ -498,7 +516,8 @@ def _reduce_counter(tables) -> np.ndarray:
             _fill(tables, host)
             if tables[0].device.type == "cuda":
                 torch.cuda.synchronize(tables[0].device)
-    return host.numpy()
+    count("dist.counter_reduce.staged", 1)
+    return host
 
 
 def _counter_pass_ckpt(ctx: _DistCtx, cfg):
@@ -558,7 +577,9 @@ def _join_group(cfg, cmd: str) -> _DistCtx | None:
     """Bring up the group and take the rank's local devices, the first its
     current device on CUDA (a ``dist.join`` span; every rank must take as
     many: each owns an equal block of every global batch, and rkmh-tpu
-    assumes the same of its processes); None after a logged refusal."""
+    assumes the same of its processes), then agree on where the counters
+    are summed (``distributed.agree_in_place``); None after a logged
+    refusal."""
     device = resolve_device(cfg.device)
     with span("dist.join"):
         try:
@@ -582,6 +603,7 @@ def _join_group(cfg, cmd: str) -> _DistCtx | None:
         log(f"{cmd} --dist-*: the ranks see {fewest} to {most} local devices; every "
             "rank needs the same count (each owns an equal block of every global batch)")
         return None
+    distributed.agree_in_place(ctx.local)
     return ctx
 
 
@@ -919,7 +941,7 @@ def run_distributed_count(cfg, out=None) -> int:
     if ctx.rank == 0:
         from rkmh_tpu_torch.commands.count_cmd import write_table
 
-        write_table(cfg, table, ctx.ks, out or sys.stdout)
+        write_table(cfg, table.cpu().numpy(), ctx.ks, out or sys.stdout)
     return 0
 
 

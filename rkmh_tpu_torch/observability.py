@@ -36,11 +36,14 @@ Span names: ``run`` (the root), ``input.parse`` / ``input.unpack`` /
 ``output.emit`` (host output), ``counter.pass``, ``hpv16.tables.<phase>``,
 ``call.parse`` / ``call.depth_map.<phase>`` / ``call.scan``,
 ``dist.join`` (a --dist-* rank's group, host-name gather and placement),
-``dist.counter_reduce`` (children ``.fetch``, ``.allreduce``, ``.fill``,
-with the table's bytes) / ``dist.counter_checkpoint``, ``dist.collective``
-(``allmin`` / ``allmax``: the wait on the slowest rank), ``dist.merge``
-(the stripes merged, with their bytes).  Counters: ``reads``, ``bp``;
-``dist.local_devices`` (the devices a --dist-* rank took at its join).
+``dist.counter_reduce`` (with the table's bytes; summed in place, its one
+child ``.allreduce``; staged through the host, ``.fetch``, ``.allreduce``,
+``.fill``) / ``dist.counter_checkpoint``, ``dist.collective`` (``allmin``
+/ ``allmax``: the wait on the slowest rank), ``dist.merge`` (the stripes
+merged, with their bytes).  Counters: ``reads``, ``bp``;
+``dist.local_devices`` (the devices a --dist-* rank took at its join);
+``dist.counter_reduce.in_place`` / ``.staged`` (a rank's counter sums on
+each route).
 """
 
 from __future__ import annotations

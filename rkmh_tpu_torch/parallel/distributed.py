@@ -25,15 +25,21 @@ devices; the port brings up a ``torch.distributed`` group, and each rank
   collective, ends after ``DEFAULT_TIMEOUT_S`` (300 s; ``timeout_s``) with
   an error, not after torch's default of 30 minutes, so a rank whose peer
   died fails instead of hanging.
-* The backend is gloo, on the host.  Ranks that share a card (a machine
-  with fewer cards than ranks) would be refused by NCCL, which takes one
-  rank a device.  No kernel moves to the host for it: each rank runs its
-  kernels on its own card, and every collective of ``dist_stream``
-  carries host data (the ints of ``allmin`` / ``allmax``, each a
-  ``dist.collective`` span: the wait on the slowest rank; the -M
-  counter's one reduction a run; the checkpoint's blocks; the host
-  names).  ``--device cuda`` without a card still raises.  A group on
-  NCCL, for hosts with one card per rank, has not run (ROADMAP).
+* The default group is gloo, on the host.  It carries the ints of
+  ``allmin`` / ``allmax`` (each a ``dist.collective`` span: the wait on
+  the slowest rank), the host names' and device keys' gathers at the
+  join, a restored -M checkpoint's blocks, and every counter sum that
+  does not run on NCCL.  ``--device cuda`` without a card still raises.
+* The counter's sum (the -M counter's one reduction a run, count's table)
+  runs where the tables lie when the ranks agree so at their join
+  (``agree_in_place``): each holds one device, every rank's of one kind,
+  and that the CPU (summed on the default group) or a CUDA card no other
+  rank holds, with NCCL built in (summed on one NCCL group over every
+  rank, made beside the default group, kept as long as it, its waits
+  bounded by ``DEFAULT_TIMEOUT_S``).  NCCL takes one rank a card, so
+  ranks that share one (a machine with fewer cards than ranks), a rank's
+  grid of several devices, and a torch without NCCL sum through the host
+  instead.  Ranks on several hosts have not run (ROADMAP).
 """
 
 from __future__ import annotations
@@ -49,6 +55,14 @@ from rkmh_tpu_torch.observability import span
 
 DEFAULT_TIMEOUT_S = 300
 HOST_NAME_BYTES = 256  # a host name's bytes in the gather (a DNS name has at most 253)
+KEY_BYTES = 64  # a device key's bytes in the gather: its kind and name or card UUID
+
+# What ``agree_in_place`` settled, each beside the default group it was
+# settled under (so that neither outlives that group): the NCCL group over
+# every rank, made once a default group, and the group that sums counters
+# in place (None: through the host).
+_nccl = (None, None)
+_in_place = (None, None)
 
 
 def requested(dist_procs: int, dist_coordinator: str) -> bool:
@@ -156,12 +170,13 @@ def allmax(value: int) -> int:
     return _reduce_int(value, dist.ReduceOp.MAX) if process_count() > 1 else int(value)
 
 
-def all_reduce_sum_(table: torch.Tensor) -> torch.Tensor:
-    """Sum a host tensor over the group, in place (a collective)."""
+def all_reduce_sum_(table: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum a tensor over ``group`` (None: the default group), in place (a
+    collective)."""
     import torch.distributed as dist
 
     if process_count() > 1:
-        dist.all_reduce(table, op=dist.ReduceOp.SUM)
+        dist.all_reduce(table, op=dist.ReduceOp.SUM, group=group)
     return table
 
 
@@ -178,13 +193,18 @@ def all_gather_blocks(block: np.ndarray) -> np.ndarray:
     return torch.cat(parts).numpy()
 
 
+def _gather_keys(key: str, width: int) -> np.ndarray:
+    """Every rank's ``key`` (its first ``width`` bytes, padded with zeros)
+    as a [H, width] uint8 array in rank order (a collective)."""
+    me = key.encode()[:width].ljust(width, b"\0")
+    return all_gather_blocks(np.frombuffer(bytearray(me), dtype=np.uint8)).reshape(-1, width)
+
+
 def host_local_rank() -> tuple[int, int]:
     """(this rank's index among the group's ranks on its host, their
     count): every rank's host name gathered in one collective, the ranks
     on a host in rank order; (0, 1) without a group."""
-    me = socket.gethostname().encode()[:HOST_NAME_BYTES].ljust(HOST_NAME_BYTES, b"\0")
-    names = all_gather_blocks(np.frombuffer(bytearray(me), dtype=np.uint8))
-    names = names.reshape(-1, HOST_NAME_BYTES)
+    names = _gather_keys(socket.gethostname(), HOST_NAME_BYTES)
     same = np.flatnonzero((names == names[process_index()]).all(1))
     return int(np.searchsorted(same, process_index())), len(same)
 
@@ -199,3 +219,59 @@ def rank_devices(visible: list, local_rank: int, local_size: int) -> list:
         per = n // local_size
         return list(visible[local_rank * per:(local_rank + 1) * per])
     return [visible[local_rank % n]]
+
+
+def device_key(device: torch.device) -> str:
+    """``kind/id`` of a device: on CUDA the card's UUID (the same card
+    under whatever index a rank sees it by, and no other card on any
+    host), else the device's name."""
+    ident = torch.cuda.get_device_properties(device).uuid if device.type == "cuda" else device
+    return f"{device.type}/{ident}"
+
+
+def can_sum_in_place(local: list, keys: list, rank: int, nccl: bool) -> bool:
+    """Whether rank ``rank``, of ``local`` devices, can sum its counter where
+    it lies, given every rank's ``device_key`` (``keys``): one device, of
+    the kind every rank's is, and that the CPU (gloo), or a CUDA card no
+    other rank holds where ``nccl`` (NCCL takes one rank a card)."""
+    if len(local) != 1 or len({k.split("/")[0] for k in keys}) != 1:
+        return False
+    if local[0].type == "cpu":
+        return True
+    return local[0].type == "cuda" and nccl and keys.count(keys[rank]) == 1
+
+
+def agree_in_place(local: list) -> bool:
+    """Whether the group's ranks sum their counters in place (a collective,
+    at each join: every rank's device key gathered, then one ``allmin`` of
+    ``can_sum_in_place``, so one rank that cannot sends every rank through
+    the host).  Settles the group ``in_place_group`` gives: the default
+    group for CPU tables; for cards the NCCL group, which every rank makes
+    here, in the same order, at the first such join under a default group."""
+    import torch.distributed as dist
+
+    global _nccl, _in_place
+    keys = [bytes(k).rstrip(b"\0").decode()
+            for k in _gather_keys(device_key(local[0]), KEY_BYTES)]
+    agreed = bool(allmin(can_sum_in_place(local, keys, process_index(),
+                                          dist.is_nccl_available())))
+    world, group = dist.group.WORLD, None
+    if agreed and local[0].type == "cuda":
+        if _nccl[0] is not world:
+            _nccl = (world, dist.new_group(backend="nccl",
+                                           timeout=timedelta(seconds=DEFAULT_TIMEOUT_S)))
+        group = _nccl[1]
+    elif agreed:
+        group = world
+    _in_place = (world, group)
+    return agreed
+
+
+def in_place_group():
+    """The group that sums a counter where it lies, as the ranks agreed at
+    their last join under the current default group (``agree_in_place``);
+    None: through the host."""
+    import torch.distributed as dist
+
+    world, group = _in_place
+    return group if world is dist.group.WORLD else None

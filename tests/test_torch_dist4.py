@@ -6,9 +6,12 @@ workload (60 references, 300 reads; a global batch of 64, so each rank
 owns rows of every batch), run under a profiler so that rank 0's spans
 are recorded: the merged stripes must equal the plain reference
 (``portbench/reference/stream.expected``) and one process's ``stream``
-output byte for byte.  On a host of four cards (``cuda``), four ranks
-joined with no device seam each take a card of their own.  Tolerance:
-none; the outputs are text.
+output byte for byte; the CPU ranks sum the -M counter in place, on
+gloo.  On a host of four cards (``cuda``), four ranks joined with no
+device seam each take a card of their own; on a host of two or more,
+as many ranks as cards run the job on cards of their own, sum the counter
+on NCCL and give one process's output.  Tolerance: none; the outputs are
+text.
 """
 
 import io
@@ -22,6 +25,7 @@ from portbench.jobs import dist_stream as job
 from portbench.reference import stream as reference
 from rkmh_tpu_torch import observability, synth
 from rkmh_tpu_torch.commands import dist_stream, stream
+from rkmh_tpu_torch.parallel import distributed
 
 RANKS = 4
 CFG = {"counter_size": 100_000, "ranks": RANKS, "cards_per_rank": 1}
@@ -70,9 +74,11 @@ def test_ranks_report_their_clocks_spans_and_counter(dist4):
     assert all(s > 0 for s in st["rank_run_s"] + st["counter_reduce_s"])
     assert st["rank_skew_s"] == max(st["rank_run_s"]) - min(st["rank_run_s"])
     names = {s.name for s in dist4["run"].spans}
-    assert {"dist.join", "dist.counter_reduce", "dist.counter_reduce.fetch",
-            "dist.counter_reduce.allreduce", "dist.counter_reduce.fill",
+    assert {"dist.join", "dist.counter_reduce", "dist.counter_reduce.allreduce",
             "dist.merge"} <= names
+    # CPU ranks of one device each sum the counter in place, on gloo: no fetch, no fill
+    assert not {"dist.counter_reduce.fetch", "dist.counter_reduce.fill"} & names
+    assert observability.COUNTERS["dist.counter_reduce.in_place"] >= 1
     merge = [s for s in dist4["run"].spans if s.name == "dist.merge"]
     assert [s.nbytes for s in merge] == [len(dist4["merged"])]
     assert observability.COUNTERS["dist.local_devices"] >= 1
@@ -103,3 +109,27 @@ def test_four_ranks_take_a_card_each(tmp_path, monkeypatch):
         p.join(30)
         assert not p.is_alive()
     assert got == [(r, [f"cuda:{r}"], f"cuda:{r}", r) for r in range(RANKS)]
+
+
+@pytest.mark.cuda
+def test_ranks_on_cards_of_their_own_sum_on_nccl(dist4, tmp_path, monkeypatch):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    n = torch.cuda.device_count()
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+    monkeypatch.setenv("RKMH_TPU_INPUT_INDEX", str(tmp_path / "idx"))
+    routes = ("dist.counter_reduce.in_place", "dist.counter_reduce.staged")
+    before = [observability.COUNTERS[k] for k in routes]
+    ranks = job.Ranks(n, str(tmp_path / "work"))
+    try:
+        sink, stats = io.StringIO(), {}
+        rc = job.job_run(ranks, dist4["inputs"], {**CFG, "ranks": n}, TRAFFIC, sink, stats,
+                         "cuda")
+        backend = torch.distributed.get_backend(distributed.in_place_group())
+    finally:
+        ranks.close()
+    assert rc == 0
+    assert stats["local_devices"] == [1] * n and stats["cards"] == list(range(n))
+    assert [observability.COUNTERS[k] - b for k, b in zip(routes, before)] == [1, 0]
+    assert backend == "nccl"
+    assert sink.getvalue() == dist4["one"]

@@ -330,12 +330,13 @@ def test_merge_refuses_idx_files_that_disagree(tmp_path):
 
 
 def test_counter_checkpoint_round_trip(tmp_path, workload):
-    """One process: the checkpoint holds the whole table (H = 1), loads
-    back under its fingerprint only, and rkmh-tpu's loader reads its fields."""
+    """One process: the checkpoint holds the whole table (H = 1; saved from
+    the counter's tensor), loads back under its fingerprint only, and
+    rkmh-tpu's loader reads its fields."""
     out = str(tmp_path / "o")
     table = np.arange(24, dtype=np.int32)
     fp = ds._counter_fingerprint([workload["reads"]], (12,), 24, 2, 1, 0)
-    ds._save_counter_ckpt(table, out, fp, 1, 0)
+    ds._save_counter_ckpt(torch.from_numpy(table), out, fp, 1, 0)
     np.testing.assert_array_equal(ds._load_counter_ckpt(out, fp, 24, 1, 0), table)
     assert ds._load_counter_ckpt(out, fp + " ", 24, 1, 0) is None
     assert ds._load_counter_ckpt(out, fp, 48, 1, 0) is None

@@ -14,11 +14,21 @@ the first drain and serves every later one).  A job is one of
   writes to its output stream into ``<path>.<rank>``;
 * ``{"cli": [args]}``: ``rkmh-tpu-torch`` with these arguments and this
   rank's --dist-* flags;
+* ``"staged": true`` on a ``run`` or ``cli`` job: its ranks sum their
+  counters through the host (``distributed.can_sum_in_place`` stood in
+  for by False), where they would sum them in place;
+* ``{"sums": path, "size": n, "seed": s}``: one [n] int32 table a rank,
+  drawn from (s, rank) over the whole int32 range, summed over the group
+  in place and staged (``dist_stream._reduce_counter`` after each route's
+  agreement), both sums saved to ``<path>.<rank>.npz`` (keys ``in_place``,
+  ``staged``);
 * ``{"cut": path, "rank": r, "lines": n, "torn": bool}``: rank r keeps the
   first n lines of its file ``path`` (and, with ``torn``, half of the
   next one), as an interrupted run leaves it.
 
-The results file gets each job's exit code (or the exception) as it ends.
+The results file gets each job's exit code (or the exception) as it ends,
+and the counter sums it made on each route (``routes``: the job's
+``dist.counter_reduce.in_place`` and ``.staged`` counts).
 ``run_pair`` starts the ranks and waits for them with a timeout, killing
 every rank when one fails or the time runs out; ``run_jax_pair`` does the
 same for rkmh-tpu's CLI (two processes of 4 virtual CPU devices each, as
@@ -28,6 +38,7 @@ stripes against.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import socket
@@ -37,6 +48,7 @@ import time
 import traceback
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROUTES = ("in_place", "staged")  # dist_stream._reduce_counter's, by their counters
 
 
 def _cut(path: str, lines: int, torn: bool) -> None:
@@ -49,6 +61,39 @@ def _cut(path: str, lines: int, torn: bool) -> None:
         fh.write(keep)
 
 
+@contextlib.contextmanager
+def _staged(on: bool):
+    """Within: the ranks agree to sum through the host, where ``on``."""
+    from rkmh_tpu_torch.parallel import distributed
+
+    can = distributed.can_sum_in_place
+    if on:
+        distributed.can_sum_in_place = lambda *args: False
+    try:
+        yield
+    finally:
+        distributed.can_sum_in_place = can
+
+
+def _sums(job: dict, coordinator: str, procs: int, rank: int) -> int:
+    import numpy as np
+    import torch
+
+    from rkmh_tpu_torch.commands import dist_stream
+    from rkmh_tpu_torch.parallel import distributed
+
+    distributed.initialize(coordinator, procs, rank)
+    table = np.random.default_rng([job["seed"], rank]).integers(
+        -2**31, 2**31, job["size"], dtype=np.int64).astype(np.int32)
+    got = {}
+    for route in ("in_place", "staged"):
+        with _staged(route == "staged"):
+            distributed.agree_in_place([torch.device("cpu")])
+        got[route] = dist_stream._reduce_counter([torch.from_numpy(table.copy())]).numpy()
+    np.savez(f"{job['sums']}.{rank}.npz", **got)
+    return 0
+
+
 def _run(job: dict, coordinator: str, procs: int, rank: int) -> int:
     import torch
 
@@ -57,6 +102,8 @@ def _run(job: dict, coordinator: str, procs: int, rank: int) -> int:
         call_cmd, count_cmd, filter_cmd, hash_cmd, hpv16_cmd, search_cmd, stream,
     )
 
+    if "sums" in job:
+        return _sums(job, coordinator, procs, rank)
     if "cli" in job:
         return cli.main([*job["cli"], "--dist-coordinator", coordinator, "--dist-procs",
                          str(procs), "--dist-rank", str(rank)])
@@ -84,6 +131,8 @@ def main(argv) -> int:
     coordinator, procs, rank, jobs_path, results_path = (
         argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4])
     sys.path.insert(0, REPO)
+    from rkmh_tpu_torch import observability
+
     with open(jobs_path) as fh:
         jobs = json.load(fh)
     results = []
@@ -93,8 +142,13 @@ def main(argv) -> int:
                 _cut(job["cut"], job["lines"], job.get("torn", False))
             results.append({"rc": 0})
         else:
+            before = {k: observability.COUNTERS[f"dist.counter_reduce.{k}"] for k in ROUTES}
             try:
-                results.append({"rc": _run(job, coordinator, procs, rank)})
+                with _staged(job.get("staged", False)):
+                    rc = _run(job, coordinator, procs, rank)
+                results.append({"rc": rc, "routes": {
+                    k: observability.COUNTERS[f"dist.counter_reduce.{k}"] - before[k]
+                    for k in ROUTES}})
             except Exception as e:  # reported to the test, which names the job
                 results.append({"rc": None, "error": repr(e),
                                 "traceback": traceback.format_exc()})
