@@ -29,6 +29,7 @@ arrays and bytes must be equal).
   ``sharded_call_scan_fn``'s arrays.
 """
 
+import contextlib
 import io
 import os
 import shutil
@@ -201,25 +202,54 @@ def workload(tmp_path_factory):
             "len": len(seq)}
 
 
+def _jax(**kw):
+    """rkmh-tpu's run of ``kw``: (rc, stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = jax_run(JaxConfig(**kw), out=out)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _port(capsys, **kw):
+    """The port's run of ``kw`` on the CPU: (rc, stdout, stderr)."""
+    capsys.readouterr()
+    out = io.StringIO()
+    rc = run(CallConfig(device="cpu", **kw), out=out)
+    return rc, out.getvalue(), capsys.readouterr().err
+
+
 def _both(capsys, **kw):
     """(JAX out, JAX stderr, port out, port stderr, JAX rc, port rc)."""
-    capsys.readouterr()
-    want = io.StringIO()
-    jrc = jax_run(JaxConfig(**kw), out=want)
-    werr = capsys.readouterr().err
-    got = io.StringIO()
-    rc = run(CallConfig(device="cpu", **kw), out=got)
-    gerr = capsys.readouterr().err
-    return want.getvalue(), werr, got.getvalue(), gerr, jrc, rc
+    jrc, want, werr = _jax(**kw)
+    rc, got, gerr = _port(capsys, **kw)
+    return want, werr, got, gerr, jrc, rc
 
 
 def _logs(err: str):
     return [ln for ln in err.splitlines() if not ln.startswith(("E1", "W1", "I1"))]
 
 
-def test_vcf_matches_jax_and_calls_the_planted_variants(workload, capsys):
-    want, werr, got, gerr, jrc, rc = _both(capsys, ref_files=[workload["ref"]],
-                                          read_files=[workload["reads"]])
+@pytest.fixture(scope="module")
+def jax_vcf(workload):
+    """rkmh-tpu's VCF of ``workload["ref"]`` at the default k (16) and its
+    stderr (the default-k line), run once for the cases that compare with it."""
+    return _jax(ref_files=[workload["ref"]], read_files=[workload["reads"]])
+
+
+@pytest.fixture(scope="module")
+def jax_multi(workload, tmp_path_factory):
+    """rkmh-tpu's ``call -k 16 -o`` of ``workload["multi"]``, run once for the
+    cases that compare with it: (rc, the VCF's path, with its .progress
+    sidecar beside it, stderr)."""
+    vcf = str(tmp_path_factory.mktemp("jax_multi") / "jax.vcf")
+    rc, _, err = _jax(ref_files=[workload["multi"]], read_files=[workload["reads"]], ks=(16,),
+                      out_file=vcf)
+    return rc, vcf, err
+
+
+def test_vcf_matches_jax_and_calls_the_planted_variants(workload, jax_vcf, capsys):
+    jrc, want, werr = jax_vcf
+    rc, got, gerr = _port(capsys, ref_files=[workload["ref"]], read_files=[workload["reads"]])
     assert jrc == rc == 0 and got == want
     assert _logs(gerr) == _logs(werr) == [
         "No kmer size(s) provided. Will use a default kmer size of 16.", "Parsing sequences..."]
@@ -247,10 +277,11 @@ def test_command_matches_jax(workload, capsys, kw):
         assert got.count("\n") == workload["len"] - kw["ks"][0] + 1
 
 
-def test_several_references_and_one_shorter_than_k(workload, capsys):
-    want, werr, got, gerr, jrc, rc = _both(capsys, ref_files=[workload["multi"]],
-                                          read_files=[workload["reads"]], ks=(16,))
-    assert jrc == rc == 0 and got == want
+def test_several_references_and_one_shorter_than_k(workload, jax_multi, capsys):
+    jrc, vcf_path, werr = jax_multi
+    rc, got, gerr = _port(capsys, ref_files=[workload["multi"]], read_files=[workload["reads"]],
+                          ks=(16,))
+    assert jrc == rc == 0 and got == open(vcf_path).read()
     assert "WARNING: more than one ref provided. VCF will not be correct" in _logs(gerr)
     assert _logs(gerr) == _logs(werr)
     names = {ln.split("\t")[0] for ln in got.splitlines() if not ln.startswith("##")}
@@ -292,10 +323,13 @@ def _progress_cut(path: str, how: str) -> None:
 
 
 @pytest.mark.parametrize("how", ["boundary", "mid-section", "torn-line", "jax-sidecar"])
-def test_resume_equals_the_uninterrupted_vcf(workload, tmp_path, capsys, how):
+def test_resume_equals_the_uninterrupted_vcf(workload, jax_multi, tmp_path, capsys, how):
     kw = dict(ref_files=[workload["multi"]], read_files=[workload["reads"]], ks=(16,))
     jax_out = str(tmp_path / "jax.vcf")
-    assert jax_run(JaxConfig(out_file=jax_out, **kw)) == 0
+    jrc, vcf_path, _ = jax_multi
+    assert jrc == 0
+    shutil.copyfile(vcf_path, jax_out)
+    shutil.copyfile(vcf_path + ".progress", jax_out + ".progress")
     out = str(tmp_path / "port.vcf")
     assert run(CallConfig(out_file=out, device="cpu", **kw)) == 0
     full_vcf, full_progress = open(out).read(), open(out + ".progress").read()
@@ -343,7 +377,7 @@ def test_cli_parses_rkmh_tpu_flags_and_defaults(argv):
 
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--dist-coordinator", "h:1"],
                                   ["--dist-procs", "2"], ["--dist-rank", "0"]])
-def test_cli_rejects_flags_not_yet_ported(flag, workload, capsys):
+def test_cli_rejects_flags_not_yet_ported(flag, workload, request, capsys):
     """--devices and --dist-* run since they were ported.  ``--devices 2
     --device cpu`` sees one device, logs rkmh-tpu's fallback line and
     prints rkmh-tpu's VCF; any --dist-* flag takes the --dist-* drain (as
@@ -354,9 +388,9 @@ def test_cli_rejects_flags_not_yet_ported(flag, workload, capsys):
         argv = ["call", "-r", workload["ref"], "-f", workload["reads"], "-k", "16", *flag]
         assert cli.main([*argv, "--device", "cpu"]) == 0
         got = capsys.readouterr()
-        assert jax_run(JaxConfig(ref_files=[workload["ref"]], read_files=[workload["reads"]],
-                                 ks=(16,))) == 0
-        assert got.out == capsys.readouterr().out and got.out.startswith("##fileformat")
+        jrc, want, _ = request.getfixturevalue("jax_vcf")
+        assert jrc == 0
+        assert got.out == want and got.out.startswith("##fileformat")
         assert ("call --devices ignored (--devices 2 > 1 visible device(s)); running "
                 "single-device") in got.err.splitlines()
         return

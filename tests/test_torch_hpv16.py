@@ -63,6 +63,16 @@ def data(tmp_path_factory):
             "skew": _reads(d / "skew.fq", skew), "with_n": _reads(d / "with_n.fq", with_n)}
 
 
+@pytest.fixture(scope="module")
+def jax_mixed(data):
+    """rkmh-tpu's ``hpv16 -k 16`` lines of the mixed reads (no .tst file), run
+    once for the cases that compare with them."""
+    want = io.StringIO()
+    jcmd.run(jcmd.Hpv16Config(read_files=[data["mixed"]], refpath=data["full"], ks=(16,),
+                              tst_file=False), out=want)
+    return want.getvalue()
+
+
 def _run_both(tmp_path, monkeypatch, refpath, reads, ks, batch_size=8, **kw):
     out, tst = {}, {}
     for name, mod, extra in (("jax", jcmd, {}), ("torch", hpv16_cmd, {"device": "cpu"})):
@@ -122,23 +132,20 @@ def test_hpv16_gzip_and_two_read_files_byte_identical_to_jax(data, tmp_path, mon
         assert tst["torch"] == tst["jax"]
 
 
-def test_cli_hpv16_matches_jax(data, tmp_path, monkeypatch, capsys):
+def test_cli_hpv16_matches_jax(data, jax_mixed, tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     out = str(tmp_path / "out.tsv")
     assert cli.main(["hpv16", "-f", data["mixed"], "-R", data["full"], "-k", "16",
                      "-N", "3", "--batch-size", "16", "--device", "cpu", "-o", out]) == 0
     err = capsys.readouterr().err
     assert "-N/-D are parsed but dead" in err and "Lineage specific kmer table" in err
-    want = io.StringIO()
-    jcmd.run(jcmd.Hpv16Config(read_files=[data["mixed"]], refpath=data["full"], ks=(16,),
-                              tst_file=False), out=want)
     with open(out) as fh:
-        assert fh.read() == want.getvalue()
+        assert fh.read() == jax_mixed
 
 
 @pytest.mark.parametrize("flag", [["--dist-coordinator", "h:1"], ["--devices", "2"],
                                   ["--devices", "4"], ["--tp", "2"], ["--dist-procs", "2"]])
-def test_cli_rejects_flags_not_yet_ported(flag, data, tmp_path, monkeypatch, capsys):
+def test_cli_rejects_flags_not_yet_ported(flag, data, request, tmp_path, monkeypatch, capsys):
     """--devices, --tp and --dist-* run since they were ported: a
     coordinator without a process count, or a count without a coordinator,
     names no group, and the --dist-* drain logs why and exits 1 before it
@@ -152,10 +159,7 @@ def test_cli_rejects_flags_not_yet_ported(flag, data, tmp_path, monkeypatch, cap
         assert cli.main(["hpv16", "-f", data["mixed"], "-R", data["full"], "-k", "16",
                          "--device", "cpu", *flag]) == 0
         got = capsys.readouterr()
-        want = io.StringIO()
-        jcmd.run(jcmd.Hpv16Config(read_files=[data["mixed"]], refpath=data["full"], ks=(16,),
-                                  tst_file=False), out=want)
-        assert got.out == want.getvalue() and got.out.count("\n") == 40
+        assert got.out == request.getfixturevalue("jax_mixed") and got.out.count("\n") == 40
         fallback = (f"hpv16 --devices ignored (--devices {flag[1]} > 1 visible device(s)); "
                     "running single-device")
         assert [ln for ln in got.err.splitlines() if "ignored" in ln] == (

@@ -60,18 +60,34 @@ def _n_reads(path) -> int:
         return sum(1 for ln in fh if ln[0] in "@>")
 
 
-def _both(workload, reads, **kw):
+@pytest.fixture(scope="module")
+def jax_stream(workload):
+    """rkmh-tpu's stdout of ``reads`` under ``kw``; each distinct run is made
+    once, for every case that compares with it."""
+    done = {}
+
+    def get(reads, **kw):
+        key = (tuple(reads), tuple(sorted(kw.items())))
+        if key not in done:
+            want = io.StringIO()
+            assert jax_run(JaxConfig(ref_files=[workload["refs"]],
+                                     read_files=[workload[r] for r in reads], **kw),
+                           out=want) == 0
+            done[key] = want.getvalue()
+        return done[key]
+
+    return get
+
+
+def _both(jax_stream, workload, reads, **kw):
     files = [workload[r] for r in reads]
-    want = io.StringIO()
-    assert jax_run(JaxConfig(ref_files=[workload["refs"]], read_files=files, **kw),
-                   out=want) == 0
     port_kw = {k: v for k, v in kw.items() if k not in ("batch_size", "chunk_reads")}
     got = io.StringIO()
     assert run(StreamConfig(ref_files=[workload["refs"]], read_files=files,
                             device="cpu", batch_size=kw.get("batch_size", 0),
                             chunk_reads=kw.get("chunk_reads", 0), **port_kw),
                out=got) == 0
-    return want.getvalue(), got.getvalue()
+    return jax_stream(reads, **kw), got.getvalue()
 
 
 @pytest.mark.parametrize("reads,kw", [
@@ -88,27 +104,24 @@ def _both(workload, reads, **kw):
                                  counter_size=65521, chunk_reads=64)),
 ], ids=["k12-s1000", "long-s50", "k12-k16", "N-D", "mixed-lengths", "M", "I", "M-I",
         "gzip-two-files-M"])
-def test_stream_output_byte_identical_to_jax(workload, reads, kw):
-    want, got = _both(workload, reads, **kw)
+def test_stream_output_byte_identical_to_jax(workload, jax_stream, reads, kw):
+    want, got = _both(jax_stream, workload, reads, **kw)
     n_reads = sum(_n_reads(workload[r]) for r in reads)
     assert len(want.splitlines()) == n_reads
     assert got == want
     counted = {"min_kmer_occ", "max_samples", "counter_size"}
     if counted & set(kw):  # the counters changed some lines
         plain = {k: v for k, v in kw.items() if k not in counted}
-        assert _both(workload, reads, **plain)[1] != got
+        assert _both(jax_stream, workload, reads, **plain)[1] != got
 
 
-def test_cli_stream_matches_jax(workload, tmp_path, capsys):
+def test_cli_stream_matches_jax(workload, jax_stream, tmp_path, capsys):
     out = str(tmp_path / "out.tsv")
     assert cli.main(["classify", "-r", workload["refs"], "-f", workload["short"],
                      "-k", "12", "-s", "1000", "--device", "cpu", "-o", out]) == 0
     assert "alias of stream" in capsys.readouterr().err
-    want = io.StringIO()
-    jax_run(JaxConfig(ref_files=[workload["refs"]], read_files=[workload["short"]],
-                      ks=(12,), sketch_size=1000), out=want)
     with open(out) as fh:
-        assert fh.read() == want.getvalue()
+        assert fh.read() == jax_stream(["short"], ks=(12,), sketch_size=1000)
 
 
 def test_cli_accepts_dead_parity_flags_as_jax_does(workload, tmp_path, capsys):
@@ -187,7 +200,7 @@ def test_cli_stream_files_with_i_match_jax(workload, capsys, monkeypatch, comman
     assert capsys.readouterr().out == got.out
 
 
-def test_stream_i_without_files_is_not_ported(workload):
+def test_stream_i_without_files_is_not_ported(workload, jax_stream):
     """Ported since: ``-i`` without ``-f`` classifies the stream it is
     given, as file mode classifies the file."""
     with open(workload["mixed"], "rb") as fh:
@@ -196,7 +209,7 @@ def test_stream_i_without_files_is_not_ported(workload):
     assert run(StreamConfig(ref_files=[workload["refs"]], in_stream=True, ks=(12,),
                             sketch_size=200, batch_size=16, device="cpu"), out=got,
                stdin=io.BytesIO(raw)) == 0
-    want = _both(workload, ["mixed"], ks=(12,), sketch_size=200, batch_size=16)[0]
+    want = _both(jax_stream, workload, ["mixed"], ks=(12,), sketch_size=200, batch_size=16)[0]
     assert got.getvalue() == want and len(want.splitlines()) == 120
 
 
